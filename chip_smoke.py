@@ -7,38 +7,66 @@ Phases, each reported on its own lines; any failure exits non-zero:
 
   1. environment: torch/CUDA versions, the card's name and power limit;
   2. build: the kernels of deciphon_tpu_torch/csrc, compiled with nvcc;
-  3. each kernel against its plain PyTorch version on the card, at the
-     scan's shapes, bit for bit, with both times;
-  4. the scan main path, Scanner(ScanConfig(device="cuda")).run, on a
+  3. each kernel against its plain PyTorch version on the card, bit for
+     bit, with both times, on small cases: B1 score, B3 chain (4 windows
+     per slot and an all-pad pair, timed beside B1 on the same windows),
+     B5 gang (three profiles interleaved per slot), B8 carry (a 13-block
+     window over 4 calls, equal to B1 on the whole window, a normal window
+     riding in a spare slot), B2 path and the walk;
+  4. the Pfam scan, Scanner(ScanConfig(device="cuda")).run, on a
      Pfam-shaped database of 200 random profiles (K geometric over
-     50..2000) and 8 reads of 10 knt, four carrying a planted domain;
-     every kernel must have launched in the first scan, no walk may have
-     overflowed, and survivors and products must exist; then three warm
-     scans (their median wall) and one under torch.profiler (device time
-     per kernel, the device's idle share);
-  5. the same code on the card and on the CPU (plain versions) on a
-     subset: products.tsv must be byte-identical.
+     50..2000) and 8 reads of 10 knt, four carrying a planted domain,
+     through the chain tier (the default): first scan, three warm scans
+     (median wall), one under torch.profiler; then three scans with
+     DECIPHON_NO_CHAIN=1 (the classic B1 buckets, same products, median
+     wall), and a fresh Scanner's first scan after Scanner.warmup;
+  5. the long-read scan: the same database and 4 reads of 40 knt, two
+     carrying domains whose windows ride the gang: first scan, three warm
+     scans, one profiled; then one scan with DECIPHON_CHAIN_SEG=1 (carry
+     segments, same products);
+  6. every kernel against its plain version again, on the arguments the
+     long-read scan gave it: two more scans (gang, then carry segments)
+     record each wrapper's calls; the widest, longest launch of B1, B3,
+     B5 and B2, every B8 call, and the walk of that B2 trellis are
+     checked bit for bit; their times go into the kernels line;
+  7. the same code on the card and on the CPU (plain versions) on a
+     subset, at the reference's caps and with the chain caps shrunk so
+     that gang and carry fire on 3-knt reads: products.tsv must be
+     byte-identical.
 
-The line before the last is a JSON object of per-kernel launches, errors
-and times; the last line is {"ok": true, "device": {...}}.  Without a
-CUDA device, or outside a checkout, the script fails before any result.
+Every scan path is run with the launch counts set to 0 just before and
+read just after; each kernel must have launched on its path.  The line
+before the last is a JSON object of per-kernel launches (summed over those
+runs), errors and times; the last line is {"ok": true, "device": {...}}.
+Without a CUDA device, or outside a checkout, the script fails before any
+result.
 """
 
 from __future__ import annotations
 
+import contextlib
+import inspect
 import json
 import os
+import statistics
 import subprocess
 import sys
 import tempfile
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-SOURCE = {"score": "deciphon_tpu_torch/csrc/viterbi_score.cu",
+PALLAS = "deciphon_tpu/ops/viterbi_pallas.py"
+SCORE_CU = "deciphon_tpu_torch/csrc/viterbi_score.cu"
+SOURCE = {"score": SCORE_CU, "chain": SCORE_CU, "gang": SCORE_CU,
+          "carry": SCORE_CU,
           "path": "deciphon_tpu_torch/csrc/viterbi_path.cu",
           "walk": "deciphon_tpu_torch/csrc/traceback_walk.cu"}
-REPLACES = {"score": "deciphon_tpu/ops/viterbi_pallas.py:376",
-            "path": "deciphon_tpu/ops/viterbi_pallas.py:1707",
+# kernel wrappers whose calls a captured scan records
+SPIED = ("scores_pairs", "scores_pairs_mixed", "scores_pairs_chained",
+         "scores_pairs_chained_carry", "paths_pairs")
+REPLACES = {"score": f"{PALLAS}:376", "chain": f"{PALLAS}:1038",
+            "gang": f"{PALLAS}:828", "carry": f"{PALLAS}:1111",
+            "path": f"{PALLAS}:1707",
             "walk": "deciphon_tpu/ops/traceback.py:137"}
 
 
@@ -56,6 +84,21 @@ def say(phase: str, msg: str) -> None:
     print(f"[{phase}] {msg}", flush=True)
 
 
+@contextlib.contextmanager
+def environ(env: dict):
+    """Set environment switches for the duration of a block."""
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
 def cuda_ms(torch, fn, reps: int = 1) -> float:
     """Mean device milliseconds of `reps` calls of fn (CUDA events)."""
     torch.cuda.synchronize()
@@ -69,63 +112,128 @@ def cuda_ms(torch, fn, reps: int = 1) -> float:
     return t0.elapsed_time(t1) / reps
 
 
-def main() -> None:
-    import torch
+def max_err(torch, a, b) -> float:
+    """Largest |a - b| over entries finite in both (0 where both +inf)."""
+    d = torch.nan_to_num((a - b).abs(), nan=0.0, posinf=0.0)
+    return float(d.max().item()) if d.numel() else 0.0
 
-    check(torch.cuda.is_available(), "no CUDA device")
-    check(os.path.isdir(os.path.join(HERE, "deciphon_tpu_torch")),
-          "run from the root of a deciphon-tpu checkout")
-    sys.path.insert(0, HERE)
+
+def kernel_vs_plain(torch, kernel, plain, args, reps=5):
+    """Run a kernel and its plain version on the same CUDA tensors; return
+    (kernel out, plain out, kernel ms, plain ms)."""
+    out = kernel(**args)
+    torch.cuda.synchronize()
+    got = {}
+    p_ms = cuda_ms(torch, lambda: got.update(r=plain(**args)))
+    k_ms = cuda_ms(torch, lambda: kernel(**args), reps)
+    return out, got["r"], k_ms, p_ms
+
+
+def check_kernels(torch, report) -> None:
+    """Phase 3: every kernel against its plain version at the scan's
+    shapes; kernel launches made here are not counted toward any path."""
     import numpy as np
-
-    # ---- 1. environment -----------------------------------------------
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True)
-    card = smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else ""
-    say("env", f"python {sys.version.split()[0]} torch {torch.__version__} "
-        f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
-    print(card, flush=True)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-
-    # ---- 2. build -----------------------------------------------------
-    from deciphon_tpu_torch import _build
-
-    t0 = time.perf_counter()
-    lib_path = _build.build()
-    _build.lib()
-    say("build", f"{lib_path.name} in {time.perf_counter() - t0:.1f} s")
-    for line in _build.build_log.splitlines():
-        if "registers" in line or "Compiling entry" in line:
-            say("build", line.strip())
 
     from deciphon_tpu_torch.ops import traceback as tb
     from deciphon_tpu_torch.ops import viterbi as vk
-    from deciphon_tpu_torch.workload import score_inputs
+    from deciphon_tpu_torch.workload import (carry_case, chain_case,
+                                             mixed_case, run_carry_calls,
+                                             score_inputs, window_scores)
 
-    report = {k: {"name": k, "route": "cuda", "source": SOURCE[k],
-                  "replaces": REPLACES[k]} for k in SOURCE}
-
-    # ---- 3. kernels against their plain versions ----------------------
     for Kp in (256, 1024):
         inp, maxlen = score_inputs(Kp, 32, 2, 400, 4000, seed=10 + Kp,
                                    device="cuda")
-        ka, kn = vk.scores_pairs(**inp)
-        torch.cuda.synchronize()
-        plain = {}
-        p_ms = cuda_ms(torch, lambda: plain.update(
-            r=vk.scores_pairs_plain(**inp)))
-        pa, pn = plain["r"]
-        k_ms = cuda_ms(torch, lambda: vk.scores_pairs(**inp), 5)
-        err = float(torch.nan_to_num((ka - pa).abs(), posinf=0.0).max()
-                    .item())
+        (ka, kn), (pa, pn), k_ms, p_ms = kernel_vs_plain(
+            torch, vk.scores_pairs, vk.scores_pairs_plain, inp)
         exact = torch.equal(ka, pa) and torch.equal(kn, pn)
         fin = torch.isfinite(ka).all().item() and torch.isfinite(kn).all()
         say("B1", f"Kp={Kp} w=32 64 windows <= {maxlen} nt: bit-equal "
             f"{exact}, kernel {k_ms:.3f} ms, plain {p_ms:.1f} ms")
         check(exact and bool(fin), f"B1 Kp={Kp} differs from plain")
-        report["score"].update(max_abs_err=err, ms=k_ms, plain_ms=p_ms)
+        report["score"].update(max_abs_err=max_err(torch, ka, pa), ms=k_ms,
+                               plain_ms=p_ms)
+
+    for Kp in (256, 1024):
+        inp = chain_case(Kp, seed=40 + Kp, device="cuda", cmax=4,
+                         lo=100, hi=1000)
+        (ka, kn), (pa, pn), k_ms, p_ms = kernel_vs_plain(
+            torch, vk.scores_pairs_chained,
+            vk.scores_pairs_chained_plain, inp)
+        real = inp["win_len"] > 0
+        exact = (torch.equal(ka[real], pa[real])
+                 and torch.equal(kn[real], pn[real]))
+        pads = bool(torch.isinf(ka[~real]).all() and torch.isinf(ka[-1]).all())
+        # B1 on the same windows, one per slot
+        N, W, C = inp["win_len"].shape
+        pidx = inp["pidx"]
+        lens = inp["win_len"].reshape(N, W * C, 1).contiguous()
+        xts = inp["xt_lut"][inp["win_xti"].reshape(N, W * C).long()]
+        b1 = dict(pidx=pidx, tables=inp["tables"], tvecs=inp["tvecs"],
+                  xts=xts.contiguous(), lengths=lens,
+                  starts=inp["win_gstart"].reshape(N, W * C).contiguous(),
+                  codes_all=inp["codes_all"])
+        ba, bn = vk.scores_pairs(**b1)
+        b1_ms = cuda_ms(torch, lambda: vk.scores_pairs(**b1), 5)
+        same_b1 = (torch.equal(ba.reshape(N, W, C)[real], ka[real])
+                   and torch.equal(bn.reshape(N, W, C)[real], kn[real]))
+        say("B3", f"Kp={Kp} {int(real.sum())} windows <= "
+            f"{int(inp['win_len'].max())} nt in {N - 1}x{W} slots of <= {C} "
+            f"(+1 all-pad pair): bit-equal {exact}, pads +inf {pads}, equal "
+            f"to B1 per window {same_b1}; kernel {k_ms:.3f} ms, plain "
+            f"{p_ms:.1f} ms, B1 on the same windows {b1_ms:.3f} ms")
+        check(exact and pads and same_b1, f"B3 Kp={Kp} differs")
+        report["chain"].update(max_abs_err=max_err(torch, ka, pa), ms=k_ms,
+                               plain_ms=p_ms)
+
+    for Kp in (256, 1024):
+        inp = mixed_case(Kp, seed=50 + Kp, device="cuda", w=16, hi=2000)
+        (ka, kn), (pa, pn), k_ms, p_ms = kernel_vs_plain(
+            torch, vk.scores_pairs_mixed, vk.scores_pairs_mixed_plain,
+            inp)
+        exact = torch.equal(ka, pa) and torch.equal(kn, pn)
+        say("B5", f"Kp={Kp} 2x16 slots over 3 profiles, windows <= "
+            f"{int(inp['lengths'].max())} nt: bit-equal {exact}, kernel "
+            f"{k_ms:.3f} ms, plain {p_ms:.1f} ms")
+        check(exact, f"B5 Kp={Kp} differs from plain")
+        report["gang"].update(max_abs_err=max_err(torch, ka, pa), ms=k_ms,
+                              plain_ms=p_ms)
+
+    for Kp in (256, 1024):
+        case = carry_case(Kp, seed=60 + Kp, device="cuda")
+        got = run_carry_calls(vk.scores_pairs_chained_carry, case)
+        torch.cuda.synchronize()
+        res = {}
+        p_ms = cuda_ms(torch, lambda: res.update(r=run_carry_calls(
+            vk.scores_pairs_chained_carry_plain, case)))
+        want = res["r"]
+        k_ms = cuda_ms(torch, lambda: run_carry_calls(
+            vk.scores_pairs_chained_carry, case), 5)
+        wa, wn = window_scores(case["tables"], case["tvecs"],
+                               case["codes_all"], 0,
+                               [case["whole"]] + case["rides"])
+        last = len(got) - 1
+        exact, err = True, 0.0
+        for t, (g, w) in enumerate(zip(got, want)):
+            slots = [0, 1] if t == last else [1]
+            for s in slots:
+                exact &= (torch.equal(g[0][0, s, 0], w[0][0, s, 0])
+                          and torch.equal(g[1][0, s, 0], w[1][0, s, 0]))
+                err = max(err, max_err(torch, g[0][0, s, 0], w[0][0, s, 0]))
+            if t < last:
+                exact &= (torch.equal(g[2][:, :, 0], w[2][:, :, 0])
+                          and torch.equal(g[3][:, :, 0], w[3][:, :, 0]))
+            exact &= bool(g[0][0, 1, 0] == wa[1 + t]
+                          and g[1][0, 1, 0] == wn[1 + t])
+        whole = bool(got[last][0][0, 0, 0] == wa[0]
+                     and got[last][1][0, 0, 0] == wn[0])
+        L = case["whole"][1] - case["whole"][0]
+        say("B8", f"Kp={Kp} {L}-nt window over {len(got)} carry calls with "
+            f"carry_permute + a riding window per call: bit-equal to plain "
+            f"(scores and continuing carry planes) {exact}, equal to B1 on "
+            f"the whole window {whole}; kernel {k_ms:.3f} ms, plain "
+            f"{p_ms:.1f} ms for the {len(got)} calls")
+        check(exact and whole, f"B8 Kp={Kp} differs")
+        report["carry"].update(max_abs_err=err, ms=k_ms, plain_ms=p_ms)
 
     trellis = None
     for Kp, lo, hi, w in ((256, 200, 2000, 8), (3200, 100, 300, 2)):
@@ -195,104 +303,383 @@ def main() -> None:
           and oracle[16] == (W, True), "walk differs from plain or unzip")
     report["walk"].update(max_abs_err=0.0, ms=k_ms, plain_ms=p_ms)
 
-    # ---- 4. the scan main path at a real size ---------------------------
+
+def check_main_shapes(torch, report, long_calls, seg_calls) -> None:
+    """Each kernel against its plain version on the arguments the
+    long-read scan itself gave it (recorded by captured scans): per
+    wrapper the launch with the widest lanes and then the longest slot,
+    and every carry call of the DECIPHON_CHAIN_SEG=1 scan on its own
+    carry-in; the walk on the chosen path launch's trellis, as the
+    scheduler runs it.  Bit for bit, pads +inf on both sides.  These
+    times go into the kernels line."""
+    from deciphon_tpu_torch.ops import traceback as tb
+    from deciphon_tpu_torch.ops import viterbi as vk
+
+    def span(a):  # DP positions of the launch's longest slot
+        if "win_len" in a:
+            return int((a["win_sblk"] * vk.KAPPA + a["win_len"]).max())
+        return int(a["lengths"].max())
+
+    def widest(calls, key):
+        check(calls, f"the long-read scan made no {key} launch")
+        i = max(range(len(calls)), key=lambda j: (
+            calls[j]["tables"].shape[2], span(calls[j])))
+        return i, calls[i]
+
+    def record(key, err, k_ms, p_ms):
+        report[key].update(max_abs_err=max(report[key]["max_abs_err"], err),
+                           ms=k_ms, plain_ms=p_ms)
+
+    for key, name in (("score", "scores_pairs"),
+                      ("gang", "scores_pairs_mixed"),
+                      ("chain", "scores_pairs_chained")):
+        calls = long_calls[name]
+        i, args = widest(calls, key)
+        out, want, k_ms, p_ms = kernel_vs_plain(
+            torch, getattr(vk, name), getattr(vk, name + "_plain"), args,
+            reps=2)
+        exact = all(torch.equal(a, b) for a, b in zip(out, want))
+        lens = args["win_len"] if key == "chain" else args["lengths"]
+        say("main", f"{key}: launch {i + 1} of {len(calls)}, Kp="
+            f"{args['tables'].shape[2]}, slots {tuple(lens.shape)}, "
+            f"{int((lens > 0).sum())} windows, longest slot {span(args)} "
+            f"positions: bit-equal {exact}, kernel {k_ms:.3f} ms, plain "
+            f"{p_ms:.1f} ms")
+        check(exact, f"{key} differs from plain at the long-read shapes")
+        record(key, max(max_err(torch, a, b) for a, b in zip(out, want)),
+               k_ms, p_ms)
+
+    calls = seg_calls["scores_pairs_chained_carry"]
+    check(calls, "the DECIPHON_CHAIN_SEG=1 scan made no carry launch")
+    exact, err, k_tot, p_tot, conts = True, 0.0, 0.0, 0.0, 0
+    for args in calls:
+        out, want, k_ms, p_ms = kernel_vs_plain(
+            torch, vk.scores_pairs_chained_carry,
+            vk.scores_pairs_chained_carry_plain, args, reps=1)
+        exact &= torch.equal(out[0], want[0]) and torch.equal(out[1],
+                                                              want[1])
+        for w in range(min(args["win_len"].shape[1], vk.CW)):
+            d = args["win_len"][:, w, 0] > 0  # slots with defined planes
+            for a, b in ((out[2], want[2]), (out[3], want[3])):
+                exact &= torch.equal(a[:, :, w][d], b[:, :, w][d])
+                err = max(err, max_err(torch, a[:, :, w][d], b[:, :, w][d]))
+        err = max(err, max_err(torch, out[0], want[0]))
+        k_tot, p_tot = k_tot + k_ms, p_tot + p_ms
+        conts += int(args["conts"].sum())
+    say("main", f"carry: all {len(calls)} carry calls of the "
+        f"DECIPHON_CHAIN_SEG=1 scan, each on its own carry-in ({conts} "
+        f"continuing slots, Kp {sorted({a['tables'].shape[2] for a in calls})},"
+        f" chains of <= {max(span(a) for a in calls)} positions): bit-equal "
+        f"(scores and carry planes) {exact}, kernel {k_tot:.3f} ms, plain "
+        f"{p_tot:.1f} ms for the calls")
+    check(exact, "carry differs from plain at the long-read shapes")
+    record("carry", err, k_tot, p_tot)
+
+    calls = long_calls["paths_pairs"]
+    i, args = widest(calls, "path")
+    (kx, kd), (px, pd), k_ms, p_ms = kernel_vs_plain(
+        torch, vk.paths_pairs, vk.paths_pairs_plain, args, reps=1)
+    lens = args["lengths"][..., 0]
+    N, W = lens.shape
+    Lk, Kp = kx.shape[2], args["tables"].shape[2]
+    real = torch.nonzero(lens.reshape(-1) > 0)[:, 0]
+    exact, err = True, 0
+    for r in real.tolist():
+        n, w, L = r // W, r % W, int(lens[r // W, r % W])
+        for a, b in ((kx[n, w, :L], px[n, w, :L]), (kd[n, w, :L],
+                                                     pd[n, w, :L])):
+            exact &= torch.equal(a, b)
+            err = max(err, int((a - b).abs().max()))
+    say("main", f"path: launch {i + 1} of {len(calls)}, Kp={Kp}, slots "
+        f"{(N, W)}, {real.numel()} windows, longest {span(args)} "
+        f"positions: bit-equal {exact}, kernel {k_ms:.3f} ms, plain "
+        f"{p_ms:.1f} ms")
+    check(exact, "path differs from plain at the long-read shapes")
+    record("path", float(err), k_ms, p_ms)
+
+    # the walk of those survivors, as the scheduler launches it
+    xnf, ndf = kx.reshape(N * W, Lk), kd.reshape(N * W, Lk, Kp)
+    rows = real.to(torch.int32)
+    lt = lens.reshape(-1)[real].contiguous()
+    steps = Lk + 4 * Kp + 64
+    got = tb.walk(xnf, ndf, rows, lt, steps)
+    torch.cuda.synchronize()
+    plain = {}
+    p_ms = cuda_ms(torch, lambda: plain.update(
+        r=tb.walk_plain(xnf, ndf, rows, lt, steps)))
+    k_ms = cuda_ms(torch, lambda: tb.walk(xnf, ndf, rows, lt, steps), 3)
+    exact = all(torch.equal(a, b) for a, b in zip(got, plain["r"]))
+    say("main", f"walk: the {real.numel()} walks of that trellis, "
+        f"max_steps {steps}: all ok {bool(got[3].all())}, bit-equal "
+        f"{exact}, kernel {k_ms:.3f} ms, plain {p_ms:.1f} ms")
+    check(exact and bool(got[3].all()), "walk differs at the long-read "
+          "shapes")
+    record("walk", 0.0, k_ms, p_ms)
+
+
+class Scans:
+    """Scans of one database on the card: walls, products and the launch
+    counts of each main-path run."""
+
+    def __init__(self, torch, profiles, seqs, phase: str):
+        from deciphon_tpu_torch.scan.pipeline import ScanConfig, Scanner
+
+        self.torch, self.seqs, self.phase = torch, seqs, phase
+        self.scanner = Scanner(profiles, ScanConfig(device="cuda"))
+
+    def scan(self, scanner=None):
+        sc = scanner or self.scanner
+        with tempfile.TemporaryDirectory() as tmp:
+            self.torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            path = sc.run(self.seqs, os.path.join(tmp, "prod"))
+            self.torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            with open(path) as fp:
+                return wall, fp.read().splitlines()
+
+    def counted(self, launches: dict, need: tuple, env: dict | None = None):
+        """One main-path scan with the launch counts set to 0 just before
+        and read just after; every kernel in `need` must have launched.
+        The counts are added to `launches`."""
+        from deciphon_tpu_torch.ops import traceback as tb
+        from deciphon_tpu_torch.ops import viterbi as vk
+
+        with environ(env or {}):
+            self.torch.cuda.reset_peak_memory_stats()
+            vk.reset_launches()
+            tb.REWALKS["survivors"] = 0
+            wall, lines = self.scan()
+            counts, rewalks = dict(vk.LAUNCHES), tb.REWALKS["survivors"]
+        m = self.scanner.metrics
+        peak = self.torch.cuda.max_memory_allocated()
+        tag = " ".join(f"{k}={v}" for k, v in (env or {}).items()) or \
+            "default tiers"
+        say(self.phase, f"{tag}: wall {wall:.6f} s, "
+            f"{len(self.seqs) / wall:.6f} reads/s, "
+            f"{m.cells / wall / 1e9:.6f} GCUPS ({m.cells} true cells), "
+            f"windows {m.windows_scored}, survivors {m.survivors}, "
+            f"products {m.products}, peak {peak / 2**30:.3f} GiB; launches "
+            f"{counts}, walks re-walked {rewalks}; walls " + json.dumps(
+                {k: round(v, 4) for k, v in sorted(m.walls.items())}))
+        for k in need:
+            check(counts[k] > 0, f"kernel {k} never launched on the "
+                  f"{self.phase} path ({tag})")
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        check(rewalks == 0, "a walk overflowed its first max_steps")
+        check(m.survivors > 0, "no LRT survivors")
+        check(m.products > 0 and len(lines) == m.products + 1,
+              "no products written")
+        for ln in lines[1:]:
+            cols = ln.split("\t")
+            check(len(cols) == 12 and cols[7].startswith("SAMPLE"),
+                  f"malformed product line {ln[:80]!r}")
+        return wall, lines
+
+    def captured(self, lines, env: dict | None = None) -> dict:
+        """One more scan, outside every counted run, that records the
+        arguments of each kernel wrapper's calls: {wrapper: [kwargs]}.
+        It must write `lines` again."""
+        from deciphon_tpu_torch.ops import viterbi as vk
+
+        calls = {n: [] for n in SPIED}
+        orig = {n: getattr(vk, n) for n in SPIED}
+
+        def spy(name):
+            sig = inspect.signature(orig[name])
+
+            def wrapper(*args, **kwargs):
+                calls[name].append(dict(sig.bind(*args, **kwargs).arguments))
+                return orig[name](*args, **kwargs)
+            return wrapper
+
+        try:
+            for n in SPIED:
+                setattr(vk, n, spy(n))
+            with environ(env or {}):
+                _, again = self.scan()
+        finally:
+            for n, f in orig.items():
+                setattr(vk, n, f)
+        check(again == lines, "the captured scan wrote other products")
+        return calls
+
+    def warm_and_profile(self, lines) -> float:
+        """Three warm scans (their median wall) and one profiled scan."""
+        warm = []
+        for _ in range(3):
+            w, again = self.scan()
+            check(again == lines, "a warm scan wrote other products")
+            warm.append(w)
+        med = statistics.median(warm)
+        m = self.scanner.metrics
+        say(self.phase, f"warm walls {warm} s; median {med:.6f} s, "
+            f"{len(self.seqs) / med:.6f} reads/s, "
+            f"{m.cells / med / 1e9:.6f} GCUPS; last warm walls "
+            + json.dumps({k: round(v, 4) for k, v in sorted(m.walls.items())}))
+
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            prof_wall, _ = self.scan()
+        dev_s: dict[str, float] = {}
+        for evt in prof.key_averages():
+            us = getattr(evt, "self_device_time_total",
+                         getattr(evt, "self_cuda_time_total", 0.0))
+            if us > 0:
+                dev_s[evt.key[:64]] = dev_s.get(evt.key[:64], 0.0) + us / 1e6
+        busy = sum(dev_s.values())
+        top = dict(sorted(dev_s.items(), key=lambda kv: -kv[1])[:8])
+        say(self.phase, f"profiled scan: wall {prof_wall:.6f} s, device busy "
+            f"{busy:.6f} s, idle share {max(0.0, 1 - busy / prof_wall):.6f}; "
+            "device s by kernel " + json.dumps(top))
+        return med
+
+
+def main() -> None:
+    import torch
+
+    check(torch.cuda.is_available(), "no CUDA device")
+    check(os.path.isdir(os.path.join(HERE, "deciphon_tpu_torch")),
+          "run from the root of a deciphon-tpu checkout")
+    sys.path.insert(0, HERE)
+
+    # ---- 1. environment -----------------------------------------------
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True)
+    card = smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else ""
+    say("env", f"python {sys.version.split()[0]} torch {torch.__version__} "
+        f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
+    print(card, flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    # ---- 2. build -----------------------------------------------------
+    from deciphon_tpu_torch import _build
+
+    t0 = time.perf_counter()
+    lib_path = _build.build()
+    _build.lib()
+    say("build", f"{lib_path.name} in {time.perf_counter() - t0:.1f} s")
+    for line in _build.build_log.splitlines():
+        if "registers" in line or "Compiling entry" in line or "spill" in line:
+            say("build", line.strip())
+
+    report = {k: {"name": k, "route": "cuda", "source": SOURCE[k],
+                  "replaces": REPLACES[k]} for k in SOURCE}
+
+    # ---- 3. kernels against their plain versions ----------------------
+    check_kernels(torch, report)
+
+    # ---- 4. the Pfam scan: chain tier, classic tier, warm-up ------------
     from deciphon_tpu_torch.scan.pipeline import ScanConfig, Scanner
-    from deciphon_tpu_torch.workload import (PFAM_PLANTED, pfam_scan,
+    from deciphon_tpu_torch.scan.scheduler import PairScorer
+    from deciphon_tpu_torch.workload import (LONGREAD_PLANTED, PFAM_PLANTED,
+                                             pfam_longread, pfam_scan,
                                              pfam_subset)
 
+    launches: dict[str, int] = {}
     t0 = time.perf_counter()
     profiles, seqs = pfam_scan()
     ks_db = [p.core_size for p in profiles]
     say("scan", f"200 profiles (K {min(ks_db)}..{max(ks_db)}), 8 reads of "
         f"10 knt, planted K {[ks_db[i] for i in PFAM_PLANTED]}; host "
         f"set-up {time.perf_counter() - t0:.1f} s")
-    scanner = Scanner(profiles, ScanConfig(device="cuda"))
-    tbytes = sum(s.table_bytes() for s in scanner.scorer.scorers)
-    say("scan", f"{len(scanner.scorer.scorers)} Kp buckets, "
+    pfam = Scans(torch, profiles, seqs, "scan")
+    tbytes = sum(s.table_bytes() for s in pfam.scanner.scorer.scorers)
+    say("scan", f"{len(pfam.scanner.scorer.scorers)} Kp buckets, "
         f"{tbytes / 1e9:.3f} GB of tables on the card")
+    first, lines = pfam.counted(launches, ("chain", "path", "walk"))
+    say("scan", f"first scan of the process (cold): {first:.6f} s")
+    chain_med = pfam.warm_and_profile(lines)
+    no_chain = {"DECIPHON_NO_CHAIN": "1"}
+    classic, classic_lines = pfam.counted(launches, ("score", "path", "walk"),
+                                          no_chain)
+    check(classic_lines == lines,
+          "DECIPHON_NO_CHAIN=1 wrote other products than the chain tier")
+    classic_walls = [classic]
+    with environ(no_chain):
+        for _ in range(2):
+            w, again = pfam.scan()
+            check(again == lines, "a classic-tier scan wrote other products")
+            classic_walls.append(w)
+    classic_med = statistics.median(classic_walls)
+    say("scan", f"tiers side by side, medians of 3 warm scans: chain tier "
+        f"{chain_med:.6f} s, classic tier (DECIPHON_NO_CHAIN=1) "
+        f"{classic_med:.6f} s (walls {classic_walls}); products "
+        "byte-identical")
+    fresh = Scanner(profiles, ScanConfig(device="cuda"))
+    warm_s = fresh.warmup(read_lengths=[10000], reads_per_length=8)
+    after, again = pfam.scan(fresh)
+    check(again == lines, "the warmed-up scanner wrote other products")
+    say("scan", f"fresh Scanner: warmup(read_lengths=[10000], "
+        f"reads_per_length=8) {warm_s:.6f} s, then first scan {after:.6f} s "
+        f"(the process's cold first scan {first:.6f} s)")
+    del fresh
 
-    def scan():
-        with tempfile.TemporaryDirectory() as tmp:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            path = scanner.run(seqs, os.path.join(tmp, "prod"))
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            with open(path) as fp:
-                return wall, fp.read().splitlines()
+    # ---- 5. the long-read scan: gang and carry over-cap tiers ----------
+    t0 = time.perf_counter()
+    _, long_seqs = pfam_longread(profiles)
+    say("long", f"4 reads of 40 knt, planted K "
+        f"{[ks_db[i] for i in LONGREAD_PLANTED]} on reads 0-2; host set-up "
+        f"{time.perf_counter() - t0:.1f} s")
+    lr = Scans(torch, profiles, long_seqs, "long")
+    _, long_lines = lr.counted(launches, ("chain", "gang", "path", "walk"))
+    hit_reads = {int(ln.split("\t")[0]) for ln in long_lines[1:]}
+    say("long", f"products on reads {sorted(hit_reads)}")
+    check({0, 1} <= hit_reads, "no survivors on the long-window reads 0/1")
+    lr.warm_and_profile(long_lines)
+    _, seg_lines = lr.counted(launches, ("carry", "path", "walk"),
+                              {"DECIPHON_CHAIN_SEG": "1"})
+    check(seg_lines == long_lines,
+          "DECIPHON_CHAIN_SEG=1 wrote other products than the gang tier")
+    say("long", "carry segments: products byte-identical to the gang tier's")
 
-    torch.cuda.reset_peak_memory_stats()
-    vk.reset_launches()
-    tb.REWALKS["survivors"] = 0
-    wall, lines = scan()
-    launches, rewalks = dict(vk.LAUNCHES), tb.REWALKS["survivors"]
-    m = scanner.metrics
-    peak = torch.cuda.max_memory_allocated()
-    say("scan", f"first scan: wall {wall:.6f} s, {len(seqs) / wall:.6f} "
-        f"reads/s, {m.cells / wall / 1e9:.6f} GCUPS ({m.cells} true cells), "
-        f"windows {m.windows_scored}, survivors {m.survivors}, "
-        f"products {m.products}, peak {peak / 2**30:.3f} GiB")
-    say("scan", "first scan walls " + json.dumps(
-        {k: round(v, 4) for k, v in sorted(m.walls.items())}))
-    say("scan", f"launches {launches}, walks re-walked {rewalks}")
-    for k in SOURCE:
-        check(launches[k] > 0, f"kernel {k} never launched on the main path")
-        report[k]["launches"] = launches[k]
-    check(rewalks == 0, "a walk overflowed its first max_steps")
-    check(m.survivors > 0, "no LRT survivors")
-    check(m.products > 0 and len(lines) == m.products + 1,
-          "no products written")
-    for ln in lines[1:]:
-        cols = ln.split("\t")
-        check(len(cols) == 12 and cols[7].startswith("SAMPLE"),
-              f"malformed product line {ln[:80]!r}")
+    # ---- 6. kernels against plain at the long-read scan's own shapes ----
+    t0 = time.perf_counter()
+    long_calls = lr.captured(long_lines)
+    seg_calls = lr.captured(long_lines, {"DECIPHON_CHAIN_SEG": "1"})
+    del lr, pfam
+    check_main_shapes(torch, report, long_calls, seg_calls)
+    del long_calls, seg_calls
+    say("main", f"phase {time.perf_counter() - t0:.1f} s")
 
-    warm = []
-    for _ in range(3):
-        w, again = scan()
-        check(again == lines, "a warm scan wrote other products")
-        warm.append(w)
-    med = sorted(warm)[1]
-    say("scan", f"warm walls {warm} s; median {med:.6f} s, "
-        f"{len(seqs) / med:.6f} reads/s, {m.cells / med / 1e9:.6f} GCUPS; "
-        "last warm walls " + json.dumps(
-            {k: round(v, 4) for k, v in sorted(scanner.metrics.walls.items())}))
-
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        prof_wall, _ = scan()
-    dev_s: dict[str, float] = {}
-    for evt in prof.key_averages():
-        us = getattr(evt, "self_device_time_total",
-                     getattr(evt, "self_cuda_time_total", 0.0))
-        if us > 0:
-            dev_s[evt.key[:48]] = dev_s.get(evt.key[:48], 0.0) + us / 1e6
-    busy = sum(dev_s.values())
-    top = dict(sorted(dev_s.items(), key=lambda kv: -kv[1])[:6])
-    say("scan", f"profiled scan: wall {prof_wall:.6f} s, device busy "
-        f"{busy:.6f} s, idle share "
-        f"{max(0.0, 1 - busy / prof_wall):.6f}; device s by kernel "
-        + json.dumps(top))
-
-    # ---- 5. card against CPU on the same code ---------------------------
+    # ---- 7. card against CPU on the same code ---------------------------
     sub_prof, sub_seqs = pfam_subset(profiles)
-    outs = {}
-    for dev in ("cuda", "cpu"):
-        t0 = time.perf_counter()
-        with tempfile.TemporaryDirectory() as tmp:
-            sc = Scanner(sub_prof, ScanConfig(device=dev))
-            with open(sc.run(sub_seqs, os.path.join(tmp, "p"))) as fp:
-                outs[dev] = fp.read()
-        say("subset", f"{dev}: {len(sub_prof)} profiles x 2 reads of 3 knt, "
-            f"{sc.metrics.products} products, "
-            f"{time.perf_counter() - t0:.3f} s")
-    check(outs["cuda"] == outs["cpu"], "card and CPU products differ")
-    check(outs["cuda"].count("\n") > 1, "subset produced no products")
+    caps = (PairScorer.CHAIN_MAX_BLK, PairScorer.NLB_FLOOR)
+    for label, shrink, env in (("reference caps", False, {}),
+                               ("caps 4, gang", True, {}),
+                               ("caps 4, carry", True,
+                                {"DECIPHON_CHAIN_SEG": "1"})):
+        if shrink:
+            PairScorer.CHAIN_MAX_BLK = PairScorer.NLB_FLOOR = 4
+        os.environ.update(env)
+        outs = {}
+        try:
+            for dev in ("cuda", "cpu"):
+                t0 = time.perf_counter()
+                with tempfile.TemporaryDirectory() as tmp:
+                    sc = Scanner(sub_prof, ScanConfig(device=dev))
+                    with open(sc.run(sub_seqs, os.path.join(tmp, "p"))) as fp:
+                        outs[dev] = fp.read()
+                say("subset", f"{label}, {dev}: {len(sub_prof)} profiles x 2 "
+                    f"reads of 3 knt, {sc.metrics.products} products, "
+                    f"{time.perf_counter() - t0:.3f} s")
+        finally:
+            PairScorer.CHAIN_MAX_BLK, PairScorer.NLB_FLOOR = caps
+            for k in env:
+                os.environ.pop(k, None)
+        check(outs["cuda"] == outs["cpu"], f"{label}: card and CPU differ")
+        check(outs["cuda"].count("\n") > 1, f"{label}: no products")
     say("subset", "products.tsv byte-identical on card and CPU")
     check("jax" not in sys.modules, "jax was imported")
 
+    for k, r in report.items():
+        r["launches"] = launches.get(k, 0)
+        check(r["launches"] > 0, f"kernel {k} never launched on a scan path")
     print(json.dumps({"kernels": list(report.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

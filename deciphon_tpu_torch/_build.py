@@ -1,10 +1,12 @@
 """Build and load the port's CUDA kernels.
 
-Every `csrc/*.cu` file is compiled by `nvcc` for Hopper (sm_90a) into one
-shared library with a plain C interface, loaded with ctypes:
+Every `csrc/*.cu` file is compiled by its own `nvcc` for Hopper (sm_90a),
+all started together, and the objects are linked into one shared library
+with a plain C interface, loaded with ctypes:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -o build/deciphon_tpu_torch/libdtt_<hash>.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -c
+         -Xcompiler -fPIC -o <src>.o csrc/<src>.cu          (one per source)
+    nvcc -shared -o build/deciphon_tpu_torch/libdtt_<hash>.so *.o
 
 The library name carries a hash of the sources and flags, so an edited
 source is rebuilt and a stale library is never loaded.  The build runs on
@@ -30,7 +32,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "deciphon_tpu_torch"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
     # explicit IEEE f32: no flush-to-zero, no contraction
     "-ftz=false", "-prec-div=true", "-prec-sqrt=true", "-fmad=false",
     "-Xptxas", "-v",
@@ -43,6 +45,10 @@ _I = ctypes.c_int
 SIGNATURES = {
     "dtt_score_pairs": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                         _I, _I, _I, _I, _P],
+    "dtt_score_mixed": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                        _I, _I, _I, _I, _P],
+    "dtt_score_chained": [_P] * 10 + [_I] * 5 + [_P],
+    "dtt_score_chained_carry": [_P] * 15 + [_I] * 5 + [_P],
     "dtt_path_pairs": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                        _I, _I, _I, _I, _I, _P],
     "dtt_walk": [_P, _P, _P, _P, _P, _P, _P, _P,
@@ -93,12 +99,30 @@ def build() -> Path:
     if out.is_file():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{out.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in sources()]
+    logs = [o.with_suffix(".log") for o in objs]
+    # one nvcc per source, all running at once
+    procs = []
+    for src, obj, log in zip(sources(), objs, logs):
+        with open(log, "w") as fp:
+            procs.append(subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                stdout=fp, stderr=subprocess.STDOUT))
+    codes = [p.wait() for p in procs]
+    build_log = "".join(log.read_text() for log in logs)
+    for log in logs:
+        log.unlink()
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    build_log = res.stdout + res.stderr
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{build_log}")
+    if not any(codes):
+        res = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+                             capture_output=True, text=True)
+        build_log += res.stdout + res.stderr
+        codes.append(res.returncode)
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if any(codes):
+        raise RuntimeError(f"nvcc failed ({codes}):\n{build_log}")
     os.replace(tmp, out)
     return out
 

@@ -1,10 +1,19 @@
-"""Frame Viterbi kernels of the scan: phase-1 scores (B1) and phase-2
-trellis (B2), each a CUDA kernel with its plain PyTorch version beside it.
+"""Frame Viterbi kernels of the scan: phase-1 scores (B1, and its chain,
+gang and carry modes B3, B5, B8) and phase-2 trellis (B2), each a CUDA
+kernel with its plain PyTorch version beside it.
 
 Counterparts in deciphon_tpu/ops/viterbi_pallas.py:
 
   * `scores_pairs`  <- viterbi_scores_pairs_from_starts (`_kernel_pending`,
     plain pairs form, with the `_ck_from_starts` gather fused);
+  * `scores_pairs_mixed`  <- _gather_scores_pairs_mixed_vmem_jit
+    (`_kernel_pending` mixed: one profile per slot, the gang tier);
+  * `scores_pairs_chained`  <- viterbi_scores_pairs_chained
+    (`_kernel_pending` chain: C windows per slot, `_chain_expand` and
+    `_chain_compact` fused);
+  * `scores_pairs_chained_carry` and `carry_permute`  <-
+    viterbi_scores_pairs_chained_carry and `_carry_permute_jit`
+    (`_kernel_pending` carry: segmented windows);
   * `paths_pairs`   <- viterbi_paths_pairs (`_kernel_path`, with the
     `_ck_end_from_starts` gather fused).
 
@@ -41,8 +50,10 @@ PATH_KAPPA = 32
 # per window (18 f32 planes of Kp lanes), in a global scratch beyond it.
 PATH_SMEM_BYTES = 200 * 1024
 MAX_KP = 5120  # widest lane plane the kernels take (B1: 44 * Kp B of smem)
+CW = 8  # carry slots per pair of the carry mode (viterbi_pallas.CW)
 
-LAUNCHES = {"score": 0, "path": 0, "walk": 0}
+LAUNCHES = {"score": 0, "chain": 0, "gang": 0, "carry": 0, "path": 0,
+            "walk": 0}
 
 
 def reset_launches() -> None:
@@ -73,20 +84,25 @@ def _check(t: torch.Tensor, name: str, dtype: torch.dtype, shape) -> None:
         raise ValueError(f"{name}: not contiguous")
 
 
-def _check_inputs(pidx, tables, tvecs, xts, lengths, starts, codes_all):
+def _check_kp(Kp: int) -> None:
+    if Kp % 128 or Kp > MAX_KP:
+        raise NotImplementedError(
+            f"Kp={Kp}: the kernels take multiples of 128 up to {MAX_KP} "
+            "(wider profiles need the HBM-table tier, ROADMAP B4)")
+
+
+def _check_inputs(pidx, tables, tvecs, xts, lengths, starts, codes_all,
+                  mixed: bool = False):
     N, W = starts.shape
     P, _, Kp = tables.shape
-    _check(pidx, "pidx", torch.int32, (N,))
+    _check(pidx, "pidx", torch.int32, (N, W) if mixed else (N,))
     _check(tables, "tables", torch.float32, (P, TABLE_SIZE, Kp))
     _check(tvecs, "tvecs", torch.float32, (P, 8, Kp))
     _check(xts, "xts", torch.float32, (N, W, 16))
     _check(lengths, "lengths", torch.int32, (N, W, 1))
     _check(starts, "starts", torch.int32, (N, W))
     _check(codes_all, "codes_all", torch.int32, (codes_all.shape[0], 5))
-    if Kp % 128 or Kp > MAX_KP:
-        raise NotImplementedError(
-            f"Kp={Kp}: the kernels take multiples of 128 up to {MAX_KP} "
-            "(wider profiles need the HBM-table tier, ROADMAP B4)")
+    _check_kp(Kp)
     return N, W, Kp
 
 
@@ -102,41 +118,96 @@ def _rows_setup(pidx, tables, tvecs, xts, lengths, starts):
 
 
 # ---------------------------------------------------------------------------
-# B1: phase-1 scores
+# B1, B3, B5, B8: phase-1 scores
 # ---------------------------------------------------------------------------
 
 
-def scores_pairs_plain(pidx, tables, tvecs, xts, lengths, starts, codes_all):
-    """Plain PyTorch B1: the pending formulation of `_kernel_pending`, one
-    Python step per DP position over (N*W, Kp) planes, in the kernel's f32
-    operation order.  Every window runs to its full length, as on the card.
-    Returns (alt, null) (N, W) f32; pad slots +inf."""
-    N, W = starts.shape
-    Kp = tables.shape[2]
-    B = N * W
-    flat, base, tv, xt, lens, st = _rows_setup(pidx, tables, tvecs, xts,
-                                               lengths, starts)
-    T = codes_all.shape[0]
-    dev = tables.device
-    PM = torch.full((5, B, Kp), INF, device=dev)
-    PI = torch.full((5, B, Kp), INF, device=dev)
-    PSM = torch.full((4, 5, B), INF, device=dev)
-    sm = torch.full((B, Kp), INF, device=dev)
-    si, sd = sm.clone(), sm.clone()
-    inf_b = torch.full((B,), INF, device=dev)
-    # previous-position specials [S B N J C E R]
-    ss = [torch.zeros(B, device=dev), xt[:, XT_SB], inf_b, inf_b, inf_b,
-          inf_b, -xt[:, XT_RR]]
-    Tfin, Rfin = inf_b.clone(), inf_b.clone()
+class _PendingDP:
+    """DP state of B rows in the pending formulation, shared by the plain
+    versions of the score kernels.  Before the step to position l, the
+    queues hold what is pending for positions l .. l+4: QM/QI (5, B, Kp)
+    for M/I and QS (4, 5, B) for N/J/C/R, entry i for position l + i
+    (entry 4, never pushed yet, +inf).  Beside them the previous
+    position's M/I/D (B, Kp), its raw pending N/J/C/R (4, B) and its
+    specials [S B N J C E R] (B,).  The kernels keep the same values in
+    5-slot rings indexed by position % 5 (the carry planes' layout)."""
 
-    def x(j):
-        return xt[:, j]
+    def __init__(self, B: int, Kp: int, dev, xt):
+        self.QM = torch.full((5, B, Kp), INF, device=dev)
+        self.QI = torch.full((5, B, Kp), INF, device=dev)
+        self.QS = torch.full((4, 5, B), INF, device=dev)
+        self.sm = torch.full((B, Kp), INF, device=dev)
+        self.si, self.sd = self.sm.clone(), self.sm.clone()
+        self.inf_b = torch.full((B,), INF, device=dev)
+        self.inf_m = torch.full((1, B, Kp), INF, device=dev)
+        self.inf_s = torch.full((4, 1, B), INF, device=dev)
+        self.qs_prev = torch.full((4, B), INF, device=dev)
+        self.ss = self._seeds(xt)
 
-    maxlen = int(lens.max()) if B else 0
-    for l in range(1, maxlen + 1):
-        crow = (st + (l - 1)).clamp(max=T - 1)
-        codes = codes_all[crow].long()  # (B, 5) fragments starting at l
-        rows = [flat[base + codes[:, t]] for t in range(5)]
+    def _seeds(self, xt):
+        return [torch.zeros_like(self.inf_b), xt[:, XT_SB], self.inf_b,
+                self.inf_b, self.inf_b, self.inf_b, -xt[:, XT_RR]]
+
+    def reseed(self, rows, xt) -> None:
+        """Restart the rows where `rows` (B,) bool holds, from position 0
+        of a window with xtrans `xt` (B, 16)."""
+        r2 = rows[:, None]
+        self.QM = torch.where(r2, INF, self.QM)
+        self.QI = torch.where(r2, INF, self.QI)
+        self.QS = torch.where(rows, INF, self.QS)
+        self.sm = torch.where(r2, INF, self.sm)
+        self.si = torch.where(r2, INF, self.si)
+        self.sd = torch.where(r2, INF, self.sd)
+        self.qs_prev = torch.where(rows, INF, self.qs_prev)
+        self.ss = [torch.where(rows, a, b)
+                   for a, b in zip(self._seeds(xt), self.ss)]
+
+    def load(self, rows, big, sml) -> None:
+        """Resume the rows where `rows` holds, before position 1, from
+        carry planes big (B, 13, Kp) = PM | PI | ST and sml (B, 32) =
+        PSM | SS | 0 exported at a position = 0 (mod 5): ring slot s holds
+        position s (mod 5), so queue entries 0..3 are slots 1..4."""
+        r2 = rows[:, None]
+        order = [1, 2, 3, 4]
+        qm = torch.cat([big[:, order].transpose(0, 1), self.inf_m])
+        qi = torch.cat([big[:, [5 + s for s in order]].transpose(0, 1),
+                        self.inf_m])
+        psm = sml[:, 0:20].T.reshape(4, 5, -1)
+        qs = torch.cat([psm[:, order], self.inf_s], 1)
+        self.QM = torch.where(r2, qm, self.QM)
+        self.QI = torch.where(r2, qi, self.QI)
+        self.QS = torch.where(rows, qs, self.QS)
+        self.sm = torch.where(r2, big[:, 10], self.sm)
+        self.si = torch.where(r2, big[:, 11], self.si)
+        self.sd = torch.where(r2, big[:, 12], self.sd)
+        self.qs_prev = torch.where(rows, psm[:, 0], self.qs_prev)
+        self.ss = [torch.where(rows, sml[:, 20 + j], self.ss[j])
+                   for j in range(7)]
+
+    def export(self, l: int):
+        """Carry planes of every row after position l: (big (B, 13, Kp),
+        sml (B, 32)), ring slot (l + i) % 5 holding position l + i."""
+        order = [(i - l) % 5 for i in range(5)]  # slot -> queue position
+        pm = torch.stack([self.sm, *self.QM[:4]])[order]
+        pi = torch.stack([self.si, *self.QI[:4]])[order]
+        psm = torch.cat([self.qs_prev[:, None], self.QS[:, :4]], 1)[:, order]
+        big = torch.cat([pm.transpose(0, 1), pi.transpose(0, 1),
+                         torch.stack([self.sm, self.si, self.sd], 1)], 1)
+        B = self.sm.shape[0]
+        sml = torch.cat([psm.reshape(20, B).T, torch.stack(self.ss, 1),
+                         torch.zeros((B, 5), device=big.device)], 1)
+        return big, sml
+
+    def step(self, rows, tv, xt):
+        """Advance every row one DP position: `rows` (5, B, Kp) are the
+        emission rows of the 5 fragments starting there (fragment t + 1
+        ends at queue entry t), tv (B, 8, Kp) and xt (B, 16) each row's
+        transitions.  Returns (T_l, R_l) (B,)."""
+        sm, si, sd, ss = self.sm, self.si, self.sd, self.ss
+        Kp = sm.shape[1]
+
+        def x(j):
+            return xt[:, j]
 
         inner = torch.minimum(torch.minimum(sm + tv[:, TV_MMS],
                                             si + tv[:, TV_IMS]),
@@ -148,63 +219,347 @@ def scores_pairs_plain(pidx, tables, tvecs, xts, lengths, starts, codes_all):
         cJ = torch.minimum(ss[5] + x(XT_EJ), ss[3] + x(XT_JJ))
         cC = torch.minimum(ss[5] + x(XT_EC), ss[4] + x(XT_CC))
         cR = ss[6]
-        for t in range(1, 6):
-            s = (l - 1 + t) % 5
-            row = rows[t - 1]
-            nil = row[:, Kp - 2]
-            bg = row[:, Kp - 1:Kp]
-            if t == 5:  # slot consumed at l-1: fresh assignment
-                PM[s] = contrib + row
-                PI[s] = icand + bg
-                for j, c in enumerate((cN, cJ, cC, cR)):
-                    PSM[j, s] = c + nil
-            else:
-                PM[s] = torch.minimum(PM[s], contrib + row)
-                PI[s] = torch.minimum(PI[s], icand + bg)
-                for j, c in enumerate((cN, cJ, cC, cR)):
-                    PSM[j, s] = torch.minimum(PSM[j, s], c + nil)
+        # push: entry 4 is +inf, so its min is the kernels' fresh
+        # assignment of the ring slot consumed at l-1
+        QM = torch.minimum(self.QM, contrib + rows)
+        QI = torch.minimum(self.QI, icand + rows[:, :, Kp - 1:Kp])
+        QS = torch.minimum(self.QS, torch.stack((cN, cJ, cC, cR))[:, None]
+                           + rows[:, :, Kp - 2])
 
-        slot = l % 5
-        M = PM[slot].clone()
-        I = PI[slot].clone()
+        M, I = QM[0], QI[0]
         A = torch.roll(M, 1, -1) + tv[:, TV_MD]
         D = (torch.cummin(A - tv[:, TV_DDCUM], dim=-1).values
              + tv[:, TV_DDCUM])
         E = torch.minimum(M.amin(-1), D.amin(-1))
-        Nl, Jl, Cl = (PSM[j, slot].clone() for j in range(3))
-        R = PSM[3, slot] + x(XT_RR)
+        Nl, Jl, Cl = QS[0, 0], QS[1, 0], QS[2, 0]
+        R = QS[3, 0] + x(XT_RR)
         Bl = torch.minimum(torch.minimum(Nl + x(XT_NB), E + x(XT_EB)),
                            Jl + x(XT_JB))
         Tl = torch.minimum(E + x(XT_ET), Cl + x(XT_CT))
-        at_end = lens == l
-        Tfin = torch.where(at_end, Tl, Tfin)
-        Rfin = torch.where(at_end, R, Rfin)
-        sm, si, sd = M, I, D
-        ss = [inf_b, Bl, Nl, Jl, Cl, E, R]
-    return Tfin.reshape(N, W), Rfin.reshape(N, W)
+        self.sm, self.si, self.sd = M, I, D
+        self.qs_prev = QS[:, 0]
+        self.ss = [self.inf_b, Bl, Nl, Jl, Cl, E, R]
+        # consume entry 0: the queues move on by one position
+        self.QM = torch.cat([QM[1:], self.inf_m])
+        self.QI = torch.cat([QI[1:], self.inf_m])
+        self.QS = torch.cat([QS[:, 1:], self.inf_s], 1)
+        return Tl, R
+
+
+def _emission_rows(flat, base, codes_all, crow):
+    """The emission rows (5, B, Kp) of the fragments starting at code rows
+    `crow` (B,), of the profiles whose table rows start at `base` (B,)."""
+    codes = codes_all[crow].long()  # (B, 5)
+    return flat[(base[:, None] + codes).T]
+
+
+def _scores_windows_plain(flat, base, tv, xt, lens, st, codes_all):
+    """One window per row: base (B,) table row offset, tv (B, 8, Kp), xt
+    (B, 16), lens and st (B,) int64.  Every window runs to its full
+    length, as on the card; returns (alt, null) (B,), +inf for lens 0."""
+    B, Kp = xt.shape[0], flat.shape[1]
+    T = codes_all.shape[0]
+    dp = _PendingDP(B, Kp, flat.device, xt)
+    Tfin, Rfin = dp.inf_b.clone(), dp.inf_b.clone()
+    ends = set(lens.tolist())
+    for l in range(1, max(ends, default=0) + 1):
+        rows = _emission_rows(flat, base, codes_all,
+                              (st + (l - 1)).clamp(max=T - 1))
+        Tl, R = dp.step(rows, tv, xt)
+        if l in ends:
+            at_end = lens == l
+            Tfin = torch.where(at_end, Tl, Tfin)
+            Rfin = torch.where(at_end, R, Rfin)
+    return Tfin, Rfin
+
+
+def scores_pairs_plain(pidx, tables, tvecs, xts, lengths, starts, codes_all):
+    """Plain PyTorch B1: the pending formulation of `_kernel_pending`, one
+    Python step per DP position over (N*W, Kp) planes, in the kernel's f32
+    operation order.  Every window runs to its full length, as on the card.
+    Returns (alt, null) (N, W) f32; pad slots +inf."""
+    N, W = starts.shape
+    flat, base, tv, xt, lens, st = _rows_setup(pidx, tables, tvecs, xts,
+                                               lengths, starts)
+    alt, nul = _scores_windows_plain(flat, base, tv, xt, lens, st,
+                                     codes_all)
+    return alt.reshape(N, W), nul.reshape(N, W)
+
+
+def _launch_pairs(fn: str, key: str, pidx, tables, tvecs, xts, lengths,
+                  starts, codes_all):
+    """One B1 or B5 launch: (alt, null) (N, W) f32."""
+    from .. import _build
+
+    N, W = starts.shape
+    alt = torch.empty((N, W), dtype=torch.float32, device=tables.device)
+    nul = torch.empty_like(alt)
+    stream = torch.cuda.current_stream(tables.device).cuda_stream
+    err = getattr(_build.lib(), fn)(
+        pidx.data_ptr(), tables.data_ptr(), tvecs.data_ptr(), xts.data_ptr(),
+        lengths.data_ptr(), starts.data_ptr(), codes_all.data_ptr(),
+        alt.data_ptr(), nul.data_ptr(), N, W, tables.shape[2],
+        codes_all.shape[0], stream)
+    _build.check(err, fn)
+    LAUNCHES[key] += 1
+    return alt, nul
 
 
 def scores_pairs(pidx, tables, tvecs, xts, lengths, starts, codes_all):
     """B1 wrapper: (alt, null) (N, W) f32 min-plus costs per window.  The
     fused gather reads each window's codes itself, so no block count is
     needed: a window runs to its length."""
-    N, W, Kp = _check_inputs(pidx, tables, tvecs, xts, lengths, starts,
-                             codes_all)
+    _check_inputs(pidx, tables, tvecs, xts, lengths, starts, codes_all)
     if not on_cuda(pidx, tables, tvecs, xts, lengths, starts, codes_all):
         return scores_pairs_plain(pidx, tables, tvecs, xts, lengths, starts,
                                   codes_all)
+    return _launch_pairs("dtt_score_pairs", "score", pidx, tables, tvecs,
+                         xts, lengths, starts, codes_all)
+
+
+def scores_pairs_mixed_plain(pidx, tables, tvecs, xts, lengths, starts,
+                             codes_all):
+    """Plain PyTorch B5: B1 with one profile per (pair, slot), pidx
+    (N, W).  Returns (alt, null) (N, W) f32; pad slots +inf."""
+    N, W = starts.shape
+    P, R, Kp = tables.shape
+    p = pidx.reshape(N * W).long()
+    alt, nul = _scores_windows_plain(
+        tables.reshape(P * R, Kp), p * R, tvecs[p], xts.reshape(N * W, 16),
+        lengths.reshape(N * W).long(), starts.reshape(N * W).long(),
+        codes_all)
+    return alt.reshape(N, W), nul.reshape(N, W)
+
+
+def scores_pairs_mixed(pidx, tables, tvecs, xts, lengths, starts,
+                       codes_all):
+    """B5 wrapper (the gang tier): as `scores_pairs` with pidx (N, W), one
+    profile per slot.  Returns (alt, null) (N, W) f32."""
+    _check_inputs(pidx, tables, tvecs, xts, lengths, starts, codes_all,
+                  mixed=True)
+    if not on_cuda(pidx, tables, tvecs, xts, lengths, starts, codes_all):
+        return scores_pairs_mixed_plain(pidx, tables, tvecs, xts, lengths,
+                                        starts, codes_all)
+    return _launch_pairs("dtt_score_mixed", "gang", pidx, tables, tvecs,
+                         xts, lengths, starts, codes_all)
+
+
+def _check_chain(pidx, tables, tvecs, win_sblk, win_len, win_gstart,
+                 win_xti, xt_lut, codes_all):
+    N, W, C = win_len.shape
+    P, _, Kp = tables.shape
+    _check(pidx, "pidx", torch.int32, (N,))
+    _check(tables, "tables", torch.float32, (P, TABLE_SIZE, Kp))
+    _check(tvecs, "tvecs", torch.float32, (P, 8, Kp))
+    for name, a in (("win_sblk", win_sblk), ("win_len", win_len),
+                    ("win_gstart", win_gstart), ("win_xti", win_xti)):
+        _check(a, name, torch.int32, (N, W, C))
+    _check(xt_lut, "xt_lut", torch.float32, (xt_lut.shape[0], 16))
+    _check(codes_all, "codes_all", torch.int32, (codes_all.shape[0], 5))
+    _check_kp(Kp)
+    return N, W, C, Kp
+
+
+def _chain_plain(pidx, tables, tvecs, win_sblk, win_len, win_gstart,
+                 win_xti, xt_lut, codes_all, carry=None):
+    """Chained scoring in chain coordinates, as `_chain_expand` lays it
+    out: each (pair, slot) row runs positions l = 1.. of its chain; at the
+    first block of an entry the row is reseeded (or, for a continuing
+    entry 0, loaded from `carry`), xtrans and code rows follow the entry
+    that covers the block, and T/R latch at the entry's chain-coordinate
+    end sblk * KAPPA + len.  carry = (conts (B,) bool, big (B, 13, Kp),
+    sml (B, 32)) also exports, per row, the state after entry 0's end.
+    Returns (alt, null) (B, C) and the exported planes or None."""
+    N, W, C = win_len.shape
+    P, R, Kp = tables.shape
+    B = N * W
+    T = codes_all.shape[0]
+    dev = tables.device
+    flat = tables.reshape(P * R, Kp)
+    base = (pidx.long() * R).repeat_interleave(W)
+    tv = tvecs[pidx.long()].repeat_interleave(W, dim=0)
+    sblk, wlen, gst, xti = (a.reshape(B, C).long() for a in
+                            (win_sblk, win_len, win_gstart, win_xti))
+    real = wlen > 0
+    end_blk = sblk + (wlen + KAPPA - 1) // KAPPA
+    end = torch.where(real, sblk * KAPPA + wlen, 0)
+    alt = torch.full((B, C), INF, device=dev)
+    nul = torch.full((B, C), INF, device=dev)
+    xt = xt_lut[xti[:, 0]]
+    dp = _PendingDP(B, Kp, dev, xt)
+    exported = None
+    end0 = end[:, 0]
+    # latch and export positions, read once so the loop never waits on
+    # the device
+    ends, ends0 = set(end[real].tolist()), set(end0[real[:, 0]].tolist())
+    rowi = torch.arange(B, device=dev)
+    for l in range(1, max(ends, default=0) + 1):
+        if (l - 1) % KAPPA == 0:  # a new block: find each row's entry
+            b = (l - 1) // KAPPA
+            cov = real & (sblk <= b) & (b < end_blk)
+            active = cov.any(1)
+            ci = cov.int().argmax(1)  # entries are disjoint
+            s_act = sblk[rowi, ci]
+            xt = xt_lut[xti[rowi, ci]]
+            off = gst[rowi, ci] - s_act * KAPPA
+            starting = active & (s_act == b)
+            if carry is not None and l == 1:
+                conts, big, sml = carry
+                dp.reseed(starting & ~conts, xt)
+                dp.load(conts, big, sml)
+            else:
+                dp.reseed(starting, xt)
+        crow = (off + (l - 1)).clamp(0, T - 1)
+        Tl, Rl = dp.step(_emission_rows(flat, base, codes_all, crow), tv,
+                         xt)
+        if l in ends:  # entries are disjoint: one ends here per row
+            hit = end == l
+            alt = torch.where(hit, Tl[:, None], alt)
+            nul = torch.where(hit, Rl[:, None], nul)
+        if carry is not None and l in ends0:
+            big, sml = dp.export(l)
+            at = (end0 == l)[:, None]
+            if exported is None:
+                exported = (torch.zeros_like(big), torch.zeros_like(sml))
+            exported = (torch.where(at[:, :, None], big, exported[0]),
+                        torch.where(at, sml, exported[1]))
+    return alt, nul, exported
+
+
+def scores_pairs_chained_plain(pidx, tables, tvecs, win_sblk, win_len,
+                               win_gstart, win_xti, xt_lut, codes_all):
+    """Plain PyTorch B3 (see `scores_pairs_chained`): one Python step per
+    chain-coordinate position over (N*W, Kp) planes.  Returns (alt, null)
+    (N, W, C) f32; pad entries +inf."""
+    N, W, C = win_len.shape
+    alt, nul, _ = _chain_plain(pidx, tables, tvecs, win_sblk, win_len,
+                               win_gstart, win_xti, xt_lut, codes_all)
+    return alt.reshape(N, W, C), nul.reshape(N, W, C)
+
+
+def scores_pairs_chained(pidx, tables, tvecs, win_sblk, win_len,
+                         win_gstart, win_xti, xt_lut, codes_all):
+    """B3 wrapper: score N pairs of W slots, each slot a chain of up to C
+    windows.  Entry (n, w, c) is a window of win_len nt (0 = pad) whose
+    codes start at row win_gstart of `codes_all`, with xtrans row
+    xt_lut[win_xti] (xt_lut (X, 16) f32), placed at block win_sblk of its
+    slot's chain (KAPPA-position blocks).  Contract (the scheduler's, as
+    in the reference): the entries of one slot are disjoint and in block
+    order, each starting at or after the previous one's last block + 1.
+    Returns (alt, null) (N, W, C) f32; pad entries +inf.  Every real
+    entry equals the same window scored by `scores_pairs`.  The kernel
+    scores each entry from its own reseed and does not read win_sblk."""
+    N, W, C, Kp = _check_chain(pidx, tables, tvecs, win_sblk, win_len,
+                               win_gstart, win_xti, xt_lut, codes_all)
+    args = (pidx, tables, tvecs, win_sblk, win_len, win_gstart, win_xti,
+            xt_lut, codes_all)
+    if not on_cuda(*args):
+        return scores_pairs_chained_plain(*args)
     from .. import _build
 
-    alt = torch.empty((N, W), dtype=torch.float32, device=tables.device)
+    alt = torch.empty((N, W, C), dtype=torch.float32, device=tables.device)
     nul = torch.empty_like(alt)
     stream = torch.cuda.current_stream(tables.device).cuda_stream
-    err = _build.lib().dtt_score_pairs(
-        pidx.data_ptr(), tables.data_ptr(), tvecs.data_ptr(), xts.data_ptr(),
-        lengths.data_ptr(), starts.data_ptr(), codes_all.data_ptr(),
-        alt.data_ptr(), nul.data_ptr(), N, W, Kp, codes_all.shape[0], stream)
-    _build.check(err, "dtt_score_pairs")
-    LAUNCHES["score"] += 1
+    err = _build.lib().dtt_score_chained(
+        pidx.data_ptr(), tables.data_ptr(), tvecs.data_ptr(),
+        win_len.data_ptr(), win_gstart.data_ptr(), win_xti.data_ptr(),
+        xt_lut.data_ptr(), codes_all.data_ptr(), alt.data_ptr(),
+        nul.data_ptr(), N, W, C, Kp, codes_all.shape[0], stream)
+    _build.check(err, "dtt_score_chained")
+    LAUNCHES["chain"] += 1
     return alt, nul
+
+
+def scores_pairs_chained_carry_plain(pidx, tables, tvecs, win_sblk, win_len,
+                                     win_gstart, win_xti, conts, cbig_in,
+                                     csml_in, xt_lut, codes_all):
+    """Plain PyTorch B8 (see `scores_pairs_chained_carry`).  Returns
+    (alt, null (N, W, C), cbig_out (N, 13, CW, Kp), csml_out
+    (N, 32, CW, 1)); planes of slots it does not define are 0."""
+    N, W, C = win_len.shape
+    Kp = tables.shape[2]
+    B = N * W
+    dev = tables.device
+    slot = torch.arange(W, device=dev).repeat(N)
+    cw = slot < CW
+    big = torch.zeros((B, 13, Kp), device=dev)
+    sml = torch.zeros((B, 32), device=dev)
+    big.view(N, W, 13, Kp)[:, :CW] = cbig_in.transpose(1, 2)[:, :W]
+    sml.view(N, W, 32)[:, :CW] = csml_in[..., 0].transpose(1, 2)[:, :W]
+    cont = (conts.reshape(B) > 0) & cw
+    alt, nul, out = _chain_plain(pidx, tables, tvecs, win_sblk, win_len,
+                                 win_gstart, win_xti, xt_lut, codes_all,
+                                 carry=(cont, big, sml))
+    cbig = torch.zeros((N, 13, CW, Kp), device=dev)
+    csml = torch.zeros((N, 32, CW, 1), device=dev)
+    if out is not None:
+        defined = (cw & (win_len.reshape(B, C)[:, 0] > 0)).reshape(N, W)
+        ob, osml = out[0].reshape(N, W, 13, Kp), out[1].reshape(N, W, 32)
+        for w in range(min(W, CW)):
+            d = defined[:, w]
+            cbig[d, :, w] = ob[d, w]
+            csml[d, :, w, 0] = osml[d, w]
+    return alt.reshape(N, W, C), nul.reshape(N, W, C), cbig, csml
+
+
+def scores_pairs_chained_carry(pidx, tables, tvecs, win_sblk, win_len,
+                               win_gstart, win_xti, conts, cbig_in, csml_in,
+                               xt_lut, codes_all):
+    """B8 wrapper: `scores_pairs_chained` with DP carry across consecutive
+    calls, for windows split into segments.  conts (N, W) int32 flags the
+    slots w < CW whose entry 0 continues a window: it starts from the
+    carry planes cbig_in (N, 13, CW, Kp) = PM[0:5] | PI[5:10] | ST[10:13]
+    and csml_in (N, 32, CW, 1) = PSM.reshape(20) | SS[20:27] | 0 (the
+    reference's layout; route them from the previous call with
+    `carry_permute`) instead of its reseed.  The kernel takes M and I of
+    the previous position from ring slot 0 of PM/PI, which equal ST[0:2]
+    in every exported plane (segments span whole blocks).  Returns (alt,
+    null (N, W, C), cbig_out, csml_out): for each slot w < CW whose entry
+    0 is real, the state after that entry's last position; the scheduler
+    reads only slots whose chain is one segment, and other planes are
+    undefined.  As in B3, only the plain version reads win_sblk."""
+    N, W, C, Kp = _check_chain(pidx, tables, tvecs, win_sblk, win_len,
+                               win_gstart, win_xti, xt_lut, codes_all)
+    _check(conts, "conts", torch.int32, (N, W))
+    _check(cbig_in, "cbig_in", torch.float32, (N, 13, CW, Kp))
+    _check(csml_in, "csml_in", torch.float32, (N, 32, CW, 1))
+    args = (pidx, tables, tvecs, win_sblk, win_len, win_gstart, win_xti,
+            conts, cbig_in, csml_in, xt_lut, codes_all)
+    if not on_cuda(*args):
+        return scores_pairs_chained_carry_plain(*args)
+    from .. import _build
+
+    dev = tables.device
+    alt = torch.empty((N, W, C), dtype=torch.float32, device=dev)
+    nul = torch.empty_like(alt)
+    cbig = torch.empty_like(cbig_in)
+    csml = torch.empty_like(csml_in)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = _build.lib().dtt_score_chained_carry(
+        pidx.data_ptr(), tables.data_ptr(), tvecs.data_ptr(),
+        win_len.data_ptr(), win_gstart.data_ptr(), win_xti.data_ptr(),
+        xt_lut.data_ptr(), codes_all.data_ptr(), conts.data_ptr(),
+        cbig_in.data_ptr(), csml_in.data_ptr(), cbig.data_ptr(),
+        csml.data_ptr(), alt.data_ptr(), nul.data_ptr(), N, W, C, Kp,
+        codes_all.shape[0], stream)
+    _build.check(err, "dtt_score_chained_carry")
+    LAUNCHES["carry"] += 1
+    return alt, nul, cbig, csml
+
+
+def carry_permute(cbig, csml, route):
+    """Route carry planes between consecutive segment calls: slot
+    (n, w) of the result is flat slot route[n * CW + w] (= n' * CW + w')
+    of the previous call's (cbig (Ns, 13, CW, Kp), csml (Ns, 32, CW, 1)).
+    A plain index op on the planes' device (the counterpart of
+    `_carry_permute_jit`); route (Nd * CW,) int."""
+    Ns, _, _, Kp = cbig.shape
+    Nd = route.numel() // CW
+    idx = route.to(device=cbig.device, dtype=torch.long)
+    big = cbig.transpose(1, 2).reshape(Ns * CW, 13, Kp)[idx]
+    sml = csml.transpose(1, 2).reshape(Ns * CW, 32, 1)[idx]
+    return (big.reshape(Nd, CW, 13, Kp).transpose(1, 2).contiguous(),
+            sml.reshape(Nd, CW, 32, 1).transpose(1, 2).contiguous())
 
 
 # ---------------------------------------------------------------------------
@@ -217,13 +572,24 @@ def _consider(best, code, cand, c):
     return torch.minimum(best, cand), torch.where(take, c, code)
 
 
+def _first_min(cands, codes):
+    """Sequential `_consider` over candidates stacked in order on dim 0,
+    from an initial +inf whose code is codes[0] (cands[0] must be that
+    +inf): the minimum and the code of its first occurrence (torch.min
+    returns the first index of a tied minimum)."""
+    best, first = cands.min(0)
+    return best, codes[first]
+
+
 def paths_pairs_plain(pidx, tables, tvecs, xts, lengths, starts, codes_all,
                       *, nlb):
     """Plain PyTorch B2: the pull form of `_kernel_path`, one Python step
     per DP position over (N*W, Kp) planes, same candidate order and f32
     sums, Lk = nlb * PATH_KAPPA rows per window (positions past Lk are not
-    run).  Returns (xnode (N, W, Lk), node (N, W, Lk, Kp)) int32; rows at
-    or past the batch's longest window are 0."""
+    run).  Each state's candidates are stacked in the kernel's order and
+    the first minimum wins, as the kernel's strict `<` takes it.  Returns
+    (xnode (N, W, Lk), node (N, W, Lk, Kp)) int32; rows at or past the
+    batch's longest window are 0."""
     N, W = starts.shape
     Kp = tables.shape[2]
     B = N * W
@@ -246,53 +612,54 @@ def paths_pairs_plain(pidx, tables, tvecs, xts, lengths, starts, codes_all,
     def x(j):
         return xt[:, j]
 
+    def tx(j):  # xtrans column j against (5, B) planes
+        return xt[None, :, j]
+
+    # candidate codes in the kernel's order: t = 5 .. 1 (c = t - 1), and
+    # per t the sources B M I D (M), I M (I), S|E N|J|C (N, J, C); entry
+    # 0 is the initial +inf
+    cs = [t - 1 for t in range(5, 0, -1)]
+
+    def code_lut(first, per_t):
+        return torch.tensor([first] + [o + c for c in cs for o in per_t],
+                            dtype=i32, device=dev)
+
+    m_codes = code_lut(4, (0, 5, 10, 15))
+    i_codes = code_lut(9, (5, 0))
+    s_codes = code_lut(4, (0, 5))
+    inf_m = torch.full((1, B, Kp), INF, device=dev)
+    inf_b = torch.full((1, B), INF, device=dev)
+    t_col = torch.arange(4, -1, -1, device=dev)  # t - 1 for t = 5 .. 1
+
+    def pick(codes, lead, *cands):
+        # per-t candidates (5, ...) each -> one stack in the kernel's order
+        per_t = torch.stack(cands, 1).flatten(0, 1)
+        return _first_min(torch.cat([lead, per_t]), codes)
+
     maxlen = min(int(lens.max()) if B else 0, Lk)
     for l in range(1, maxlen + 1):
-        best_m = torch.full((B, Kp), INF, device=dev)
-        bm_code = torch.full((B, Kp), 0 * 5 + 4, dtype=i32, device=dev)
-        best_i = best_m.clone()
-        bi_code = torch.full((B, Kp), 5 + 4, dtype=i32, device=dev)
-        best_n = torch.full((B,), INF, device=dev)
-        best_j, best_c = best_n.clone(), best_n.clone()
-        n_code = torch.full((B,), 4, dtype=i32, device=dev)
-        j_code, c_code = n_code.clone(), n_code.clone()
-        for t in range(5, 0, -1):
-            crow = (st + (l - t)).clamp(0, T - 1)
-            ma = flat[base + codes_all[crow, t - 1].long()]  # (B, Kp)
-            nil = ma[:, Kp - 2]
-            bg = ma[:, Kp - 1:Kp]
-            s = (l - t + 10) % 5
-            M_, I_, D_ = Mr[s], Ir[s], Dr[s]
-            Sr, Br, Nr, Jr, Cr, Er = (SML[j, s] for j in range(6))
-            c = t - 1
-            best_m, bm_code = _consider(
-                best_m, bm_code, (Br[:, None] + tv[:, TV_BM]) + ma, 0 + c)
-            best_m, bm_code = _consider(
-                best_m, bm_code, torch.roll(M_ + tv[:, TV_MMS], 1, -1) + ma,
-                5 + c)
-            best_m, bm_code = _consider(
-                best_m, bm_code, torch.roll(I_ + tv[:, TV_IMS], 1, -1) + ma,
-                10 + c)
-            best_m, bm_code = _consider(
-                best_m, bm_code, torch.roll(D_ + tv[:, TV_DMS], 1, -1) + ma,
-                15 + c)
-            best_i, bi_code = _consider(
-                best_i, bi_code, (I_ + tv[:, TV_II]) + bg, 5 + c)
-            best_i, bi_code = _consider(
-                best_i, bi_code, (M_ + tv[:, TV_MI]) + bg, 0 + c)
-            best_n, n_code = _consider(best_n, n_code,
-                                       (Sr + x(XT_SN)) + nil, 0 + c)
-            best_n, n_code = _consider(best_n, n_code,
-                                       (Nr + x(XT_NN)) + nil, 5 + c)
-            best_j, j_code = _consider(best_j, j_code,
-                                       (Er + x(XT_EJ)) + nil, 0 + c)
-            best_j, j_code = _consider(best_j, j_code,
-                                       (Jr + x(XT_JJ)) + nil, 5 + c)
-            best_c, c_code = _consider(best_c, c_code,
-                                       (Er + x(XT_EC)) + nil, 0 + c)
-            best_c, c_code = _consider(best_c, c_code,
-                                       (Cr + x(XT_CC)) + nil, 5 + c)
-        M, I = best_m, best_i
+        # (5, B, Kp) rows of the fragments ENDING at l, t = 5 .. 1
+        crow = (st[None, :] + (l - 1 - t_col)[:, None]).clamp(0, T - 1)
+        ma = flat[base[None, :] + codes_all[crow, t_col[:, None]].long()]
+        nil = ma[:, :, Kp - 2]
+        bg = ma[:, :, Kp - 1:Kp]
+        ring = [(l - t + 10) % 5 for t in range(5, 0, -1)]
+        M_, I_, D_ = Mr[ring], Ir[ring], Dr[ring]
+        Sr, Br, Nr, Jr, Cr, Er = (SML[j][ring] for j in range(6))
+
+        M, bm_code = pick(m_codes, inf_m,
+                          (Br[:, :, None] + tv[:, TV_BM]) + ma,
+                          torch.roll(M_ + tv[:, TV_MMS], 1, -1) + ma,
+                          torch.roll(I_ + tv[:, TV_IMS], 1, -1) + ma,
+                          torch.roll(D_ + tv[:, TV_DMS], 1, -1) + ma)
+        I, bi_code = pick(i_codes, inf_m, (I_ + tv[:, TV_II]) + bg,
+                          (M_ + tv[:, TV_MI]) + bg)
+        best_n, n_code = pick(s_codes, inf_b, (Sr + tx(XT_SN)) + nil,
+                              (Nr + tx(XT_NN)) + nil)
+        best_j, j_code = pick(s_codes, inf_b, (Er + tx(XT_EJ)) + nil,
+                              (Jr + tx(XT_JJ)) + nil)
+        best_c, c_code = pick(s_codes, inf_b, (Er + tx(XT_EC)) + nil,
+                              (Cr + tx(XT_CC)) + nil)
 
         A = torch.roll(M, 1, -1) + tv[:, TV_MD]
         D = (torch.cummin(A - tv[:, TV_DDCUM], dim=-1).values

@@ -2,11 +2,13 @@
 (profile, window) pairs.
 
 Counterpart of deciphon_tpu/scan/pipeline.py (Scanner.run with default
-flags, one device, no confirmer):
+flags, one device, no confirmer; with `warmup`, checkpoint/resume,
+`should_stop`, `progress` and `release`):
 
   phase 1 (device, batched): null + alt costs of every in-flight
-    (profile, window) pair — the B1 score kernel through the bucketed
-    scheduler — then the LRT filter;
+    (profile, window) pair — the score kernels (chain tier B3, gang B5,
+    carry B8, classic B1) through the bucketed scheduler — then the LRT
+    filter;
   phase 2 (device + host): the B2 path kernel and the device walk for
     every survivor, hit segmentation, ML codon/amino decode, product line.
 
@@ -21,6 +23,8 @@ from __future__ import annotations
 
 import functools
 import math
+import tempfile
+import time
 from dataclasses import dataclass
 
 import numpy as np
@@ -76,39 +80,116 @@ class Scanner:
             build_costs(p, self.config.multi_hits, self.config.hmmer3_compat)
             for p in profiles
         ]
-        self.scorer = BucketedPairScorer(self.costs, self.device)
+        self.scorer: BucketedPairScorer | None = BucketedPairScorer(
+            self.costs, self.device)
         self._decoders: dict[int, Decoder] = {}
+        self.progress_done = 0
+        self.progress_total = 0
         self.metrics: ScanMetrics | None = None  # set per run()
+        self._checkpoint = False
         self._dev_codes: DeviceSeqCodes | None = None  # set per run()
 
-    def run(self, sequences: list[Sequence], product_dir: str) -> str:
+    def release(self) -> None:
+        """Free what is held between runs: the per-bucket scorers (the
+        profile tables on the device) and the decoder memos.  The next
+        run() builds them again (the reference's uncached workload
+        mode)."""
+        self.scorer = None
+        self._decoders.clear()
+
+    class Interrupted(RuntimeError):
+        pass
+
+    def warmup(self, read_lengths: list[int] | None = None,
+               reads_per_length: int = 1) -> float:
+        """Scan synthetic random reads of the expected lengths once, so
+        that a later scan's first wave finds the kernels built and loaded
+        and the decoders and allocator warm.  Returns the wall seconds
+        spent.  The chain tier pins its (cap, cmax, w) per scan from the
+        first wave, so pass the read lengths of production (e.g.
+        `read_lengths=[10000]`, `reads_per_length=8`).  The default is
+        one full-window read per distinct core size plus a 10 knt read."""
+        if read_lengths is None:
+            read_lengths = sorted({
+                min(p.core_size * 50, 100000) for p in self.profiles}
+                | {10000})
+        rng = np.random.default_rng(0)
+        seqs = [
+            Sequence.make(i * reads_per_length + j, f"warmup{i}.{j}",
+                          "".join("ACGT"[b]
+                                  for b in rng.integers(0, 4, size=n)))
+            for i, n in enumerate(read_lengths)
+            for j in range(reads_per_length)
+        ]
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as tmp:
+            self.run(seqs, tmp + "/warmup")
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return time.perf_counter() - t0
+
+    @property
+    def progress(self) -> int:
+        """Percent of (profile, sequence) pairs finished in this run."""
+        if not self.progress_total:
+            return 0
+        return 100 * self.progress_done // self.progress_total
+
+    def _drop_codes(self) -> None:
+        """Release the scan-resident device codes."""
+        self.scorer.set_device_codes(None)
+        self._dev_codes = None
+
+    def run(self, sequences: list[Sequence], product_dir: str,
+            checkpoint: bool = False, should_stop=None) -> str:
+        """Scan `sequences`, write `product_dir`/products.tsv and return
+        its path.  With `checkpoint`, finished (profile, sequence) pairs
+        and their products are journaled as they complete and a rerun in
+        the same directory resumes from the journal.  `should_stop()` is
+        asked before every wave; when it returns true the scan raises
+        Scanner.Interrupted."""
         self.metrics = ScanMetrics()
         log = get_logger("deciphon_tpu_torch.scan")
+        if self.scorer is None:  # released after an earlier run
+            self.scorer = BucketedPairScorer(self.costs, self.device)
         writer = ProductWriter(product_dir)
+        self._checkpoint = checkpoint
+        done_pairs: set[tuple[int, int]] = set()
+        if checkpoint:
+            done_pairs = writer.load_checkpoint()
+            if done_pairs:
+                log.info("resuming scan: %d pairs already complete",
+                         len(done_pairs))
         # scan-resident device codes: one upload per run
         with self.metrics.timed("seq_upload"):
             self._dev_codes = DeviceSeqCodes(sequences, self.device)
             self.scorer.set_device_codes(self._dev_codes)
         self.scorer.set_metrics(self.metrics)
         P, S = len(self.profiles), len(sequences)
+        self.progress_total = max(P * S, 1)
+        self.progress_done = 0
 
         # -- speculative window chains (see deciphon_tpu's pipeline) ------
         cursors: dict[tuple[int, int], WindowCursor] = {}
         chains: dict[tuple[int, int], list[PairItem]] = {}
         depth: dict[tuple[int, int], int] = {}
         exhausted: set[tuple[int, int]] = set()
+        finished: set[tuple[int, int]] = set()
         max_depth = max(1, self.config.spec_depth)
 
         for p in range(P):
             K = self.profiles[p].core_size
             for s in range(S):
+                if (p, s) in done_pairs:
+                    self.progress_done += 1
+                    continue
                 cur = WindowCursor(K, sequences[s].size)
                 cursors[(p, s)] = cur
                 chains[(p, s)] = []
                 depth[(p, s)] = min(max_depth, cur.estimate_windows())
 
         def refill(key) -> None:
-            if key in exhausted:
+            if key in exhausted or key in finished:
                 return
             cur = cursors[key]
             chain = chains[key]
@@ -120,9 +201,19 @@ class Scanner:
                 item.post_state = cur.state()
                 chain.append(item)
 
+        def finish_ready() -> None:
+            for key in chains:
+                if (key in exhausted and not chains[key]
+                        and key not in finished):
+                    finished.add(key)
+                    self.progress_done += 1
+                    if self._checkpoint:
+                        writer.journal_pair_done(*key)
+
         with self.metrics.timed("windowing"):
             for key in chains:
                 refill(key)
+            finish_ready()
 
         cap = max(self.config.max_pairs * 8, P * 64)
 
@@ -194,12 +285,18 @@ class Scanner:
                     if key not in rewound and depth[key] < max_depth:
                         depth[key] = min(depth[key] * 2, max_depth)
                     refill(key)
+                finish_ready()
 
         # Wave k's phase-1 collect, then its path launches, then wave
         # k+1's phase-1 dispatch, then wave k's path fetch and decode: the
         # host decode overlaps the next wave's device work.
         inflight = None  # (handle, items) of the dispatched-ahead wave
         while True:
+            if should_stop is not None and should_stop():
+                # stop between waves; with checkpointing the journal
+                # keeps the finished pairs for a later resume
+                self._drop_codes()
+                raise Scanner.Interrupted("scan interrupted")
             survivors, pend = [], []
             if inflight is not None:
                 prev_handle, prev_items = inflight
@@ -219,8 +316,7 @@ class Scanner:
             self.metrics.products = len(writer.lines)
             log.info("scan done: %s", self.metrics.summary())
             out = writer.close()
-        self.scorer.set_device_codes(None)
-        self._dev_codes = None
+        self._drop_codes()
         return out
 
     def _next_item(self, p: int, s: int, cur: WindowCursor,
@@ -319,7 +415,10 @@ class Scanner:
             window_stop=win.stop, hit=0, hit_start=hit_start,
             hit_stop=hit_stop, profile=profile.accession, abc=self.abc_name,
             lrt=line_lrt, logevalue=0.0, steps=steps)
-        writer.add(line, order=(p_idx, seq.id, win.idx))
+        order = (p_idx, seq.id, win.idx)
+        writer.add(line, order=order)
+        if self._checkpoint:
+            writer.journal_line(line, order, (p_idx, it.s_idx))
 
 
 def segment_hits(sids: np.ndarray, sizes: np.ndarray):

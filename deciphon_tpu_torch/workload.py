@@ -7,9 +7,12 @@
   substitution and indel noise, embedded in uniform random bases.  Such
   reads survive the LRT filter, so phase 2 (trellis, traceback, decode)
   has real work without external data.
-* `window_batch` / `score_inputs` — kernel inputs of one bucket.
-* `pfam_scan` / `pfam_subset` — chip_smoke.py's scan and its card-against-
-  CPU subset.
+* `window_batch` / `score_inputs` — kernel inputs of one bucket;
+  `chain_inputs`, `chain_case`, `mixed_case`, `carry_case` (with
+  `run_carry_calls`) those of the chain, gang and carry modes, and
+  `window_scores` the same windows scored alone by B1.
+* `pfam_scan` / `pfam_subset` / `pfam_longread` — chip_smoke.py's scans
+  and its card-against-CPU subset.
 """
 
 from __future__ import annotations
@@ -115,6 +118,231 @@ def score_inputs(Kp: int, w: int, n_pairs: int, lo: int, hi: int,
                 **window_batch(rng, lens, device)), int(lens.max())
 
 
+def chain_inputs(codes, pairs, n_pairs: int, cmax: int, w: int = 8,
+                 multi_hits: bool = True,
+                 hmmer3_compat: bool = False) -> dict:
+    """Chain metadata of the B3/B8 kernels for explicit window chains.
+
+    `codes` is a DeviceSeqCodes; `pairs` lists (profile index, chains),
+    chains[w] being slot w's windows as (start, stop) rows of
+    `codes.dev`, packed back to back at KAPPA-position blocks.  Pairs
+    past len(pairs) up to `n_pairs` and entries past each chain are pads
+    (length 0).  Returns the B3 wrapper's keyword arguments but the
+    tables, on the codes' device: pidx (N,), win_sblk, win_len,
+    win_gstart, win_xti (N, w, cmax) int32, the xtrans LUT xt_lut (X, 16)
+    f32 (one row per distinct window length) and codes_all."""
+    import torch
+
+    from deciphon_tpu.xtrans import xtrans_cost_vector
+
+    from .ops.viterbi import KAPPA
+
+    shape = (n_pairs, w, cmax)
+    sblk = np.zeros(shape, np.int32)
+    wlen = np.zeros(shape, np.int32)
+    gst = np.full(shape, codes.pad_start, np.int32)
+    xti = np.zeros(shape, np.int32)
+    pidx = np.zeros((n_pairs,), np.int32)
+    rows: dict[int, int] = {}
+    for n, (p, chains) in enumerate(pairs):
+        pidx[n] = p
+        for s, chain in enumerate(chains):
+            blk = 0
+            for c, (a, b) in enumerate(chain):
+                sblk[n, s, c] = blk
+                wlen[n, s, c] = b - a
+                gst[n, s, c] = a
+                xti[n, s, c] = rows.setdefault(b - a, len(rows))
+                blk += -(-(b - a) // KAPPA)
+    lut = np.zeros((max(16, len(rows)), 16), np.float32)
+    for length, r in rows.items():
+        lut[r, :13] = xtrans_cost_vector(multi_hits, hmmer3_compat, length)
+    dev = codes.dev.device
+    out = dict(pidx=pidx, win_sblk=sblk, win_len=wlen, win_gstart=gst,
+               win_xti=xti, xt_lut=lut)
+    return dict({k: torch.from_numpy(v).to(dev) for k, v in out.items()},
+                codes_all=codes.dev)
+
+
+def random_chains(rng: np.random.Generator, n_slots: int, cmax: int,
+                  lo: int, hi: int, read_len: int) -> list:
+    """n_slots chains of 1..cmax random windows of lo..hi nt inside one
+    read of read_len nt, as (start, stop) rows for `chain_inputs`."""
+    chains = []
+    for _ in range(n_slots):
+        chain = []
+        for _ in range(int(rng.integers(1, cmax + 1))):
+            n = int(rng.integers(lo, hi + 1))
+            a = int(rng.integers(0, read_len - n + 1))
+            chain.append((a, a + n))
+        chains.append(chain)
+    return chains
+
+
+def _random_db(rng, Ks, Kp, n_bases, device):
+    """Tables of sample profiles with core sizes Ks at lane width Kp, and
+    a DeviceSeqCodes of one random read of n_bases nt."""
+    from deciphon_tpu.ops.costs import build_costs
+    from deciphon_tpu.profile import sample_profile
+    from deciphon_tpu.scan.sequence import Sequence
+
+    from .ops.tables import stack_tables
+    from .scan.scheduler import DeviceSeqCodes
+
+    seed = int(rng.integers(1 << 20))
+    costs = [build_costs(sample_profile(seed + i, k)) for i, k in
+             enumerate(Ks)]
+    tables, tvecs = (t.to(device) for t in stack_tables(costs, Kp))
+    read = Sequence.make(0, "r0", random_bases(rng, n_bases))
+    return tables, tvecs, DeviceSeqCodes([read], device)
+
+
+def chain_case(Kp: int, seed: int, device="cpu", n_pairs: int = 3,
+               cmax: int = 4, lo: int = 100, hi: int = 1000) -> dict:
+    """B3 kernel check at lane width Kp: n_pairs pairs of 8 slots, each a
+    chain of 1..cmax random windows of lo..hi nt over one random read,
+    against two profiles (K = Kp - 2 and Kp // 2), plus one all-pad
+    pair.  Returns the B3 wrapper's keyword arguments."""
+    rng = np.random.default_rng(seed)
+    tables, tvecs, codes = _random_db(rng, (Kp - 2, Kp // 2), Kp, 20_000,
+                                      device)
+    pairs = [(n % 2, random_chains(rng, 8, cmax, lo, hi, 20_000))
+             for n in range(n_pairs)]
+    return dict(tables=tables, tvecs=tvecs,
+                **chain_inputs(codes, pairs, n_pairs + 1, cmax))
+
+
+def mixed_case(Kp: int, seed: int, device="cpu", n_pairs: int = 2,
+               w: int = 16, lo: int = 100, hi: int = 2000) -> dict:
+    """B5 kernel check at lane width Kp: n_pairs pairs of w windows of
+    lo..hi nt over one random read, three profiles (K = Kp - 2, Kp // 2,
+    Kp // 3) interleaved over the slots, one slot of each pair a pad.
+    Returns the B5 wrapper's keyword arguments."""
+    import torch
+
+    from deciphon_tpu.xtrans import xtrans_cost_vector
+
+    rng = np.random.default_rng(seed)
+    tables, tvecs, codes = _random_db(rng, (Kp - 2, Kp // 2, Kp // 3), Kp,
+                                      20_000, device)
+    lens = rng.integers(lo, hi + 1, size=(n_pairs, w)).astype(np.int32)
+    lens[:, -1] = 0
+    starts = np.array([[int(rng.integers(0, 20_000 - n + 1)) for n in row]
+                       for row in lens], np.int32)
+    starts[lens == 0] = codes.pad_start
+    pidx = (np.arange(n_pairs * w).reshape(n_pairs, w) % 3).astype(np.int32)
+    xts = np.zeros((n_pairs, w, 16), np.float32)
+    for n, i in zip(*np.nonzero(lens)):
+        xts[n, i, :13] = xtrans_cost_vector(True, False, int(lens[n, i]))
+    host = dict(pidx=pidx, xts=xts, lengths=lens[..., None].copy(),
+                starts=starts)
+    return dict({k: torch.from_numpy(v).to(device) for k, v in host.items()},
+                tables=tables, tvecs=tvecs, codes_all=codes.dev)
+
+
+def carry_case(Kp: int, seed: int, device="cpu", cap: int = 4,
+               n_blocks: int = 13) -> dict:
+    """B8 kernel check at lane width Kp: one random window of n_blocks
+    KAPPA-blocks (its last block partial) split into cap-block segments
+    over consecutive calls, with a normal window of at most cap blocks (as
+    the scheduler packs them) riding in slot 1 of each call (W = 8,
+    C = 2).  Returns dict(tables, tvecs, codes_all, xt_lut,
+    calls: the per-call metadata (pidx, win_sblk, win_len, win_gstart,
+    win_xti, conts and the carry route), whole: the (start, stop) of the
+    segmented window, rides: the riding windows)."""
+    import torch
+
+    from deciphon_tpu.xtrans import xtrans_cost_vector
+
+    from .ops.viterbi import CW, KAPPA
+
+    rng = np.random.default_rng(seed)
+    tables, tvecs, codes = _random_db(rng, (Kp - 2,), Kp, 20_000, device)
+    total = n_blocks * KAPPA - 7
+    a0 = int(rng.integers(0, 20_000 - total))
+    nsegs = -(-n_blocks // cap)
+    rides = []
+    lut = np.zeros((16, 16), np.float32)
+    lut[0, :13] = xtrans_cost_vector(True, False, total)
+    calls = []
+    for t in range(nsegs):
+        shape = (1, 8, 2)
+        sblk = np.zeros(shape, np.int32)
+        wlen = np.zeros(shape, np.int32)
+        gst = np.full(shape, codes.pad_start, np.int32)
+        xti = np.zeros(shape, np.int32)
+        conts = np.zeros((1, 8), np.int32)
+        wlen[0, 0, 0] = (cap * KAPPA if t < nsegs - 1
+                         else total - (nsegs - 1) * cap * KAPPA)
+        gst[0, 0, 0] = a0 + t * cap * KAPPA
+        conts[0, 0] = int(t > 0)
+        n = int(rng.integers(50, cap * KAPPA + 1))  # rides fit the cap
+        a = int(rng.integers(0, 20_000 - n))
+        rides.append((a, a + n))
+        wlen[0, 1, 0] = n
+        gst[0, 1, 0] = a
+        xti[0, 1, 0] = 1 + t
+        lut[1 + t, :13] = xtrans_cost_vector(True, False, n)
+        host = dict(pidx=np.zeros((1,), np.int32), win_sblk=sblk,
+                    win_len=wlen, win_gstart=gst, win_xti=xti, conts=conts,
+                    route=np.arange(CW, dtype=np.int32))
+        calls.append({k: torch.from_numpy(v).to(device)
+                      for k, v in host.items()})
+    return dict(tables=tables, tvecs=tvecs, codes_all=codes.dev,
+                xt_lut=torch.from_numpy(lut).to(device), calls=calls,
+                whole=(a0, a0 + total), rides=rides)
+
+
+def run_carry_calls(fn, case: dict) -> list:
+    """Run a `carry_case` through fn (`scores_pairs_chained_carry` or its
+    plain version), routing each call's exported planes into the next
+    call with `carry_permute`.  Returns each call's (alt, null, cbig,
+    csml)."""
+    import torch
+
+    from .ops.viterbi import CW, carry_permute
+
+    Kp = case["tables"].shape[2]
+    dev = case["tables"].device
+    out = []
+    for call in case["calls"]:
+        meta = {k: v for k, v in call.items() if k != "route"}
+        if out:
+            cbig, csml = carry_permute(out[-1][2], out[-1][3], call["route"])
+        else:
+            cbig = torch.zeros((1, 13, CW, Kp), device=dev)
+            csml = torch.zeros((1, 32, CW, 1), device=dev)
+        out.append(fn(tables=case["tables"], tvecs=case["tvecs"],
+                      cbig_in=cbig, csml_in=csml, xt_lut=case["xt_lut"],
+                      codes_all=case["codes_all"], **meta))
+    return out
+
+
+def window_scores(tables, tvecs, codes_all, p: int, wins,
+                  multi_hits: bool = True,
+                  hmmer3_compat: bool = False) -> tuple:
+    """(alt, null) (n,) of (start, stop) code-row windows scored alone by
+    B1 against profile p, on the tables' device."""
+    import torch
+
+    from deciphon_tpu.xtrans import xtrans_cost_vector
+
+    from .ops.viterbi import scores_pairs
+
+    dev = tables.device
+    n = len(wins)
+    xts = np.zeros((1, n, 16), np.float32)
+    for i, (a, b) in enumerate(wins):
+        xts[0, i, :13] = xtrans_cost_vector(multi_hits, hmmer3_compat, b - a)
+    lens = np.array([[[b - a] for a, b in wins]], np.int32)
+    alt, nul = scores_pairs(
+        torch.tensor([p], dtype=torch.int32, device=dev), tables, tvecs,
+        torch.from_numpy(xts).to(dev), torch.from_numpy(lens).to(dev),
+        torch.tensor([[a for a, _ in wins]], dtype=torch.int32, device=dev),
+        codes_all)
+    return alt[0], nul[0]
+
+
 def planted_read(rng: np.random.Generator, profile: FrameProfile,
                  length: int, noise: float = 0.0) -> str:
     """A `length`-nt read (longer if the domain is) with the profile's
@@ -147,6 +375,32 @@ def pfam_scan(n_profiles: int = 200, n_reads: int = 8,
     reads += [random_bases(rng, read_len)
               for _ in range(n_reads - len(reads))]
     return profiles, [Sequence.make(i, f"read{i}", r)
+                      for i, r in enumerate(reads)]
+
+
+LONGREAD_PLANTED = (140, 180, 60)  # domains of the long-read scan
+
+
+def pfam_longread(profiles=None, n_reads: int = 4, read_len: int = 40_000,
+                  seed: int = 2025):
+    """The long-read scan of chip_smoke.py: `pfam_scan`'s 200-profile
+    database (or `profiles`, that database already built) and `n_reads`
+    reads of `read_len` nt.  Reads 0 and 1 carry the planted
+    domains of profiles 140 and 180 (K = 670 and 1406: windows of 33.5
+    and 40 knt, 838 and 1000 blocks, which ride the over-cap tiers), read
+    2 that of profile 60 (K = 152, a chain window), the rest are random;
+    1% indel/substitution noise.  Returns (profiles, sequences)."""
+    from deciphon_tpu.scan.sequence import Sequence
+
+    if profiles is None:
+        profiles, _ = pfam_scan(n_reads=0)
+    rng = np.random.default_rng(seed)
+    planted = list(LONGREAD_PLANTED[:n_reads])
+    reads = [planted_read(rng, profiles[i], read_len, noise=0.01)
+             for i in planted]
+    reads += [random_bases(rng, read_len)
+              for _ in range(n_reads - len(reads))]
+    return profiles, [Sequence.make(i, f"long{i}", r)
                       for i, r in enumerate(reads)]
 
 

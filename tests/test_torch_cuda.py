@@ -18,8 +18,11 @@ from deciphon_tpu_torch.ops import traceback as tb
 from deciphon_tpu_torch.ops import viterbi as vk
 from deciphon_tpu_torch.ops.tables import stack_tables
 from deciphon_tpu_torch.scan import pipeline as tp
-from deciphon_tpu_torch.workload import (planted_read, random_bases,
-                                         window_batch)
+from deciphon_tpu_torch.scan import scheduler as ts
+from deciphon_tpu_torch.workload import (carry_case, chain_case, mixed_case,
+                                         planted_read, random_bases,
+                                         run_carry_calls, window_batch,
+                                         window_scores)
 
 pytestmark = pytest.mark.cuda
 
@@ -78,19 +81,76 @@ def test_path_kernel_and_walk_bit_equal_to_plain(cuda, Kp):
     assert got[3].all()
 
 
+@pytest.mark.parametrize("Kp", [128, 1024, 5120])
+def test_chained_kernel_bit_equal_to_plain(cuda, Kp):
+    inp = chain_case(Kp, seed=Kp, device=cuda, lo=40, hi=400)
+    before = vk.LAUNCHES["chain"]
+    alt, nul = vk.scores_pairs_chained(**inp)
+    assert vk.LAUNCHES["chain"] == before + 1
+    pa, pn = vk.scores_pairs_chained_plain(**inp)
+    torch.cuda.synchronize()
+    assert torch.equal(alt, pa) and torch.equal(nul, pn)  # pads +inf too
+    real = inp["win_len"] > 0
+    assert torch.isfinite(alt[real]).all() and torch.isinf(alt[-1]).all()
+
+
+@pytest.mark.parametrize("Kp", [128, 1024, 5120])
+def test_mixed_kernel_bit_equal_to_plain(cuda, Kp):
+    inp = mixed_case(Kp, seed=Kp + 2, device=cuda, hi=600)
+    before = vk.LAUNCHES["gang"]
+    alt, nul = vk.scores_pairs_mixed(**inp)
+    assert vk.LAUNCHES["gang"] == before + 1
+    pa, pn = vk.scores_pairs_mixed_plain(**inp)
+    torch.cuda.synchronize()
+    assert torch.equal(alt, pa) and torch.equal(nul, pn)
+
+
+@pytest.mark.parametrize("Kp", [128, 1024])
+def test_carry_kernel_segments_equal_whole_window(cuda, Kp):
+    case = carry_case(Kp, seed=Kp + 3, device=cuda)
+    before = vk.LAUNCHES["carry"]
+    got = run_carry_calls(vk.scores_pairs_chained_carry, case)
+    assert vk.LAUNCHES["carry"] == before + len(case["calls"]) >= 3
+    want = run_carry_calls(vk.scores_pairs_chained_carry_plain, case)
+    wa, wn = window_scores(case["tables"], case["tvecs"], case["codes_all"],
+                           0, [case["whole"]] + case["rides"])
+    torch.cuda.synchronize()
+    last = len(got) - 1
+    for t, (g, w) in enumerate(zip(got, want)):
+        for slot in ([0, 1] if t == last else [1]):
+            assert torch.equal(g[0][0, slot, 0], w[0][0, slot, 0]), (t, slot)
+            assert torch.equal(g[1][0, slot, 0], w[1][0, slot, 0]), (t, slot)
+        if t < last:  # the continuing slot's exported planes
+            assert torch.equal(g[2][:, :, 0], w[2][:, :, 0])
+            assert torch.equal(g[3][:, :, 0], w[3][:, :, 0])
+        assert g[0][0, 1, 0] == wa[1 + t] and g[1][0, 1, 0] == wn[1 + t]
+    assert got[last][0][0, 0, 0] == wa[0] and got[last][1][0, 0, 0] == wn[0]
+
+
 def test_kernels_raise_on_bad_launch(cuda):
     inp = inputs(cuda, [9], 128, [[10]], seed=3)
     with pytest.raises(ValueError):  # mixed devices never fall back
         vk.scores_pairs(**dict(inp, starts=inp["starts"].cpu()))
 
 
-def test_scan_on_card_matches_cpu(cuda, tmp_path):
+@pytest.mark.parametrize("tier", ["chain", "chain+gang", "chain+seg",
+                                  "classic"])
+def test_scan_on_card_matches_cpu(cuda, tmp_path, monkeypatch, tier):
+    """Each phase-1 tier on the card writes the CPU's products; the
+    shrunk caps send the 900-nt read's windows over the chain cap."""
+    if tier != "chain":
+        monkeypatch.setattr(ts.PairScorer, "CHAIN_MAX_BLK", 4)
+        monkeypatch.setattr(ts.PairScorer, "NLB_FLOOR", 4)
+    if tier == "chain+seg":
+        monkeypatch.setenv("DECIPHON_CHAIN_SEG", "1")
+    if tier == "classic":
+        monkeypatch.setenv("DECIPHON_NO_CHAIN", "1")
     profiles = [sample_profile(140, 40), sample_profile(250, 150),
                 sample_profile(109, 9)]
     rng = np.random.default_rng(7)
     reads = [planted_read(rng, profiles[0], 300),
              planted_read(rng, profiles[1], 900, noise=0.01),
-             random_bases(rng, 250)]
+             random_bases(rng, 250), random_bases(rng, 150)]
     seqs = [Sequence.make(i, f"r{i}", r) for i, r in enumerate(reads)]
     out = {}
     for dev in ("cuda", "cpu"):
