@@ -12,32 +12,43 @@ Phases, each reported on its own lines; any failure exits non-zero:
      per slot and an all-pad pair, timed beside B1 on the same windows),
      B5 gang (three profiles interleaved per slot), B8 carry (a 13-block
      window over 4 calls, equal to B1 on the whole window, a normal window
-     riding in a spare slot), B2 path and the walk;
+     riding in a spare slot), B6 packed (two packs, one with a missing
+     segment), B7 packed chain (once with the lists every segment shares,
+     once with lists that differ per segment), B2 path and the walk;
   4. the Pfam scan, Scanner(ScanConfig(device="cuda")).run, on a
      Pfam-shaped database of 200 random profiles (K geometric over
      50..2000) and 8 reads of 10 knt, four carrying a planted domain,
-     through the chain tier (the default): first scan, three warm scans
-     (median wall), one under torch.profiler; then three scans with
-     DECIPHON_NO_CHAIN=1 (the classic B1 buckets, same products, median
-     wall), and a fresh Scanner's first scan after Scanner.warmup;
-  5. the long-read scan: the same database and 4 reads of 40 knt, two
-     carrying domains whose windows ride the gang: first scan, three warm
-     scans, one profiled; then one scan with DECIPHON_CHAIN_SEG=1 (carry
-     segments, same products);
-  6. every kernel against its plain version again, on the arguments the
-     long-read scan gave it: two more scans (gang, then carry segments)
-     record each wrapper's calls; the widest, longest launch of B1, B3,
-     B5 and B2, every B8 call, and the walk of that B2 trellis are
-     checked bit for bit; their times go into the kernels line;
+     through the default route, on which profiles up to K 1022 form packed
+     classes and their whole-read windows ride B7: first scan, three warm
+     scans (median wall), one under torch.profiler; then three scans with
+     DECIPHON_NO_CHAIN=1 (B6 and the classic B1 buckets); then the
+     unpacked scorer (plain buckets only, built through `scorer=`): first
+     scan, three warm scans, one under torch.profiler; all with the same
+     products; and a fresh Scanner's first scan after Scanner.warmup;
+  5. the long-read scan: the same database and 3 reads of 40 knt, each
+     carrying a planted domain, two of them in windows over the chain cap
+     that ride the gang: first scan, one warm scan, one profiled; then one
+     scan with DECIPHON_CHAIN_SEG=1 (carry segments, same products);
+  6. every kernel against its plain version again, on arguments the scans
+     themselves gave it (more scans record each wrapper's calls): B7 and
+     B2 with its walk from the Pfam scan and from the long-read scan, B6
+     from the DECIPHON_NO_CHAIN=1 Pfam scan, B1, B3 and B5 from the
+     long-read scan and every B8 call of its DECIPHON_CHAIN_SEG=1 scan;
+     per wrapper and scan the widest, longest launch, bit for bit; the
+     times and bounds of a kernel's last check go into the kernels line;
   7. the same code on the card and on the CPU (plain versions) on a
      subset, at the reference's caps and with the chain caps shrunk so
-     that gang and carry fire on 3-knt reads: products.tsv must be
+     that gang and carry fire on 2-knt reads: products.tsv must be
      byte-identical.
 
 Every scan path is run with the launch counts set to 0 just before and
 read just after; each kernel must have launched on its path.  The line
 before the last is a JSON object of per-kernel launches (summed over those
-runs), errors and times; the last line is {"ok": true, "device": {...}}.
+runs), errors, times and bounds; the last line is {"ok": true, "device":
+{...}}.  A kernel's bound is the least time the card could take for the
+work of the measured call: the larger of its f32 add/min operations on
+true profile nodes over the card's non-tensor f32 peak, and the bytes it
+must move (every input once, every output once) over the memory rate.
 Without a CUDA device, or outside a checkout, the script fails before any
 result.
 """
@@ -57,17 +68,35 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 PALLAS = "deciphon_tpu/ops/viterbi_pallas.py"
 SCORE_CU = "deciphon_tpu_torch/csrc/viterbi_score.cu"
+PACKED_CU = "deciphon_tpu_torch/csrc/viterbi_packed.cu"
 SOURCE = {"score": SCORE_CU, "chain": SCORE_CU, "gang": SCORE_CU,
-          "carry": SCORE_CU,
+          "carry": SCORE_CU, "packed": PACKED_CU, "pchain": PACKED_CU,
           "path": "deciphon_tpu_torch/csrc/viterbi_path.cu",
           "walk": "deciphon_tpu_torch/csrc/traceback_walk.cu"}
 # kernel wrappers whose calls a captured scan records
 SPIED = ("scores_pairs", "scores_pairs_mixed", "scores_pairs_chained",
-         "scores_pairs_chained_carry", "paths_pairs")
+         "scores_pairs_chained_carry", "scores_pairs_packed",
+         "scores_pairs_packed_chained", "paths_pairs")
 REPLACES = {"score": f"{PALLAS}:376", "chain": f"{PALLAS}:1038",
             "gang": f"{PALLAS}:828", "carry": f"{PALLAS}:1111",
+            "packed": f"{PALLAS}:2265", "pchain": f"{PALLAS}:2331",
             "path": f"{PALLAS}:1707",
             "walk": "deciphon_tpu/ops/traceback.py:137"}
+# Published peaks of one H100 SXM: f32 outside the tensor cores (an FMA
+# counted as two operations, so adds and mins alone reach half of it: the
+# operation bound below is the generous one) and HBM3 bandwidth.
+PEAK_F32_OPS = 67e12
+PEAK_BYTES = 3.35e12
+# f32 adds and mins per (position, profile node) cell, counted from the
+# kernel bodies.  Score family (`score_window`, `score_window_packed`):
+# inner 3 adds + 2 mins, contrib 1 + 1, icand 2 + 1, the five pushes of M
+# and of I 5 adds + 4 mins each, and at consume A, A - DDCUM, the prefix
+# min, D, min(M, D) and the E reduction, one each: 34.  Path kernel: per
+# fragment length the 4 match candidates (2 adds + 1 compare each) and the
+# 2 insert candidates (2 + 1), five lengths: 90; delete chain 5; E and
+# its first index 3: 98.  The per-position special states are O(1) per
+# window and left out.
+CELL_OPS = {"score": 34, "path": 98}
 
 
 def fail(msg: str) -> None:
@@ -129,6 +158,104 @@ def kernel_vs_plain(torch, kernel, plain, args, reps=5):
     return out, got["r"], k_ms, p_ms
 
 
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(report: dict, key: str, ops: float, byts: float) -> None:
+    """Record the least time (ms) the card could take for `ops` f32
+    operations and `byts` bytes moved, and which of the two bounds it."""
+    t_ops, t_bytes = ops / PEAK_F32_OPS, byts / PEAK_BYTES
+    report[key].update(bound_ms=max(t_ops, t_bytes) * 1e3,
+                       bound_by="operations" if t_ops >= t_bytes
+                       else "bytes", library_ms=None)
+
+
+def core_sizes(torch, tvecs, nseg: int = 1):
+    """True core size K of every profile (P,), or of every segment of
+    every pack (P, nseg), read off the B->M row of the transition
+    vectors (finite on the K real nodes only)."""
+    P, _, Kp = tvecs.shape
+    return torch.isfinite(tvecs[:, 0]).reshape(P, nseg, Kp // nseg).sum(-1)
+
+
+def score_bound(torch, report, key: str, a: dict, outs) -> None:
+    """Bound of one score-family call from its own arguments: cells are
+    the positions its windows really have times the true core sizes."""
+    tables, tvecs = a["tables"], a["tvecs"]
+    nseg = a.get("nseg", 1)
+    K = core_sizes(torch, tvecs, nseg).double()
+    pidx = a["pidx"].long()
+    if key in ("packed", "pchain"):
+        if key == "packed":
+            lens = a["lengths"][..., 0].double()  # (N, W)
+            cells = (lens.sum(1)[:, None] * K[pidx]).sum()
+            rows = lens.sum()
+        else:
+            lens = a["win_len"].double()  # (N, W, S, C)
+            cells = (lens.sum((1, 3)) * K[pidx]).sum()
+            rows = a["run_len"].double().sum()
+    else:
+        lens = (a["win_len"] if "win_len" in a else a["lengths"][..., 0])
+        lens = lens.double()
+        per_pair = lens.reshape(lens.shape[0], -1)
+        if key == "gang":
+            cells = (per_pair * K[:, 0][pidx]).sum()
+        else:
+            cells = (per_pair.sum(1) * K[:, 0][pidx]).sum()
+        rows = lens.sum()
+    used = torch.unique(pidx).numel()
+    byts = (used * nbytes(tables[0], tvecs[0]) + float(rows) * 20
+            + nbytes(*(v for k, v in a.items() if hasattr(v, "numel")
+                       and k not in ("tables", "tvecs", "codes_all")))
+            + nbytes(*outs))
+    bound(report, key, CELL_OPS["score"] * float(cells), byts)
+
+
+def carry_bound(torch, report, shared: dict, calls, outs) -> None:
+    """Bound of a run of carry calls: their cells and bytes summed (each
+    call reads and writes its carry planes)."""
+    ops = byts = 0.0
+    tmp = {"carry": {}}
+    for call, out in zip(calls, outs):
+        a = {k: v for k, v in call.items() if k != "route"}
+        for k in ("tables", "tvecs", "xt_lut", "codes_all"):
+            if k not in a:
+                a[k] = shared[k]
+        a.setdefault("cbig_in", out[2])  # the planes read are as large
+        a.setdefault("csml_in", out[3])  # as the planes written
+        score_bound(torch, tmp, "carry", a, out)
+        t = tmp["carry"]["bound_ms"] / 1e3
+        if tmp["carry"]["bound_by"] == "operations":
+            ops += t * PEAK_F32_OPS
+        else:
+            byts += t * PEAK_BYTES
+    bound(report, "carry", ops, byts)
+
+
+def path_bound(torch, report, a: dict, xn) -> None:
+    """Bound of one path call: cells as for the scores, and the trellis
+    words of the positions the windows really have as output bytes."""
+    tables, tvecs = a["tables"], a["tvecs"]
+    Kp = tables.shape[2]
+    lens = a["lengths"][..., 0].double()
+    K = core_sizes(torch, tvecs).double()[:, 0][a["pidx"].long()]
+    cells = float((lens.sum(1) * K).sum())
+    rows = float(lens.sum())
+    used = torch.unique(a["pidx"]).numel()
+    byts = (used * nbytes(tables[0], tvecs[0]) + rows * 20
+            + nbytes(a["xts"], a["lengths"], a["starts"], a["pidx"])
+            + rows * 4 * (Kp + 1))
+    bound(report, "path", CELL_OPS["path"] * cells, byts)
+
+
+def walk_bound(report, ns) -> None:
+    """Bound of a batch of walks: a walk reads two trellis words and
+    writes one step (3 bytes) per step, and computes next to nothing."""
+    steps = float(ns.double().sum())
+    bound(report, "walk", steps, steps * 11)
+
+
 def check_kernels(torch, report) -> None:
     """Phase 3: every kernel against its plain version at the scan's
     shapes; kernel launches made here are not counted toward any path."""
@@ -137,8 +264,10 @@ def check_kernels(torch, report) -> None:
     from deciphon_tpu_torch.ops import traceback as tb
     from deciphon_tpu_torch.ops import viterbi as vk
     from deciphon_tpu_torch.workload import (carry_case, chain_case,
-                                             mixed_case, run_carry_calls,
-                                             score_inputs, window_scores)
+                                             mixed_case, packed_case,
+                                             packed_chain_case,
+                                             run_carry_calls, score_inputs,
+                                             window_scores)
 
     for Kp in (256, 1024):
         inp, maxlen = score_inputs(Kp, 32, 2, 400, 4000, seed=10 + Kp,
@@ -152,6 +281,7 @@ def check_kernels(torch, report) -> None:
         check(exact and bool(fin), f"B1 Kp={Kp} differs from plain")
         report["score"].update(max_abs_err=max_err(torch, ka, pa), ms=k_ms,
                                plain_ms=p_ms)
+        score_bound(torch, report, "score", inp, (ka, kn))
 
     for Kp in (256, 1024):
         inp = chain_case(Kp, seed=40 + Kp, device="cuda", cmax=4,
@@ -184,6 +314,7 @@ def check_kernels(torch, report) -> None:
         check(exact and pads and same_b1, f"B3 Kp={Kp} differs")
         report["chain"].update(max_abs_err=max_err(torch, ka, pa), ms=k_ms,
                                plain_ms=p_ms)
+        score_bound(torch, report, "chain", inp, (ka, kn))
 
     for Kp in (256, 1024):
         inp = mixed_case(Kp, seed=50 + Kp, device="cuda", w=16, hi=2000)
@@ -197,6 +328,7 @@ def check_kernels(torch, report) -> None:
         check(exact, f"B5 Kp={Kp} differs from plain")
         report["gang"].update(max_abs_err=max_err(torch, ka, pa), ms=k_ms,
                               plain_ms=p_ms)
+        score_bound(torch, report, "gang", inp, (ka, kn))
 
     for Kp in (256, 1024):
         case = carry_case(Kp, seed=60 + Kp, device="cuda")
@@ -234,6 +366,48 @@ def check_kernels(torch, report) -> None:
             f"{p_ms:.1f} ms for the {len(got)} calls")
         check(exact and whole, f"B8 Kp={Kp} differs")
         report["carry"].update(max_abs_err=err, ms=k_ms, plain_ms=p_ms)
+        carry_bound(torch, report, case, case["calls"], got)
+
+    # B6 and B7 on planes of 1, 2 and 4 lanes per thread
+    for seg, nseg in ((64, 4), (128, 8), (256, 8)):
+        inp = packed_case(seg, nseg, seed=70 + seg, device="cuda", hi=2000)
+        (ka, kn), (pa, pn), k_ms, p_ms = kernel_vs_plain(
+            torch, vk.scores_pairs_packed, vk.scores_pairs_packed_plain,
+            inp)
+        exact = torch.equal(ka, pa) and torch.equal(kn, pn)
+        shape = bool(torch.isfinite(ka[0, 0]).all()
+                     and torch.isinf(ka[1, :, -1]).all()
+                     and torch.isfinite(ka[1, 0, :-1]).all())
+        say("B6", f"Kp={seg * nseg} ({nseg} segments of {seg} lanes) "
+            f"{tuple(inp['lengths'].shape[:2])} slots over 2 packs, windows "
+            f"<= {int(inp['lengths'].max())} nt: bit-equal {exact}, full "
+            f"pack finite and the missing segment +inf {shape}; kernel "
+            f"{k_ms:.3f} ms, plain {p_ms:.1f} ms")
+        check(exact and shape, f"B6 seg={seg} nseg={nseg} differs")
+        report["packed"].update(max_abs_err=max_err(torch, ka, pa), ms=k_ms,
+                                plain_ms=p_ms)
+        score_bound(torch, report, "packed", inp, (ka, kn))
+
+        for per_segment in (True, False):
+            inp = packed_chain_case(seg, nseg, seed=80 + seg, device="cuda",
+                                    cmax=4, lo=100, hi=1000,
+                                    per_segment=per_segment)
+            (ka, kn), (pa, pn), k_ms, p_ms = kernel_vs_plain(
+                torch, vk.scores_pairs_packed_chained,
+                vk.scores_pairs_packed_chained_plain, inp)
+            real = inp["win_len"] > 0
+            exact = torch.equal(ka, pa) and torch.equal(kn, pn)
+            pads = bool(torch.isinf(ka[~real]).all()
+                        and torch.isfinite(ka[0][real[0]]).all())
+            say("B7", f"Kp={seg * nseg} ({nseg} x {seg}) "
+                f"{int(real.sum())} entries <= {int(inp['win_len'].max())} "
+                f"nt, lists {'per segment' if per_segment else 'shared'}: "
+                f"bit-equal {exact}, pads +inf and a full pack finite "
+                f"{pads}; kernel {k_ms:.3f} ms, plain {p_ms:.1f} ms")
+            check(exact and pads, f"B7 seg={seg} nseg={nseg} differs")
+            report["pchain"].update(max_abs_err=max_err(torch, ka, pa),
+                                    ms=k_ms, plain_ms=p_ms)
+            score_bound(torch, report, "pchain", inp, (ka, kn))
 
     trellis = None
     for Kp, lo, hi, w in ((256, 200, 2000, 8), (3200, 100, 300, 2)):
@@ -260,6 +434,7 @@ def check_kernels(torch, report) -> None:
         if trellis is None:
             report["path"].update(max_abs_err=float(err), ms=k_ms,
                                   plain_ms=p_ms)
+            path_bound(torch, report, inp, kx)
             trellis = (kx, kd, lens, Kp)
 
     kx, kd, lens, Kp = trellis
@@ -302,56 +477,75 @@ def check_kernels(torch, report) -> None:
     check(ok_all and exact and oracle[max_steps] == (0, True)
           and oracle[16] == (W, True), "walk differs from plain or unzip")
     report["walk"].update(max_abs_err=0.0, ms=k_ms, plain_ms=p_ms)
+    walk_bound(report, ks[2])
 
 
-def check_main_shapes(torch, report, long_calls, seg_calls) -> None:
-    """Each kernel against its plain version on the arguments the
-    long-read scan itself gave it (recorded by captured scans): per
-    wrapper the launch with the widest lanes and then the longest slot,
-    and every carry call of the DECIPHON_CHAIN_SEG=1 scan on its own
-    carry-in; the walk on the chosen path launch's trellis, as the
-    scheduler runs it.  Bit for bit, pads +inf on both sides.  These
-    times go into the kernels line."""
-    from deciphon_tpu_torch.ops import traceback as tb
+def span(a: dict) -> int:
+    """DP positions of the longest slot of one recorded launch."""
     from deciphon_tpu_torch.ops import viterbi as vk
 
-    def span(a):  # DP positions of the launch's longest slot
-        if "win_len" in a:
-            return int((a["win_sblk"] * vk.KAPPA + a["win_len"]).max())
-        return int(a["lengths"].max())
+    if "win_len" in a:
+        return int((a["win_sblk"] * vk.KAPPA + a["win_len"]).max())
+    return int(a["lengths"].max())
 
-    def widest(calls, key):
-        check(calls, f"the long-read scan made no {key} launch")
-        i = max(range(len(calls)), key=lambda j: (
-            calls[j]["tables"].shape[2], span(calls[j])))
-        return i, calls[i]
 
-    def record(key, err, k_ms, p_ms):
-        report[key].update(max_abs_err=max(report[key]["max_abs_err"], err),
-                           ms=k_ms, plain_ms=p_ms)
+def widest(calls: list, key: str):
+    """The recorded launch with the widest lanes, then the longest slot."""
+    check(calls, f"the captured scan made no {key} launch")
+    i = max(range(len(calls)), key=lambda j: (
+        calls[j]["tables"].shape[2], span(calls[j])))
+    return i, calls[i]
 
-    for key, name in (("score", "scores_pairs"),
-                      ("gang", "scores_pairs_mixed"),
-                      ("chain", "scores_pairs_chained")):
-        calls = long_calls[name]
+
+def record(report, key: str, err: float, k_ms: float, p_ms: float) -> None:
+    report[key].update(max_abs_err=max(report[key].get("max_abs_err", 0.0),
+                                       err),
+                       ms=k_ms, plain_ms=p_ms)
+
+
+def check_main_shapes(torch, report, pfam_calls, nochain_calls, long_calls,
+                      seg_calls) -> None:
+    """Each kernel against its plain version on arguments the scans
+    themselves gave it (recorded by captured scans): B7 and B2 from the
+    Pfam scan and again from the long-read scan (whole-read 40-knt
+    windows), B6 from the Pfam DECIPHON_NO_CHAIN=1 scan, B1, B5 and B3
+    from the long-read scan; per wrapper and scan the launch with the
+    widest lanes and then the longest slot, and every carry call of the
+    long-read DECIPHON_CHAIN_SEG=1 scan on its own carry-in; the walk on
+    each chosen path launch's trellis, as the scheduler runs it.  Bit for
+    bit, pads +inf on both sides.  The times of a kernel's last check (the
+    long-read one where there are two) go into the kernels line."""
+    from deciphon_tpu_torch.ops import viterbi as vk
+
+    for key, name, scan, calls in (
+            ("pchain", "scores_pairs_packed_chained", "Pfam", pfam_calls),
+            ("packed", "scores_pairs_packed", "Pfam DECIPHON_NO_CHAIN=1",
+             nochain_calls),
+            ("pchain", "scores_pairs_packed_chained", "long-read",
+             long_calls),
+            ("score", "scores_pairs", "long-read", long_calls),
+            ("gang", "scores_pairs_mixed", "long-read", long_calls),
+            ("chain", "scores_pairs_chained", "long-read", long_calls)):
+        calls = calls[name]
         i, args = widest(calls, key)
         out, want, k_ms, p_ms = kernel_vs_plain(
             torch, getattr(vk, name), getattr(vk, name + "_plain"), args,
             reps=2)
         exact = all(torch.equal(a, b) for a, b in zip(out, want))
-        lens = args["win_len"] if key == "chain" else args["lengths"]
-        say("main", f"{key}: launch {i + 1} of {len(calls)}, Kp="
-            f"{args['tables'].shape[2]}, slots {tuple(lens.shape)}, "
+        lens = args["win_len"] if "win_len" in args else args["lengths"]
+        say("main", f"{key}: {scan} scan, launch {i + 1} of {len(calls)}, "
+            f"Kp={args['tvecs'].shape[2]}, slots {tuple(lens.shape)}, "
             f"{int((lens > 0).sum())} windows, longest slot {span(args)} "
             f"positions: bit-equal {exact}, kernel {k_ms:.3f} ms, plain "
             f"{p_ms:.1f} ms")
-        check(exact, f"{key} differs from plain at the long-read shapes")
-        record(key, max(max_err(torch, a, b) for a, b in zip(out, want)),
+        check(exact, f"{key} differs from plain at the {scan} scan's shapes")
+        record(report, key, max(max_err(torch, a, b) for a, b in zip(out, want)),
                k_ms, p_ms)
+        score_bound(torch, report, key, args, out)
 
     calls = seg_calls["scores_pairs_chained_carry"]
     check(calls, "the DECIPHON_CHAIN_SEG=1 scan made no carry launch")
-    exact, err, k_tot, p_tot, conts = True, 0.0, 0.0, 0.0, 0
+    exact, err, k_tot, p_tot, conts, outs = True, 0.0, 0.0, 0.0, 0, []
     for args in calls:
         out, want, k_ms, p_ms = kernel_vs_plain(
             torch, vk.scores_pairs_chained_carry,
@@ -366,6 +560,7 @@ def check_main_shapes(torch, report, long_calls, seg_calls) -> None:
         err = max(err, max_err(torch, out[0], want[0]))
         k_tot, p_tot = k_tot + k_ms, p_tot + p_ms
         conts += int(args["conts"].sum())
+        outs.append(out)
     say("main", f"carry: all {len(calls)} carry calls of the "
         f"DECIPHON_CHAIN_SEG=1 scan, each on its own carry-in ({conts} "
         f"continuing slots, Kp {sorted({a['tables'].shape[2] for a in calls})},"
@@ -373,9 +568,21 @@ def check_main_shapes(torch, report, long_calls, seg_calls) -> None:
         f"(scores and carry planes) {exact}, kernel {k_tot:.3f} ms, plain "
         f"{p_tot:.1f} ms for the calls")
     check(exact, "carry differs from plain at the long-read shapes")
-    record("carry", err, k_tot, p_tot)
+    record(report, "carry", err, k_tot, p_tot)
+    carry_bound(torch, report, {}, calls, outs)
 
-    calls = long_calls["paths_pairs"]
+    for scan, calls in (("Pfam", pfam_calls), ("long-read", long_calls)):
+        check_path_shapes(torch, report, scan, calls)
+
+
+def check_path_shapes(torch, report, scan: str, calls) -> None:
+    """B2 against its plain version on the widest, longest path launch a
+    captured scan recorded, and the walk of that launch's survivors as the
+    scheduler launches it."""
+    from deciphon_tpu_torch.ops import traceback as tb
+    from deciphon_tpu_torch.ops import viterbi as vk
+
+    calls = calls["paths_pairs"]
     i, args = widest(calls, "path")
     (kx, kd), (px, pd), k_ms, p_ms = kernel_vs_plain(
         torch, vk.paths_pairs, vk.paths_pairs_plain, args, reps=1)
@@ -390,12 +597,14 @@ def check_main_shapes(torch, report, long_calls, seg_calls) -> None:
                                                      pd[n, w, :L])):
             exact &= torch.equal(a, b)
             err = max(err, int((a - b).abs().max()))
-    say("main", f"path: launch {i + 1} of {len(calls)}, Kp={Kp}, slots "
-        f"{(N, W)}, {real.numel()} windows, longest {span(args)} "
+    say("main", f"path: {scan} scan, launch {i + 1} of {len(calls)}, "
+        f"Kp={Kp}, slots {(N, W)}, {real.numel()} windows, longest "
+        f"{span(args)} "
         f"positions: bit-equal {exact}, kernel {k_ms:.3f} ms, plain "
         f"{p_ms:.1f} ms")
-    check(exact, "path differs from plain at the long-read shapes")
-    record("path", float(err), k_ms, p_ms)
+    check(exact, f"path differs from plain at the {scan} scan's shapes")
+    record(report, "path", float(err), k_ms, p_ms)
+    path_bound(torch, report, args, kx)
 
     # the walk of those survivors, as the scheduler launches it
     xnf, ndf = kx.reshape(N * W, Lk), kd.reshape(N * W, Lk, Kp)
@@ -412,20 +621,22 @@ def check_main_shapes(torch, report, long_calls, seg_calls) -> None:
     say("main", f"walk: the {real.numel()} walks of that trellis, "
         f"max_steps {steps}: all ok {bool(got[3].all())}, bit-equal "
         f"{exact}, kernel {k_ms:.3f} ms, plain {p_ms:.1f} ms")
-    check(exact and bool(got[3].all()), "walk differs at the long-read "
-          "shapes")
-    record("walk", 0.0, k_ms, p_ms)
+    check(exact and bool(got[3].all()),
+          f"walk differs at the {scan} scan's shapes")
+    record(report, "walk", 0.0, k_ms, p_ms)
+    walk_bound(report, got[2])
 
 
 class Scans:
     """Scans of one database on the card: walls, products and the launch
     counts of each main-path run."""
 
-    def __init__(self, torch, profiles, seqs, phase: str):
+    def __init__(self, torch, profiles, seqs, phase: str, scorer=None):
         from deciphon_tpu_torch.scan.pipeline import ScanConfig, Scanner
 
         self.torch, self.seqs, self.phase = torch, seqs, phase
-        self.scanner = Scanner(profiles, ScanConfig(device="cuda"))
+        self.scanner = Scanner(profiles, ScanConfig(device="cuda"),
+                               scorer=scorer)
 
     def scan(self, scanner=None):
         sc = scanner or self.scanner
@@ -505,10 +716,11 @@ class Scans:
         check(again == lines, "the captured scan wrote other products")
         return calls
 
-    def warm_and_profile(self, lines) -> float:
-        """Three warm scans (their median wall) and one profiled scan."""
+    def warm_and_profile(self, lines, n_warm: int = 3) -> float:
+        """`n_warm` warm scans (their median wall) and one profiled
+        scan."""
         warm = []
-        for _ in range(3):
+        for _ in range(n_warm):
             w, again = self.scan()
             check(again == lines, "a warm scan wrote other products")
             warm.append(w)
@@ -574,9 +786,12 @@ def main() -> None:
     # ---- 3. kernels against their plain versions ----------------------
     check_kernels(torch, report)
 
-    # ---- 4. the Pfam scan: chain tier, classic tier, warm-up ------------
+    # ---- 4. the Pfam scan: packed route, classic tiers, unpacked route ---
+    from deciphon_tpu_torch.ops.tables import common_kp
     from deciphon_tpu_torch.scan.pipeline import ScanConfig, Scanner
-    from deciphon_tpu_torch.scan.scheduler import PairScorer
+    from deciphon_tpu_torch.scan.scheduler import (BucketedPairScorer,
+                                                   PackedPairScorer,
+                                                   PairScorer)
     from deciphon_tpu_torch.workload import (LONGREAD_PLANTED, PFAM_PLANTED,
                                              pfam_longread, pfam_scan,
                                              pfam_subset)
@@ -589,17 +804,26 @@ def main() -> None:
         f"10 knt, planted K {[ks_db[i] for i in PFAM_PLANTED]}; host "
         f"set-up {time.perf_counter() - t0:.1f} s")
     pfam = Scans(torch, profiles, seqs, "scan")
-    tbytes = sum(s.table_bytes() for s in pfam.scanner.scorer.scorers)
-    say("scan", f"{len(pfam.scanner.scorer.scorers)} Kp buckets, "
-        f"{tbytes / 1e9:.3f} GB of tables on the card")
-    first, lines = pfam.counted(launches, ("chain", "path", "walk"))
+    scorers = pfam.scanner.scorer.scorers
+    tbytes = sum(s.table_bytes() for s in scorers)
+    classes = [(s.seg, s.nseg, s.Kp, len(s.inner.tables)) for s in scorers
+               if isinstance(s, PackedPairScorer)]
+    inner = sum(s.inner.table_bytes() for s in scorers
+                if isinstance(s, PackedPairScorer))
+    say("scan", f"{len(scorers)} scorers: packed classes (seg, nseg, Kp, "
+        f"profiles) {classes}, plain buckets Kp "
+        f"{[s.Kp for s in scorers if isinstance(s, PairScorer)]}; "
+        f"{tbytes / 1e9:.3f} GB of tables on the card, of which the packed "
+        f"classes' inner unpacked tables {inner / 1e9:.3f} GB")
+    check(classes, "the default scorer formed no packed class")
+    first, lines = pfam.counted(launches, ("pchain", "chain", "path", "walk"))
     say("scan", f"first scan of the process (cold): {first:.6f} s")
-    chain_med = pfam.warm_and_profile(lines)
+    packed_med = pfam.warm_and_profile(lines)
     no_chain = {"DECIPHON_NO_CHAIN": "1"}
-    classic, classic_lines = pfam.counted(launches, ("score", "path", "walk"),
-                                          no_chain)
+    classic, classic_lines = pfam.counted(
+        launches, ("packed", "score", "path", "walk"), no_chain)
     check(classic_lines == lines,
-          "DECIPHON_NO_CHAIN=1 wrote other products than the chain tier")
+          "DECIPHON_NO_CHAIN=1 wrote other products than the chain tiers")
     classic_walls = [classic]
     with environ(no_chain):
         for _ in range(2):
@@ -607,10 +831,28 @@ def main() -> None:
             check(again == lines, "a classic-tier scan wrote other products")
             classic_walls.append(w)
     classic_med = statistics.median(classic_walls)
-    say("scan", f"tiers side by side, medians of 3 warm scans: chain tier "
-        f"{chain_med:.6f} s, classic tier (DECIPHON_NO_CHAIN=1) "
-        f"{classic_med:.6f} s (walls {classic_walls}); products "
+
+    def unpacked(costs):
+        """Plain buckets only, as the reference's custom-factory form."""
+        return BucketedPairScorer(
+            costs, "cuda", scorer_factory=lambda c: PairScorer(
+                c, "cuda", w=BucketedPairScorer.plain_w(common_kp(c))))
+
+    plain = Scans(torch, profiles, seqs, "scan, unpacked scorer",
+                  scorer=unpacked)
+    check(all(isinstance(s, PairScorer)
+              for s in plain.scanner.scorer.scorers),
+          "the custom factory did not keep the plain buckets")
+    u0, unpacked_lines = plain.counted(launches, ("chain", "path", "walk"))
+    check(unpacked_lines == lines,
+          "the unpacked scorer wrote other products than the packed route")
+    plain_med = plain.warm_and_profile(lines)
+    say("scan", f"routes side by side, medians of 3 warm scans: packed "
+        f"route (default) {packed_med:.6f} s, DECIPHON_NO_CHAIN=1 "
+        f"{classic_med:.6f} s (walls {classic_walls}), unpacked scorer "
+        f"{plain_med:.6f} s (its first scan {u0:.6f} s); products "
         "byte-identical")
+    del plain
     fresh = Scanner(profiles, ScanConfig(device="cuda"))
     warm_s = fresh.warmup(read_lengths=[10000], reads_per_length=8)
     after, again = pfam.scan(fresh)
@@ -623,7 +865,7 @@ def main() -> None:
     # ---- 5. the long-read scan: gang and carry over-cap tiers ----------
     t0 = time.perf_counter()
     _, long_seqs = pfam_longread(profiles)
-    say("long", f"4 reads of 40 knt, planted K "
+    say("long", f"3 reads of 40 knt, planted K "
         f"{[ks_db[i] for i in LONGREAD_PLANTED]} on reads 0-2; host set-up "
         f"{time.perf_counter() - t0:.1f} s")
     lr = Scans(torch, profiles, long_seqs, "long")
@@ -631,20 +873,23 @@ def main() -> None:
     hit_reads = {int(ln.split("\t")[0]) for ln in long_lines[1:]}
     say("long", f"products on reads {sorted(hit_reads)}")
     check({0, 1} <= hit_reads, "no survivors on the long-window reads 0/1")
-    lr.warm_and_profile(long_lines)
+    lr.warm_and_profile(long_lines, n_warm=1)
     _, seg_lines = lr.counted(launches, ("carry", "path", "walk"),
                               {"DECIPHON_CHAIN_SEG": "1"})
     check(seg_lines == long_lines,
           "DECIPHON_CHAIN_SEG=1 wrote other products than the gang tier")
     say("long", "carry segments: products byte-identical to the gang tier's")
 
-    # ---- 6. kernels against plain at the long-read scan's own shapes ----
+    # ---- 6. kernels against plain at the scans' own shapes --------------
     t0 = time.perf_counter()
+    pfam_calls = pfam.captured(lines)
+    nochain_calls = pfam.captured(lines, no_chain)
     long_calls = lr.captured(long_lines)
     seg_calls = lr.captured(long_lines, {"DECIPHON_CHAIN_SEG": "1"})
     del lr, pfam
-    check_main_shapes(torch, report, long_calls, seg_calls)
-    del long_calls, seg_calls
+    check_main_shapes(torch, report, pfam_calls, nochain_calls, long_calls,
+                      seg_calls)
+    del pfam_calls, nochain_calls, long_calls, seg_calls
     say("main", f"phase {time.perf_counter() - t0:.1f} s")
 
     # ---- 7. card against CPU on the same code ---------------------------
@@ -666,7 +911,7 @@ def main() -> None:
                     with open(sc.run(sub_seqs, os.path.join(tmp, "p"))) as fp:
                         outs[dev] = fp.read()
                 say("subset", f"{label}, {dev}: {len(sub_prof)} profiles x 2 "
-                    f"reads of 3 knt, {sc.metrics.products} products, "
+                    f"reads of 2 knt, {sc.metrics.products} products, "
                     f"{time.perf_counter() - t0:.3f} s")
         finally:
             PairScorer.CHAIN_MAX_BLK, PairScorer.NLB_FLOOR = caps
@@ -675,7 +920,9 @@ def main() -> None:
         check(outs["cuda"] == outs["cpu"], f"{label}: card and CPU differ")
         check(outs["cuda"].count("\n") > 1, f"{label}: no products")
     say("subset", "products.tsv byte-identical on card and CPU")
-    check("jax" not in sys.modules, "jax was imported")
+    check(not [m for m in sys.modules
+               if m.split(".")[0] in ("jax", "deciphon_tpu")],
+          "jax or deciphon_tpu was imported")
 
     for k, r in report.items():
         r["launches"] = launches.get(k, 0)

@@ -1,9 +1,12 @@
 """deciphon-tpu on PyTorch and CUDA: the scan engine for NVIDIA Hopper.
 
-The port keeps the `deciphon_tpu` layout where that helps a reader find a
-module's counterpart, and reuses that package's jax-free modules as they
-are (profiles, frame tables, windows, sequences, decoder, product writer,
-metrics).  It never imports jax.
+The port keeps the `deciphon_tpu` layout, so a reader finds a module's
+counterpart under the same relative path, but it is a package of its own:
+it imports torch, never jax, and nothing of `deciphon_tpu`.  What it needs
+of that package's host code (profiles, frame tables, windows, sequences,
+decoder, product writer, metrics, the scheduler's host helpers) it keeps
+as its own copies; `convert.py` builds the port's objects from plain numpy
+arrays, which is how tests carry a reference profile or sequence across.
 
 Entry point (one device, default flags, no confirmer):
 

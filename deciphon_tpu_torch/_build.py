@@ -49,6 +49,8 @@ SIGNATURES = {
                         _I, _I, _I, _I, _P],
     "dtt_score_chained": [_P] * 10 + [_I] * 5 + [_P],
     "dtt_score_chained_carry": [_P] * 15 + [_I] * 5 + [_P],
+    "dtt_score_packed": [_P] * 9 + [_I] * 5 + [_P],
+    "dtt_score_packed_chained": [_P] * 13 + [_I] * 7 + [_P],
     "dtt_path_pairs": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                        _I, _I, _I, _I, _I, _P],
     "dtt_walk": [_P, _P, _P, _P, _P, _P, _P, _P,

@@ -22,7 +22,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from deciphon_tpu import states as st
+from .. import states as st
 
 from .viterbi import LAUNCHES, on_cuda
 

@@ -1,6 +1,6 @@
-"""Frame Viterbi kernels of the scan: phase-1 scores (B1, and its chain,
-gang and carry modes B3, B5, B8) and phase-2 trellis (B2), each a CUDA
-kernel with its plain PyTorch version beside it.
+"""Frame Viterbi kernels of the scan: phase-1 scores (B1, its chain, gang
+and carry modes B3, B5, B8, and the lane-packed B6 and B7) and phase-2
+trellis (B2), each a CUDA kernel with its plain PyTorch version beside it.
 
 Counterparts in deciphon_tpu/ops/viterbi_pallas.py:
 
@@ -14,6 +14,13 @@ Counterparts in deciphon_tpu/ops/viterbi_pallas.py:
   * `scores_pairs_chained_carry` and `carry_permute`  <-
     viterbi_scores_pairs_chained_carry and `_carry_permute_jit`
     (`_kernel_pending` carry: segmented windows);
+  * `scores_pairs_packed`  <- viterbi_scores_pairs_packed
+    (`_kernel_pending_packed`: NSEG profiles side by side on one plane,
+    tables from ops/tables.py build_tables_packed);
+  * `scores_pairs_packed_chained`  <- viterbi_scores_pairs_packed_chained
+    (`_kernel_pending_packed` chain: a shared chain of code runs per slot,
+    per-segment window lists; `_chain_expand`, `_iseg_window_expand` and
+    the end-block compaction fused);
   * `paths_pairs`   <- viterbi_paths_pairs (`_kernel_path`, with the
     `_ck_end_from_starts` gather fused).
 
@@ -32,13 +39,13 @@ from __future__ import annotations
 
 import torch
 
-from deciphon_tpu.frame import TABLE_SIZE
-from deciphon_tpu.xtrans import (XT_CC, XT_CT, XT_EB, XT_EC, XT_EJ, XT_ET,
+from ..frame import TABLE_SIZE
+from ..xtrans import (XT_CC, XT_CT, XT_EB, XT_EC, XT_EJ, XT_ET,
                                  XT_JB, XT_JJ, XT_NB, XT_NN, XT_RR, XT_SB,
                                  XT_SN)
 
 from .tables import (TV_BM, TV_DDCUM, TV_DMS, TV_II, TV_IMS, TV_MD, TV_MI,
-                     TV_MMS)
+                     TV_MMS, packed_width)
 
 INF = float("inf")
 # Length quanta of the scheduler's buckets: phase-1 windows are bucketed by
@@ -51,9 +58,13 @@ PATH_KAPPA = 32
 PATH_SMEM_BYTES = 200 * 1024
 MAX_KP = 5120  # widest lane plane the kernels take (B1: 44 * Kp B of smem)
 CW = 8  # carry slots per pair of the carry mode (viterbi_pallas.CW)
+# Packed planes: at most this many lanes (the scheduler's PACK_KP_MAX),
+# segments of a multiple of this many lanes.
+PACK_MAX_KP = 2048
+PACK_SEG_QUANTUM = 64
 
-LAUNCHES = {"score": 0, "chain": 0, "gang": 0, "carry": 0, "path": 0,
-            "walk": 0}
+LAUNCHES = {"score": 0, "chain": 0, "gang": 0, "carry": 0, "packed": 0,
+            "pchain": 0, "path": 0, "walk": 0}
 
 
 def reset_launches() -> None:
@@ -560,6 +571,292 @@ def carry_permute(cbig, csml, route):
     sml = csml.transpose(1, 2).reshape(Ns * CW, 32, 1)[idx]
     return (big.reshape(Nd, CW, 13, Kp).transpose(1, 2).contiguous(),
             sml.reshape(Nd, CW, 32, 1).transpose(1, 2).contiguous())
+
+
+# ---------------------------------------------------------------------------
+# B6, B7: lane-packed phase-1 scores
+# ---------------------------------------------------------------------------
+
+
+class _PackedPendingDP:
+    """`_PendingDP` for packed planes: B rows of Kp = S * seg lanes, segment
+    s on lanes [s * seg, (s + 1) * seg).  M/I/D planes are (B, Kp) as
+    there; the special states, their pending queues and the xtrans rows
+    are per (row, segment): ss entries (B, S), QS (4, 5, B, S), xt
+    (B, S, 16).  Every segment starts idle (+inf everywhere) until
+    `reseed` starts a window on it."""
+
+    def __init__(self, B: int, Kp: int, S: int, dev):
+        self.S, self.seg = S, Kp // S
+        self.QM = torch.full((5, B, Kp), INF, device=dev)
+        self.QI = torch.full((5, B, Kp), INF, device=dev)
+        self.QS = torch.full((4, 5, B, S), INF, device=dev)
+        self.sm = torch.full((B, Kp), INF, device=dev)
+        self.si, self.sd = self.sm.clone(), self.sm.clone()
+        self.inf_s = torch.full((B, S), INF, device=dev)
+        self.inf_m = torch.full((1, B, Kp), INF, device=dev)
+        self.inf_q = torch.full((4, 1, B, S), INF, device=dev)
+        self.ss = [self.inf_s] * 7
+
+    def lanes(self, v):
+        """(B, S) per-segment values -> (B, Kp), each over its lanes."""
+        B = v.shape[0]
+        return v[:, :, None].expand(B, self.S, self.seg).reshape(B, -1)
+
+    def reseed(self, rows, xt) -> None:
+        """Restart the segments where `rows` (B, S) bool holds, from
+        position 0 of a window with xtrans `xt` (B, S, 16): only that
+        segment's lanes clear."""
+        rl = self.lanes(rows)
+        self.QM = torch.where(rl, INF, self.QM)
+        self.QI = torch.where(rl, INF, self.QI)
+        self.QS = torch.where(rows, INF, self.QS)
+        self.sm = torch.where(rl, INF, self.sm)
+        self.si = torch.where(rl, INF, self.si)
+        self.sd = torch.where(rl, INF, self.sd)
+        seeds = [torch.zeros_like(self.inf_s), xt[:, :, XT_SB], self.inf_s,
+                 self.inf_s, self.inf_s, self.inf_s, -xt[:, :, XT_RR]]
+        self.ss = [torch.where(rows, a, b) for a, b in zip(seeds, self.ss)]
+
+    def step(self, rows, tv, xt):
+        """Advance every row one DP position: `rows` (5, B, 2 * Kp + 128)
+        are the packed emission rows of the 5 fragments starting there, tv
+        (B, 8, Kp), xt (B, S, 16).  Returns (T_l, R_l) (B, S).  The lane
+        shift wraps and crosses segment boundaries unmasked, as in the
+        kernels: the last lane of every segment is a +inf pad."""
+        sm, si, sd, ss = self.sm, self.si, self.sd, self.ss
+        B, Kp = sm.shape
+        S, seg = self.S, self.seg
+
+        def x(j):
+            return xt[:, :, j]
+
+        inner = torch.minimum(torch.minimum(sm + tv[:, TV_MMS],
+                                            si + tv[:, TV_IMS]),
+                              sd + tv[:, TV_DMS])
+        contrib = torch.minimum(torch.roll(inner, 1, -1),
+                                self.lanes(ss[1]) + tv[:, TV_BM])
+        icand = torch.minimum(si + tv[:, TV_II], sm + tv[:, TV_MI])
+        cN = torch.minimum(ss[0] + x(XT_SN), ss[2] + x(XT_NN))
+        cJ = torch.minimum(ss[5] + x(XT_EJ), ss[3] + x(XT_JJ))
+        cC = torch.minimum(ss[5] + x(XT_EC), ss[4] + x(XT_CC))
+        cR = ss[6]
+        QM = torch.minimum(self.QM, contrib + rows[:, :, :Kp])
+        QI = torch.minimum(self.QI, icand + rows[:, :, Kp:2 * Kp])
+        QS = torch.minimum(self.QS, torch.stack((cN, cJ, cC, cR))[:, None]
+                           + rows[:, :, 2 * Kp:2 * Kp + S])
+
+        M, I = QM[0], QI[0]
+        A = torch.roll(M, 1, -1) + tv[:, TV_MD]
+        ddc = tv[:, TV_DDCUM]
+        # the delete-chain prefix min restarts at every segment
+        D = (torch.cummin((A - ddc).reshape(B, S, seg), dim=-1).values
+             .reshape(B, Kp) + ddc)
+        E = torch.minimum(M, D).reshape(B, S, seg).amin(-1)
+        Nl, Jl, Cl = QS[0, 0], QS[1, 0], QS[2, 0]
+        R = QS[3, 0] + x(XT_RR)
+        Bl = torch.minimum(torch.minimum(Nl + x(XT_NB), E + x(XT_EB)),
+                           Jl + x(XT_JB))
+        Tl = torch.minimum(E + x(XT_ET), Cl + x(XT_CT))
+        self.sm, self.si, self.sd = M, I, D
+        self.ss = [self.inf_s, Bl, Nl, Jl, Cl, E, R]
+        self.QM = torch.cat([QM[1:], self.inf_m])
+        self.QI = torch.cat([QI[1:], self.inf_m])
+        self.QS = torch.cat([QS[:, 1:], self.inf_q], 1)
+        return Tl, R
+
+
+def _check_packed_tables(pidx, tables, tvecs, nseg: int, N: int) -> int:
+    P, _, Kp = tvecs.shape
+    _check(pidx, "pidx", torch.int32, (N,))
+    _check(tables, "tables", torch.float32, (P, TABLE_SIZE, packed_width(Kp)))
+    _check(tvecs, "tvecs", torch.float32, (P, 8, Kp))
+    if (nseg <= 0 or Kp % 128 or Kp > PACK_MAX_KP or Kp % nseg
+            or (Kp // nseg) % PACK_SEG_QUANTUM):
+        raise NotImplementedError(
+            f"Kp={Kp}, nseg={nseg}: packed planes take multiples of 128 "
+            f"lanes up to {PACK_MAX_KP} in segments of a multiple of "
+            f"{PACK_SEG_QUANTUM} lanes")
+    return Kp
+
+
+def scores_pairs_packed_plain(pidx, tables, tvecs, xts, lengths, starts,
+                              codes_all, *, nseg):
+    """Plain PyTorch B6: the pending formulation of
+    `_kernel_pending_packed`, one Python step per DP position over
+    (N*W, Kp) planes with per-segment specials, in the kernel's f32
+    operation order.  Returns (alt, null) (N, W, nseg) f32; pad slots and
+    empty segments +inf."""
+    N, W = starts.shape
+    P, R, Wt = tables.shape
+    Kp, S, B = tvecs.shape[2], nseg, N * W
+    T = codes_all.shape[0]
+    dev = tables.device
+    flat = tables.reshape(P * R, Wt)
+    base = (pidx.long() * R).repeat_interleave(W)
+    tv = tvecs[pidx.long()].repeat_interleave(W, dim=0)
+    xt = xts.reshape(B, 1, 16).expand(B, S, 16)
+    lens = lengths.reshape(B).long()
+    st = starts.reshape(B).long()
+    dp = _PackedPendingDP(B, Kp, S, dev)
+    dp.reseed(torch.ones((B, S), dtype=torch.bool, device=dev), xt)
+    alt = torch.full((B, S), INF, device=dev)
+    nul = torch.full((B, S), INF, device=dev)
+    ends = set(lens.tolist())
+    for l in range(1, max(ends, default=0) + 1):
+        rows = _emission_rows(flat, base, codes_all,
+                              (st + (l - 1)).clamp(max=T - 1))
+        Tl, Rl = dp.step(rows, tv, xt)
+        if l in ends:
+            at_end = (lens == l)[:, None]
+            alt = torch.where(at_end, Tl, alt)
+            nul = torch.where(at_end, Rl, nul)
+    return alt.reshape(N, W, S), nul.reshape(N, W, S)
+
+
+def scores_pairs_packed(pidx, tables, tvecs, xts, lengths, starts,
+                        codes_all, *, nseg):
+    """B6 wrapper: score N (pack, window group) pairs of W slots, slot w's
+    window against each of the pack's `nseg` profiles.  pidx (N,) indexes
+    packs: tables (NPACK, 1364, 2 * Kp + 128) and tvecs (NPACK, 8, Kp)
+    from ops/tables.py build_tables_packed; xts, lengths, starts and
+    codes_all as for `scores_pairs`.  Returns (alt, null) (N, W, nseg)
+    f32; pad slots and empty segments +inf.  Segment s of every slot
+    equals `scores_pairs` on that window with profile s alone."""
+    N, W = starts.shape
+    Kp = _check_packed_tables(pidx, tables, tvecs, nseg, N)
+    _check(xts, "xts", torch.float32, (N, W, 16))
+    _check(lengths, "lengths", torch.int32, (N, W, 1))
+    _check(starts, "starts", torch.int32, (N, W))
+    _check(codes_all, "codes_all", torch.int32, (codes_all.shape[0], 5))
+    args = (pidx, tables, tvecs, xts, lengths, starts, codes_all)
+    if not on_cuda(*args):
+        return scores_pairs_packed_plain(*args, nseg=nseg)
+    from .. import _build
+
+    alt = torch.empty((N, W, nseg), dtype=torch.float32,
+                      device=tables.device)
+    nul = torch.empty_like(alt)
+    stream = torch.cuda.current_stream(tables.device).cuda_stream
+    err = _build.lib().dtt_score_packed(
+        pidx.data_ptr(), tables.data_ptr(), tvecs.data_ptr(), xts.data_ptr(),
+        lengths.data_ptr(), starts.data_ptr(), codes_all.data_ptr(),
+        alt.data_ptr(), nul.data_ptr(), N, W, nseg, Kp, codes_all.shape[0],
+        stream)
+    _build.check(err, "dtt_score_packed")
+    LAUNCHES["packed"] += 1
+    return alt, nul
+
+
+def scores_pairs_packed_chained_plain(pidx, tables, tvecs, run_sblk,
+                                      run_len, run_gstart, win_sblk,
+                                      win_len, win_xti, xt_lut, codes_all,
+                                      *, nseg):
+    """Plain PyTorch B7 (see `scores_pairs_packed_chained`), in chain
+    coordinates as `_chain_expand` and `_iseg_window_expand` lay it out:
+    each (pair, slot) row runs positions l = 1.. of its chain; the code
+    rows of a block come from the first run that covers it (run 0's first
+    block where none does); at the first block of a segment's entry that
+    segment is reseeded, its xtrans row follows the entry that covers the
+    block, and T/R latch at the entry's chain-coordinate end
+    sblk * KAPPA + len.  Returns (alt, null) (N, W, nseg, C) f32; pad
+    entries +inf."""
+    N, W, CR = run_len.shape
+    S, C = nseg, win_len.shape[3]
+    P, R, Wt = tables.shape
+    Kp, B = tvecs.shape[2], N * W
+    T = codes_all.shape[0]
+    dev = tables.device
+    flat = tables.reshape(P * R, Wt)
+    base = (pidx.long() * R).repeat_interleave(W)
+    tv = tvecs[pidx.long()].repeat_interleave(W, dim=0)
+    rs, rl, rg = (a.reshape(B, CR).long() for a in
+                  (run_sblk, run_len, run_gstart))
+    r_end = rs + (rl + KAPPA - 1) // KAPPA
+    ws, wl, wx = (a.reshape(B, S, C).long() for a in
+                  (win_sblk, win_len, win_xti))
+    real = wl > 0
+    end_blk = ws + (wl + KAPPA - 1) // KAPPA
+    end = torch.where(real, ws * KAPPA + wl, 0)
+    alt = torch.full((B, S, C), INF, device=dev)
+    nul = torch.full((B, S, C), INF, device=dev)
+    dp = _PackedPendingDP(B, Kp, S, dev)
+    ends = set(end[real].tolist())  # read once: the loop never waits
+    rowi = torch.arange(B, device=dev)
+    for l in range(1, max(ends, default=0) + 1):
+        if (l - 1) % KAPPA == 0:  # a new block
+            b = (l - 1) // KAPPA
+            rcov = (rl > 0) & (rs <= b) & (b < r_end)
+            rc = rcov.int().argmax(1)  # first covering run
+            off = torch.where(rcov.any(1),
+                              rg[rowi, rc] + (b - rs[rowi, rc]) * KAPPA,
+                              rg[:, 0]) - (l - 1)
+            cov = real & (ws <= b) & (b < end_blk)
+            active = cov.any(2)
+            ci = cov.int().argmax(2)[:, :, None]  # entries are disjoint
+            xt = xt_lut[torch.where(active, wx.gather(2, ci)[:, :, 0], 0)]
+            dp.reseed(active & (ws.gather(2, ci)[:, :, 0] == b), xt)
+        crow = (off + (l - 1)).clamp(0, T - 1)
+        Tl, Rl = dp.step(_emission_rows(flat, base, codes_all, crow), tv, xt)
+        if l in ends:
+            hit = end == l
+            alt = torch.where(hit, Tl[:, :, None], alt)
+            nul = torch.where(hit, Rl[:, :, None], nul)
+    return alt.reshape(N, W, S, C), nul.reshape(N, W, S, C)
+
+
+def scores_pairs_packed_chained(pidx, tables, tvecs, run_sblk, run_len,
+                                run_gstart, win_sblk, win_len, win_xti,
+                                xt_lut, codes_all, *, nseg):
+    """B7 wrapper: score N (pack, slot group) pairs of W slots.  Each slot
+    carries one shared code stream, a chain of up to CR read runs: run
+    (n, w, r) holds run_len nt (0 = pad) whose codes start at row
+    run_gstart of `codes_all`, placed at block run_sblk of the slot's
+    chain (KAPPA-position blocks).  Each segment s lays its own window
+    list over that chain: entry (n, w, s, c) is a window of win_len nt
+    (0 = pad) starting at chain block win_sblk, with xtrans row
+    xt_lut[win_xti].  Contract (the reference's): runs are disjoint in
+    blocks, the entries of one (slot, segment) are disjoint and in block
+    order, and every block of a real entry is covered by a run.  Whole-read
+    windows are the case where every segment lists the slot's runs as its
+    windows.  Returns (alt, null) (N, W, nseg, C) f32; pad entries +inf.
+    Every real entry equals that window scored by `scores_pairs_packed`.
+    The kernel scores each entry from its own reseed."""
+    N, W, CR = run_len.shape
+    Kp = _check_packed_tables(pidx, tables, tvecs, nseg, N)
+    if win_len.dim() != 4:
+        raise ValueError(f"win_len: shape {tuple(win_len.shape)}, expected "
+                         "(N, W, nseg, C)")
+    C = win_len.shape[3]
+    for name, a in (("run_sblk", run_sblk), ("run_len", run_len),
+                    ("run_gstart", run_gstart)):
+        _check(a, name, torch.int32, (N, W, CR))
+    for name, a in (("win_sblk", win_sblk), ("win_len", win_len),
+                    ("win_xti", win_xti)):
+        _check(a, name, torch.int32, (N, W, nseg, C))
+    _check(xt_lut, "xt_lut", torch.float32, (xt_lut.shape[0], 16))
+    _check(codes_all, "codes_all", torch.int32, (codes_all.shape[0], 5))
+    if CR < 1:
+        raise ValueError("a slot needs at least one code run")
+    args = (pidx, tables, tvecs, run_sblk, run_len, run_gstart, win_sblk,
+            win_len, win_xti, xt_lut, codes_all)
+    if not on_cuda(*args):
+        return scores_pairs_packed_chained_plain(*args, nseg=nseg)
+    from .. import _build
+
+    alt = torch.empty((N, W, nseg, C), dtype=torch.float32,
+                      device=tables.device)
+    nul = torch.empty_like(alt)
+    stream = torch.cuda.current_stream(tables.device).cuda_stream
+    err = _build.lib().dtt_score_packed_chained(
+        pidx.data_ptr(), tables.data_ptr(), tvecs.data_ptr(),
+        run_sblk.data_ptr(), run_len.data_ptr(), run_gstart.data_ptr(),
+        win_sblk.data_ptr(), win_len.data_ptr(), win_xti.data_ptr(),
+        xt_lut.data_ptr(), codes_all.data_ptr(), alt.data_ptr(),
+        nul.data_ptr(), N, W, nseg, C, CR, Kp, codes_all.shape[0], stream)
+    _build.check(err, "dtt_score_packed_chained")
+    LAUNCHES["pchain"] += 1
+    return alt, nul
 
 
 # ---------------------------------------------------------------------------

@@ -6,17 +6,17 @@ flags, one device, no confirmer; with `warmup`, checkpoint/resume,
 `should_stop`, `progress` and `release`):
 
   phase 1 (device, batched): null + alt costs of every in-flight
-    (profile, window) pair — the score kernels (chain tier B3, gang B5,
-    carry B8, classic B1) through the bucketed scheduler — then the LRT
-    filter;
+    (profile, window) pair — the score kernels (packed tiers B7 and B6
+    for small-K profiles, chain tier B3, gang B5, carry B8, classic B1)
+    through the bucketed scheduler — then the LRT filter;
   phase 2 (device + host): the B2 path kernel and the device walk for
     every survivor, hit segmentation, ML codon/amino decode, product line.
 
 Windows of one (profile, sequence) pair advance serially with last-hit
 feedback (speculated ahead and rewound on a hit, exactly as the
 reference); lines are written in (profile, sequence, window) order.
-Decoder, ProductWriter, WindowCursor, Sequence and ScanMetrics come from
-deciphon_tpu as they are.
+Decoder, ProductWriter, WindowCursor, Sequence and ScanMetrics are the
+port's own copies of deciphon_tpu's.
 """
 
 from __future__ import annotations
@@ -30,14 +30,14 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from deciphon_tpu import states as st
-from deciphon_tpu.logging import ScanMetrics, get_logger
-from deciphon_tpu.ops.costs import ViterbiCosts, build_costs
-from deciphon_tpu.profile import FrameProfile
-from deciphon_tpu.scan.decoder import Decoder
-from deciphon_tpu.scan.product import ProductLine, ProductWriter
-from deciphon_tpu.scan.sequence import Sequence
-from deciphon_tpu.scan.window import WindowCursor
+from .. import states as st
+from ..logging import ScanMetrics, get_logger
+from ..ops.costs import ViterbiCosts, build_costs
+from ..profile import FrameProfile
+from ..scan.decoder import Decoder
+from ..scan.product import ProductLine, ProductWriter
+from ..scan.sequence import Sequence
+from ..scan.window import WindowCursor
 
 from ..ops.traceback import assemble_path_entries
 from .scheduler import BucketedPairScorer, DeviceSeqCodes, PairItem
@@ -67,7 +67,13 @@ class Scanner:
     LRT hit is kept and reported with evalue 1 (log 0)."""
 
     def __init__(self, profiles: list[FrameProfile],
-                 config: ScanConfig | None = None, abc_name: str = "dna"):
+                 config: ScanConfig | None = None, abc_name: str = "dna",
+                 scorer=None):
+        """`scorer` replaces the default BucketedPairScorer (which packs
+        small-K profiles): a scorer, or a callable taking the per-profile
+        costs and returning one, e.g. a BucketedPairScorer built with a
+        `scorer_factory`, which keeps every profile in the plain
+        buckets."""
         self.profiles = profiles
         self.config = config or ScanConfig()
         self.device = torch.device(self.config.device)
@@ -80,14 +86,20 @@ class Scanner:
             build_costs(p, self.config.multi_hits, self.config.hmmer3_compat)
             for p in profiles
         ]
-        self.scorer: BucketedPairScorer | None = BucketedPairScorer(
-            self.costs, self.device)
+        self._scorer_spec = scorer
+        self.scorer = self._make_scorer()
         self._decoders: dict[int, Decoder] = {}
         self.progress_done = 0
         self.progress_total = 0
         self.metrics: ScanMetrics | None = None  # set per run()
         self._checkpoint = False
         self._dev_codes: DeviceSeqCodes | None = None  # set per run()
+
+    def _make_scorer(self):
+        scorer = self._scorer_spec
+        if scorer is not None:
+            return scorer(self.costs) if callable(scorer) else scorer
+        return BucketedPairScorer(self.costs, self.device)
 
     def release(self) -> None:
         """Free what is held between runs: the per-bucket scorers (the
@@ -151,7 +163,7 @@ class Scanner:
         self.metrics = ScanMetrics()
         log = get_logger("deciphon_tpu_torch.scan")
         if self.scorer is None:  # released after an earlier run
-            self.scorer = BucketedPairScorer(self.costs, self.device)
+            self.scorer = self._make_scorer()
         writer = ProductWriter(product_dir)
         self._checkpoint = checkpoint
         done_pairs: set[tuple[int, int]] = set()

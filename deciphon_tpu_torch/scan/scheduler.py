@@ -1,13 +1,11 @@
 """Batch scheduler: ragged (profile, window) pairs -> kernel launches.
 
-Counterpart of deciphon_tpu/scan/scheduler.py on one device with packing
-off, which is the reference's BucketedPairScorer built with a
-`scorer_factory`: plain power-of-two Kp buckets, each scored through
-`PairScorer.dispatch`.  The jax-free pieces of that module are reused as
-they are: PairItem, build_batches, bucket_arrays_meta, next_pow2,
-prev_pow2, quantize_nlb, _mass_p90, chunk_sizes, pad_groups, NCHUNK,
-_Bucket, _ChainChunk, HBMLedger and PairScorer._lpt_pack.  What touches
-the device is written here:
+Counterpart of deciphon_tpu/scan/scheduler.py on one device.  The host
+helpers are the port's own copies, equal in behaviour (PairItem,
+build_batches, bucket_arrays_meta, next_pow2, prev_pow2, quantize_nlb,
+_mass_p90, chunk_sizes, pad_groups, NCHUNK, _Bucket, _ChainChunk,
+_PackedChainChunk, HBMLedger, _lpt_pack); what touches the device is
+written for torch:
 
   * DeviceSeqCodes — the scan-resident START-indexed code table, built on
     the device from 1 byte/nt of uploaded bases;
@@ -15,13 +13,18 @@ the device is written here:
     chain tier (B3) with its gang (B5) and carry (B8) over-cap tiers and
     the classic rung buckets (B1), and phase-2 trellis + traceback (B2 +
     walk);
-  * BucketedPairScorer — profiles partitioned into Kp buckets, one
-    PairScorer each, one host transfer per phase-1 wave.
+  * PackedPairScorer — one seg-need class of small-K profiles, NSEG side
+    by side on one lane plane: whole-read windows through the packed
+    chain tier (B7) or, under DECIPHON_NO_CHAIN=1, the packed rung tier
+    (B6); everything else, and phase 2, through an inner PairScorer;
+  * BucketedPairScorer — profiles partitioned into packed classes and
+    plain Kp buckets, one scorer each, one host transfer per phase-1
+    wave.
 
 Environment switches, read where the reference reads them:
-DECIPHON_NO_CHAIN=1 sends every window to the classic buckets;
-DECIPHON_CHAIN_SEG=1 sends over-cap windows to carry segments instead of
-the gang.
+DECIPHON_NO_CHAIN=1 sends every window to the classic buckets (packed
+windows to B6); DECIPHON_CHAIN_SEG=1 sends over-cap windows to carry
+segments instead of the gang.
 
 Every scorer holds an explicit torch device; nothing falls back to the
 CPU.  Tiers that are not ported (HBM-streamed tables, Kp > 5120) raise.
@@ -31,22 +34,114 @@ from __future__ import annotations
 
 import os
 import time
+from dataclasses import dataclass
 
 import numpy as np
 import torch
 
-from deciphon_tpu.frame import FRAG_OFFSETS
-from deciphon_tpu.ops.costs import ViterbiCosts
-from deciphon_tpu.scan.scheduler import (NCHUNK, HBMLedger, PairItem,
-                                         _Bucket, _ChainChunk, _mass_p90,
-                                         bucket_arrays_meta, build_batches,
-                                         chunk_sizes, next_pow2, pad_groups,
-                                         prev_pow2, quantize_nlb)
-from deciphon_tpu.scan.scheduler import PairScorer as _RefPairScorer
-
+from ..frame import FRAG_OFFSETS
 from ..ops import viterbi as vk
-from ..ops.tables import common_kp, round_up, stack_tables
+from ..ops.costs import ViterbiCosts
+from ..ops.tables import (common_kp, round_up, stack_tables,
+                          stack_tables_packed)
 from ..ops.traceback import walk
+from ..xtrans import xtrans_cost_vector
+from .window import Window
+
+W = 8  # default windows per group (scorers may choose wider groups)
+
+
+def next_pow2(n: int) -> int:
+    p = 1
+    while p < n:
+        p *= 2
+    return p
+
+
+def prev_pow2(n: int) -> int:
+    p = 1
+    while p * 2 <= n:
+        p *= 2
+    return p
+
+
+def _mass_p90(sorted_blks: np.ndarray) -> int:
+    """Smallest window size covering >= 90% of total BLOCK mass.
+
+    The chain cap must cover the windows that carry the compute, not the
+    windows that are numerous: a COUNT percentile pinned the cap below
+    the dominant window size whenever many short consensus reads shared
+    a wave with fewer long read-sized windows, which
+    pushed the main mass onto the classic fallback."""
+    cum = np.cumsum(sorted_blks)
+    i = int(np.searchsorted(cum, 0.9 * cum[-1]))
+    return int(sorted_blks[min(i, len(sorted_blks) - 1)])
+
+
+# Geometric ladder for padded l-block counts: ratio ~1.25 bounds padding
+# waste at 25% (power-of-two padding wasted up to 2x compute on long
+# windows) while keeping the compiled-shape space small — 37 rungs cover
+# NLB 1..4200 (window cap 100 knt / kappa 40 = 2500 blocks).
+_NLB_LADDER: list[int] = []
+_v = 1.0
+while _v <= 4200:
+    r = int(-(-_v // 1))
+    if not _NLB_LADDER or r > _NLB_LADDER[-1]:
+        _NLB_LADDER.append(r)
+    _v *= 1.25
+
+
+def quantize_nlb(n: int) -> int:
+    """Smallest ladder rung >= n."""
+    for r in _NLB_LADDER:
+        if r >= n:
+            return r
+    return n
+
+
+class PairItem:
+    """One scheduled window with its origin coordinates.
+
+    `codes` (the (len, 5) END-indexed window fragment codes) is computed
+    lazily from the origin sequence: the device-resident scoring path
+    never touches it (it slices the scan-global code array by `gstart`),
+    so only LRT survivors and host-side engines pay the O(L) precompute.
+    """
+
+    __slots__ = ("p_idx", "s_idx", "win", "multi_hits", "hmmer3_compat",
+                 "seq", "gstart", "_codes", "post_state", "valid",
+                 "dispatched")
+
+    def __init__(self, p_idx: int, s_idx: int, win: Window,
+                 multi_hits: bool, hmmer3_compat: bool,
+                 codes: np.ndarray | None = None, seq=None,
+                 gstart: int = -1):
+        self.p_idx = p_idx
+        self.s_idx = s_idx
+        self.win = win
+        self.multi_hits = multi_hits
+        self.hmmer3_compat = hmmer3_compat
+        self.seq = seq
+        self.gstart = gstart
+        self._codes = codes
+        # speculation bookkeeping (scan/pipeline.py): the cursor state
+        # right after this window was generated, whether the window is
+        # still part of the serial walk, and whether a wave carries it
+        self.post_state = None
+        self.valid = True
+        self.dispatched = False
+
+    @property
+    def codes(self) -> np.ndarray:
+        if self._codes is None:
+            self._codes = self.seq.window_codes(self.win.start, self.win.stop)
+        return self._codes
+
+    @property
+    def xt(self) -> np.ndarray:
+        return xtrans_cost_vector(self.multi_hits, self.hmmer3_compat,
+                                  self.win.length)
+
 
 
 def start_codes_compute(b8: torch.Tensor) -> torch.Tensor:
@@ -100,14 +195,154 @@ class DeviceSeqCodes:
         return self.offsets[s_idx] + win_start
 
 
+@dataclass
+class _Bucket:
+    nlb: int
+    groups: list[list[PairItem]]
+    w: int = W
+
+
+@dataclass
+class _ChainChunk:
+    """Result-mapping for one chained kernel call: groups[gi][wi] is the
+    ordered window chain of slot wi of pair gi (scores come back as
+    (N, W, C) arrays indexed the same way)."""
+
+    groups: list  # [gi][wi] -> list[PairItem]
+
+
+@dataclass
+class _PackedChainChunk:
+    """Result-mapping for one packed-chained kernel call:
+    groups[gi][wi][ci] is the [(segment, item), ...] fan-out of chain
+    window ci of slot wi of pack-group gi (scores come back as
+    (N, W, NSEG, C) arrays)."""
+
+    groups: list  # [gi][wi][ci] -> list[(segment, PairItem)]
+
+
+# Groups per kernel call: full chunks use this fixed leading dim (one
+# compiled program covers most of the work), the remainder pads to a
+# power of two (few small shapes) — the compiled-shape budget that keeps
+# the cold wall bounded.
+NCHUNK = 64
+
+
+def chunk_sizes(n: int) -> list[int]:
+    """Decompose a group count into chunks padding to {NCHUNK, 8, 1}.
+
+    Every kernel call's leading dim (after pad_groups) is then one of
+    exactly THREE values, so the compiled-program count stays flat
+    regardless of workload shape (free-form power-of-two tails multiplied
+    the cold compile wall).  A 2..7-group remainder ships as ONE chunk
+    padded to N=8 (pad pairs carry length 0 and are near-free) instead of
+    spraying per-call dispatch latency over N=1 calls."""
+    out = []
+    while n >= NCHUNK:
+        out.append(NCHUNK)
+        n -= NCHUNK
+    while n >= 8:
+        out.append(8)
+        n -= 8
+    if n:
+        out.append(n)
+    return out
+
+
+def pad_groups(n: int) -> int:
+    """Padded leading dim for an n-group chunk: one of {1, 8, NCHUNK}."""
+    if n <= 1:
+        return max(n, 1)
+    return 8 if n <= 8 else NCHUNK
+
+
+def build_batches(items: list[PairItem], kappa: int, w: int = W,
+                  nlb_floor: int = 1) -> list[_Bucket]:
+    """Bucket items by padded-length rung, group per profile into w-slots.
+
+    The group width adapts PER (length-rung, profile): long-window rungs
+    typically hold 1-2 windows per profile, and padding those up to the
+    scorer-wide width wastes most of the launch (a 100 knt window group
+    with 2 real slots of 32 is 94% padding).  `w`
+    caps the width; each bucket carries the width its groups were built
+    with.  `nlb_floor` merges sub-floor rungs into one bucket — short
+    reads otherwise spray one near-free kernel call per (rung, scorer),
+    and per-call dispatch latency, not compute, dominates those."""
+    per: dict[tuple[int, int], list[PairItem]] = {}
+    for it in items:
+        nlb = max(nlb_floor,
+                  quantize_nlb(max(1, -(-it.win.length // kappa))))
+        per.setdefault((nlb, it.p_idx), []).append(it)
+
+    buckets: dict[tuple[int, int], _Bucket] = {}
+    for (nlb, p_idx) in sorted(per):
+        wins = per[(nlb, p_idx)]
+        wg = max(8, min(w, next_pow2(len(wins))))
+        b = buckets.setdefault((nlb, wg), _Bucket(nlb=nlb, groups=[], w=wg))
+        for i in range(0, len(wins), wg):
+            b.groups.append(wins[i:i + wg])
+
+    out = []
+    for key in sorted(buckets):
+        b = buckets[key]
+        i = 0
+        for size in chunk_sizes(len(b.groups)):
+            out.append(_Bucket(nlb=b.nlb, groups=b.groups[i:i + size],
+                               w=b.w))
+            i += size
+    return out
+
+
+def bucket_arrays_meta(bucket: _Bucket, dev_codes: DeviceSeqCodes):
+    """Metadata-only bucket assembly for the device-side packing path.
+
+    Returns (pidx (N,), xts (N,w,16), lens (N,w,1), starts (N,w)) — a few
+    KB per round instead of the materialized code blocks, which the
+    fused kernel jit gathers on device from `dev_codes`."""
+    w = bucket.w
+    n = len(bucket.groups)
+    N = pad_groups(n)
+    pidx = np.zeros((N,), np.int32)
+    xts = np.zeros((N, w, 16), np.float32)
+    lens = np.zeros((N, w, 1), np.int32)
+    starts = np.full((N, w), dev_codes.pad_start, np.int32)
+    for gi, g in enumerate(bucket.groups):
+        pidx[gi] = g[0].p_idx
+        for wi, it in enumerate(g):
+            xts[gi, wi, :13] = it.xt
+            lens[gi, wi, 0] = it.win.length
+            starts[gi, wi] = it.gstart
+    return pidx, xts, lens, starts
+
+
+
 def _tensors(device, *arrays):
     """Host metadata of one launch -> device tensors (a few KB)."""
     return [torch.from_numpy(a).to(device) for a in arrays]
 
 
-# least-loaded bin packing of (item, blocks) into chain slots: the
-# reference's staticmethod, which needs no instance
-_lpt_pack = _RefPairScorer._lpt_pack
+def _lpt_pack(wins: list[tuple[PairItem, int]], nslots: int,
+              cap: float, cmax: float) -> list[list]:
+    """Least-loaded (LPT) bin packing of (item, blocks) into slots.
+
+    Starts with `nslots` empty slots and opens extra ones when no
+    slot satisfies the (cap blocks, cmax windows) bounds; returns
+    non-empty slots as [(items, load_blocks)]."""
+    slots: list[list[PairItem]] = [[] for _ in range(nslots)]
+    loads = [0] * nslots
+    for it, b in wins:
+        best = -1
+        for i in range(len(slots)):
+            if (loads[i] + b <= cap and len(slots[i]) < cmax
+                    and (best < 0 or loads[i] < loads[best])):
+                best = i
+        if best < 0:
+            slots.append([])
+            loads.append(0)
+            best = len(slots) - 1
+        slots[best].append(it)
+        loads[best] += b
+    return [(s, l) for s, l in zip(slots, loads) if s]
 
 
 class PairScorer:
@@ -583,6 +818,354 @@ class PairScorer:
         return inflight
 
 
+class PackedPairScorer:
+    """Lane-packed scorer for one seg-need class of small-K profiles.
+
+    Profiles pack NSEG side by side on the lanes of one plane (pack i =
+    profiles [i * nseg, (i + 1) * nseg) of the K-sorted class), so a slot
+    scores its window against a whole pack at once.  Every segment of a
+    slot scans the SAME window, so phase-1 items split by a static rule:
+    whole-read windows (win == [0, seq.size), identical across profiles
+    whenever they exist) and the windows of uniform-K packs go to the
+    packed kernels (B7 chained, or B6 under DECIPHON_NO_CHAIN=1);
+    everything else (multi-window long reads, and all of phase 2)
+    delegates to an inner unpacked PairScorer over the same profiles,
+    whose tables are held beside the packed ones.
+
+    Contract-compatible with PairScorer: dispatch()/collect()/score()/
+    paths_group_dispatch()/set_device_codes(); its entries interleave
+    freely with the inner scorer's in one wave handle.
+
+    PACKED_W and the chain pin's cmax of 4 are inherited from the
+    reference, where they were tuned for another accelerator; they are not
+    derived on this hardware."""
+
+    NLB_FLOOR = PairScorer.NLB_FLOOR
+    XT_LUT_CAP = PairScorer.XT_LUT_CAP
+    CHAIN_MAX_BLK = PairScorer.CHAIN_MAX_BLK
+    # group width per packed plane width Kp (64 elsewhere)
+    PACKED_W = {128: 128, 256: 128, 384: 64, 512: 128}
+
+    def __init__(self, costs_list: list[ViterbiCosts], nseg: int,
+                 device: torch.device | str, inner_w: int | None = None,
+                 seg: int | None = None):
+        self.device = torch.device(device)
+        self.nseg = nseg
+        self.seg = seg if seg is not None else max(
+            round_up(c.K + 2, 64) for c in costs_list)
+        self.Kp = self.seg * nseg
+        if self.Kp % 128:
+            raise ValueError(f"seg {self.seg} x nseg {nseg} is not a "
+                             "multiple of 128 lanes")
+        npack = -(-len(costs_list) // nseg)
+        # uniform-K packs share WINDOW boundaries (windowing is a function
+        # of K alone), so their windowed reads pack too; otherwise only
+        # whole-read windows are shared by a pack
+        self._uniform_pack = [
+            len({c.K for c in costs_list[i * nseg:(i + 1) * nseg]}) == 1
+            for i in range(npack)]
+        tables, tvecs = stack_tables_packed(costs_list, self.seg, nseg)
+        self.tables = tables.to(self.device)
+        self.tvecs = tvecs.to(self.device)
+        self.w = self.PACKED_W.get(self.Kp, 64)
+        self.inner = PairScorer(costs_list, self.device,
+                                w=inner_w if inner_w is not None else W)
+        self.dev_codes: DeviceSeqCodes | None = None
+        self._metrics = None
+        self._w_pinned: int | None = None
+        # chained packed planes: the same xtrans LUT and (cap, cmax, w,
+        # maxblk) pin machinery as PairScorer
+        self._xt_lut = np.zeros((self.XT_LUT_CAP, 16), np.float32)
+        self._xt_lut_idx: dict = {}
+        self._xt_lut_dev: torch.Tensor | None = None
+        self._chain_pin: tuple[int, int, int, int] | None = None
+
+    def table_bytes(self) -> int:
+        """Device bytes of the packed tables and the inner scorer's."""
+        return ((self.tables.numel() + self.tvecs.numel()) * 4
+                + self.inner.table_bytes())
+
+    def set_streaming(self, on: bool) -> None:
+        raise NotImplementedError(
+            "streaming tables per wave is not ported (ROADMAP A5b)")
+
+    # metrics propagate to the inner scorer so wall buckets stay unified
+    @property
+    def metrics(self):
+        return self._metrics
+
+    @metrics.setter
+    def metrics(self, m) -> None:
+        self._metrics = m
+        self.inner.metrics = m
+
+    _xt_index = PairScorer._xt_index
+    _walls = PairScorer._walls
+
+    def set_device_codes(self, dev_codes: DeviceSeqCodes | None) -> None:
+        self.dev_codes = dev_codes
+        self._w_pinned = None
+        self._xt_lut_idx.clear()
+        self._xt_lut_dev = None
+        self._chain_pin = None
+        self.inner.set_device_codes(dev_codes)
+
+    def dispatch(self, items: list[PairItem]) -> list:
+        """Enqueue every launch of one wave without blocking: shareable
+        windows on the packed planes, chained (B7) unless
+        DECIPHON_NO_CHAIN=1 (then B6, as that switch sends unpacked
+        windows to B1; the reference's packed tier does not read it), the
+        rest through the inner scorer."""
+        use_dev = self.dev_codes is not None
+        packed: list[PairItem] = []
+        rest: list[PairItem] = []
+        for it in items:
+            # an item without its read (seq=None) cannot be known whole
+            whole = (it.seq is not None and it.win.start == 0
+                     and it.win.stop == it.seq.size)
+            if use_dev and (whole
+                            or self._uniform_pack[it.p_idx // self.nseg]):
+                packed.append(it)
+            else:
+                rest.append(it)
+        chain = (PairScorer.CHAIN
+                 and os.environ.get("DECIPHON_NO_CHAIN", "").lower()
+                 not in ("1", "true"))
+        if packed and chain:
+            packed, chained = self._dispatch_packed_chained(packed)
+            rest = rest + packed
+            inflight = list(self.inner.dispatch(rest)) if rest else []
+            return inflight + chained
+        inflight = list(self.inner.dispatch(rest)) if rest else []
+        if packed:
+            inflight.extend(self._dispatch_packed(packed))
+        return inflight
+
+    def _dispatch_packed_chained(self, items: list[PairItem]):
+        """Chain shareable windows into lane-packed planes (the
+        reference's `_dispatch_packed_chained`, branch for branch).
+
+        Rows (one per (pack, window identity)) chain back to back into
+        the W slots of each pack's groups with per-slot reseeds, exactly
+        like PairScorer._dispatch_chained, but every row is scored
+        against the pack's NSEG profiles at once.  Returns
+        (leftover_items, entries): rows past the cap pin or the LUT fall
+        back to the caller's inner dispatch."""
+        kappa = vk.KAPPA
+
+        # rows: pack -> {window identity -> [(segment, item), ...]}
+        per: dict[int, dict] = {}
+        for it in items:
+            pack, s = divmod(it.p_idx, self.nseg)
+            per.setdefault(pack, {}).setdefault(
+                (it.s_idx, it.win.start, it.win.stop), []).append((s, it))
+
+        def blk(length):
+            return -(-length // kappa)
+
+        if self._chain_pin is None:
+            blks = np.sort(np.array(
+                [blk(k[2] - k[1]) for rows in per.values() for k in rows]))
+            if len(blks) == 0:
+                return items, []
+            cap = quantize_nlb(max(_mass_p90(blks), self.NLB_FLOOR))
+            bmax = max(sum(blk(k[2] - k[1]) for k in rows
+                           if blk(k[2] - k[1]) <= cap)
+                       for rows in per.values())
+            nslots = -(-bmax // cap)
+            w_c = max(8, min(self.w, next_pow2(max(nslots, 1))))
+            self._chain_pin = (cap, 4, w_c, cap)
+        cap, cmax, w_c, maxblk = self._chain_pin
+
+        leftover: list[PairItem] = []
+        pairs: list[tuple[int, list]] = []  # (pack, [slot rows])
+        for pack in sorted(per):
+            rows = []
+            for key in sorted(per[pack]):
+                segs = per[pack][key]
+                it0 = segs[0][1]
+                b = blk(it0.win.length)
+                xti = self._xt_index(it0)
+                if b > maxblk or xti is None:
+                    leftover.extend(it for _, it in segs)
+                else:
+                    rows.append(((key, segs, xti), b))
+            rows.sort(key=lambda x: (-x[1], x[0][0]))
+            slots = [s for s, _ in _lpt_pack(rows, w_c, cap, cmax)]
+            for i in range(0, len(slots), w_c):
+                pairs.append((pack, slots[i:i + w_c]))
+
+        if not pairs:
+            return leftover, []
+        if self._xt_lut_dev is None:
+            self._xt_lut_dev = torch.from_numpy(self._xt_lut).to(self.device)
+
+        # narrow width for tail chunks: sparse pack groups ride a w/4
+        # launch.  Each distinct width is dispatched once (the reference
+        # loops over (w_c, w_n) and launches every chunk twice when
+        # w_c == 8); its 8-group split of NCHUNK chunks bounded gathered
+        # code blocks, which the fused gather never materializes.
+        w_n = max(8, w_c // 4)
+        by_width: dict[int, list] = {w_c: [], w_n: []}
+        for pack, slots in pairs:
+            wb = w_n if (w_n < w_c and len(slots) <= w_n) else w_c
+            by_width[wb].append((pack, slots))
+        chunks: list[tuple[list, int]] = []
+        for wb, wpairs in by_width.items():
+            i0 = 0
+            for size in chunk_sizes(len(wpairs)):
+                chunks.append((wpairs[i0:i0 + size], wb))
+                i0 += size
+        entries: list = []
+        for chunk, w_ck in chunks:
+            t0 = time.perf_counter()
+            N = pad_groups(len(chunk))
+            pidx = np.zeros((N,), np.int32)
+            sblk = np.zeros((N, w_ck, cmax), np.int32)
+            wlen = np.zeros((N, w_ck, cmax), np.int32)
+            gst = np.full((N, w_ck, cmax), self.dev_codes.pad_start,
+                          np.int32)
+            xti = np.zeros((N, w_ck, cmax), np.int32)
+            groups = []
+            for gi, (pack, slots) in enumerate(chunk):
+                pidx[gi] = pack
+                gslots = []
+                for wi, slot in enumerate(slots):
+                    b = 0
+                    grow = []
+                    for ci, (_key, segs, xtin) in enumerate(slot):
+                        it0 = segs[0][1]
+                        sblk[gi, wi, ci] = b
+                        wlen[gi, wi, ci] = it0.win.length
+                        gst[gi, wi, ci] = it0.gstart
+                        xti[gi, wi, ci] = xtin
+                        b += blk(it0.win.length)
+                        grow.append(segs)
+                    gslots.append(grow)
+                groups.append(gslots)
+            t1 = time.perf_counter()
+            alt, nul = self._invoke_scores_packed_chained(pidx, sblk, wlen,
+                                                          gst, xti)
+            self._walls(t0, t1)
+            entries.append((_PackedChainChunk(groups), alt, nul))
+        return leftover, entries
+
+    def _invoke_scores_packed_chained(self, pidx, sblk, wlen, gst, xti):
+        """The packed chained phase-1 kernel call (B7).  Shareable
+        windows are shared across a pack's segments, so the slot's code
+        run chain IS the window chain, and every segment lists it (the
+        kernel takes per-segment lists; the scheduler only emits the
+        shared case).  The lists are laid out per segment on the
+        device."""
+        pidx, sblk, wlen, gst, xti = _tensors(self.device, pidx, sblk, wlen,
+                                              gst, xti)
+        N, Wc, C = sblk.shape
+
+        def per_seg(a):
+            return a[:, :, None, :].expand(N, Wc, self.nseg, C).contiguous()
+
+        return vk.scores_pairs_packed_chained(
+            pidx, self.tables, self.tvecs, sblk, wlen, gst, per_seg(sblk),
+            per_seg(wlen), per_seg(xti), self._xt_lut_dev,
+            self.dev_codes.dev, nseg=self.nseg)
+
+    def _w_eff(self, rows_per_pack: int) -> int:
+        if self._w_pinned is None:
+            self._w_pinned = max(8, min(self.w,
+                                        next_pow2(max(1, rows_per_pack))))
+        return self._w_pinned
+
+    def _dispatch_packed(self, items: list[PairItem]) -> list:
+        """Rung-bucketed packed dispatch (B6, one window per slot).  As in
+        `_dispatch_classic`, there is no in-flight byte cap."""
+        # rows: (nlb rung, pack) -> {window identity -> [(segment, item)]}
+        per: dict[tuple[int, int], dict] = {}
+        for it in items:
+            pack, s = divmod(it.p_idx, self.nseg)
+            nlb = max(self.NLB_FLOOR,
+                      quantize_nlb(max(1, -(-it.win.length // vk.KAPPA))))
+            per.setdefault((nlb, pack), {}).setdefault(
+                (it.s_idx, it.win.start, it.win.stop), []).append((s, it))
+
+        w = self._w_eff(max(len(d) for d in per.values()))
+        inflight: list = []
+        for (nlb, pack) in sorted(per):
+            rows = [per[(nlb, pack)][k] for k in sorted(per[(nlb, pack)])]
+            groups = [rows[i:i + w] for i in range(0, len(rows), w)]
+            i0 = 0
+            for size in chunk_sizes(len(groups)):
+                chunk = groups[i0:i0 + size]
+                i0 += size
+                t0 = time.perf_counter()
+                N = pad_groups(len(chunk))
+                pidx = np.full((N,), pack, np.int32)
+                xts = np.zeros((N, w, 16), np.float32)
+                lens = np.zeros((N, w, 1), np.int32)
+                starts = np.full((N, w), self.dev_codes.pad_start, np.int32)
+                for gi, g in enumerate(chunk):
+                    for wi, slot in enumerate(g):
+                        it0 = slot[0][1]  # window shared across segments
+                        xts[gi, wi, :13] = it0.xt
+                        lens[gi, wi, 0] = it0.win.length
+                        starts[gi, wi] = it0.gstart
+                t1 = time.perf_counter()
+                alt, nul = self._invoke_scores_packed(pidx, xts, lens,
+                                                      starts)
+                self._walls(t0, t1)
+                inflight.append((chunk, alt, nul))
+        return inflight
+
+    def _invoke_scores_packed(self, pidx, xts, lens, starts):
+        """The packed phase-1 kernel call (B6)."""
+        pidx, xts, lens, starts = _tensors(self.device, pidx, xts, lens,
+                                           starts)
+        return vk.scores_pairs_packed(pidx, self.tables, self.tvecs, xts,
+                                      lens, starts, self.dev_codes.dev,
+                                      nseg=self.nseg)
+
+    @staticmethod
+    def _collect_entry(entry, results) -> None:
+        head, alt, nul = entry
+        if isinstance(head, (_Bucket, _ChainChunk)):  # inner entry
+            PairScorer._collect_one(entry, results)
+            return
+        alt = np.asarray(alt)
+        nul = np.asarray(nul)
+        if isinstance(head, _PackedChainChunk):  # (N, W, S, C)
+            for gi, g in enumerate(head.groups):
+                for wi, slot in enumerate(g):
+                    for ci, segs in enumerate(slot):
+                        for s, it in segs:
+                            results[id(it)] = (float(nul[gi, wi, s, ci]),
+                                               float(alt[gi, wi, s, ci]))
+            return
+        for gi, g in enumerate(head):  # a B6 chunk, (N, W, S)
+            for wi, slot in enumerate(g):
+                for s, it in slot:
+                    results[id(it)] = (float(nul[gi, wi, s]),
+                                       float(alt[gi, wi, s]))
+
+    def collect(self, inflight) -> dict[int, tuple[float, float]]:
+        """Host copies of a dispatch's outputs -> {id(item): (null, alt)};
+        entries may already hold numpy arrays."""
+        results: dict[int, tuple[float, float]] = {}
+        for head, alt, nul in inflight:
+            if isinstance(alt, torch.Tensor):
+                t0 = time.perf_counter()
+                alt, nul = alt.cpu().numpy(), nul.cpu().numpy()
+                if self._metrics is not None:
+                    self._metrics.add_wall("collect",
+                                           time.perf_counter() - t0)
+            self._collect_entry((head, alt, nul), results)
+        return results
+
+    def score(self, items: list[PairItem]) -> dict[int, tuple[float, float]]:
+        return self.collect(self.dispatch(items))
+
+    def paths_group_dispatch(self, items: list[PairItem]) -> list:
+        return self.inner.paths_group_dispatch(items)
+
+
 def device_table_budget(device: torch.device | str) -> int:
     """Device bytes available for resident profile tables.
 
@@ -601,30 +1184,167 @@ def device_table_budget(device: torch.device | str) -> int:
     return max(limit - reserve, 1 << 30)
 
 
-class BucketedPairScorer:
-    """Partitions profiles into Kp buckets, one PairScorer each.
+class HBMLedger:
+    """Capacity ledger for per-bucket table residency (the
+    DB-exceeds-HBM plan).
 
-    Buckets are powers of two over Kp up to 2048, then multiples of 512
-    (the reference's plain buckets, scheduler.py BucketedPairScorer; its
-    lane-packed tiers never change products and are not ported yet).  A
-    capacity ledger checks that every bucket's tables stay resident;
-    streaming tables per wave is not ported and raises."""
+    The reference's design point is a 32 x 4 GB database streamed from
+    disk through per-partition iterators (c-core/database_writer.c:14,
+    protein_reader.c:77-101); a realistic Pfam press overflows one
+    accelerator's HBM even before scratch.  The ledger assigns buckets
+    to RESIDENT device tables until the budget runs out; the remainder
+    STREAM host->device per wave (PairScorer.stream_tables), trading
+    upload bandwidth for unbounded database size instead of OOMing.
+    Biggest buckets stream first — their per-byte upload amortizes over
+    the most compute.
+    """
+
+    def __init__(self, budget_bytes: int):
+        self.budget = int(budget_bytes)
+        self.resident: list[tuple[int, int]] = []  # (scorer idx, bytes)
+        self.streamed: list[tuple[int, int]] = []
+
+    def plan(self, sizes: list[int]) -> list[bool]:
+        """sizes[i] = table bytes of scorer i; returns stream flags.
+        Deterministic: larger tables considered first, so small buckets
+        (the common-case hot mass) stay resident."""
+        order = sorted(range(len(sizes)), key=lambda i: (-sizes[i], i))
+        left = self.budget
+        stream = [False] * len(sizes)
+        for i in order:
+            if sizes[i] <= left:
+                left -= sizes[i]
+                self.resident.append((i, sizes[i]))
+            else:
+                stream[i] = True
+                self.streamed.append((i, sizes[i]))
+        return stream
+
+    @property
+    def resident_bytes(self) -> int:
+        return sum(b for _, b in self.resident)
+
+    @property
+    def streamed_bytes(self) -> int:
+        return sum(b for _, b in self.streamed)
+
+
+class BucketedPairScorer:
+    """Partitions profiles into packed classes and plain Kp buckets, one
+    scorer each.
+
+    Small-K profiles class by their 64-lane seg need and pack NSEG per
+    plane (PackedPairScorer); a custom `scorer_factory` keeps everything
+    in the plain buckets, which are powers of two over Kp up to 2048, then
+    multiples of 512 (the reference's rules, scheduler.py
+    BucketedPairScorer, branch for branch).  A capacity ledger checks that
+    every scorer's tables stay resident; streaming tables per wave is not
+    ported and raises.
+
+    PACK_MAX_SEG, PACK_KP_MAX, W_LANE_BUDGET and w_cap are inherited from
+    the reference, where they were tuned for another accelerator; they are
+    not derived on this hardware."""
 
     MAX_KP = vk.MAX_KP
     # Slot-width rule of the reference (w * Kp state-plane budget).  On
     # the card each window is its own CTA, so w only sets how many
     # windows share one launch.
     W_LANE_BUDGET = 128 * 2048
+    # Lane packing: profiles whose 64-lane seg need is at most
+    # PACK_MAX_SEG pack NSEG per plane, up to PACK_KP_MAX total lanes.
+    # Classes form greedily from the largest seg need down, accepting
+    # members within 2x (lane fill >= 0.5 before 64-lane quantization).
+    PACK_MAX_SEG = 1024
+    PACK_KP_MAX = vk.PACK_MAX_KP
 
     @staticmethod
     def w_cap(kp: int) -> int:
         return 256 if kp <= 1024 else 128
 
+    @classmethod
+    def plain_w(cls, kp: int) -> int:
+        """Slot width of a plain bucket of lane width kp."""
+        return max(8, prev_pow2(min(cls.w_cap(kp), cls.W_LANE_BUDGET // kp)))
+
     def __init__(self, costs_list: list[ViterbiCosts],
-                 device: torch.device | str, hbm_budget: int | None = None):
+                 device: torch.device | str, scorer_factory=None,
+                 hbm_budget: int | None = None):
         self.device = torch.device(device)
-        buckets: dict[int, list[int]] = {}
+
+        def default_factory(costs):
+            return PairScorer(costs, self.device,
+                              w=self.plain_w(common_kp(costs)))
+
+        factory = scorer_factory or default_factory
+
+        # greedy class formation, largest seg need first: a class opened
+        # at seg accepts members with segn >= seg / 2 (their lanes pad up
+        # to seg); singleton classes stay unpacked (an nseg = 2 pack with
+        # one pad segment is pure waste against the profile's own pow2
+        # bucket).  Custom factories keep the plain pow2 buckets.
+        plain: list[int] = []
+        allow_packing = scorer_factory is None
+        cand: list[tuple[int, int]] = []
         for i, c in enumerate(costs_list):
+            segn = round_up(c.K + 2, 64)
+            if allow_packing and segn <= self.PACK_MAX_SEG:
+                cand.append((segn, i))
+            else:
+                plain.append(i)
+        cand.sort(key=lambda x: (-x[0], x[1]))
+        packed_classes: list[tuple[int, list[int]]] = []
+        cur_seg: int | None = None
+        cur: list[int] = []
+        for segn, i in cand:
+            if cur_seg is None or segn * 2 < cur_seg:
+                if cur:
+                    packed_classes.append((cur_seg, cur))
+                cur_seg, cur = segn, [i]
+            else:
+                cur.append(i)
+        if cur:
+            packed_classes.append((cur_seg, cur))
+        kept: list[tuple[int, list[int]]] = []
+        for seg, idxs in packed_classes:
+            if len(idxs) < 2:
+                plain.extend(idxs)
+            else:
+                kept.append((seg, idxs))
+
+        self._map: dict[int, tuple[int, int]] = {}
+        self.scorers: list = []
+        for segn, members in kept:
+            idxs = sorted(members, key=lambda i: costs_list[i].K)
+            # divisor-aware nseg: minimize total pack lanes
+            # ceil(n / nseg) * nseg * seg (a 5-member class at nseg = 4
+            # packs 4 + 1, and the singleton pack wastes 3 pad segments;
+            # nseg = 3 packs 3 + 2 with one pad), tiebreak toward the
+            # larger plane
+            n = len(idxs)
+            best = None
+            for cand_nseg in range(2, min(8, max(
+                    self.PACK_KP_MAX // segn, 2)) + 1):
+                if (segn * cand_nseg) % 128:
+                    continue
+                units = -(-n // cand_nseg) * cand_nseg
+                key = (units, -cand_nseg)
+                if best is None or key < best[0]:
+                    best = (key, cand_nseg)
+            nseg = best[1] if best else 2
+            while (segn * nseg) % 128:
+                nseg *= 2  # seg = 192: S = 2 -> Kp = 384
+            for local, gi in enumerate(idxs):
+                self._map[gi] = (len(self.scorers), local)
+            costs = [costs_list[i] for i in idxs]
+            inner_kp = common_kp(costs)
+            inner_w = max(8, min(self.w_cap(inner_kp),
+                                 self.W_LANE_BUDGET // inner_kp))
+            self.scorers.append(PackedPairScorer(
+                costs, nseg, self.device, inner_w=inner_w, seg=segn))
+
+        buckets: dict[int, list[int]] = {}
+        for i in plain:
+            c = costs_list[i]
             kp = round_up(max(c.K + 2, 128), 128)
             b = next_pow2(kp)
             if b > 2048:
@@ -634,17 +1354,10 @@ class BucketedPairScorer:
                     f"profile {i} (K={c.K}) needs Kp={b} > {self.MAX_KP}: "
                     "the HBM-table tier is ROADMAP B4")
             buckets.setdefault(b, []).append(i)
-
-        self._map: dict[int, tuple[int, int]] = {}
-        self.scorers: list[PairScorer] = []
         for b, idxs in sorted(buckets.items()):
             for local, gi in enumerate(idxs):
                 self._map[gi] = (len(self.scorers), local)
-            costs = [costs_list[i] for i in idxs]
-            kp = common_kp(costs)
-            wb = max(8, prev_pow2(min(self.w_cap(kp),
-                                      self.W_LANE_BUDGET // kp)))
-            self.scorers.append(PairScorer(costs, self.device, w=wb))
+            self.scorers.append(factory([costs_list[i] for i in idxs]))
 
         self.ledger = HBMLedger(hbm_budget if hbm_budget is not None
                                 else device_table_budget(self.device))
@@ -692,9 +1405,10 @@ class BucketedPairScorer:
             self._restore(items, remap)
 
     def collect_all(self, pending) -> dict[int, tuple[float, float]]:
-        """Fetch every bucket's outputs of one wave in ONE host transfer
-        (all alt/null planes, (N, W) and chained (N, W, C), concatenated
-        on the device; carry planes never leave it)."""
+        """Fetch every scorer's outputs of one wave in ONE host transfer
+        (all alt/null planes, (N, W), chained (N, W, C), packed (N, W, S)
+        and packed chained (N, W, S, C), concatenated on the device; carry
+        planes never leave it)."""
         flat = [a for _, inflight in pending for e in inflight
                 for a in (e[1], e[2])]
         t0 = time.perf_counter()
@@ -714,6 +1428,9 @@ class BucketedPairScorer:
                 rebuilt.append((bucket, a, u))
             results.update(scorer.collect(rebuilt))
         return results
+
+    def score(self, items: list[PairItem]) -> dict[int, tuple[float, float]]:
+        return self.collect_all(self.dispatch_all(items))
 
     def paths_dispatch(self, items: list[PairItem]) -> list:
         """Phase-2 trellis + walk dispatch through each sub-scorer's path

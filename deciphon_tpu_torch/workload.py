@@ -9,8 +9,10 @@
   has real work without external data.
 * `window_batch` / `score_inputs` — kernel inputs of one bucket;
   `chain_inputs`, `chain_case`, `mixed_case`, `carry_case` (with
-  `run_carry_calls`) those of the chain, gang and carry modes, and
-  `window_scores` the same windows scored alone by B1.
+  `run_carry_calls`) those of the chain, gang and carry modes,
+  `packed_case`, `packed_chain_inputs` and `packed_chain_case` those of
+  the lane-packed modes, and `window_scores` the same windows scored
+  alone by B1.
 * `pfam_scan` / `pfam_subset` / `pfam_longread` — chip_smoke.py's scans
   and its card-against-CPU subset.
 """
@@ -19,7 +21,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from deciphon_tpu.profile import FrameProfile
+from .profile import FrameProfile
 
 BASES = "ACGT"
 
@@ -72,8 +74,8 @@ def window_batch(rng: np.random.Generator, lens: np.ndarray,
     the code table codes_all (T, 5) on `device`."""
     import torch
 
-    from deciphon_tpu.scan.sequence import Sequence
-    from deciphon_tpu.xtrans import xtrans_cost_vector
+    from .scan.sequence import Sequence
+    from .xtrans import xtrans_cost_vector
 
     from .scan.scheduler import DeviceSeqCodes
 
@@ -102,8 +104,8 @@ def score_inputs(Kp: int, w: int, n_pairs: int, lo: int, hi: int,
     arguments, the longest window)."""
     import torch
 
-    from deciphon_tpu.ops.costs import build_costs
-    from deciphon_tpu.profile import sample_profile
+    from .ops.costs import build_costs
+    from .profile import sample_profile
 
     from .ops.tables import stack_tables
 
@@ -133,7 +135,7 @@ def chain_inputs(codes, pairs, n_pairs: int, cmax: int, w: int = 8,
     f32 (one row per distinct window length) and codes_all."""
     import torch
 
-    from deciphon_tpu.xtrans import xtrans_cost_vector
+    from .xtrans import xtrans_cost_vector
 
     from .ops.viterbi import KAPPA
 
@@ -182,9 +184,9 @@ def random_chains(rng: np.random.Generator, n_slots: int, cmax: int,
 def _random_db(rng, Ks, Kp, n_bases, device):
     """Tables of sample profiles with core sizes Ks at lane width Kp, and
     a DeviceSeqCodes of one random read of n_bases nt."""
-    from deciphon_tpu.ops.costs import build_costs
-    from deciphon_tpu.profile import sample_profile
-    from deciphon_tpu.scan.sequence import Sequence
+    from .ops.costs import build_costs
+    from .profile import sample_profile
+    from .scan.sequence import Sequence
 
     from .ops.tables import stack_tables
     from .scan.scheduler import DeviceSeqCodes
@@ -220,7 +222,7 @@ def mixed_case(Kp: int, seed: int, device="cpu", n_pairs: int = 2,
     Returns the B5 wrapper's keyword arguments."""
     import torch
 
-    from deciphon_tpu.xtrans import xtrans_cost_vector
+    from .xtrans import xtrans_cost_vector
 
     rng = np.random.default_rng(seed)
     tables, tvecs, codes = _random_db(rng, (Kp - 2, Kp // 2, Kp // 3), Kp,
@@ -252,7 +254,7 @@ def carry_case(Kp: int, seed: int, device="cpu", cap: int = 4,
     segmented window, rides: the riding windows)."""
     import torch
 
-    from deciphon_tpu.xtrans import xtrans_cost_vector
+    from .xtrans import xtrans_cost_vector
 
     from .ops.viterbi import CW, KAPPA
 
@@ -318,6 +320,136 @@ def run_carry_calls(fn, case: dict) -> list:
     return out
 
 
+def _packed_db(rng, Ks, seg, nseg, n_bases, device):
+    """Packed tables of sample profiles with core sizes Ks (packs of nseg
+    segments of seg lanes), and a DeviceSeqCodes of one random read."""
+    from .ops.costs import build_costs
+    from .ops.tables import stack_tables_packed
+    from .profile import sample_profile
+    from .scan.scheduler import DeviceSeqCodes
+    from .scan.sequence import Sequence
+
+    seed = int(rng.integers(1 << 20))
+    costs = [build_costs(sample_profile(seed + i, k)) for i, k in
+             enumerate(Ks)]
+    tables, tvecs = (t.to(device) for t in
+                     stack_tables_packed(costs, seg, nseg))
+    read = Sequence.make(0, "r0", random_bases(rng, n_bases))
+    return tables, tvecs, DeviceSeqCodes([read], device)
+
+
+def _packed_ks(seg: int, nseg: int) -> list[int]:
+    """Core sizes of two packs of nseg segments of seg lanes: the first
+    full (its widest profile K = seg - 2), the second missing its last
+    segment."""
+    full = [max(seg // 2, seg - 2 - 3 * i) for i in range(nseg)]
+    return full + [max(seg // 2 - 1, seg - 9 - 5 * i)
+                   for i in range(nseg - 1)]
+
+
+def packed_case(seg: int, nseg: int, seed: int, device="cpu",
+                n_pairs: int = 3, w: int = 16, lo: int = 100,
+                hi: int = 2000) -> dict:
+    """B6 kernel check on a plane of nseg segments of seg lanes: n_pairs
+    pairs of w windows of lo..hi nt over one random read, against two
+    packs in turn (the second with its last segment missing), one slot of
+    each pair a pad.  Returns the B6 wrapper's keyword arguments."""
+    import torch
+
+    from .xtrans import xtrans_cost_vector
+
+    rng = np.random.default_rng(seed)
+    tables, tvecs, codes = _packed_db(rng, _packed_ks(seg, nseg), seg, nseg,
+                                      20_000, device)
+    lens = rng.integers(lo, hi + 1, size=(n_pairs, w)).astype(np.int32)
+    lens[:, -1] = 0
+    starts = np.array([[int(rng.integers(0, 20_000 - n + 1)) for n in row]
+                       for row in lens], np.int32)
+    starts[lens == 0] = codes.pad_start
+    xts = np.zeros((n_pairs, w, 16), np.float32)
+    for n, i in zip(*np.nonzero(lens)):
+        xts[n, i, :13] = xtrans_cost_vector(True, False, int(lens[n, i]))
+    host = dict(pidx=(np.arange(n_pairs) % 2).astype(np.int32), xts=xts,
+                lengths=lens[..., None].copy(), starts=starts)
+    return dict({k: torch.from_numpy(v).to(device) for k, v in host.items()},
+                tables=tables, tvecs=tvecs, codes_all=codes.dev, nseg=nseg)
+
+
+def packed_chain_inputs(codes, pairs, n_pairs: int, cmax: int, nseg: int,
+                        w: int = 8, multi_hits: bool = True,
+                        hmmer3_compat: bool = False) -> dict:
+    """Chain metadata of the B7 kernel as the scheduler lays it out: the
+    window chains of `chain_inputs` are each slot's code runs, and every
+    segment lists them as its windows.  Returns the B7 wrapper's keyword
+    arguments but the tables and nseg."""
+    m = chain_inputs(codes, pairs, n_pairs, cmax, w, multi_hits,
+                     hmmer3_compat)
+
+    def per_seg(a):
+        return a[:, :, None, :].expand(-1, -1, nseg, -1).contiguous()
+
+    return dict(pidx=m["pidx"], run_sblk=m["win_sblk"], run_len=m["win_len"],
+                run_gstart=m["win_gstart"], win_sblk=per_seg(m["win_sblk"]),
+                win_len=per_seg(m["win_len"]), win_xti=per_seg(m["win_xti"]),
+                xt_lut=m["xt_lut"], codes_all=m["codes_all"])
+
+
+def packed_chain_case(seg: int, nseg: int, seed: int, device="cpu",
+                      n_pairs: int = 3, cmax: int = 4, lo: int = 100,
+                      hi: int = 1000, per_segment: bool = False) -> dict:
+    """B7 kernel check on a plane of nseg segments of seg lanes: n_pairs
+    pairs of 8 slots against two packs in turn, plus one all-pad pair.
+    Shared lists (the scheduler's case): each slot a chain of 1..cmax
+    random windows of lo..hi nt, listed by every segment.  With
+    `per_segment`, each slot is one run of cmax * hi nt and every segment
+    cuts it into its own 1..cmax consecutive block-aligned windows.
+    Returns the B7 wrapper's keyword arguments."""
+    import torch
+
+    from .ops.viterbi import KAPPA
+    from .xtrans import xtrans_cost_vector
+
+    rng = np.random.default_rng(seed)
+    tables, tvecs, codes = _packed_db(rng, _packed_ks(seg, nseg), seg, nseg,
+                                      20_000, device)
+    if not per_segment:
+        pairs = [(n % 2, random_chains(rng, 8, cmax, lo, hi, 20_000))
+                 for n in range(n_pairs)]
+        return dict(tables=tables, tvecs=tvecs, nseg=nseg,
+                    **packed_chain_inputs(codes, pairs, n_pairs + 1, cmax,
+                                          nseg))
+    N, W = n_pairs + 1, 8
+    run_blocks = -(-cmax * hi // KAPPA)
+    run_sblk = np.zeros((N, W, 1), np.int32)
+    run_len = np.zeros((N, W, 1), np.int32)
+    run_gst = np.full((N, W, 1), codes.pad_start, np.int32)
+    wsb = np.zeros((N, W, nseg, cmax), np.int32)
+    wln = np.zeros((N, W, nseg, cmax), np.int32)
+    wxt = np.zeros((N, W, nseg, cmax), np.int32)
+    rows: dict[int, int] = {}
+    for n in range(n_pairs):
+        for wi in range(W):
+            run_len[n, wi, 0] = run_blocks * KAPPA
+            run_gst[n, wi, 0] = int(rng.integers(
+                0, 20_000 - run_blocks * KAPPA))
+            for s in range(nseg):
+                blk = 0
+                for c in range(int(rng.integers(1, cmax + 1))):
+                    length = int(rng.integers(lo, hi + 1))
+                    wsb[n, wi, s, c] = blk
+                    wln[n, wi, s, c] = length
+                    wxt[n, wi, s, c] = rows.setdefault(length, len(rows))
+                    blk += -(-length // KAPPA)
+    lut = np.zeros((max(16, len(rows)), 16), np.float32)
+    for length, r in rows.items():
+        lut[r, :13] = xtrans_cost_vector(True, False, length)
+    host = dict(pidx=(np.arange(N) % 2).astype(np.int32), run_sblk=run_sblk,
+                run_len=run_len, run_gstart=run_gst, win_sblk=wsb,
+                win_len=wln, win_xti=wxt, xt_lut=lut)
+    return dict({k: torch.from_numpy(v).to(device) for k, v in host.items()},
+                tables=tables, tvecs=tvecs, codes_all=codes.dev, nseg=nseg)
+
+
 def window_scores(tables, tvecs, codes_all, p: int, wins,
                   multi_hits: bool = True,
                   hmmer3_compat: bool = False) -> tuple:
@@ -325,7 +457,7 @@ def window_scores(tables, tvecs, codes_all, p: int, wins,
     B1 against profile p, on the tables' device."""
     import torch
 
-    from deciphon_tpu.xtrans import xtrans_cost_vector
+    from .xtrans import xtrans_cost_vector
 
     from .ops.viterbi import scores_pairs
 
@@ -363,8 +495,8 @@ def pfam_scan(n_profiles: int = 200, n_reads: int = 8,
     of `read_len` nt, the first four carrying the planted domain (1%
     indel/substitution noise) of profiles PFAM_PLANTED.  Returns
     (profiles, sequences)."""
-    from deciphon_tpu.profile import sample_profile
-    from deciphon_tpu.scan.sequence import Sequence
+    from .profile import sample_profile
+    from .scan.sequence import Sequence
 
     ks = pfam_ks(n_profiles)
     profiles = [sample_profile(200 + i, k) for i, k in enumerate(ks)]
@@ -381,16 +513,17 @@ def pfam_scan(n_profiles: int = 200, n_reads: int = 8,
 LONGREAD_PLANTED = (140, 180, 60)  # domains of the long-read scan
 
 
-def pfam_longread(profiles=None, n_reads: int = 4, read_len: int = 40_000,
+def pfam_longread(profiles=None, n_reads: int = 3, read_len: int = 40_000,
                   seed: int = 2025):
     """The long-read scan of chip_smoke.py: `pfam_scan`'s 200-profile
     database (or `profiles`, that database already built) and `n_reads`
-    reads of `read_len` nt.  Reads 0 and 1 carry the planted
-    domains of profiles 140 and 180 (K = 670 and 1406: windows of 33.5
-    and 40 knt, 838 and 1000 blocks, which ride the over-cap tiers), read
-    2 that of profile 60 (K = 152, a chain window), the rest are random;
-    1% indel/substitution noise.  Returns (profiles, sequences)."""
-    from deciphon_tpu.scan.sequence import Sequence
+    reads of `read_len` nt.  Reads 0 and 1 carry the planted domains of
+    profiles 140 and 180 (K = 670 and 1406, whose windows are the whole
+    read up to 33.5 and 70.3 knt: past 20,480 nt they are over the chain
+    cap of the unpacked tiers), read 2 that of profile 60 (K = 152, a
+    chain window), the rest are random; 1% indel/substitution noise.
+    Returns (profiles, sequences)."""
+    from .scan.sequence import Sequence
 
     if profiles is None:
         profiles, _ = pfam_scan(n_reads=0)
@@ -404,18 +537,18 @@ def pfam_longread(profiles=None, n_reads: int = 4, read_len: int = 40_000,
                       for i, r in enumerate(reads)]
 
 
-def pfam_subset(profiles, seed: int = 7):
+def pfam_subset(profiles, seed: int = 7, read_len: int = 2000):
     """The card-against-CPU subset of a `pfam_scan` database: every tenth
     profile with K <= 400, at most 12 (planted profile 100 among them),
-    and two 3-knt reads, the first carrying profile 100's domain (1%
-    noise).  Returns (profiles, sequences)."""
-    from deciphon_tpu.scan.sequence import Sequence
+    and two reads of `read_len` nt, the first carrying profile 100's
+    domain (1% noise).  Returns (profiles, sequences)."""
+    from .scan.sequence import Sequence
 
     sub = [i for i, p in enumerate(profiles) if p.core_size <= 400][::10][:12]
     assert 100 in sub, "the subset lost its planted profile"
     rng = np.random.default_rng(seed)
-    reads = [planted_read(rng, profiles[100], 3000, noise=0.01),
-             random_bases(rng, 3000)]
+    reads = [planted_read(rng, profiles[100], read_len, noise=0.01),
+             random_bases(rng, read_len)]
     return ([profiles[i] for i in sub],
             [Sequence.make(i, n, r) for i, (n, r) in
              enumerate(zip(("p0", "r1"), reads))])

@@ -18,13 +18,19 @@ from deciphon_tpu.ops import viterbi_pallas as vp
 from deciphon_tpu.ops.costs import build_costs
 from deciphon_tpu.profile import sample_profile
 from deciphon_tpu.scan.sequence import Sequence
-from deciphon_tpu.xtrans import xtrans_cost_vector
+from deciphon_tpu_torch.convert import (costs_from_arrays,
+                                        sequence_from_arrays)
 from deciphon_tpu_torch.ops import viterbi as vk
 from deciphon_tpu_torch.ops.tables import stack_tables
 from deciphon_tpu_torch.scan.scheduler import DeviceSeqCodes
 from deciphon_tpu_torch.workload import (carry_case, chain_inputs,
                                          random_bases, run_carry_calls,
                                          window_scores)
+from deciphon_tpu_torch.xtrans import xtrans_cost_vector
+
+# One torch thread: the plain versions run thousands of small ops, and
+# several test workers with a thread pool each starve one another.
+torch.set_num_threads(1)
 
 KAPPA = vk.KAPPA
 W = 8
@@ -39,10 +45,12 @@ CHAINS = [[WINS[0], WINS[2], WINS[4]], [WINS[1], WINS[3]],
 
 def setup(mh=True, h3c=False, Ks=(24, 41)):
     rng = np.random.default_rng(5)
-    seq = Sequence.make(0, "s0", random_bases(rng, 2400))
+    seq = sequence_from_arrays(
+        **vars(Sequence.make(0, "s0", random_bases(rng, 2400))))
     codes = DeviceSeqCodes([seq], "cpu")
-    costs = [build_costs(sample_profile(31 + i, k), mh, h3c)
-             for i, k in enumerate(Ks)]
+    costs = [costs_from_arrays(
+        **vars(build_costs(sample_profile(31 + i, k), mh, h3c)))
+        for i, k in enumerate(Ks)]
     tables, tvecs = stack_tables(costs)
     return codes, tables, tvecs
 

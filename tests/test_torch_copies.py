@@ -1,0 +1,415 @@
+"""The port's own copies of deciphon_tpu's host modules behave as the
+originals: the same seeded numpy inputs through the reference function and
+through the port's copy give equal results.  Exact equality, no tolerance;
+one parametrised test per module.
+"""
+
+import dataclasses
+import io
+import logging
+
+import numpy as np
+import pytest
+
+import deciphon_tpu.alphabet as r_alphabet
+import deciphon_tpu.frame as r_frame
+import deciphon_tpu.gencode as r_gencode
+import deciphon_tpu.hmmfile as r_hmmfile
+import deciphon_tpu.logging as r_logging
+import deciphon_tpu.ops.costs as r_costs
+import deciphon_tpu.profile as r_profile
+import deciphon_tpu.scan.decoder as r_decoder
+import deciphon_tpu.scan.product as r_product
+import deciphon_tpu.scan.scheduler as r_sched
+import deciphon_tpu.scan.sequence as r_sequence
+import deciphon_tpu.scan.window as r_window
+import deciphon_tpu.states as r_states
+import deciphon_tpu.xtrans as r_xtrans
+import deciphon_tpu_torch.alphabet as p_alphabet
+import deciphon_tpu_torch.frame as p_frame
+import deciphon_tpu_torch.gencode as p_gencode
+import deciphon_tpu_torch.hmmfile as p_hmmfile
+import deciphon_tpu_torch.logging as p_logging
+import deciphon_tpu_torch.ops.costs as p_costs
+import deciphon_tpu_torch.profile as p_profile
+import deciphon_tpu_torch.scan.decoder as p_decoder
+import deciphon_tpu_torch.scan.product as p_product
+import deciphon_tpu_torch.scan.scheduler as p_sched
+import deciphon_tpu_torch.scan.sequence as p_sequence
+import deciphon_tpu_torch.scan.window as p_window
+import deciphon_tpu_torch.states as p_states
+import deciphon_tpu_torch.xtrans as p_xtrans
+from deciphon_tpu_torch.convert import (costs_from_arrays,
+                                        frame_profile_from_arrays,
+                                        sequence_from_arrays)
+
+
+def same(a, b) -> bool:
+    """Equal values of equal types, arrays with equal dtype and shape."""
+    if isinstance(a, np.ndarray) or isinstance(b, np.ndarray):
+        return (isinstance(a, np.ndarray) and isinstance(b, np.ndarray)
+                and a.dtype == b.dtype and a.shape == b.shape
+                and np.array_equal(a, b, equal_nan=True))
+    if isinstance(a, (list, tuple)):
+        return (type(a) is type(b) and len(a) == len(b)
+                and all(same(x, y) for x, y in zip(a, b)))
+    if isinstance(a, dict):
+        return (a.keys() == b.keys()
+                and all(same(a[k], b[k]) for k in a))
+    return type(a) is type(b) and a == b
+
+
+def same_fields(a, b) -> bool:
+    fa = [f.name for f in dataclasses.fields(a)]
+    return (fa == [f.name for f in dataclasses.fields(b)]
+            and all(same(getattr(a, f), getattr(b, f)) for f in fa))
+
+
+@pytest.mark.parametrize("what", ["constants", "codes", "tables",
+                                  "emission"])
+def test_frame_copy(what):
+    if what == "constants":
+        assert p_frame.TABLE_SIZE == r_frame.TABLE_SIZE == 1364
+        assert same(p_frame.FRAG_OFFSETS, r_frame.FRAG_OFFSETS)
+    elif what == "codes":
+        rng = np.random.default_rng(1)
+        for _ in range(50):
+            syms = tuple(rng.integers(0, 4, size=rng.integers(1, 6)).tolist())
+            c = p_frame.frag_code(syms)
+            assert c == r_frame.frag_code(syms)
+            assert p_frame.frag_symbols(c) == r_frame.frag_symbols(c) == syms
+            assert p_frame.frag_len(c) == r_frame.frag_len(c) == len(syms)
+    elif what == "tables":
+        assert same(p_frame._term_tables(), r_frame._term_tables())
+        assert same(p_frame.match_pattern_matrix(),
+                    r_frame.match_pattern_matrix())
+        assert same(p_frame._di_class_logconst(0.1),
+                    r_frame._di_class_logconst(0.1))
+        assert same(p_frame.emission_feature_matrix(0.05),
+                    r_frame.emission_feature_matrix(0.05))
+    else:
+        rng = np.random.default_rng(2)
+        p = rng.random((3, 4, 4, 4))
+        lp = np.log(p / p.sum(axis=(1, 2, 3), keepdims=True))
+        assert same(p_frame.emission_table(lp, 0.1),
+                    r_frame.emission_table(lp, 0.1))
+        assert same(p_frame.nuclt_marginal_lprobs(lp),
+                    r_frame.nuclt_marginal_lprobs(lp))
+        assert same(p_frame.codon_marginals(lp[0]),
+                    r_frame.codon_marginals(lp[0]))
+        q = p_frame.nuclt_marginal_lprobs(lp[0])
+        assert same(p_frame.conditional_emission_table(0.1, q),
+                    r_frame.conditional_emission_table(0.1, q))
+
+
+@pytest.mark.parametrize("mh,h3c", [(True, False), (False, True),
+                                    (True, True), (False, False)])
+def test_xtrans_copy(mh, h3c):
+    for n in (1, 2, 37, 450, 10_000, 100_000):
+        assert same(p_xtrans.xtrans_cost_vector(mh, h3c, n),
+                    r_xtrans.xtrans_cost_vector(mh, h3c, n))
+        assert same(p_xtrans.xtrans_costs(p_xtrans.xtrans_setup(mh, h3c, n)),
+                    r_xtrans.xtrans_costs(r_xtrans.xtrans_setup(mh, h3c, n)))
+    names = [n for n in dir(r_xtrans) if n.startswith("XT_")]
+    assert names and all(getattr(p_xtrans, n) == getattr(r_xtrans, n)
+                         for n in names)
+
+
+def test_states_copy():
+    names = [n for n in dir(r_states) if n.startswith("STATE_")]
+    assert names and all(getattr(p_states, n) == getattr(r_states, n)
+                         for n in names)
+    ids = [getattr(r_states, n) for n in names
+           if isinstance(getattr(r_states, n), int)]
+    for k in (0, 1, 7, 2000, 16383):
+        ids += [r_states.make_match_id(k), r_states.make_insert_id(k),
+                r_states.make_delete_id(k)]
+        assert p_states.make_match_id(k) == r_states.make_match_id(k)
+        assert p_states.make_insert_id(k) == r_states.make_insert_id(k)
+        assert p_states.make_delete_id(k) == r_states.make_delete_id(k)
+    special = [sid for sid in ids if (sid >> 14) == 3 and sid < (1 << 16)]
+    for sid in ids:
+        for fn in ("state_class", "is_match", "is_insert", "is_delete",
+                   "is_core", "is_mute"):
+            assert getattr(p_states, fn)(sid) == getattr(r_states, fn)(sid)
+        if (sid >> 14) != 3 or sid in special:
+            try:
+                want = r_states.state_name(sid)
+            except Exception as exc:  # the copy fails the same way
+                with pytest.raises(type(exc)):
+                    p_states.state_name(sid)
+            else:
+                assert p_states.state_name(sid) == want
+
+
+@pytest.mark.parametrize("raw", ["ACGTACGT", "acgtnnry", "ACGUUGCA",
+                                 "AcGtWSKMBDHVN", "ACGTU", "ACGX", ""])
+def test_alphabet_and_sequence_copy(raw):
+    """Symbols incl. IUPAC disambiguation and T/U handling; a sequence's
+    symbols, codes and window codes."""
+    try:
+        want = r_alphabet.prepare_sequence(raw)
+    except r_alphabet.InvalidSequenceError as exc:
+        ptype = getattr(p_alphabet, type(exc).__name__)
+        with pytest.raises(ptype):
+            p_alphabet.prepare_sequence(raw)
+        assert issubclass(p_alphabet.MixedTUError,
+                          p_alphabet.InvalidSequenceError)
+        return
+    assert same(p_alphabet.prepare_sequence(raw), want)
+    assert p_alphabet.disambiguate(raw) == r_alphabet.disambiguate(raw)
+    rs = r_sequence.Sequence.make(3, "s", raw)
+    ps = p_sequence.Sequence.make(3, "s", raw)
+    assert same_fields(ps, rs)
+    assert same_fields(sequence_from_arrays(**vars(rs)), rs)
+    assert ps.size == rs.size
+    if rs.size >= 4:
+        assert same(ps.window_codes(1, rs.size - 1),
+                    rs.window_codes(1, rs.size - 1))
+        assert same(p_sequence.frag_codes_ending(ps.symbols),
+                    r_sequence.frag_codes_ending(rs.symbols))
+
+
+@pytest.mark.parametrize("gid", [1, 4, 11])
+def test_gencode_copy(gid):
+    pg, rg = p_gencode.get_gencode(gid), r_gencode.get_gencode(gid)
+    assert same(pg.amino_idx, rg.amino_idx)
+    for z in range(64):
+        assert pg.decode(z) == rg.decode(z)
+        assert p_gencode.codon_symbols(z) == r_gencode.codon_symbols(z)
+    assert p_gencode.codon_index(1, 2, 3) == r_gencode.codon_index(1, 2, 3)
+
+
+HMM_TEXT = """HMMER3/f [3.3 | Nov 2019]
+NAME  tiny
+ACC   PF00000.1
+LENG  2
+ALPH  amino
+GA    21.00 20.00;
+HMM          A        C        D        E        F        G        H        I        K        L        M        N        P        Q        R        S        T        V        W        Y
+            m->m     m->i     m->d     i->m     i->i     d->m     d->d
+  COMPO   2.5 4.0 2.9 2.7 3.4 2.8 3.7 2.9 2.7 2.4 3.7 3.1 3.3 3.1 2.9 2.6 2.8 2.6 4.5 3.4
+          2.6 4.4 2.7 2.6 3.3 2.8 3.7 2.9 2.7 2.4 3.7 3.1 3.3 3.1 2.9 2.6 2.8 2.6 4.5 3.4
+          0.1 3.0 3.5 0.6 0.8 0.0 *
+      1   2.9 4.7 3.1 2.6 3.6 3.4 3.8 2.8 2.5 2.3 3.6 3.0 3.9 2.9 2.8 2.7 2.8 2.5 5.0 3.6      1 k - - -
+          2.6 4.4 2.7 2.6 3.3 2.8 3.7 2.9 2.7 2.4 3.7 3.1 3.3 3.1 2.9 2.6 2.8 2.6 4.5 3.4
+          0.1 3.0 3.5 0.6 0.8 0.5 0.9
+      2   2.4 4.6 3.0 2.5 3.9 2.9 3.7 3.4 2.4 2.9 3.9 3.0 3.6 2.9 2.8 2.5 2.7 2.9 5.3 3.9      2 a - - -
+          2.6 4.4 2.7 2.6 3.3 2.8 3.7 2.9 2.7 2.4 3.7 3.1 3.3 3.1 2.9 2.6 2.8 2.6 4.5 3.4
+          0.0 * * 0.6 0.8 0.0 *
+//
+"""
+
+
+@pytest.mark.parametrize("what", ["constants", "parse", "press"])
+def test_hmmfile_and_profile_copy(what):
+    if what == "constants":
+        for n in ("NUM_AMINO", "NUM_TRANS", "T_MM", "T_MI", "T_MD", "T_IM",
+                  "T_II", "T_DM", "T_DD"):
+            assert getattr(p_hmmfile, n) == getattr(r_hmmfile, n)
+        assert same(p_profile.NULL_AMINO_LPROBS, r_profile.NULL_AMINO_LPROBS)
+        return
+    ph = p_hmmfile.read_hmm(io.StringIO(HMM_TEXT))
+    rh = r_hmmfile.read_hmm(io.StringIO(HMM_TEXT))
+    assert len(ph) == len(rh) == 1
+    assert same_fields(ph[0], rh[0])
+    if what == "press":
+        for dist in (p_profile.ENTRY_DIST_UNIFORM,
+                     p_profile.ENTRY_DIST_OCCUPANCY):
+            assert same_fields(p_profile.press_profile(ph[0], 1, 0.01, dist),
+                               r_profile.press_profile(rh[0], 1, 0.01, dist))
+    with pytest.raises(p_hmmfile.HMMFileError):
+        p_hmmfile.read_hmm(io.StringIO("not an hmm\n"))
+
+
+@pytest.mark.parametrize("seed,K", [(1, 9), (140, 40), (250, 150),
+                                    (7, 600)])
+def test_sample_profile_and_costs_copy(seed, K):
+    rp = r_profile.sample_profile(seed, K)
+    pp = p_profile.sample_profile(seed, K)
+    assert same_fields(pp, rp)
+    assert same_fields(frame_profile_from_arrays(**vars(rp)), rp)
+    for mh, h3c in ((True, False), (False, True)):
+        rc = r_costs.build_costs(rp, mh, h3c)
+        pc = p_costs.build_costs(pp, mh, h3c)
+        assert same_fields(pc, rc)
+        assert same_fields(costs_from_arrays(**vars(rc)), rc)
+        assert same_fields(pc.with_xtrans(mh, h3c, 777),
+                           rc.with_xtrans(mh, h3c, 777))
+    assert same(p_costs.dd_cum_row(pc.core[p_costs.CT_DD]),
+                r_costs.dd_cum_row(rc.core[r_costs.CT_DD]))
+    with pytest.raises(ValueError):
+        costs_from_arrays(**dict(vars(rc), null=rc.null[:10]))
+
+
+def walk_windows(mod, K, n, hits):
+    """Every window of a cursor's walk; `hits` maps a window index to the
+    hit position fed back after it."""
+    cur = mod.WindowCursor(K, n)
+    out = [("estimate", cur.estimate_windows())]
+    while True:
+        w = cur.next()
+        if w is None:
+            return out
+        out.append((w.idx, w.start, w.stop, w.length, cur.state()))
+        if w.idx in hits:
+            cur.set_last_hit_position(hits[w.idx])
+        if w.idx == 1:  # a save and restore round trip
+            st = cur.state()
+            cur.next()
+            cur.restore(st)
+
+
+@pytest.mark.parametrize("K,n,hits", [
+    (9, 300, {}), (9, 2000, {}), (9, 2000, {0: 400, 2: 30}),
+    (40, 10_000, {1: 1999}), (2000, 40_000, {}), (2500, 250_000, {0: 5}),
+    (5, 1, {}),
+])
+def test_window_cursor_copy(K, n, hits):
+    assert walk_windows(p_window, K, n, hits) == walk_windows(r_window, K, n,
+                                                              hits)
+
+
+@pytest.mark.parametrize("seed,K", [(140, 40), (109, 9)])
+def test_decoder_copy(seed, K):
+    rp = r_profile.sample_profile(seed, K)
+    pp = frame_profile_from_arrays(**vars(rp))
+    rd, pd = r_decoder.Decoder(rp), p_decoder.Decoder(pp)
+    rng = np.random.default_rng(seed)
+    sids = ([r_states.make_match_id(int(k)) for k in rng.integers(0, K, 40)]
+            + [r_states.make_insert_id(int(k))
+               for k in rng.integers(0, K, 10)]
+            + [r_states.STATE_N, r_states.STATE_C, r_states.STATE_J])
+    fcs = rng.integers(0, 1364, size=len(sids))
+    want = rd.decode_batch(sids, fcs)
+    assert pd.decode_batch(sids, fcs) == want
+    assert pd.decode_batch(sids, fcs) == want  # from the memo plane
+    for sid, fc in list(zip(sids, fcs))[:8]:
+        assert pd.decode(sid, int(fc)) == rd.decode(sid, int(fc))
+        assert (pd.decode_codon_amino(sid, int(fc))
+                == rd.decode_codon_amino(sid, int(fc)))
+
+
+def write_products(mod, d, checkpoint):
+    w = mod.ProductWriter(str(d))
+    lines = [mod.ProductLine(
+        sequence=s, window=wi, window_start=10 * wi, window_stop=10 * wi + 90,
+        hit=0, hit_start=3, hit_stop=60, profile=f"PF{s:05d}.1", abc="dna",
+        lrt=12.5 + wi / 3, logevalue=-3.25 * s,
+        steps=["ACG,M1,ACG,T", "T,I1,,", ",E,,"])
+        for s, wi in [(2, 1), (0, 0), (1, 3), (0, 2)]]
+    for i, ln in enumerate(lines):
+        order = (ln.sequence, ln.window, i)
+        w.add(ln, order=order)
+        if checkpoint:
+            w.journal_line(ln, order, (ln.sequence, 0))
+            w.journal_pair_done(ln.sequence, 0)
+    w.add_h3r(lines[0], b"\x01\x02blob")
+    if checkpoint:
+        w2 = mod.ProductWriter(str(d))
+        done = w2.load_checkpoint()
+        assert done == {(0, 0), (1, 0), (2, 0)}
+        assert [ln.render() for ln in w2.lines] == [
+            ln.render() for ln in w.lines]
+    w.sort_lines()
+    path = w.close()
+    with open(path, "rb") as fp:
+        return fp.read(), mod.fletcher16(path), sorted(
+            p.name for p in d.rglob("*"))
+
+
+@pytest.mark.parametrize("checkpoint", [False, True])
+def test_product_writer_copy(tmp_path, checkpoint):
+    got = write_products(p_product, tmp_path / "port", checkpoint)
+    want = write_products(r_product, tmp_path / "ref", checkpoint)
+    assert got == want and got[0].count(b"\n") == 5
+    for v in (0.0, -1.5, -745.2, 3.0):
+        assert p_product.format_evalue(v) == r_product.format_evalue(v)
+        assert p_product.format_lrt(v) == r_product.format_lrt(v)
+
+
+def test_scan_metrics_copy():
+    pm, rm = p_logging.ScanMetrics(), r_logging.ScanMetrics()
+    for m in (pm, rm):
+        m.add_window(300, 40)
+        m.add_window(1200, 9)
+        m.add_wall("pack", 0.25)
+        m.add_wall("pack", 0.5)
+        m.add_bucket_cells("b", 10, 20)
+        m.survivors += 2
+        with m.timed("write"):
+            pass
+    ps, rs = pm.summary(), rm.summary()
+    for k in ("windows_scored", "cells", "pairs_batches", "survivors",
+              "products", "wasted_windows"):
+        assert ps[k] == rs[k]
+    assert ps.keys() == rs.keys()
+    assert ps["walls"].keys() == rs["walls"].keys()
+    assert ps["walls"]["pack"] == rs["walls"]["pack"] == 0.75
+    assert pm.bucket_cells == rm.bucket_cells
+    assert isinstance(p_logging.get_logger("x.y"), logging.Logger)
+
+
+def make_items(mod, win_mod, rng, n_items, n_profiles):
+    """Items with random window lengths (no reads: the helpers only read
+    the window and the indices)."""
+    items = []
+    for i in range(n_items):
+        L = int(rng.integers(1, 30_000) if i % 3 else rng.integers(1, 400))
+        items.append(mod.PairItem(
+            p_idx=int(rng.integers(0, n_profiles)), s_idx=i,
+            win=win_mod.Window(i % 4, 5 * i, 5 * i + L), multi_hits=True,
+            hmmer3_compat=False, gstart=7 * i))
+    return items
+
+
+def batches_key(buckets):
+    return [(b.nlb, b.w, [[(it.p_idx, it.s_idx, it.win.start, it.win.stop)
+                           for it in g] for g in b.groups])
+            for b in buckets]
+
+
+class _Codes:
+    pad_start = 123_456
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_scheduler_helpers_copy(seed):
+    rng = np.random.default_rng(seed)
+    for n in rng.integers(0, 5000, size=40).tolist() + [0, 1, 4200, 4201]:
+        assert p_sched.quantize_nlb(n) == r_sched.quantize_nlb(n)
+        assert p_sched.next_pow2(n) == r_sched.next_pow2(n)
+        assert p_sched.prev_pow2(n) == r_sched.prev_pow2(n)
+        assert p_sched.chunk_sizes(n) == r_sched.chunk_sizes(n)
+        assert p_sched.pad_groups(min(n, 64)) == r_sched.pad_groups(min(n, 64))
+    assert p_sched.NCHUNK == r_sched.NCHUNK and p_sched.W == r_sched.W
+    blks = np.sort(rng.integers(1, 600, size=int(rng.integers(1, 200))))
+    assert p_sched._mass_p90(blks) == r_sched._mass_p90(blks)
+
+    state = rng.bit_generator.state
+    p_items = make_items(p_sched, p_window, rng, 150, 7)
+    rng.bit_generator.state = state
+    r_items = make_items(r_sched, r_window, rng, 150, 7)
+    for kappa, w, floor in ((40, 8, 1), (40, 64, 32), (32, 8, 1)):
+        pb = p_sched.build_batches(p_items, kappa, w=w, nlb_floor=floor)
+        rb = r_sched.build_batches(r_items, kappa, w=w, nlb_floor=floor)
+        assert batches_key(pb) == batches_key(rb)
+        for a, b in zip(pb[:3], rb[:3]):
+            assert same(list(p_sched.bucket_arrays_meta(a, _Codes)),
+                        list(r_sched.bucket_arrays_meta(b, _Codes)))
+    assert same(p_items[0].xt, r_items[0].xt)
+
+    wins = [(i, int(b)) for i, b in enumerate(
+        np.sort(rng.integers(1, 40, size=60))[::-1])]
+    for nslots, cap, cmax in ((8, 40, 4), (2, 64, float("inf")),
+                              (16, 39, 2)):
+        assert (p_sched._lpt_pack(wins, nslots, cap, cmax)
+                == r_sched.PairScorer._lpt_pack(wins, nslots, cap, cmax))
+
+    sizes = rng.integers(1, 1000, size=12).tolist()
+    for budget in (0, 500, 3000, 10**6):
+        pl, rl = p_sched.HBMLedger(budget), r_sched.HBMLedger(budget)
+        assert pl.plan(sizes) == rl.plan(sizes)
+        assert (pl.resident, pl.streamed) == (rl.resident, rl.streamed)
+        assert pl.resident_bytes == rl.resident_bytes
+        assert pl.streamed_bytes == rl.streamed_bytes

@@ -2,7 +2,8 @@
 version on the same CUDA tensors, and the scan on the card against the
 scan on the CPU.  They need an NVIDIA card with nvcc and skip elsewhere.
 
-The card's machine has no jax, so run them without the repo's conftest:
+They import nothing but the port.  The card's machine has no jax, so run
+them without the repo's conftest:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
@@ -11,15 +12,16 @@ import numpy as np
 import pytest
 import torch
 
-from deciphon_tpu.ops.costs import build_costs
-from deciphon_tpu.profile import sample_profile
-from deciphon_tpu.scan.sequence import Sequence
 from deciphon_tpu_torch.ops import traceback as tb
 from deciphon_tpu_torch.ops import viterbi as vk
+from deciphon_tpu_torch.ops.costs import build_costs
 from deciphon_tpu_torch.ops.tables import stack_tables
+from deciphon_tpu_torch.profile import sample_profile
 from deciphon_tpu_torch.scan import pipeline as tp
 from deciphon_tpu_torch.scan import scheduler as ts
+from deciphon_tpu_torch.scan.sequence import Sequence
 from deciphon_tpu_torch.workload import (carry_case, chain_case, mixed_case,
+                                         packed_case, packed_chain_case,
                                          planted_read, random_bases,
                                          run_carry_calls, window_batch,
                                          window_scores)
@@ -125,6 +127,42 @@ def test_carry_kernel_segments_equal_whole_window(cuda, Kp):
             assert torch.equal(g[3][:, :, 0], w[3][:, :, 0])
         assert g[0][0, 1, 0] == wa[1 + t] and g[1][0, 1, 0] == wn[1 + t]
     assert got[last][0][0, 0, 0] == wa[0] and got[last][1][0, 0, 0] == wn[0]
+
+
+# planes (seg, nseg): 1, 2 and 4 lanes per thread, segments of 16, 48 and
+# 64 threads, Kp 384 (not a power of two) and the widest plane
+PACKED_PLANES = [(64, 2), (192, 2), (128, 8), (192, 8), (64, 32), (1024, 2)]
+
+
+@pytest.mark.parametrize("seg,nseg", PACKED_PLANES)
+def test_packed_kernel_bit_equal_to_plain(cuda, seg, nseg):
+    inp = packed_case(seg, nseg, seed=seg + nseg, device=cuda, hi=600)
+    before = vk.LAUNCHES["packed"]
+    alt, nul = vk.scores_pairs_packed(**inp)
+    assert vk.LAUNCHES["packed"] == before + 1
+    pa, pn = vk.scores_pairs_packed_plain(**inp)
+    torch.cuda.synchronize()
+    assert torch.equal(alt, pa) and torch.equal(nul, pn)  # pads +inf too
+    assert torch.isfinite(alt[0, 0]).all()  # a full pack
+    assert torch.isinf(alt[1, :, -1]).all()  # the missing segment
+    assert torch.isfinite(alt[1, 0, :-1]).all()
+
+
+@pytest.mark.parametrize("per_segment", [False, True])
+@pytest.mark.parametrize("seg,nseg", PACKED_PLANES)
+def test_packed_chained_kernel_bit_equal_to_plain(cuda, seg, nseg,
+                                                  per_segment):
+    inp = packed_chain_case(seg, nseg, seed=seg + nseg + 1, device=cuda,
+                            lo=40, hi=400, per_segment=per_segment)
+    before = vk.LAUNCHES["pchain"]
+    alt, nul = vk.scores_pairs_packed_chained(**inp)
+    assert vk.LAUNCHES["pchain"] == before + 1
+    pa, pn = vk.scores_pairs_packed_chained_plain(**inp)
+    torch.cuda.synchronize()
+    assert torch.equal(alt, pa) and torch.equal(nul, pn)
+    real = inp["win_len"] > 0
+    assert torch.isfinite(alt[0][real[0]]).all()  # pair 0: a full pack
+    assert torch.isinf(alt[~real]).all() and torch.isinf(alt[-1]).all()
 
 
 def test_kernels_raise_on_bad_launch(cuda):

@@ -1,5 +1,5 @@
-"""The port imports no jax, and its kernel build is well-formed on hosts
-without a CUDA toolkit."""
+"""The port imports no jax and nothing of deciphon_tpu, and its kernel
+build is well-formed on hosts without a CUDA toolkit."""
 
 import ast
 import pkgutil
@@ -20,40 +20,68 @@ def port_modules() -> list[str]:
         deciphon_tpu_torch.__path__, "deciphon_tpu_torch."))
 
 
+# no module of these packages may be loaded by the port
+FOREIGN = ("import sys\n"
+           "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+           "('jax', 'jaxlib', 'msgpack', 'click', 'deciphon_tpu'))\n"
+           "assert not bad, bad\n")
+
+
 def test_port_imports_no_jax():
     mods = port_modules()
     assert {"deciphon_tpu_torch.ops.viterbi", "deciphon_tpu_torch.scan.pipeline",
             "deciphon_tpu_torch.ops.traceback", "deciphon_tpu_torch._build",
-            "deciphon_tpu_torch.scan.scheduler"} <= set(mods)
-    code = ("import importlib, sys\n"
+            "deciphon_tpu_torch.scan.scheduler", "deciphon_tpu_torch.convert",
+            "deciphon_tpu_torch.profile", "deciphon_tpu_torch.frame",
+            "deciphon_tpu_torch.ops.costs", "deciphon_tpu_torch.scan.decoder",
+            "deciphon_tpu_torch.workload"} <= set(mods)
+    code = ("import importlib\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
-            "bad = [m for m in ('jax', 'msgpack', 'click') if m in sys.modules]\n"
-            "assert not bad, bad\n"
-            "print('ok')\n")
+            + FOREIGN + "print('ok')\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == "ok"
 
 
-def test_chip_smoke_imports_no_jax():
-    """Every module chip_smoke.py names is jax-free, and none of them is
-    a jax-bound module of deciphon_tpu."""
-    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+def imported_names(path: Path) -> set[str]:
+    """Every module an `import` or `from` statement of the file names
+    (relative imports as ".name")."""
     names = set()
-    for node in ast.walk(tree):
+    for node in ast.walk(ast.parse(path.read_text())):
         if isinstance(node, ast.Import):
             names.update(a.name for a in node.names)
         elif isinstance(node, ast.ImportFrom):
-            names.add(node.module)
-    assert not any(n.split(".")[0] in ("jax", "msgpack", "click")
-                   for n in names)
-    assert not {"deciphon_tpu.press", "deciphon_tpu.io.dcp",
-                "deciphon_tpu.cli"} & names
-    local = sorted(n for n in names if n.startswith("deciphon_tpu"))
-    code = ("import importlib, sys\n"
-            f"for m in {local!r}: importlib.import_module(m)\n"
-            "assert 'jax' not in sys.modules\n")
+            names.add("." * node.level + (node.module or ""))
+    return names
+
+
+def port_sources() -> list[Path]:
+    pkg = Path(deciphon_tpu_torch.__file__).resolve().parent
+    return sorted(pkg.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+@pytest.mark.parametrize("path", port_sources(),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_source_names_no_foreign_module(path):
+    """No import statement of the port, at any depth of any file, names
+    jax or deciphon_tpu (nor msgpack or click, which only the reference's
+    entry points need)."""
+    bad = sorted(n for n in imported_names(path)
+                 if n.split(".")[0] in ("jax", "jaxlib", "msgpack", "click",
+                                        "deciphon_tpu"))
+    assert not bad, bad
+
+
+def test_chip_smoke_imports_no_jax():
+    """Importing every module chip_smoke.py names loads neither jax nor
+    any module of deciphon_tpu."""
+    local = sorted(n for n in imported_names(ROOT / "chip_smoke.py")
+                   if n.startswith("deciphon_tpu"))
+    assert local and all(n.split(".")[0] == "deciphon_tpu_torch"
+                         for n in local)
+    code = ("import importlib\n"
+            f"for m in {local!r}: importlib.import_module(m)\n" + FOREIGN)
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
@@ -94,12 +122,18 @@ def test_build_flags_and_source_hash(monkeypatch, tmp_path):
     assert "arch=compute_90a,code=sm_90a" in flags
     assert "fast-math" not in flags and "-ftz=true" not in flags
     names = {p.name for p in _build.sources()}
-    assert names == {"viterbi_score.cu", "viterbi_path.cu",
-                     "traceback_walk.cu"}
+    assert names == {"viterbi_score.cu", "viterbi_packed.cu",
+                     "viterbi_path.cu", "traceback_walk.cu"}
+    assert set(_build.SIGNATURES) == {
+        "dtt_score_pairs", "dtt_score_mixed", "dtt_score_chained",
+        "dtt_score_chained_carry", "dtt_score_packed",
+        "dtt_score_packed_chained", "dtt_path_pairs", "dtt_walk"}
     # every export the wrappers call is bound with argtypes
     exported = "".join(p.read_text() for p in _build.sources())
-    for fn in _build.SIGNATURES:
+    for fn, argtypes in _build.SIGNATURES.items():
         assert f'extern "C" int {fn}(' in exported
+        params = exported.split(f'extern "C" int {fn}(')[1].split(")")[0]
+        assert len(params.split(",")) == len(argtypes), fn
     # the library name follows the sources: an edit means a rebuild
     src = tmp_path / "csrc"
     src.mkdir()

@@ -11,9 +11,14 @@ from deciphon_tpu.ops.costs import build_costs
 from deciphon_tpu.ops.viterbi_jax import viterbi_path_batch
 from deciphon_tpu.profile import sample_profile
 from deciphon_tpu.scan.sequence import frag_codes_ending
+from deciphon_tpu_torch.convert import costs_from_arrays
 from deciphon_tpu_torch.ops import viterbi as vk
 from deciphon_tpu_torch.ops.tables import stack_tables
 from deciphon_tpu_torch.workload import window_batch
+
+# One torch thread: the plain versions run thousands of small ops, and
+# several test workers with a thread pool each starve one another.
+torch.set_num_threads(1)
 
 LENS = np.array([[33, 47, 1, 130, 0, 21, 0, 0],
                  [96, 5, 64, 0, 0, 0, 0, 0]], np.int32)
@@ -22,7 +27,8 @@ LENS = np.array([[33, 47, 1, 130, 0, 21, 0, 0],
 def make_inputs(Ks, mh, h3c, seed):
     costs = [build_costs(sample_profile(seed + i, k), mh, h3c)
              for i, k in enumerate(Ks)]
-    tables, tvecs = stack_tables(costs)
+    tables, tvecs = stack_tables([costs_from_arrays(**vars(c))
+                                  for c in costs])
     batch = window_batch(np.random.default_rng(seed), LENS, "cpu", mh, h3c)
     pidx = torch.tensor([i % len(Ks) for i in range(LENS.shape[0])],
                         dtype=torch.int32)

@@ -10,23 +10,34 @@ import torch
 from deciphon_tpu.profile import sample_profile
 from deciphon_tpu.scan import pipeline as ref_pipeline
 from deciphon_tpu.scan.sequence import Sequence
+from deciphon_tpu_torch.convert import (costs_from_arrays,
+                                        frame_profile_from_arrays,
+                                        sequence_from_arrays)
 from deciphon_tpu_torch.scan import pipeline as tp
 from deciphon_tpu_torch.workload import pfam_ks, planted_read, random_bases
+
+# One torch thread: the plain versions run thousands of small ops, and
+# several test workers with a thread pool each starve one another.
+torch.set_num_threads(1)
 
 
 @pytest.fixture(scope="module")
 def planted():
-    """Three profiles in two Kp buckets and four reads: two carry a
-    planted domain, one is long enough for two K=9 windows."""
-    profiles = [sample_profile(140, 40), sample_profile(250, 150),
-                sample_profile(109, 9)]
+    """Three profiles (K = 40 and 9 pack side by side, K = 150 has a plain
+    bucket) and four reads: two carry a planted domain, one is long enough
+    for two K=9 windows.  Returns the reference's objects and the port's,
+    carried across as arrays."""
+    ref_profiles = [sample_profile(140, 40), sample_profile(250, 150),
+                    sample_profile(109, 9)]
+    profiles = [frame_profile_from_arrays(**vars(p)) for p in ref_profiles]
     rng = np.random.default_rng(7)
     reads = [planted_read(rng, profiles[0], 300),
              planted_read(rng, profiles[1], 500, noise=0.01),
              random_bases(rng, 250),
              planted_read(rng, profiles[2], 480)]
-    seqs = [Sequence.make(i, f"r{i}", r) for i, r in enumerate(reads)]
-    return profiles, seqs
+    ref_seqs = [Sequence.make(i, f"r{i}", r) for i, r in enumerate(reads)]
+    seqs = [sequence_from_arrays(**vars(s)) for s in ref_seqs]
+    return (ref_profiles, ref_seqs), (profiles, seqs)
 
 
 def products(path):
@@ -38,14 +49,14 @@ def products(path):
 @pytest.mark.parametrize("max_pairs,spec_depth", [(256, 64), (4, 1)])
 def test_scan_products_byte_identical_to_jax(planted, tmp_path, mh, h3c,
                                              max_pairs, spec_depth):
-    profiles, seqs = planted
+    (ref_profiles, ref_seqs), (profiles, seqs) = planted
     flags = dict(multi_hits=mh, hmmer3_compat=h3c, max_pairs=max_pairs,
                  spec_depth=spec_depth)
     port = tp.Scanner(profiles, tp.ScanConfig(device="cpu", **flags))
     got = products(port.run(seqs, str(tmp_path / "torch")))
-    ref = ref_pipeline.Scanner(profiles,
+    ref = ref_pipeline.Scanner(ref_profiles,
                                ref_pipeline.ScanConfig(engine="jax", **flags))
-    want = products(ref.run(seqs, str(tmp_path / "jax")))
+    want = products(ref.run(ref_seqs, str(tmp_path / "jax")))
     assert port.metrics.survivors > 0
     assert port.metrics.survivors == ref.metrics.survivors
     assert port.metrics.windows_scored == ref.metrics.windows_scored
@@ -58,7 +69,8 @@ def test_scan_cuda_without_gpu_raises():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        tp.Scanner([sample_profile(1, 9)], tp.ScanConfig())
+        tp.Scanner([frame_profile_from_arrays(**vars(sample_profile(1, 9)))],
+                   tp.ScanConfig())
 
 
 def test_scan_rejects_untaken_tiers():
@@ -67,16 +79,23 @@ def test_scan_rejects_untaken_tiers():
         from deciphon_tpu.ops.costs import build_costs
         from deciphon_tpu_torch.scan.scheduler import BucketedPairScorer
 
-        BucketedPairScorer([build_costs(sample_profile(1, 5200))], "cpu")
+        def costs(seed, K):
+            return costs_from_arrays(
+                **vars(build_costs(sample_profile(seed, K))))
+
+        BucketedPairScorer([costs(1, 5200)], "cpu")
     # tables beyond the device budget (the reference streams them)
     with pytest.raises(NotImplementedError, match="budget"):
-        BucketedPairScorer([build_costs(sample_profile(2, 9))], "cpu",
+        BucketedPairScorer([costs(2, 9)], "cpu", hbm_budget=1000)
+    # the same for a packed class, whose scorer cannot stream either
+    with pytest.raises(NotImplementedError, match="budget"):
+        BucketedPairScorer([costs(2, 9), costs(3, 12)], "cpu",
                            hbm_budget=1000)
 
 
 def test_lrt_and_segment_hits_match_reference():
     assert tp.lrt(12.5, 3.25) == ref_pipeline.lrt(12.5, 3.25) == 18.5
-    from deciphon_tpu import states as st
+    from deciphon_tpu_torch import states as st
 
     S, B, E, T, N, C = (st.STATE_S, st.STATE_B, st.STATE_E, st.STATE_T,
                         st.STATE_N, st.STATE_C)

@@ -5,7 +5,9 @@ With the chain admission cap and the rung floor shrunk to 4 blocks (as
 tests/test_chain.py does for the reference), the planted reads' windows
 ride the over-cap tiers: the mixed-profile gang (default) or carry
 segments (DECIPHON_CHAIN_SEG=1); DECIPHON_NO_CHAIN=1 sends everything to
-the classic buckets.  Each tier's products.tsv must be byte-identical to
+the classic buckets.  Two of the three profiles (K = 40 and 9) form a
+packed class, so their whole-read windows ride the packed tiers beside
+those (B7, or B6 under DECIPHON_NO_CHAIN=1).  Each tier's products.tsv must be byte-identical to
 the reference's lax.scan engine (engine="jax").  Inputs are numpy-seeded;
 products compare byte for byte.
 """
@@ -15,37 +17,48 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 from deciphon_tpu.profile import sample_profile
 from deciphon_tpu.scan import pipeline as ref_pipeline
-from deciphon_tpu.scan.scheduler import PairItem
 from deciphon_tpu.scan.sequence import Sequence
-from deciphon_tpu.scan.window import Window
+from deciphon_tpu_torch.convert import (costs_from_arrays,
+                                        frame_profile_from_arrays,
+                                        sequence_from_arrays)
 from deciphon_tpu_torch.ops import viterbi as vk
 from deciphon_tpu_torch.scan import pipeline as tp
 from deciphon_tpu_torch.scan import scheduler as ts
+from deciphon_tpu_torch.scan.scheduler import PairItem
+from deciphon_tpu_torch.scan.window import Window
 from deciphon_tpu_torch.workload import planted_read, random_bases
+
+# One torch thread: the plain versions run thousands of small ops, and
+# several test workers with a thread pool each starve one another.
+torch.set_num_threads(1)
 
 
 @pytest.fixture(scope="module")
 def planted():
     """tests/test_torch_scan.py's planted fixture plus one 150-nt read,
-    whose 4-block windows pin a tiny chain cap."""
-    profiles = [sample_profile(140, 40), sample_profile(250, 150),
-                sample_profile(109, 9)]
+    whose 4-block windows pin a tiny chain cap.  Returns the reference's
+    objects and the port's, carried across as arrays."""
+    ref_profiles = [sample_profile(140, 40), sample_profile(250, 150),
+                    sample_profile(109, 9)]
+    profiles = [frame_profile_from_arrays(**vars(p)) for p in ref_profiles]
     rng = np.random.default_rng(7)
     reads = [planted_read(rng, profiles[0], 300),
              planted_read(rng, profiles[1], 500, noise=0.01),
              random_bases(rng, 250),
              planted_read(rng, profiles[2], 480),
              random_bases(rng, 150)]
-    seqs = [Sequence.make(i, f"r{i}", r) for i, r in enumerate(reads)]
-    return profiles, seqs
+    ref_seqs = [Sequence.make(i, f"r{i}", r) for i, r in enumerate(reads)]
+    seqs = [sequence_from_arrays(**vars(s)) for s in ref_seqs]
+    return (ref_profiles, ref_seqs), (profiles, seqs)
 
 
 @pytest.fixture(scope="module")
 def jax_products(planted, tmp_path_factory):
-    profiles, seqs = planted
+    profiles, seqs = planted[0]
     ref = ref_pipeline.Scanner(profiles,
                                ref_pipeline.ScanConfig(engine="jax"))
     with open(ref.run(seqs, str(tmp_path_factory.mktemp("jax"))), "rb") as fp:
@@ -57,7 +70,8 @@ def counted(monkeypatch):
     """Calls per phase-1 wrapper, through the scheduler's module alias."""
     calls = {}
     for name in ("scores_pairs", "scores_pairs_chained",
-                 "scores_pairs_mixed", "scores_pairs_chained_carry"):
+                 "scores_pairs_mixed", "scores_pairs_chained_carry",
+                 "scores_pairs_packed", "scores_pairs_packed_chained"):
         fn = getattr(vk, name)
 
         def wrapped(*a, _fn=fn, _name=name, **k):
@@ -83,7 +97,7 @@ def scan(profiles, seqs, out, **kw) -> tuple[bytes, tp.Scanner]:
 def test_tier_products_byte_identical_to_jax(planted, jax_products,
                                              tmp_path, monkeypatch, counted,
                                              tier):
-    profiles, seqs = planted
+    profiles, seqs = planted[1]
     shrink_caps(monkeypatch)
     if tier == "chain+seg":
         monkeypatch.setenv("DECIPHON_CHAIN_SEG", "1")
@@ -93,9 +107,11 @@ def test_tier_products_byte_identical_to_jax(planted, jax_products,
     assert sc.metrics.survivors > 0 and sc.metrics.products > 0
     assert got == jax_products
     # normal windows ride the segment chunks' spare slots under seg
-    want = {"chain+gang": {"scores_pairs_chained", "scores_pairs_mixed"},
-            "chain+seg": {"scores_pairs_chained_carry"},
-            "classic": {"scores_pairs"}}[tier]
+    want = {"chain+gang": {"scores_pairs_chained", "scores_pairs_mixed",
+                           "scores_pairs_packed_chained"},
+            "chain+seg": {"scores_pairs_chained_carry",
+                          "scores_pairs_packed_chained"},
+            "classic": {"scores_pairs", "scores_pairs_packed"}}[tier]
     assert want <= set(counted)
     assert not {"chain+gang": {"scores_pairs_chained_carry"},
                 "chain+seg": {"scores_pairs_mixed"},
@@ -104,11 +120,13 @@ def test_tier_products_byte_identical_to_jax(planted, jax_products,
 
 def test_default_tier_is_chain(planted, jax_products, tmp_path, counted):
     """Without switches and at the reference's caps every window of the
-    planted scan is chainable: the chain tier alone scores them."""
-    profiles, seqs = planted
+    planted scan is chainable: the chain tiers alone, unpacked and packed,
+    score them."""
+    profiles, seqs = planted[1]
     got, _ = scan(profiles, seqs, tmp_path / "torch")
     assert got == jax_products
-    assert set(counted) == {"scores_pairs_chained"}
+    assert set(counted) == {"scores_pairs_chained",
+                            "scores_pairs_packed_chained"}
 
 
 def test_leftover_chunk_at_narrow_width_launches_once(monkeypatch):
@@ -117,10 +135,12 @@ def test_leftover_chunk_at_narrow_width_launches_once(monkeypatch):
     launches each twice)."""
     from deciphon_tpu.ops.costs import build_costs
 
-    costs = [build_costs(sample_profile(s, k)) for s, k in [(1, 9), (2, 20)]]
+    costs = [costs_from_arrays(**vars(build_costs(sample_profile(s, k))))
+             for s, k in [(1, 9), (2, 20)]]
     rng = np.random.default_rng(4)
-    seqs = [Sequence.make(i, f"s{i}", random_bases(rng, 60 + 41 * i))
-            for i in range(5)]
+    seqs = [sequence_from_arrays(
+        **vars(Sequence.make(i, f"s{i}", random_bases(rng, 60 + 41 * i))))
+        for i in range(5)]
     codes = ts.DeviceSeqCodes(seqs, "cpu")
     items = [PairItem(p_idx=p, s_idx=i, win=Window(0, 0, s.size),
                       multi_hits=True, hmmer3_compat=False, seq=s,
@@ -150,7 +170,7 @@ def test_checkpoint_resume_identical(planted, tmp_path):
     """A scan stopped by should_stop after a few waves leaves a journal;
     a fresh scanner resumes from it to the same products, scoring fewer
     windows than a full scan."""
-    profiles, seqs = planted
+    profiles, seqs = planted[1]
     kw = dict(max_pairs=1, spec_depth=1)
     full, full_sc = scan(profiles, seqs, tmp_path / "full", **kw)
     d = tmp_path / "crash"
@@ -181,7 +201,7 @@ def test_checkpoint_resume_identical(planted, tmp_path):
 
 
 def test_should_stop_raises_interrupted(planted, tmp_path):
-    profiles, seqs = planted
+    profiles, seqs = planted[1]
     sc = tp.Scanner(profiles, tp.ScanConfig(device="cpu"))
     with pytest.raises(tp.Scanner.Interrupted):
         sc.run(seqs, str(tmp_path / "p"), should_stop=lambda: True)
@@ -190,7 +210,7 @@ def test_should_stop_raises_interrupted(planted, tmp_path):
 
 
 def test_warmup_and_release(planted, jax_products, tmp_path):
-    profiles, seqs = planted
+    profiles, seqs = planted[1]
     sc = tp.Scanner(profiles, tp.ScanConfig(device="cpu"))
     secs = sc.warmup(read_lengths=[300], reads_per_length=2)
     assert isinstance(secs, float) and secs > 0

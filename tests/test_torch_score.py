@@ -12,9 +12,15 @@ from deciphon_tpu.ops.costs import build_costs
 from deciphon_tpu.ops.engine import scan_scores_jit
 from deciphon_tpu.profile import sample_profile
 from deciphon_tpu.scan.sequence import frag_codes_ending
+from deciphon_tpu_torch.convert import (costs_from_arrays,
+                                        sequence_from_arrays)
 from deciphon_tpu_torch.ops import viterbi as vk
 from deciphon_tpu_torch.ops.tables import stack_tables
 from deciphon_tpu_torch.workload import window_batch
+
+# One torch thread: the plain versions run thousands of small ops, and
+# several test workers with a thread pool each starve one another.
+torch.set_num_threads(1)
 
 # lengths per (pair, slot): length-1 windows, pad slots (0) and windows
 # spanning several 40-position blocks
@@ -25,7 +31,8 @@ LENS = np.array([[37, 150, 1, 96, 41, 0, 12, 80],
 def make_inputs(Ks, mh, h3c, seed):
     costs = [build_costs(sample_profile(seed + i, k), mh, h3c)
              for i, k in enumerate(Ks)]
-    tables, tvecs = stack_tables(costs)
+    tables, tvecs = stack_tables([costs_from_arrays(**vars(c))
+                                  for c in costs])
     rng = np.random.default_rng(seed)
     batch = window_batch(rng, LENS, "cpu", mh, h3c)
     pidx = torch.tensor([i % len(Ks) for i in range(LENS.shape[0])],
@@ -115,34 +122,45 @@ def test_bucketed_scorer_matches_jax_pair_scorer():
     """Scheduler path: items over two Kp buckets scored through
     BucketedPairScorer's one-transfer wave equal PairScorer.score bit for
     bit and the reference JaxPairScorer within tolerance."""
-    from deciphon_tpu.scan.scheduler import JaxPairScorer, PairItem
+    from deciphon_tpu.scan import scheduler as ref_sched
     from deciphon_tpu.scan.sequence import Sequence
-    from deciphon_tpu.scan.window import Window
+    from deciphon_tpu.scan.window import Window as RefWindow
     from deciphon_tpu_torch.scan.scheduler import (BucketedPairScorer,
-                                                   DeviceSeqCodes, PairScorer)
+                                                   DeviceSeqCodes, PairItem,
+                                                   PairScorer)
+    from deciphon_tpu_torch.scan.window import Window
     from deciphon_tpu_torch.workload import random_bases
 
-    costs = [build_costs(sample_profile(s, k))
-             for s, k in [(1, 6), (2, 150), (3, 9)]]
+    ref_costs = [build_costs(sample_profile(s, k))
+                 for s, k in [(1, 6), (2, 150), (3, 9)]]
+    costs = [costs_from_arrays(**vars(c)) for c in ref_costs]
     rng = np.random.default_rng(5)
-    seqs = [Sequence.make(i, f"s{i}", random_bases(rng, 30 + 37 * i))
-            for i in range(4)]
+    ref_seqs = [Sequence.make(i, f"s{i}", random_bases(rng, 30 + 37 * i))
+                for i in range(4)]
+    seqs = [sequence_from_arrays(**vars(s)) for s in ref_seqs]
     codes = DeviceSeqCodes(seqs, "cpu")
     items = [PairItem(p_idx=p, s_idx=i, win=Window(0, 0, s.size),
                       multi_hits=True, hmmer3_compat=False, seq=s,
                       gstart=codes.gstart(i, 0))
              for p in range(3) for i, s in enumerate(seqs)]
+    ref_items = [ref_sched.PairItem(p_idx=p, s_idx=i,
+                                    win=RefWindow(0, 0, s.size),
+                                    multi_hits=True, hmmer3_compat=False,
+                                    seq=s)
+                 for p in range(3) for i, s in enumerate(ref_seqs)]
+    # the default scorer packs K = 6 and 9 side by side (seg 64, 2
+    # segments) and leaves K = 150 alone in its plain bucket
     bucketed = BucketedPairScorer(costs, "cpu")
     assert [s.Kp for s in bucketed.scorers] == [128, 256]
     bucketed.set_device_codes(codes)
     got = bucketed.collect_all(bucketed.dispatch_all(items))
     assert [it.p_idx for it in items] == [p for p in range(3)
                                           for _ in seqs]
-    want = JaxPairScorer(costs).score(items)
+    want = ref_sched.JaxPairScorer(ref_costs).score(ref_items)
     single = PairScorer(costs, "cpu")
     single.set_device_codes(codes)
     alone = single.score(items)
-    for it in items:
+    for it, rit in zip(items, ref_items):
         assert got[id(it)] == alone[id(it)]
-        np.testing.assert_allclose(got[id(it)], want[id(it)],
+        np.testing.assert_allclose(got[id(it)], want[id(rit)],
                                    rtol=2e-6, atol=2e-5)

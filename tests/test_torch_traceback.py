@@ -10,25 +10,35 @@ from deciphon_tpu.ops import traceback as ref_tb
 from deciphon_tpu.ops.costs import build_costs
 from deciphon_tpu.profile import sample_profile
 from deciphon_tpu.scan.sequence import Sequence
-from deciphon_tpu.xtrans import xtrans_cost_vector
+from deciphon_tpu_torch.convert import (costs_from_arrays,
+                                        frame_profile_from_arrays,
+                                        sequence_from_arrays)
 from deciphon_tpu_torch.ops import traceback as tb
 from deciphon_tpu_torch.ops import viterbi as vk
 from deciphon_tpu_torch.ops.tables import stack_tables
 from deciphon_tpu_torch.scan.scheduler import DeviceSeqCodes
 from deciphon_tpu_torch.workload import planted_read, random_bases
+from deciphon_tpu_torch.xtrans import xtrans_cost_vector
+
+# One torch thread: the plain versions run thousands of small ops, and
+# several test workers with a thread pool each starve one another.
+torch.set_num_threads(1)
 
 
 def trellis(K, seed):
     """Plain B2 trellis of 6 windows (2 planted) of one profile, flattened
     to (rows, Lk[, Kp]) as the scheduler hands it to the walk."""
-    profile = sample_profile(seed, K)
-    tables, tvecs = stack_tables([build_costs(profile)])
+    ref_profile = sample_profile(seed, K)
+    profile = frame_profile_from_arrays(**vars(ref_profile))
+    tables, tvecs = stack_tables(
+        [costs_from_arrays(**vars(build_costs(ref_profile)))])
     rng = np.random.default_rng(seed)
     reads = [planted_read(rng, profile, 3 * K + 40),
              planted_read(rng, profile, 3 * K + 90, noise=0.05),
              random_bases(rng, 61), random_bases(rng, 1),
              random_bases(rng, 140), random_bases(rng, 7)]
-    seqs = [Sequence.make(i, f"r{i}", r) for i, r in enumerate(reads)]
+    seqs = [sequence_from_arrays(**vars(Sequence.make(i, f"r{i}", r)))
+            for i, r in enumerate(reads)]
     codes = DeviceSeqCodes(seqs, "cpu")
     lens = np.zeros((1, 8), np.int32)
     lens[0, :6] = [s.size for s in seqs]
