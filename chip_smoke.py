@@ -14,7 +14,10 @@ Phases, each reported on its own lines; any failure exits non-zero:
      window over 4 calls, equal to B1 on the whole window, a normal window
      riding in a spare slot), B6 packed (two packs, one with a missing
      segment), B7 packed chain (once with the lists every segment shares,
-     once with lists that differ per segment), B2 path and the walk;
+     once with lists that differ per segment), B2 path and the walk; the
+     large-K tier: B4 against its plain version at Kp 5632 and 16896 and
+     against B1 at Kp 1024 and 5120 (8 windows of <= 600 nt, one a pad),
+     B2 also at Kp 16896;
   4. the Pfam scan, Scanner(ScanConfig(device="cuda")).run, on a
      Pfam-shaped database of 200 random profiles (K geometric over
      50..2000) and 8 reads of 10 knt, four carrying a planted domain,
@@ -25,20 +28,26 @@ Phases, each reported on its own lines; any failure exits non-zero:
      unpacked scorer (plain buckets only, built through `scorer=`): first
      scan, three warm scans, one under torch.profiler; all with the same
      products; and a fresh Scanner's first scan after Scanner.warmup;
-  5. the long-read scan: the same database and 3 reads of 40 knt, each
+  5. the long-read scan: the same database and 3 reads of 24 knt, each
      carrying a planted domain, two of them in windows over the chain cap
      that ride the gang: first scan, one warm scan, one profiled; then one
      scan with DECIPHON_CHAIN_SEG=1 (carry segments, same products);
+     then the large-K scan: six profiles of K 5200..16384 (three buckets
+     past Kp 5120, on B4) and six reads of 20 knt, three carrying planted
+     stretches: first scan, three warm scans (median wall), one profiled;
   6. every kernel against its plain version again, on arguments the scans
      themselves gave it (more scans record each wrapper's calls): B7 and
      B2 with its walk from the Pfam scan and from the long-read scan, B6
      from the DECIPHON_NO_CHAIN=1 Pfam scan, B1, B3 and B5 from the
-     long-read scan and every B8 call of its DECIPHON_CHAIN_SEG=1 scan;
-     per wrapper and scan the widest, longest launch, bit for bit; the
-     times and bounds of a kernel's last check go into the kernels line;
+     long-read scan and every B8 call of its DECIPHON_CHAIN_SEG=1 scan,
+     B4 from the large-K scan and B2 with its walk from that scan's
+     narrowest bucket; per wrapper and scan the widest, longest launch, bit
+     for bit; the times and bounds of a kernel's last check go into the
+     kernels line;
   7. the same code on the card and on the CPU (plain versions) on a
      subset, at the reference's caps and with the chain caps shrunk so
-     that gang and carry fire on 2-knt reads: products.tsv must be
+     that gang and carry fire on 1.2-knt reads, and on a large-K subset (K
+     5200 and 5300, two reads of 2 knt): products.tsv must be
      byte-identical.
 
 Every scan path is run with the launch counts set to 0 just before and
@@ -70,15 +79,19 @@ PALLAS = "deciphon_tpu/ops/viterbi_pallas.py"
 SCORE_CU = "deciphon_tpu_torch/csrc/viterbi_score.cu"
 PACKED_CU = "deciphon_tpu_torch/csrc/viterbi_packed.cu"
 SOURCE = {"score": SCORE_CU, "chain": SCORE_CU, "gang": SCORE_CU,
-          "carry": SCORE_CU, "packed": PACKED_CU, "pchain": PACKED_CU,
+          "carry": SCORE_CU, "large": SCORE_CU, "packed": PACKED_CU,
+          "pchain": PACKED_CU,
           "path": "deciphon_tpu_torch/csrc/viterbi_path.cu",
           "walk": "deciphon_tpu_torch/csrc/traceback_walk.cu"}
 # kernel wrappers whose calls a captured scan records
 SPIED = ("scores_pairs", "scores_pairs_mixed", "scores_pairs_chained",
-         "scores_pairs_chained_carry", "scores_pairs_packed",
-         "scores_pairs_packed_chained", "paths_pairs")
+         "scores_pairs_chained_carry", "scores_pairs_large",
+         "scores_pairs_packed", "scores_pairs_packed_chained", "paths_pairs")
+# plain versions by wrapper (B4's function is B1's, kept once)
+PLAIN = {"scores_pairs_large": "scores_pairs_plain"}
 REPLACES = {"score": f"{PALLAS}:376", "chain": f"{PALLAS}:1038",
             "gang": f"{PALLAS}:828", "carry": f"{PALLAS}:1111",
+            "large": f"{PALLAS}:1379",
             "packed": f"{PALLAS}:2265", "pchain": f"{PALLAS}:2331",
             "path": f"{PALLAS}:1707",
             "walk": "deciphon_tpu/ops/traceback.py:137"}
@@ -410,7 +423,8 @@ def check_kernels(torch, report) -> None:
             score_bound(torch, report, "pchain", inp, (ka, kn))
 
     trellis = None
-    for Kp, lo, hi, w in ((256, 200, 2000, 8), (3200, 100, 300, 2)):
+    for Kp, lo, hi, w in ((256, 200, 2000, 8), (3200, 100, 300, 2),
+                          (16896, 40, 150, 4)):
         inp, maxlen = score_inputs(Kp, w, 1, lo, hi, seed=30 + Kp,
                                    device="cuda")
         nlb = -(-maxlen // vk.PATH_KAPPA)
@@ -478,6 +492,48 @@ def check_kernels(torch, report) -> None:
           and oracle[16] == (W, True), "walk differs from plain or unzip")
     report["walk"].update(max_abs_err=0.0, ms=k_ms, plain_ms=p_ms)
     walk_bound(report, ks[2])
+    check_large(torch, report)
+
+
+def check_large(torch, report) -> None:
+    """Phase 3, the large-K tier: B4 on 8 windows of <= 600 nt (the last a
+    pad) against its plain version at Kp 5632 and 16896 and against B1 at
+    Kp 1024 and 5120 (B2 at Kp 16896 is checked with the other B2
+    cases)."""
+    from deciphon_tpu_torch.ops import viterbi as vk
+    from deciphon_tpu_torch.workload import score_inputs
+
+    for Kp in (1024, 5120, 5632, 16896):
+        inp, maxlen = score_inputs(Kp, 8, 1, 100, 600, seed=90 + Kp,
+                                   device="cuda")
+        inp["lengths"][:, -1] = 0
+        if Kp <= vk.MAX_KP:
+            a1, n1 = vk.scores_pairs(**inp)
+            a4, n4 = vk.scores_pairs_large(**inp)
+            torch.cuda.synchronize()
+            b1_ms = cuda_ms(torch, lambda: vk.scores_pairs(**inp), 5)
+            b4_ms = cuda_ms(torch, lambda: vk.scores_pairs_large(**inp), 5)
+            same = torch.equal(a1, a4) and torch.equal(n1, n4)
+            say("B4", f"Kp={Kp} 7 windows <= {maxlen} nt + 1 pad: equal to "
+                f"B1 bit for bit {same}; B4 {b4_ms:.3f} ms "
+                f"({b4_ms * 1e3 / maxlen:.3f} us/position), B1 "
+                f"{b1_ms:.3f} ms ({b1_ms * 1e3 / maxlen:.3f} us/position)")
+            check(same, f"B4 differs from B1 at Kp={Kp}")
+            continue
+        (ka, kn), (pa, pn), k_ms, p_ms = kernel_vs_plain(
+            torch, vk.scores_pairs_large, vk.scores_pairs_plain, inp)
+        exact = torch.equal(ka, pa) and torch.equal(kn, pn)
+        pads = bool(torch.isinf(ka[:, -1]).all()
+                    and torch.isfinite(ka[:, :-1]).all())
+        say("B4", f"Kp={Kp} 7 windows <= {maxlen} nt + 1 pad: bit-equal "
+            f"{exact}, pad +inf and real slots finite {pads}; kernel "
+            f"{k_ms:.3f} ms ({k_ms * 1e3 / maxlen:.3f} us/position), plain "
+            f"{p_ms:.1f} ms; scratch {8 * 11 * Kp * 4 / 1e6:.3f} MB "
+            f"({11 * Kp * 4 / 1e3:.1f} KB per window)")
+        check(exact and pads, f"B4 Kp={Kp} differs from plain")
+        report["large"].update(max_abs_err=max_err(torch, ka, pa), ms=k_ms,
+                               plain_ms=p_ms)
+        score_bound(torch, report, "large", inp, (ka, kn))
 
 
 def span(a: dict) -> int:
@@ -489,11 +545,13 @@ def span(a: dict) -> int:
     return int(a["lengths"].max())
 
 
-def widest(calls: list, key: str):
-    """The recorded launch with the widest lanes, then the longest slot."""
+def widest(calls: list, key: str, narrowest: bool = False):
+    """The recorded launch with the widest (or the narrowest) lanes, then
+    the longest slot."""
     check(calls, f"the captured scan made no {key} launch")
+    sign = -1 if narrowest else 1
     i = max(range(len(calls)), key=lambda j: (
-        calls[j]["tables"].shape[2], span(calls[j])))
+        sign * calls[j]["tables"].shape[2], span(calls[j])))
     return i, calls[i]
 
 
@@ -504,17 +562,19 @@ def record(report, key: str, err: float, k_ms: float, p_ms: float) -> None:
 
 
 def check_main_shapes(torch, report, pfam_calls, nochain_calls, long_calls,
-                      seg_calls) -> None:
+                      seg_calls, big_calls) -> None:
     """Each kernel against its plain version on arguments the scans
     themselves gave it (recorded by captured scans): B7 and B2 from the
-    Pfam scan and again from the long-read scan (whole-read 40-knt
+    Pfam scan and again from the long-read scan (whole-read
     windows), B6 from the Pfam DECIPHON_NO_CHAIN=1 scan, B1, B5 and B3
-    from the long-read scan; per wrapper and scan the launch with the
-    widest lanes and then the longest slot, and every carry call of the
-    long-read DECIPHON_CHAIN_SEG=1 scan on its own carry-in; the walk on
-    each chosen path launch's trellis, as the scheduler runs it.  Bit for
-    bit, pads +inf on both sides.  The times of a kernel's last check (the
-    long-read one where there are two) go into the kernels line."""
+    from the long-read scan, B4 from the large-K scan; per wrapper and
+    scan the launch with the widest lanes and then the longest slot, and
+    every carry call of the long-read DECIPHON_CHAIN_SEG=1 scan on its own
+    carry-in; B2 also from the large-K scan's narrowest bucket (its
+    longest launch), to bound the plain version's time; the walk on each
+    chosen path launch's trellis, as the scheduler runs it.  Bit for bit,
+    pads +inf on both sides.  The times of a kernel's last check go into
+    the kernels line."""
     from deciphon_tpu_torch.ops import viterbi as vk
 
     for key, name, scan, calls in (
@@ -525,12 +585,13 @@ def check_main_shapes(torch, report, pfam_calls, nochain_calls, long_calls,
              long_calls),
             ("score", "scores_pairs", "long-read", long_calls),
             ("gang", "scores_pairs_mixed", "long-read", long_calls),
-            ("chain", "scores_pairs_chained", "long-read", long_calls)):
+            ("chain", "scores_pairs_chained", "long-read", long_calls),
+            ("large", "scores_pairs_large", "large-K", big_calls)):
         calls = calls[name]
         i, args = widest(calls, key)
         out, want, k_ms, p_ms = kernel_vs_plain(
-            torch, getattr(vk, name), getattr(vk, name + "_plain"), args,
-            reps=2)
+            torch, getattr(vk, name),
+            getattr(vk, PLAIN.get(name, name + "_plain")), args, reps=2)
         exact = all(torch.equal(a, b) for a, b in zip(out, want))
         lens = args["win_len"] if "win_len" in args else args["lengths"]
         say("main", f"{key}: {scan} scan, launch {i + 1} of {len(calls)}, "
@@ -539,6 +600,14 @@ def check_main_shapes(torch, report, pfam_calls, nochain_calls, long_calls,
             f"positions: bit-equal {exact}, kernel {k_ms:.3f} ms, plain "
             f"{p_ms:.1f} ms")
         check(exact, f"{key} differs from plain at the {scan} scan's shapes")
+        if key == "large":
+            N, W = lens.shape[:2]
+            Kp = args["tables"].shape[2]
+            say("main", f"large: that launch holds a scratch of "
+                f"{N * W * 11 * Kp * 4 / 1e6:.3f} MB ({N * W} slots of "
+                f"{11 * Kp * 4 / 1e3:.1f} KB), "
+                f"{int((lens > 0).sum()) * 11 * Kp * 4 / 1e6:.3f} MB of it "
+                "for its real windows, against the card's 50 MB of L2")
         record(report, key, max(max_err(torch, a, b) for a, b in zip(out, want)),
                k_ms, p_ms)
         score_bound(torch, report, key, args, out)
@@ -573,17 +642,19 @@ def check_main_shapes(torch, report, pfam_calls, nochain_calls, long_calls,
 
     for scan, calls in (("Pfam", pfam_calls), ("long-read", long_calls)):
         check_path_shapes(torch, report, scan, calls)
+    check_path_shapes(torch, report, "large-K", big_calls, narrowest=True)
 
 
-def check_path_shapes(torch, report, scan: str, calls) -> None:
-    """B2 against its plain version on the widest, longest path launch a
-    captured scan recorded, and the walk of that launch's survivors as the
-    scheduler launches it."""
+def check_path_shapes(torch, report, scan: str, calls,
+                      narrowest: bool = False) -> None:
+    """B2 against its plain version on the widest (or narrowest), longest
+    path launch a captured scan recorded, and the walk of that launch's
+    survivors as the scheduler launches it."""
     from deciphon_tpu_torch.ops import traceback as tb
     from deciphon_tpu_torch.ops import viterbi as vk
 
     calls = calls["paths_pairs"]
-    i, args = widest(calls, "path")
+    i, args = widest(calls, "path", narrowest)
     (kx, kd), (px, pd), k_ms, p_ms = kernel_vs_plain(
         torch, vk.paths_pairs, vk.paths_pairs_plain, args, reps=1)
     lens = args["lengths"][..., 0]
@@ -750,6 +821,60 @@ class Scans:
         return med
 
 
+def largek_scan(torch, launches: dict):
+    """The large-K scan (`workload.pfam_largek`): every bucket past Kp 5120
+    on B4, survivors on B2 and the walk; first scan (counted), three warm
+    scans and one profiled.  Returns (its Scans, its product lines)."""
+    from deciphon_tpu_torch.workload import (LARGEK_KS, LARGEK_PLANTED,
+                                             pfam_largek)
+
+    t0 = time.perf_counter()
+    big_prof, big_seqs = pfam_largek()
+    say("largek", f"{len(big_prof)} profiles K {list(LARGEK_KS)}, "
+        f"{len(big_seqs)} reads of {big_seqs[0].size} nt, reads 0-2 "
+        f"carrying (profile, nodes) {list(LARGEK_PLANTED)}; host set-up "
+        f"{time.perf_counter() - t0:.1f} s")
+    big = Scans(torch, big_prof, big_seqs, "largek")
+    bscorers = big.scanner.scorer.scorers
+    check(all(getattr(s, "hbm_table", False) for s in bscorers),
+          "a large-K profile left the large-K tier")
+    say("largek", f"{len(bscorers)} large-K scorers (Kp, w, profiles) "
+        f"{[(s.Kp, s.w, len(s.tables)) for s in bscorers]}; "
+        f"{sum(s.table_bytes() for s in bscorers) / 1e9:.3f} GB of tables "
+        "on the card")
+    first, big_lines = big.counted(launches, ("large", "path", "walk"))
+    say("largek", f"first scan of these tables (cold): {first:.6f} s")
+    hit_reads = {int(ln.split("\t")[0]) for ln in big_lines[1:]}
+    say("largek", f"products on reads {sorted(hit_reads)}")
+    check({0, 1, 2} <= hit_reads, "no products on a planted large-K read")
+    big.warm_and_profile(big_lines)
+    return big, big_lines
+
+
+def largek_subset_check(big_prof) -> None:
+    """Phase 7, large-K: the first two large-K profiles (K 5200, 5300) on
+    two reads of 2 knt, on the card and on the CPU: the same bytes."""
+    from deciphon_tpu_torch.scan.pipeline import ScanConfig, Scanner
+    from deciphon_tpu_torch.workload import largek_subset
+
+    sub, seqs = largek_subset(big_prof)
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as tmp:
+            sc = Scanner(sub, ScanConfig(device=dev))
+            check(all(s.hbm_table for s in sc.scorer.scorers),
+                  "the large-K subset left the large-K tier")
+            with open(sc.run(seqs, os.path.join(tmp, "p"))) as fp:
+                outs[dev] = fp.read()
+        say("subset", f"large-K, {dev}: K {[p.core_size for p in sub]} x "
+            f"{len(seqs)} reads of {seqs[0].size} nt, "
+            f"{sc.metrics.products} products, "
+            f"{time.perf_counter() - t0:.3f} s")
+    check(outs["cuda"] == outs["cpu"], "large-K subset: card and CPU differ")
+    check(outs["cuda"].count("\n") > 1, "large-K subset: no products")
+
+
 def main() -> None:
     import torch
 
@@ -865,7 +990,7 @@ def main() -> None:
     # ---- 5. the long-read scan: gang and carry over-cap tiers ----------
     t0 = time.perf_counter()
     _, long_seqs = pfam_longread(profiles)
-    say("long", f"3 reads of 40 knt, planted K "
+    say("long", f"3 reads of {long_seqs[0].size} nt, planted K "
         f"{[ks_db[i] for i in LONGREAD_PLANTED]} on reads 0-2; host set-up "
         f"{time.perf_counter() - t0:.1f} s")
     lr = Scans(torch, profiles, long_seqs, "long")
@@ -880,16 +1005,21 @@ def main() -> None:
           "DECIPHON_CHAIN_SEG=1 wrote other products than the gang tier")
     say("long", "carry segments: products byte-identical to the gang tier's")
 
+    # ---- 5b. the large-K scan: B4 and B2 past 5120 lanes ---------------
+    big, big_lines = largek_scan(torch, launches)
+
     # ---- 6. kernels against plain at the scans' own shapes --------------
     t0 = time.perf_counter()
     pfam_calls = pfam.captured(lines)
     nochain_calls = pfam.captured(lines, no_chain)
     long_calls = lr.captured(long_lines)
     seg_calls = lr.captured(long_lines, {"DECIPHON_CHAIN_SEG": "1"})
-    del lr, pfam
+    big_calls = big.captured(big_lines)
+    big_prof = big.scanner.profiles
+    del lr, pfam, big
     check_main_shapes(torch, report, pfam_calls, nochain_calls, long_calls,
-                      seg_calls)
-    del pfam_calls, nochain_calls, long_calls, seg_calls
+                      seg_calls, big_calls)
+    del pfam_calls, nochain_calls, long_calls, seg_calls, big_calls
     say("main", f"phase {time.perf_counter() - t0:.1f} s")
 
     # ---- 7. card against CPU on the same code ---------------------------
@@ -910,8 +1040,9 @@ def main() -> None:
                     sc = Scanner(sub_prof, ScanConfig(device=dev))
                     with open(sc.run(sub_seqs, os.path.join(tmp, "p"))) as fp:
                         outs[dev] = fp.read()
-                say("subset", f"{label}, {dev}: {len(sub_prof)} profiles x 2 "
-                    f"reads of 2 knt, {sc.metrics.products} products, "
+                say("subset", f"{label}, {dev}: {len(sub_prof)} profiles x "
+                    f"{len(sub_seqs)} reads of {sub_seqs[0].size} nt, "
+                    f"{sc.metrics.products} products, "
                     f"{time.perf_counter() - t0:.3f} s")
         finally:
             PairScorer.CHAIN_MAX_BLK, PairScorer.NLB_FLOOR = caps
@@ -919,6 +1050,7 @@ def main() -> None:
                 os.environ.pop(k, None)
         check(outs["cuda"] == outs["cpu"], f"{label}: card and CPU differ")
         check(outs["cuda"].count("\n") > 1, f"{label}: no products")
+    largek_subset_check(big_prof)
     say("subset", "products.tsv byte-identical on card and CPU")
     check(not [m for m in sys.modules
                if m.split(".")[0] in ("jax", "deciphon_tpu")],

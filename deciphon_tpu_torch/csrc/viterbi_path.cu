@@ -11,9 +11,10 @@
 // slots exit), the position loop inside the block, the Kp lanes split into
 // consecutive chunks, one per thread.  The 5-slot M/I/D rings (15 x Kp
 // f32) plus per-position scratch (new M, new I, packed codes: 3 x Kp) live
-// in shared memory when they fit (Kp <= 2816) and otherwise in a global
-// scratch slice per CTA, read through L1/L2; the same code runs on either
-// pointer.  Special-state rings sit in registers, computed redundantly by
+// in shared memory when they fit (Kp <= 2816, 256 threads) and otherwise
+// in a global scratch slice per CTA, read through L1/L2 (1024 threads, at
+// most 17 lanes a thread up to the large-K tier's Kp 16896); the same code
+// runs on either pointer.  Special-state rings sit in registers, computed redundantly by
 // every thread, with static ring slots from a 5-phase unrolled loop.
 // Output: xnode (N, W, Lk) and node (N, W, Lk, Kp) int32, row l-1 holding
 // position l; rows at or past a window's length are not written (the walk
@@ -43,9 +44,11 @@ __device__ __forceinline__ void consider(float& best, int& code, float cand,
   best = fminf(best, cand);
 }
 
-constexpr int kPathThreads = 256;
+constexpr int kPathThreads = 256;       // rings in shared memory
+constexpr int kPathWideThreads = 1024;  // rings in the global scratch
 
-__global__ void __launch_bounds__(kPathThreads) path_pairs_kernel(
+template <int kThreads>
+__global__ void __launch_bounds__(kThreads) path_pairs_kernel(
     const int* __restrict__ pidx, const float* __restrict__ tables,
     const float* __restrict__ tvecs, const float* __restrict__ xts,
     const int* __restrict__ lens, const int* __restrict__ starts,
@@ -218,17 +221,28 @@ extern "C" int dtt_path_pairs(
     void* stream) {
   const int threads = Kp < kPathThreads ? Kp : kPathThreads;
   const int lpt = (Kp + threads - 1) / threads;
-  const size_t smem = scratch ? 0 : path_buf_bytes(Kp);
-  cudaError_t err = cudaFuncSetAttribute(
-      path_pairs_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  if (N > 0 && W > 0) {
-    path_pairs_kernel<<<dim3(W, N), threads, smem, (cudaStream_t)stream>>>(
-        (const int*)pidx, (const float*)tables, (const float*)tvecs,
-        (const float*)xts, (const int*)lens, (const int*)starts,
-        (const int*)codes, (int*)xnode, (int*)node, (float*)scratch, W, Kp,
-        T, Lk, lpt);
+  if (N <= 0 || W <= 0) return (int)cudaGetLastError();
+  const dim3 grid(W, N);
+  if (scratch) {
+    const int wide = Kp < kPathWideThreads ? Kp : kPathWideThreads;
+    path_pairs_kernel<kPathWideThreads>
+        <<<grid, wide, 0, (cudaStream_t)stream>>>(
+            (const int*)pidx, (const float*)tables, (const float*)tvecs,
+            (const float*)xts, (const int*)lens, (const int*)starts,
+            (const int*)codes, (int*)xnode, (int*)node, (float*)scratch, W,
+            Kp, T, Lk, (Kp + wide - 1) / wide);
+    return (int)cudaGetLastError();
   }
+  const size_t smem = path_buf_bytes(Kp);
+  cudaError_t err = cudaFuncSetAttribute(
+      path_pairs_kernel<kPathThreads>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  path_pairs_kernel<kPathThreads><<<grid, threads, smem,
+                                    (cudaStream_t)stream>>>(
+      (const int*)pidx, (const float*)tables, (const float*)tvecs,
+      (const float*)xts, (const int*)lens, (const int*)starts,
+      (const int*)codes, (int*)xnode, (int*)node, (float*)scratch, W, Kp, T,
+      Lk, lpt);
   return (int)cudaGetLastError();
 }

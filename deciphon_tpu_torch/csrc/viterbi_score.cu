@@ -1,6 +1,6 @@
-// Phase-1 score kernels (B1, B3, B5, B8): null and alt min-plus costs of
-// every scheduled window, the push/pending formulation of the frame
-// Viterbi.  One DP body (`score_window`), four entry points:
+// Phase-1 score kernels (B1, B3, B5, B8, B4): null and alt min-plus costs
+// of every scheduled window, the push/pending formulation of the frame
+// Viterbi.  One DP body (`score_window`), five entry points:
 //
 //   dtt_score_pairs          B1  `_kernel_pending` plain pairs form
 //                                (`_scores_pairs_core`,
@@ -12,7 +12,10 @@
 //                                `_chained_scores_jit`);
 //   dtt_score_chained_carry  B8  `_kernel_pending` chain=True, carry=True,
 //                                DP state across consecutive calls
-//                                (`_scores_pairs_chain_carry_core`).
+//                                (`_scores_pairs_chain_carry_core`);
+//   dtt_score_pairs_large    B4  `_kernel_block_large`, the large-K tier
+//                                (`_scores_pairs_hbm_core`,
+//                                `_gather_scores_pairs_hbm_jit`).
 //
 // all in deciphon_tpu/ops/viterbi_pallas.py, with the `_ck_from_starts` /
 // `_chain_expand` gathers fused: the body reads
@@ -25,11 +28,25 @@
 // on sublanes.  Here one CTA scans one real window, the position loop runs
 // inside the block, and the Kp lanes are split into consecutive chunks, one
 // per thread.  The 5-slot pending rings PM/PI (5 x Kp each) and the
-// previous delete row live in shared memory (44 * Kp bytes: 220 KB at
-// Kp = 5120, for every entry point); the special states and their pending
-// rings live in registers, computed redundantly by every thread, with ring
-// slots made static by unrolling the position loop into 5 phases (as the
-// Pallas kernel does).
+// previous delete row (11 * Kp f32, the body's `state`) live in shared
+// memory for B1, B3, B5 and B8 (44 * Kp bytes: 220 KB at Kp = 5120); the
+// special states and their pending rings live in registers, computed
+// redundantly by every thread, with ring slots made static by unrolling the
+// position loop into 5 phases (as the Pallas kernel does).
+//
+// Large K (B4).  Past Kp = 5120 the state no longer fits a CTA's 227 KB
+// (743 KB at Kp = 16896), so B4 runs the same body on the CTA's own slice
+// of a global scratch of (N * W, 11 * Kp) f32 that the wrapper allocates
+// per launch, 1024 threads per CTA (at most 17 lanes a thread).  The TPU
+// kernel launched once per 40-position block, gathered the block's emission
+// planes with XLA and carried its state through HBM between launches, all
+// because VMEM could not hold the table; here the body reads emission rows
+// from the table in place and one launch runs every window to its length.
+// The state is written and read by the block itself, so it is read through
+// plain pointers (never `const __restrict__` or __ldg, whose non-coherent
+// path does not see the block's writes) and __syncthreads orders it as it
+// does shared memory.  A launch's scratch stays in the 50 MB L2 only while
+// about 50 windows of Kp 16896 are in flight.
 //
 // Chains (B3, B8).  The TPU chained windows back to back in one sublane
 // slot only to fill its sublane floor; each window restarts from its own
@@ -57,6 +74,8 @@
 // Pallas f32 operation order: contrib = min(shift1(min(min(sm+MMs,
 // si+IMs), sd+DMs)), B+BM); D = cummin(A - DDCUM) + DDCUM;
 // R_l = PSM[3] + XT_RR with R_0 = -XT_RR.  Build without fast-math/ftz.
+// The lane split does not enter the result, so B4 equals B1 bit for bit
+// wherever both run.
 #include "common.cuh"
 
 namespace {
@@ -64,7 +83,9 @@ namespace {
 using namespace dtt;
 
 constexpr int kScoreThreads = 512;
+constexpr int kLargeThreads = 1024;  // B4: <= 17 lanes a thread at Kp 16896
 constexpr int kCW = 8;  // carry slots per pair (viterbi_pallas.CW)
+constexpr int kStatePlanes = 11;  // PM (5) | PI (5) | Dv (1), Kp f32 each
 
 // Carry planes of one (pair, slot): plane j of big at big + j * kCW * Kp,
 // plane j of small at sml + j * kCW.
@@ -76,18 +97,18 @@ struct Carry {
 };
 
 // The DP of one window: `len` positions of profile table/tv from code row
-// `start`, (alt, null) written to *alt / *nul.  Every thread of the CTA
-// calls it; a length-0 window never gets here.
+// `start`, (alt, null) written to *alt / *nul.  `state` holds the CTA's
+// kStatePlanes * Kp f32, in shared memory or in its global scratch slice.
+// Every thread of the CTA calls it; a length-0 window never gets here.
 __device__ __forceinline__ void score_window(
     const float* __restrict__ table, const float* __restrict__ tv,
     const float* __restrict__ xtp, int start, int len,
-    const int* __restrict__ codes, int Kp, int T, int lpt, Carry cy,
-    float* alt, float* nul) {
-  extern __shared__ float smem[];
-  float* PM = smem;           // [5][Kp] pending M
+    const int* __restrict__ codes, int Kp, int T, int lpt, float* state,
+    Carry cy, float* alt, float* nul) {
+  __shared__ float red[kMaxWarps];  // reduction scratch
+  float* PM = state;          // [5][Kp] pending M
   float* PI = PM + 5 * Kp;    // [5][Kp] pending I
   float* Dv = PI + 5 * Kp;    // [Kp] previous D, then the pushed inner
-  float* red = Dv + Kp;       // [32] reduction scratch
   const float INF = inf_f();
 
   const float* tMMS = tv + TV_MMS * Kp;
@@ -298,10 +319,32 @@ __global__ void __launch_bounds__(kScoreThreads) score_pairs_kernel(
   const int sw = n * W + w;
   const int len = lens[sw];
   if (len <= 0) return write_pad(alt + sw, nul + sw);
+  extern __shared__ float smem[];
   const int p = kMixed ? pidx[sw] : pidx[n];
   score_window(tables + (size_t)p * kTableRows * Kp,
                tvecs + (size_t)p * 8 * Kp, xts + (size_t)sw * 16,
-               starts[sw], len, codes, Kp, T, lpt, Carry{}, alt + sw,
+               starts[sw], len, codes, Kp, T, lpt, smem, Carry{}, alt + sw,
+               nul + sw);
+}
+
+// B4: blockIdx = (slot, pair) as in B1; the state lives in the CTA's slice
+// of `scratch` (N * W, kStatePlanes * Kp) f32, written and read by the
+// block itself (so neither const nor __restrict__).
+__global__ void __launch_bounds__(kLargeThreads, 1) score_large_kernel(
+    const int* __restrict__ pidx, const float* __restrict__ tables,
+    const float* __restrict__ tvecs, const float* __restrict__ xts,
+    const int* __restrict__ lens, const int* __restrict__ starts,
+    const int* __restrict__ codes, float* scratch, float* __restrict__ alt,
+    float* __restrict__ nul, int W, int Kp, int T, int lpt) {
+  const int n = blockIdx.y, w = blockIdx.x;
+  const int sw = n * W + w;
+  const int len = lens[sw];
+  if (len <= 0) return write_pad(alt + sw, nul + sw);
+  const int p = pidx[n];
+  score_window(tables + (size_t)p * kTableRows * Kp,
+               tvecs + (size_t)p * 8 * Kp, xts + (size_t)sw * 16,
+               starts[sw], len, codes, Kp, T, lpt,
+               scratch + (size_t)sw * kStatePlanes * Kp, Carry{}, alt + sw,
                nul + sw);
 }
 
@@ -333,10 +376,11 @@ __global__ void __launch_bounds__(kScoreThreads) score_chained_kernel(
     cy.big_out = cbig_out + bo;
     cy.sml_out = csml_out + so;
   }
+  extern __shared__ float smem[];
   const int p = pidx[n];
   score_window(tables + (size_t)p * kTableRows * Kp,
                tvecs + (size_t)p * 8 * Kp, lut + (size_t)xti[e] * 16,
-               gst[e], len, codes, Kp, T, lpt, cy, alt + e, nul + e);
+               gst[e], len, codes, Kp, T, lpt, smem, cy, alt + e, nul + e);
 }
 
 // Threads per CTA and lanes per thread for lane width Kp.
@@ -345,9 +389,9 @@ void shape(int Kp, int* threads, int* lpt) {
   *lpt = (Kp + *threads - 1) / *threads;
 }
 
-// Shared memory of one CTA for lane width Kp.
+// Shared memory of one CTA for lane width Kp (the DP state).
 size_t smem_bytes(int Kp) {
-  return (size_t)(11 * Kp + kMaxWarps) * sizeof(float);
+  return (size_t)kStatePlanes * Kp * sizeof(float);
 }
 
 template <typename K>
@@ -440,6 +484,23 @@ extern "C" int dtt_score_chained_carry(
   return launch_chained<true>(pidx, tables, tvecs, wlen, gst, xti, lut,
                         codes, conts, cbig_in, csml_in, cbig_out, csml_out, alt,
                         nul, N, W, C, Kp, T, stream);
+}
+
+// B4: scratch is (N * W, 11 * Kp) f32 (ops/viterbi.py allocates it).
+extern "C" int dtt_score_pairs_large(
+    const void* pidx, const void* tables, const void* tvecs, const void* xts,
+    const void* lens, const void* starts, const void* codes, void* scratch,
+    void* alt, void* nul, int N, int W, int Kp, int T, void* stream) {
+  const int threads = Kp < kLargeThreads ? Kp : kLargeThreads;
+  const int lpt = (Kp + threads - 1) / threads;
+  if (N > 0 && W > 0) {
+    score_large_kernel<<<dim3(W, N), threads, 0, (cudaStream_t)stream>>>(
+        (const int*)pidx, (const float*)tables, (const float*)tvecs,
+        (const float*)xts, (const int*)lens, (const int*)starts,
+        (const int*)codes, (float*)scratch, (float*)alt, (float*)nul, W, Kp,
+        T, lpt);
+  }
+  return (int)cudaGetLastError();
 }
 
 extern "C" const char* dtt_error_string(int err) {

@@ -1,11 +1,15 @@
 """Frame Viterbi kernels of the scan: phase-1 scores (B1, its chain, gang
-and carry modes B3, B5, B8, and the lane-packed B6 and B7) and phase-2
-trellis (B2), each a CUDA kernel with its plain PyTorch version beside it.
+and carry modes B3, B5, B8, the large-K tier B4, and the lane-packed B6
+and B7) and phase-2 trellis (B2), each a CUDA kernel with its plain
+PyTorch version beside it.
 
 Counterparts in deciphon_tpu/ops/viterbi_pallas.py:
 
   * `scores_pairs`  <- viterbi_scores_pairs_from_starts (`_kernel_pending`,
     plain pairs form, with the `_ck_from_starts` gather fused);
+  * `scores_pairs_large`  <- _gather_scores_pairs_hbm_jit
+    (`_kernel_block_large`: B1's function for Kp > 5120, the DP state in
+    a global scratch instead of shared memory);
   * `scores_pairs_mixed`  <- _gather_scores_pairs_mixed_vmem_jit
     (`_kernel_pending` mixed: one profile per slot, the gang tier);
   * `scores_pairs_chained`  <- viterbi_scores_pairs_chained
@@ -57,14 +61,23 @@ PATH_KAPPA = 32
 # per window (18 f32 planes of Kp lanes), in a global scratch beyond it.
 PATH_SMEM_BYTES = 200 * 1024
 MAX_KP = 5120  # widest lane plane the kernels take (B1: 44 * Kp B of smem)
+# The large-K tier (B4) and B2 take planes up to the bucket of the
+# reference's largest profile, K = 16384 (c-core/model.h:12):
+# round_up(round_up(16386, 128), 512).
+MAX_LARGE_KP = 16896
+# DP-state bytes per (slot, lane) of the reference's HBM-table kernel
+# (viterbi_pallas.HBM_STATE_BYTES_PER_LANE): the scheduler's large-K slot
+# width follows it.  Tuned for a TPU's VMEM and inherited, as the
+# scheduler's PACK_* constants are.
+HBM_STATE_BYTES_PER_LANE = 92
 CW = 8  # carry slots per pair of the carry mode (viterbi_pallas.CW)
 # Packed planes: at most this many lanes (the scheduler's PACK_KP_MAX),
 # segments of a multiple of this many lanes.
 PACK_MAX_KP = 2048
 PACK_SEG_QUANTUM = 64
 
-LAUNCHES = {"score": 0, "chain": 0, "gang": 0, "carry": 0, "packed": 0,
-            "pchain": 0, "path": 0, "walk": 0}
+LAUNCHES = {"score": 0, "chain": 0, "gang": 0, "carry": 0, "large": 0,
+            "packed": 0, "pchain": 0, "path": 0, "walk": 0}
 
 
 def reset_launches() -> None:
@@ -95,15 +108,21 @@ def _check(t: torch.Tensor, name: str, dtype: torch.dtype, shape) -> None:
         raise ValueError(f"{name}: not contiguous")
 
 
-def _check_kp(Kp: int) -> None:
-    if Kp % 128 or Kp > MAX_KP:
+def _check_kp(Kp: int, max_kp: int = MAX_KP) -> None:
+    if Kp % 128 or Kp > max_kp:
+        if max_kp < MAX_LARGE_KP:
+            raise NotImplementedError(
+                f"Kp={Kp}: these kernels take multiples of 128 up to "
+                f"{max_kp} (wider profiles take the large-K tier, "
+                "scores_pairs_large)")
         raise NotImplementedError(
-            f"Kp={Kp}: the kernels take multiples of 128 up to {MAX_KP} "
-            "(wider profiles need the HBM-table tier, ROADMAP B4)")
+            f"Kp={Kp}: the large-K tier takes multiples of 128 up to "
+            f"{max_kp}, the bucket of the reference's largest profile "
+            "(K <= 16384)")
 
 
 def _check_inputs(pidx, tables, tvecs, xts, lengths, starts, codes_all,
-                  mixed: bool = False):
+                  mixed: bool = False, max_kp: int = MAX_KP):
     N, W = starts.shape
     P, _, Kp = tables.shape
     _check(pidx, "pidx", torch.int32, (N, W) if mixed else (N,))
@@ -113,7 +132,7 @@ def _check_inputs(pidx, tables, tvecs, xts, lengths, starts, codes_all,
     _check(lengths, "lengths", torch.int32, (N, W, 1))
     _check(starts, "starts", torch.int32, (N, W))
     _check(codes_all, "codes_all", torch.int32, (codes_all.shape[0], 5))
-    _check_kp(Kp)
+    _check_kp(Kp, max_kp)
     return N, W, Kp
 
 
@@ -326,6 +345,35 @@ def scores_pairs(pidx, tables, tvecs, xts, lengths, starts, codes_all):
                                   codes_all)
     return _launch_pairs("dtt_score_pairs", "score", pidx, tables, tvecs,
                          xts, lengths, starts, codes_all)
+
+
+def scores_pairs_large(pidx, tables, tvecs, xts, lengths, starts,
+                       codes_all):
+    """B4 wrapper, the large-K tier: `scores_pairs`' contract for lane
+    planes up to MAX_LARGE_KP.  (alt, null) (N, W) f32, pad slots +inf.
+    The function is B1's, so the plain version is `scores_pairs_plain`,
+    kept once; on the card the DP state of each window lives in its slice
+    of a (N * W, 11 * Kp) f32 scratch allocated per launch."""
+    N, W, Kp = _check_inputs(pidx, tables, tvecs, xts, lengths, starts,
+                             codes_all, max_kp=MAX_LARGE_KP)
+    if not on_cuda(pidx, tables, tvecs, xts, lengths, starts, codes_all):
+        return scores_pairs_plain(pidx, tables, tvecs, xts, lengths, starts,
+                                  codes_all)
+    from .. import _build
+
+    dev = tables.device
+    alt = torch.empty((N, W), dtype=torch.float32, device=dev)
+    nul = torch.empty_like(alt)
+    scratch = torch.empty((N * W, 11 * Kp), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = _build.lib().dtt_score_pairs_large(
+        pidx.data_ptr(), tables.data_ptr(), tvecs.data_ptr(), xts.data_ptr(),
+        lengths.data_ptr(), starts.data_ptr(), codes_all.data_ptr(),
+        scratch.data_ptr(), alt.data_ptr(), nul.data_ptr(), N, W, Kp,
+        codes_all.shape[0], stream)
+    _build.check(err, "dtt_score_pairs_large")
+    LAUNCHES["large"] += 1
+    return alt, nul
 
 
 def scores_pairs_mixed_plain(pidx, tables, tvecs, xts, lengths, starts,
@@ -997,9 +1045,11 @@ def paths_pairs(pidx, tables, tvecs, xts, lengths, starts, codes_all, *,
                 nlb):
     """B2 wrapper: (xnode (N, W, Lk), node (N, W, Lk, Kp)) int32 with
     Lk = nlb * PATH_KAPPA; row l-1 holds DP position l, rows at or past a
-    window's length are undefined on the card (never read by the walk)."""
+    window's length are undefined on the card (never read by the walk).
+    Lane planes up to MAX_LARGE_KP: the large-K tier's survivors take it
+    too."""
     N, W, Kp = _check_inputs(pidx, tables, tvecs, xts, lengths, starts,
-                             codes_all)
+                             codes_all, max_kp=MAX_LARGE_KP)
     if not on_cuda(pidx, tables, tvecs, xts, lengths, starts, codes_all):
         return paths_pairs_plain(pidx, tables, tvecs, xts, lengths, starts,
                                  codes_all, nlb=nlb)

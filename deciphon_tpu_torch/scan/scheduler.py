@@ -11,15 +11,16 @@ written for torch:
     the device from 1 byte/nt of uploaded bases;
   * PairScorer — one common-Kp table stack; phase-1 dispatch through the
     chain tier (B3) with its gang (B5) and carry (B8) over-cap tiers and
-    the classic rung buckets (B1), and phase-2 trellis + traceback (B2 +
-    walk);
+    the classic rung buckets (B1), or, for an `hbm_table` scorer (the
+    large-K tier, Kp > 5120), classic buckets on B4 alone; phase-2
+    trellis + traceback (B2 + walk);
   * PackedPairScorer — one seg-need class of small-K profiles, NSEG side
     by side on one lane plane: whole-read windows through the packed
     chain tier (B7) or, under DECIPHON_NO_CHAIN=1, the packed rung tier
     (B6); everything else, and phase 2, through an inner PairScorer;
-  * BucketedPairScorer — profiles partitioned into packed classes and
-    plain Kp buckets, one scorer each, one host transfer per phase-1
-    wave.
+  * BucketedPairScorer — profiles partitioned into packed classes, plain
+    Kp buckets and large-K buckets, one scorer each, one host transfer per
+    phase-1 wave.
 
 Environment switches, read where the reference reads them:
 DECIPHON_NO_CHAIN=1 sends every window to the classic buckets (packed
@@ -27,7 +28,8 @@ windows to B6); DECIPHON_CHAIN_SEG=1 sends over-cap windows to carry
 segments instead of the gang.
 
 Every scorer holds an explicit torch device; nothing falls back to the
-CPU.  Tiers that are not ported (HBM-streamed tables, Kp > 5120) raise.
+CPU.  What is not ported raises: streamed tables (a database over the
+device budget) and profiles beyond the reference's K = 16384.
 """
 
 from __future__ import annotations
@@ -354,7 +356,9 @@ class PairScorer:
     chain tier by default (B3), over-cap windows to the mixed-profile gang
     (B5) or, under DECIPHON_CHAIN_SEG=1, to carry segments (B8), and the
     rest to the plain rung buckets (B1), which DECIPHON_NO_CHAIN=1 forces
-    for everything.  Phase 2 runs the path kernel and the device walk,
+    for everything.  An `hbm_table` scorer (the reference's name for its
+    large-K tier, Kp > 5120) never chains: every window rides the rung
+    buckets on B4.  Phase 2 runs the path kernel and the device walk,
     returning un-fetched step arrays."""
 
     # Merge length rungs below this into one bucket (short reads would
@@ -370,16 +374,21 @@ class PairScorer:
     XT_LUT_CAP = 1024
     # Width cap of mixed-profile gang groups.
     GANG_W = 16
+    # Large-K phase 2: one launch's trellis (windows * Lk * (Kp + 1)
+    # int32) is held to this many bytes, one window at least (a 20-knt
+    # window at Kp 16512 alone is 1.3 GB).  The reference caps its large-K
+    # path batches at 256 MB of its compact trellis for a TPU's 16 GB; this
+    # is the port's own bound, 10% of the card's 80 GB.
+    PATH_BATCH_BYTES = 8 << 30
 
     def __init__(self, costs_list: list[ViterbiCosts],
-                 device: torch.device | str, w: int = 8):
+                 device: torch.device | str, w: int = 8,
+                 hbm_table: bool = False):
         self.device = torch.device(device)
         self.w = w
+        self.hbm_table = hbm_table
         self.Kp = common_kp(costs_list)
-        if self.Kp > vk.MAX_KP:
-            raise NotImplementedError(
-                f"Kp={self.Kp} exceeds the ported kernels' {vk.MAX_KP} "
-                "lanes: the HBM-table tier is ROADMAP B4")
+        vk._check_kp(self.Kp, vk.MAX_LARGE_KP if hbm_table else vk.MAX_KP)
         tables, tvecs = stack_tables(costs_list, self.Kp)
         self.tables = tables.to(self.device)
         self.tvecs = tvecs.to(self.device)
@@ -406,18 +415,21 @@ class PairScorer:
             self.metrics.add_wall("dispatch", time.perf_counter() - t1)
 
     def _invoke_scores_from_starts(self, pidx, xts, lens, starts):
-        """The classic phase-1 kernel call (device-resident codes)."""
+        """The classic phase-1 kernel call (device-resident codes): B1, or
+        B4 for an `hbm_table` scorer."""
         pidx, xts, lens, starts = _tensors(self.device, pidx, xts, lens,
                                            starts)
-        return vk.scores_pairs(pidx, self.tables, self.tvecs, xts, lens,
-                               starts, self.dev_codes.dev)
+        fn = vk.scores_pairs_large if self.hbm_table else vk.scores_pairs
+        return fn(pidx, self.tables, self.tvecs, xts, lens, starts,
+                  self.dev_codes.dev)
 
     def dispatch(self, items: list[PairItem]) -> list:
         """Enqueue every launch of one wave without blocking.  The chain
         tier is the production path; the classic rung buckets take the
         chain overflow, and DECIPHON_NO_CHAIN=1 forces them for every
-        window (ablations)."""
-        if (self.CHAIN and items
+        window (ablations).  An `hbm_table` scorer never chains
+        (scheduler.py:554)."""
+        if (self.CHAIN and not self.hbm_table and items
                 and os.environ.get("DECIPHON_NO_CHAIN", "").lower()
                 not in ("1", "true")):
             return self._dispatch_chained(items)
@@ -786,13 +798,13 @@ class PairScorer:
             return []
         m = self.metrics
         inflight = []
-        for bucket in build_batches(items, vk.PATH_KAPPA, w=8):
+        for bucket in self._path_buckets(items):
             t0 = time.perf_counter()
             wb = bucket.w
-            pidx, xts, lens, starts = bucket_arrays_meta(bucket,
-                                                         self.dev_codes)
-            pidx, xts, lens, starts = _tensors(self.device, pidx, xts, lens,
-                                               starts)
+            meta = bucket_arrays_meta(bucket, self.dev_codes)
+            if self.hbm_table:  # no pad pairs: each one is Lk x Kp words
+                meta = [a[:len(bucket.groups)] for a in meta]
+            pidx, xts, lens, starts = _tensors(self.device, *meta)
             xn, nd = vk.paths_pairs(pidx, self.tables, self.tvecs, xts,
                                     lens, starts, self.dev_codes.dev,
                                     nlb=bucket.nlb)
@@ -816,6 +828,28 @@ class PairScorer:
             inflight.append((flat_items, sts, szs, ns, oks, xnf, ndf,
                              rows, lengths))
         return inflight
+
+    def _path_buckets(self, items: list[PairItem]) -> list[_Bucket]:
+        """Path launches of these survivors: `build_batches`' rung buckets
+        of 8-slot groups, or for an `hbm_table` scorer one window per pair
+        (W = 1, whatever its profile), as many windows of one rung per
+        launch as keep its trellis (Lk positions of Kp + 1 words each)
+        within PATH_BATCH_BYTES, one at least: a large-K survivor's
+        trellis is too large to pad, and its windows run side by side."""
+        if not self.hbm_table:
+            return build_batches(items, vk.PATH_KAPPA, w=8)
+        per: dict[int, list[PairItem]] = {}
+        for it in items:
+            nlb = quantize_nlb(max(1, -(-it.win.length // vk.PATH_KAPPA)))
+            per.setdefault(nlb, []).append(it)
+        out = []
+        for nlb, wins in sorted(per.items()):
+            window_bytes = nlb * vk.PATH_KAPPA * (self.Kp + 1) * 4
+            n = max(1, self.PATH_BATCH_BYTES // window_bytes)
+            for i in range(0, len(wins), n):
+                out.append(_Bucket(nlb=nlb, groups=[[it] for it in
+                                                    wins[i:i + n]], w=1))
+        return out
 
 
 class PackedPairScorer:
@@ -1230,26 +1264,37 @@ class HBMLedger:
 
 
 class BucketedPairScorer:
-    """Partitions profiles into packed classes and plain Kp buckets, one
-    scorer each.
+    """Partitions profiles into packed classes, plain Kp buckets and
+    large-K buckets, one scorer each.
 
     Small-K profiles class by their 64-lane seg need and pack NSEG per
     plane (PackedPairScorer); a custom `scorer_factory` keeps everything
     in the plain buckets, which are powers of two over Kp up to 2048, then
     multiples of 512 (the reference's rules, scheduler.py
-    BucketedPairScorer, branch for branch).  A capacity ledger checks that
+    BucketedPairScorer, branch for branch).  A bucket past MAX_KP lanes
+    gets an `hbm_table` scorer (B4), whatever the factory, with the
+    reference's `hbm_factory` slot width.  A capacity ledger checks that
     every scorer's tables stay resident; streaming tables per wave is not
     ported and raises.
 
-    PACK_MAX_SEG, PACK_KP_MAX, W_LANE_BUDGET and w_cap are inherited from
-    the reference, where they were tuned for another accelerator; they are
-    not derived on this hardware."""
+    PACK_MAX_SEG, PACK_KP_MAX, W_LANE_BUDGET, w_cap, HBM_STATE_BUDGET and
+    vk.HBM_STATE_BYTES_PER_LANE are inherited from the reference, where
+    they were tuned for another accelerator; they are not derived on this
+    hardware."""
 
+    # Widest bucket of the plain tiers (the reference's MAX_PALLAS_KP);
+    # wider buckets take the large-K tier.  A class attribute, so tests
+    # can lower it.
     MAX_KP = vk.MAX_KP
+    # The reference's largest profile (c-core/model.h:12).
+    MAX_K = 16384
     # Slot-width rule of the reference (w * Kp state-plane budget).  On
     # the card each window is its own CTA, so w only sets how many
     # windows share one launch.
     W_LANE_BUDGET = 128 * 2048
+    # The reference's large-K slot-width budget (VMEM bytes of w * Kp
+    # lanes of DP state); on the card w only sets the windows per launch.
+    HBM_STATE_BUDGET = 32_000_000
     # Lane packing: profiles whose 64-lane seg need is at most
     # PACK_MAX_SEG pack NSEG per plane, up to PACK_KP_MAX total lanes.
     # Classes form greedily from the largest seg need down, accepting
@@ -1265,6 +1310,17 @@ class BucketedPairScorer:
     def plain_w(cls, kp: int) -> int:
         """Slot width of a plain bucket of lane width kp."""
         return max(8, prev_pow2(min(cls.w_cap(kp), cls.W_LANE_BUDGET // kp)))
+
+    @classmethod
+    def hbm_w(cls, kp: int) -> int:
+        """Slot width of a large-K bucket of lane width kp (the
+        reference's `hbm_factory`): the largest power of two from 8 whose
+        state fits HBM_STATE_BUDGET, at most 128."""
+        wb = 8
+        while wb * 2 <= min(128, cls.HBM_STATE_BUDGET //
+                            (vk.HBM_STATE_BYTES_PER_LANE * kp)):
+            wb *= 2
+        return wb
 
     def __init__(self, costs_list: list[ViterbiCosts],
                  device: torch.device | str, scorer_factory=None,
@@ -1345,19 +1401,27 @@ class BucketedPairScorer:
         buckets: dict[int, list[int]] = {}
         for i in plain:
             c = costs_list[i]
+            if c.K > self.MAX_K:
+                raise NotImplementedError(
+                    f"profile {i} has K={c.K}: the reference takes "
+                    f"K <= {self.MAX_K}, and so do the port's kernels")
             kp = round_up(max(c.K + 2, 128), 128)
             b = next_pow2(kp)
             if b > 2048:
                 b = round_up(kp, 512)
-            if b > self.MAX_KP:
-                raise NotImplementedError(
-                    f"profile {i} (K={c.K}) needs Kp={b} > {self.MAX_KP}: "
-                    "the HBM-table tier is ROADMAP B4")
             buckets.setdefault(b, []).append(i)
         for b, idxs in sorted(buckets.items()):
             for local, gi in enumerate(idxs):
                 self._map[gi] = (len(self.scorers), local)
-            self.scorers.append(factory([costs_list[i] for i in idxs]))
+            costs = [costs_list[i] for i in idxs]
+            # oversized buckets take the large-K tier even under a custom
+            # factory (the reference's scheduler.py:1921-1925)
+            if b > self.MAX_KP:
+                self.scorers.append(PairScorer(
+                    costs, self.device, w=self.hbm_w(common_kp(costs)),
+                    hbm_table=True))
+            else:
+                self.scorers.append(factory(costs))
 
         self.ledger = HBMLedger(hbm_budget if hbm_budget is not None
                                 else device_table_budget(self.device))
@@ -1434,8 +1498,12 @@ class BucketedPairScorer:
 
     def paths_dispatch(self, items: list[PairItem]) -> list:
         """Phase-2 trellis + walk dispatch through each sub-scorer's path
-        kernel; returns un-fetched path entries (every tier here has a
-        path kernel, so nothing is left over)."""
+        kernel; returns un-fetched path entries.  Nothing is left over:
+        B2 takes every tier's lane planes, the large-K tier's too (its
+        rings in a global scratch past 2816 lanes), where the reference's
+        path kernel stops at 5120 lanes and returns large-K survivors to
+        the pipeline's lax.scan fallback (scheduler.py:2054-2058).  B2's
+        trellis equals that fallback's bit for bit."""
         by_scorer, remap = self._split(items)
         try:
             entries: list = []

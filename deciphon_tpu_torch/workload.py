@@ -13,8 +13,9 @@
   `packed_case`, `packed_chain_inputs` and `packed_chain_case` those of
   the lane-packed modes, and `window_scores` the same windows scored
   alone by B1.
-* `pfam_scan` / `pfam_subset` / `pfam_longread` — chip_smoke.py's scans
-  and its card-against-CPU subset.
+* `pfam_scan` / `pfam_subset` / `pfam_longread` / `pfam_largek` /
+  `largek_subset` — chip_smoke.py's scans and its card-against-CPU
+  subsets.
 """
 
 from __future__ import annotations
@@ -34,10 +35,12 @@ def pfam_ks(n: int, lo: int = 50, hi: int = 2000) -> list[int]:
     return [int(round(lo * (hi / lo) ** (i / (n - 1)))) for i in range(n)]
 
 
-def domain_bases(profile: FrameProfile) -> str:
-    """The argmax codon of every core node, concatenated (3K bases)."""
-    K = profile.core_size
-    best = profile.match_codon_lprobs[:K].reshape(K, 64).argmax(axis=1)
+def domain_bases(profile: FrameProfile, nodes: tuple[int, int] | None = None
+                 ) -> str:
+    """The argmax codon of every core node, concatenated (3K bases), or of
+    the nodes [a, b) only."""
+    a, b = nodes or (0, profile.core_size)
+    best = profile.match_codon_lprobs[a:b].reshape(b - a, 64).argmax(axis=1)
     return "".join(BASES[c >> 4] + BASES[(c >> 2) & 3] + BASES[c & 3]
                    for c in best)
 
@@ -476,10 +479,12 @@ def window_scores(tables, tvecs, codes_all, p: int, wins,
 
 
 def planted_read(rng: np.random.Generator, profile: FrameProfile,
-                 length: int, noise: float = 0.0) -> str:
+                 length: int, noise: float = 0.0,
+                 nodes: tuple[int, int] | None = None) -> str:
     """A `length`-nt read (longer if the domain is) with the profile's
-    argmax-codon domain at a random offset."""
-    dom = mutate(rng, domain_bases(profile), noise)
+    argmax-codon domain, or the stretch of its nodes [a, b), at a random
+    offset."""
+    dom = mutate(rng, domain_bases(profile, nodes), noise)
     flank = max(length - len(dom), 0)
     left = int(rng.integers(0, flank + 1))
     return random_bases(rng, left) + dom + random_bases(rng, flank - left)
@@ -510,16 +515,21 @@ def pfam_scan(n_profiles: int = 200, n_reads: int = 8,
                       for i, r in enumerate(reads)]
 
 
-LONGREAD_PLANTED = (140, 180, 60)  # domains of the long-read scan
+# Domains of the long-read scan.  Profile 140 (K = 670) sat on read 0
+# before, but its planted domain scores below the null (LRT < 0 on whole
+# reads of 22 to 40 knt), so read 0 carries profile 150's.
+LONGREAD_PLANTED = (150, 180, 60)
 
 
-def pfam_longread(profiles=None, n_reads: int = 3, read_len: int = 40_000,
+def pfam_longread(profiles=None, n_reads: int = 3, read_len: int = 24_000,
                   seed: int = 2025):
     """The long-read scan of chip_smoke.py: `pfam_scan`'s 200-profile
     database (or `profiles`, that database already built) and `n_reads`
-    reads of `read_len` nt.  Reads 0 and 1 carry the planted domains of
-    profiles 140 and 180 (K = 670 and 1406, whose windows are the whole
-    read up to 33.5 and 70.3 knt: past 20,480 nt they are over the chain
+    reads of `read_len` nt (past the chain cap's 20,480 nt, and short
+    enough that the plain versions of chip_smoke.py's own-shape checks
+    keep it within its time).  Reads 0 and 1 carry the planted domains of
+    profiles 150 and 180 (K = 806 and 1406, whose windows are the whole
+    read up to 40.3 and 70.3 knt: past 20,480 nt they are over the chain
     cap of the unpacked tiers), read 2 that of profile 60 (K = 152, a
     chain window), the rest are random; 1% indel/substitution noise.
     Returns (profiles, sequences)."""
@@ -537,7 +547,7 @@ def pfam_longread(profiles=None, n_reads: int = 3, read_len: int = 40_000,
                       for i, r in enumerate(reads)]
 
 
-def pfam_subset(profiles, seed: int = 7, read_len: int = 2000):
+def pfam_subset(profiles, seed: int = 7, read_len: int = 1200):
     """The card-against-CPU subset of a `pfam_scan` database: every tenth
     profile with K <= 400, at most 12 (planted profile 100 among them),
     and two reads of `read_len` nt, the first carrying profile 100's
@@ -552,3 +562,53 @@ def pfam_subset(profiles, seed: int = 7, read_len: int = 2000):
     return ([profiles[i] for i in sub],
             [Sequence.make(i, n, r) for i, (n, r) in
              enumerate(zip(("p0", "r1"), reads))])
+
+
+# The large-K scan's profiles: sample_profile(seed, K).  Seed 605 would
+# draw a K = 16384 profile whose argmax-codon stretches all score below the
+# null (LRT < 0 on every planted read tried), so it takes seed 606.
+LARGEK_KS = (5200, 5300, 8192, 8200, 16383, 16384)
+LARGEK_SEEDS = (600, 601, 602, 603, 604, 606)
+# read i carries the argmax-codon stretch of (profile, nodes [a, b))
+LARGEK_PLANTED = ((0, (0, 5200)), (5, (4000, 10000)), (2, (1000, 5000)))
+
+
+def pfam_largek():
+    """The large-K scan of chip_smoke.py: six profiles
+    sample_profile(LARGEK_SEEDS[i], K) over the reference's whole large-K
+    range, K = 5200, 5300 (bucket Kp 5632), 8192, 8200 (8704) and 16383,
+    16384 (16896, the bucket of the reference's largest profile,
+    K = 16384), at full width; and six reads of 20 knt, 1%
+    indel/substitution noise on the planted stretches: read 0 carries K = 5200's whole domain
+    (15.6 knt), read 1 nodes 4000-10000 of K = 16384 (18 knt), read 2 nodes
+    1000-5000 of K = 8192 (12 knt), the rest are random.  Every window of
+    such a profile is a whole read (min(50 K, 100 knt)).  Such scans are
+    run by users whose databases hold giant multi-domain profiles (titins,
+    polyketide synthases, large viral polyproteins) up to the reference's
+    K limit.  Returns (profiles, sequences)."""
+    from .profile import sample_profile
+    from .scan.sequence import Sequence
+
+    profiles = [sample_profile(s, k) for s, k in zip(LARGEK_SEEDS, LARGEK_KS)]
+    rng = np.random.default_rng(2026)
+    reads = [planted_read(rng, profiles[p], 20_000, noise=0.01, nodes=nodes)
+             for p, nodes in LARGEK_PLANTED]
+    reads += [random_bases(rng, 20_000) for _ in range(3)]
+    return profiles, [Sequence.make(i, f"big{i}", r)
+                      for i, r in enumerate(reads)]
+
+
+def largek_subset(profiles):
+    """The card-against-CPU subset of the large-K scan: the first two
+    profiles of `pfam_largek`'s (K = 5200 and 5300) and two reads of 2 knt,
+    the first carrying nodes 2000-2500 of K = 5200 (1% noise).  Returns
+    (profiles, sequences)."""
+    from .scan.sequence import Sequence
+
+    profiles = list(profiles[:2])
+    rng = np.random.default_rng(8)
+    reads = [planted_read(rng, profiles[0], 2000, noise=0.01,
+                          nodes=(2000, 2500)),
+             random_bases(rng, 2000)]
+    return profiles, [Sequence.make(i, n, r) for i, (n, r) in
+                      enumerate(zip(("k0", "k1"), reads))]

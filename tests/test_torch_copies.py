@@ -413,3 +413,21 @@ def test_scheduler_helpers_copy(seed):
         assert (pl.resident, pl.streamed) == (rl.resident, rl.streamed)
         assert pl.resident_bytes == rl.resident_bytes
         assert pl.streamed_bytes == rl.streamed_bytes
+
+
+@pytest.mark.parametrize("name", ["HBM_STATE_BUDGET",
+                                  "HBM_STATE_BYTES_PER_LANE", "MAX_KP"])
+def test_large_k_constants_copy(name):
+    """The large-K tier's copied constants: the slot-width budget of the
+    reference's `hbm_factory`, the HBM-table kernel's state bytes per lane
+    and the widest plain bucket (the reference's MAX_PALLAS_KP)."""
+    import deciphon_tpu.ops.viterbi_pallas as r_vp
+    import deciphon_tpu_torch.ops.viterbi as p_vk
+
+    want = {"HBM_STATE_BUDGET": r_sched.BucketedPairScorer.HBM_STATE_BUDGET,
+            "HBM_STATE_BYTES_PER_LANE": r_vp.HBM_STATE_BYTES_PER_LANE,
+            "MAX_KP": r_sched.BucketedPairScorer.MAX_PALLAS_KP}[name]
+    got = {"HBM_STATE_BUDGET": p_sched.BucketedPairScorer.HBM_STATE_BUDGET,
+           "HBM_STATE_BYTES_PER_LANE": p_vk.HBM_STATE_BYTES_PER_LANE,
+           "MAX_KP": p_sched.BucketedPairScorer.MAX_KP}[name]
+    assert same(got, want)

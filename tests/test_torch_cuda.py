@@ -60,7 +60,30 @@ def test_score_kernel_bit_equal_to_plain(cuda, Kp):
     assert torch.isinf(alt[0, 2]) and torch.isfinite(alt[0, 0])
 
 
-@pytest.mark.parametrize("Kp", [128, 640, 3072])
+@pytest.mark.parametrize("Kp", [5632, 16896])
+def test_large_kernel_bit_equal_to_plain(cuda, Kp):
+    lens = [[300, 1, 0, 45, 120, 7, 0, 200], [0, 81, 0, 0, 0, 0, 0, 0]]
+    inp = inputs(cuda, [Kp - 2, 17], Kp, lens, seed=Kp)
+    before = vk.LAUNCHES["large"]
+    alt, nul = vk.scores_pairs_large(**inp)
+    assert vk.LAUNCHES["large"] == before + 1
+    pa, pn = vk.scores_pairs_plain(**inp)
+    torch.cuda.synchronize()
+    assert torch.equal(alt, pa) and torch.equal(nul, pn)
+    assert torch.isinf(alt[0, 2]) and torch.isfinite(alt[0, 0])
+
+
+@pytest.mark.parametrize("Kp", [1024, 5120])
+def test_large_kernel_bit_equal_to_b1(cuda, Kp):
+    lens = [[300, 1, 0, 45], [81, 0, 200, 0]]
+    inp = inputs(cuda, [Kp - 2, 17], Kp, lens, seed=Kp + 5)
+    a1, n1 = vk.scores_pairs(**inp)
+    a4, n4 = vk.scores_pairs_large(**inp)
+    torch.cuda.synchronize()
+    assert torch.equal(a1, a4) and torch.equal(n1, n4)
+
+
+@pytest.mark.parametrize("Kp", [128, 640, 3072, 16896])
 def test_path_kernel_and_walk_bit_equal_to_plain(cuda, Kp):
     lens = [[150, 1, 0, 77]]
     inp = inputs(cuda, [Kp - 2], Kp, lens, seed=Kp + 1)
@@ -172,11 +195,16 @@ def test_kernels_raise_on_bad_launch(cuda):
 
 
 @pytest.mark.parametrize("tier", ["chain", "chain+gang", "chain+seg",
-                                  "classic"])
+                                  "classic", "large"])
 def test_scan_on_card_matches_cpu(cuda, tmp_path, monkeypatch, tier):
     """Each phase-1 tier on the card writes the CPU's products; the
-    shrunk caps send the 900-nt read's windows over the chain cap."""
-    if tier != "chain":
+    shrunk caps send the 900-nt read's windows over the chain cap, and
+    a plain-bucket cap of 64 lanes sends every profile to the large-K
+    tier."""
+    if tier == "large":
+        monkeypatch.setattr(ts.BucketedPairScorer, "MAX_KP", 64)
+        monkeypatch.setattr(ts.BucketedPairScorer, "PACK_MAX_SEG", 0)
+    elif tier != "chain":
         monkeypatch.setattr(ts.PairScorer, "CHAIN_MAX_BLK", 4)
         monkeypatch.setattr(ts.PairScorer, "NLB_FLOOR", 4)
     if tier == "chain+seg":

@@ -74,16 +74,18 @@ def test_scan_cuda_without_gpu_raises():
 
 
 def test_scan_rejects_untaken_tiers():
-    # Kp beyond the ported kernels (the reference's HBM-table tier)
-    with pytest.raises(NotImplementedError, match="B4"):
-        from deciphon_tpu.ops.costs import build_costs
-        from deciphon_tpu_torch.scan.scheduler import BucketedPairScorer
+    from deciphon_tpu.ops.costs import build_costs
+    from deciphon_tpu_torch.scan.scheduler import BucketedPairScorer
 
-        def costs(seed, K):
-            return costs_from_arrays(
-                **vars(build_costs(sample_profile(seed, K))))
+    def costs(seed, K):
+        return costs_from_arrays(**vars(build_costs(sample_profile(seed, K))))
 
-        BucketedPairScorer([costs(1, 5200)], "cpu")
+    # Kp beyond the plain tiers takes the large-K tier (B4), up to the
+    # reference's K = 16384
+    big = BucketedPairScorer([costs(1, 5200)], "cpu")
+    assert [(s.hbm_table, s.Kp) for s in big.scorers] == [(True, 5248)]
+    with pytest.raises(NotImplementedError, match="16384"):
+        BucketedPairScorer([costs(1, 16385)], "cpu")
     # tables beyond the device budget (the reference streams them)
     with pytest.raises(NotImplementedError, match="budget"):
         BucketedPairScorer([costs(2, 9)], "cpu", hbm_budget=1000)
