@@ -17,7 +17,15 @@ Phases, each reported on its own lines; any failure exits non-zero:
      once with lists that differ per segment), B2 path and the walk; the
      large-K tier: B4 against its plain version at Kp 5632 and 16896 and
      against B1 at Kp 1024 and 5120 (8 windows of <= 600 nt, one a pad),
-     B2 also at Kp 16896;
+     B2 also at Kp 16896; the dense grid, B9, against its plain version
+     and against B1 (B4 at Kp 5632) on the same (profile, window) pairs at
+     Kp 128, 512, 1024 and 5632 (9 windows of <= 600 nt, a pad and a
+     length-1 window among them), with both times per position;
+  3b. the dense grid at full width, through GridScanEngine.scores on
+     `bench.py`'s kernel shapes: 8 profiles x 128 windows of 4096 nt at K
+     400 and K 1000, 8 x 8 at K 16382; B9's time (median of 3), its GCUPS
+     (P*B*L*5*K cells) and bound, B1 (B4 at K 16382) on the same pairs and
+     B9's plain version on the card, all bit-equal;
   4. the Pfam scan, Scanner(ScanConfig(device="cuda")).run, on a
      Pfam-shaped database of 200 random profiles (K geometric over
      50..2000) and 8 reads of 10 knt, four carrying a planted domain,
@@ -48,7 +56,12 @@ Phases, each reported on its own lines; any failure exits non-zero:
      subset, at the reference's caps and with the chain caps shrunk so
      that gang and carry fire on 1.2-knt reads, and on a large-K subset (K
      5200 and 5300, two reads of 2 knt): products.tsv must be
-     byte-identical.
+     byte-identical; and Scanner(ScanConfig(engine="torch")) on the card
+     on the subset at the reference's caps (the lax.scan engine's
+     counterpart: plain PyTorch scores, then its own phase 2 through the
+     walk kernel): the kernels' bytes, no score or path kernel launched,
+     and the walk on its largest recorded call bit-equal to the plain
+     walk.
 
 Every scan path is run with the launch counts set to 0 just before and
 read just after; each kernel must have launched on its path.  The line
@@ -82,6 +95,7 @@ SOURCE = {"score": SCORE_CU, "chain": SCORE_CU, "gang": SCORE_CU,
           "carry": SCORE_CU, "large": SCORE_CU, "packed": PACKED_CU,
           "pchain": PACKED_CU,
           "path": "deciphon_tpu_torch/csrc/viterbi_path.cu",
+          "grid": "deciphon_tpu_torch/csrc/viterbi_path.cu",
           "walk": "deciphon_tpu_torch/csrc/traceback_walk.cu"}
 # kernel wrappers whose calls a captured scan records
 SPIED = ("scores_pairs", "scores_pairs_mixed", "scores_pairs_chained",
@@ -93,7 +107,7 @@ REPLACES = {"score": f"{PALLAS}:376", "chain": f"{PALLAS}:1038",
             "gang": f"{PALLAS}:828", "carry": f"{PALLAS}:1111",
             "large": f"{PALLAS}:1379",
             "packed": f"{PALLAS}:2265", "pchain": f"{PALLAS}:2331",
-            "path": f"{PALLAS}:1707",
+            "path": f"{PALLAS}:1707", "grid": f"{PALLAS}:158",
             "walk": "deciphon_tpu/ops/traceback.py:137"}
 # Published peaks of one H100 SXM: f32 outside the tensor cores (an FMA
 # counted as two operations, so adds and mins alone reach half of it: the
@@ -107,9 +121,13 @@ PEAK_BYTES = 3.35e12
 # min, D, min(M, D) and the E reduction, one each: 34.  Path kernel: per
 # fragment length the 4 match candidates (2 adds + 1 compare each) and the
 # 2 insert candidates (2 + 1), five lengths: 90; delete chain 5; E and
-# its first index 3: 98.  The per-position special states are O(1) per
-# window and left out.
-CELL_OPS = {"score": 34, "path": 98}
+# its first index 3: 98.  The grid kernel computes the score family's
+# function (bit-equal to B1 on the same pairs), so its bound counts the
+# same 34: the pull form's own steps (76 per cell: the M and I candidates
+# redone per fragment length, 5 x (9 + 5), then the delete chain and E)
+# are its excess over the bound, not part of it.  The per-position
+# special states are O(1) per window and left out.
+CELL_OPS = {"score": 34, "path": 98, "grid": 34}
 
 
 def fail(msg: str) -> None:
@@ -534,6 +552,157 @@ def check_large(torch, report) -> None:
         report["large"].update(max_abs_err=max_err(torch, ka, pa), ms=k_ms,
                                plain_ms=p_ms)
         score_bound(torch, report, "large", inp, (ka, kn))
+    check_grid(torch)
+
+
+def grid_pairs(torch, g: dict) -> dict:
+    """B1's inputs for every (profile, window) pair of a B9 call: pair p
+    holds all the windows in its slots."""
+    P, B = g["tables"].shape[0], g["starts"].shape[0]
+    return dict(pidx=torch.arange(P, dtype=torch.int32, device="cuda"),
+                tables=g["tables"], tvecs=g["tvecs"],
+                xts=g["xts"].expand(P, B, 16).contiguous(),
+                lengths=g["lengths"][:, None].expand(P, B, 1).contiguous(),
+                starts=g["starts"].expand(P, B).contiguous(),
+                codes_all=g["codes_all"])
+
+
+def push_form(vk, Kp: int):
+    """B1, or B4 past B1's lanes: the push form of the same function."""
+    return ((vk.scores_pairs, "B1") if Kp <= vk.MAX_KP
+            else (vk.scores_pairs_large, "B4"))
+
+
+def check_grid(torch) -> None:
+    """Phase 3, B9: two profiles (K = Kp - 2 and Kp // 2) against 9
+    windows of <= 600 nt (one a pad, one of length 1) at Kp 128, 512, 1024
+    and 5632 (the global-scratch form), against the plain version and
+    against the push form on the same pairs, with both times per
+    position."""
+    from deciphon_tpu_torch.ops import viterbi as vk
+    from deciphon_tpu_torch.workload import score_inputs
+
+    for Kp in (128, 512, 1024, 5632):
+        inp, maxlen = score_inputs(Kp, 9, 1, 100, 600, seed=120 + Kp,
+                                   device="cuda")
+        inp["lengths"][0, 3] = 0
+        inp["lengths"][0, 5] = 1
+        g = dict(tables=inp["tables"], tvecs=inp["tvecs"],
+                 xts=inp["xts"][0].contiguous(),
+                 lengths=inp["lengths"][0, :, 0].contiguous(),
+                 starts=inp["starts"][0].contiguous(),
+                 codes_all=inp["codes_all"])
+        (ka, kn), (pa, pn), k_ms, p_ms = kernel_vs_plain(
+            torch, vk.scores_grid, vk.scores_grid_plain, g)
+        exact = torch.equal(ka, pa) and torch.equal(kn, pn)
+        pads = bool(torch.isinf(ka[:, 3]).all()
+                    and torch.isfinite(ka[:, 5]).all())
+        push, name = push_form(vk, Kp)
+        pairs = grid_pairs(torch, g)
+        a1, n1 = push(**pairs)
+        torch.cuda.synchronize()
+        b1_ms = cuda_ms(torch, lambda: push(**pairs), 5)
+        same = torch.equal(a1, ka) and torch.equal(n1, kn)
+        say("B9", f"Kp={Kp} 2 profiles x 9 windows <= {maxlen} nt (a pad, "
+            f"a length-1): bit-equal {exact}, pad +inf {pads}, equal to "
+            f"{name} on the same pairs {same}; B9 {k_ms:.3f} ms "
+            f"({k_ms * 1e3 / maxlen:.3f} us/position), {name} {b1_ms:.3f} ms "
+            f"({b1_ms * 1e3 / maxlen:.3f} us/position), plain {p_ms:.1f} ms")
+        check(exact and pads and same, f"B9 Kp={Kp} differs")
+
+
+def grid_full_width(torch, report, launches: dict) -> None:
+    """Phase 3b: the dense grid at `bench.py`'s kernel shapes (8 profiles
+    sample_profile(100 + i, K), windows of 4096 nt from
+    default_rng(3); 128 windows at K 400 and 1000, 8 at K 16382), through
+    GridScanEngine.scores on the card with the launch counts set to 0
+    just before and read just after.  Then, on the same device inputs:
+    B9's time (median of 3 calls), GCUPS and bound, B1 (B4 past its
+    lanes) on the same pairs and B9's plain version, bit for bit.  The
+    kernels line keeps the K 400 shape (bench.py's default)."""
+    import numpy as np
+
+    from deciphon_tpu_torch.ops import viterbi as vk
+    from deciphon_tpu_torch.ops.costs import build_costs
+    from deciphon_tpu_torch.profile import sample_profile
+    from deciphon_tpu_torch.scan.sequence import frag_codes_ending
+    from deciphon_tpu_torch.xtrans import xtrans_cost_vector
+
+    P, L = 8, 4096
+    for K, B in ((400, 128), (1000, 128), (16382, 8)):
+        t0 = time.perf_counter()
+        costs = [build_costs(sample_profile(seed=100 + i, core_size=K))
+                 for i in range(P)]
+        rng = np.random.default_rng(3)
+        codes = np.zeros((B, L, 5), np.int32)
+        xt = np.zeros((B, 13), np.float32)
+        for b in range(B):
+            codes[b] = frag_codes_ending(
+                rng.integers(0, 4, size=L).astype(np.int8))
+            xt[b] = xtrans_cost_vector(True, False, L)
+        lengths = np.full((B,), L, np.int32)
+        eng = vk.GridScanEngine(costs, device="cuda")
+        Kp = eng.tables.shape[2]
+        setup = time.perf_counter() - t0
+
+        torch.cuda.synchronize()
+        vk.reset_launches()
+        t0 = time.perf_counter()
+        nul, alt = eng.scores(xt, codes, lengths)
+        wall = time.perf_counter() - t0
+        counts = dict(vk.LAUNCHES)
+        check(counts["grid"] == 1 and sum(counts.values()) == 1,
+              f"GridScanEngine.scores launched {counts}")
+        launches["grid"] = launches.get("grid", 0) + counts["grid"]
+        check(alt.shape == nul.shape == (P, B) and np.isfinite(alt).all()
+              and np.isfinite(nul).all(), "grid scores not finite")
+
+        g = dict(zip(("xts", "lengths", "starts", "codes_all"),
+                     eng.grid_inputs(xt, codes, lengths)),
+                 tables=eng.tables, tvecs=eng.tvecs)
+        out = {}
+        times = [cuda_ms(torch, lambda: out.update(r=vk.scores_grid(**g)))
+                 for _ in range(3)]
+        k_ms = statistics.median(times)
+        ka, kn = out["r"]
+        same_scores = (np.array_equal(ka.cpu().numpy(), alt)
+                       and np.array_equal(kn.cpu().numpy(), nul))
+        push, name = push_form(vk, Kp)
+        pairs = grid_pairs(torch, g)
+        times = [cuda_ms(torch, lambda: out.update(r=push(**pairs)))
+                 for _ in range(3)]
+        b1_ms = statistics.median(times)
+        same_b1 = torch.equal(out["r"][0], ka) and torch.equal(out["r"][1],
+                                                               kn)
+        p_ms = cuda_ms(torch, lambda: out.update(
+            r=vk.scores_grid_plain(**g)))
+        pa, pn = out["r"]
+        exact = torch.equal(pa, ka) and torch.equal(pn, kn)
+        cells = P * B * L * 5 * K
+        say("grid", f"K={K} (Kp {Kp}) {P} profiles x {B} windows of {L} nt, "
+            f"{eng.tables.numel() * 4 / 1e9:.3f} GB of tables; host set-up "
+            f"{setup:.1f} s; GridScanEngine.scores {wall:.3f} s (launches "
+            f"{counts['grid']}); B9 {k_ms:.3f} ms ({k_ms * 1e3 / L:.3f} "
+            f"us/position, {cells / (k_ms / 1e3) / 1e9:.3f} GCUPS); "
+            f"{name} on the same pairs {b1_ms:.3f} ms "
+            f"({cells / (b1_ms / 1e3) / 1e9:.3f} GCUPS), bit-equal "
+            f"{same_b1}; plain {p_ms:.1f} ms, bit-equal {exact}; scores "
+            f"equal to the engine's {same_scores}")
+        check(exact and same_b1 and same_scores,
+              f"grid K={K} differs from plain or {name}")
+        ops = CELL_OPS["grid"] * P * B * L * K
+        byts = (nbytes(eng.tables, eng.tvecs, g["xts"], g["lengths"],
+                       g["starts"], ka, kn) + B * L * 20)
+        t_ops, t_bytes = ops / PEAK_F32_OPS * 1e3, byts / PEAK_BYTES * 1e3
+        say("grid", f"K={K}: bound {max(t_ops, t_bytes):.6f} ms "
+            f"({'operations' if t_ops >= t_bytes else 'bytes'}; "
+            f"operations {t_ops:.6f} ms, bytes {t_bytes:.6f} ms), B9 at "
+            f"{k_ms / max(t_ops, t_bytes):.1f}x it")
+        if K == 400:
+            report["grid"].update(max_abs_err=max_err(torch, ka, pa),
+                                  ms=k_ms, plain_ms=p_ms)
+            bound(report, "grid", ops, byts)
+        del eng, g, pairs, out, ka, kn, pa, pn
 
 
 def span(a: dict) -> int:
@@ -824,7 +993,7 @@ class Scans:
 def largek_scan(torch, launches: dict):
     """The large-K scan (`workload.pfam_largek`): every bucket past Kp 5120
     on B4, survivors on B2 and the walk; first scan (counted), three warm
-    scans and one profiled.  Returns (its Scans, its product lines)."""
+    scans (median wall) and one profiled.  Returns (its Scans, its product lines)."""
     from deciphon_tpu_torch.workload import (LARGEK_KS, LARGEK_PLANTED,
                                              pfam_largek)
 
@@ -849,6 +1018,75 @@ def largek_scan(torch, launches: dict):
     check({0, 1, 2} <= hit_reads, "no products on a planted large-K read")
     big.warm_and_profile(big_lines)
     return big, big_lines
+
+
+def torch_engine_subset(torch, profiles, seqs, want: str,
+                        launches: dict) -> None:
+    """Phase 7, the torch engine: Scanner(ScanConfig(engine="torch")) on
+    the card on the subset, with the launch counts set to 0 just before
+    and read just after: the lax.scan engine's counterpart scores in plain
+    PyTorch and its phase 2 walks on the card, so the walk is the one
+    kernel of this path.  Its bytes must be the kernels' (`want`).  The
+    walk's calls in that run are recorded, and the one on the largest
+    trellis (viterbi_path_batch's planes, row 0 dropped, K lanes) is held
+    against the plain walk on the same card tensors, bit for bit."""
+    from deciphon_tpu_torch.ops import traceback as tb
+    from deciphon_tpu_torch.ops import viterbi as vk
+    from deciphon_tpu_torch.scan import scheduler as sched
+    from deciphon_tpu_torch.scan.pipeline import ScanConfig, Scanner
+
+    sc = Scanner(profiles, ScanConfig(device="cuda", engine="torch"))
+    check(isinstance(sc.scorer, sched.TorchPairScorer) and
+          sc.scorer.device.type == "cuda", "engine='torch' left the card")
+    walks, orig = [], sched.walk
+    sig = inspect.signature(orig)
+
+    def spy(*args, **kwargs):
+        walks.append(dict(sig.bind(*args, **kwargs).arguments))
+        return orig(*args, **kwargs)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.synchronize()
+        vk.reset_launches()
+        tb.REWALKS["survivors"] = 0
+        sched.walk = spy
+        try:
+            t0 = time.perf_counter()
+            path = sc.run(seqs, os.path.join(tmp, "p"))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            sched.walk = orig
+        counts = dict(vk.LAUNCHES)
+        with open(path) as fp:
+            got = fp.read()
+    m = sc.metrics
+    say("subset", f"engine='torch', cuda: {len(profiles)} profiles x "
+        f"{len(seqs)} reads of {seqs[0].size} nt, wall {wall:.6f} s, "
+        f"windows {m.windows_scored}, survivors {m.survivors}, products "
+        f"{m.products}; launches {counts}, walks re-walked "
+        f"{tb.REWALKS['survivors']}; walls " + json.dumps(
+            {k: round(v, 4) for k, v in sorted(m.walls.items())}))
+    check(counts["walk"] > 0, "engine='torch' launched no walk")
+    check(sum(counts.values()) == counts["walk"],
+          "engine='torch' launched a score or path kernel")
+    check(got == want, "engine='torch' on the card wrote other products "
+          "than the kernels")
+    launches["walk"] = launches.get("walk", 0) + counts["walk"]
+
+    check(len(walks) == counts["walk"], "a walk launch was not recorded")
+    i = max(range(len(walks)), key=lambda j: walks[j]["nd"].numel())
+    a = walks[i]
+    k_out = tb.walk(**a)
+    p_out = tb.walk_plain(**a)
+    exact = all(torch.equal(x, y) for x, y in zip(k_out, p_out))
+    R, Lk, K = a["nd"].shape
+    say("subset", f"engine='torch' walk: launch {i + 1} of {len(walks)}, "
+        f"trellis ({R}, {Lk}, {K}), {a['rows'].numel()} walks, max_steps "
+        f"{a['max_steps']}: all ok {bool(k_out[3].all())}, bit-equal to the "
+        f"plain walk {exact}")
+    check(exact and bool(k_out[3].all()),
+          "engine='torch': the walk differs from its plain version")
 
 
 def largek_subset_check(big_prof) -> None:
@@ -911,6 +1149,12 @@ def main() -> None:
     # ---- 3. kernels against their plain versions ----------------------
     check_kernels(torch, report)
 
+    # ---- 3b. the dense grid at full width --------------------------------
+    launches: dict[str, int] = {}
+    t0 = time.perf_counter()
+    grid_full_width(torch, report, launches)
+    say("grid", f"phase {time.perf_counter() - t0:.1f} s")
+
     # ---- 4. the Pfam scan: packed route, classic tiers, unpacked route ---
     from deciphon_tpu_torch.ops.tables import common_kp
     from deciphon_tpu_torch.scan.pipeline import ScanConfig, Scanner
@@ -921,7 +1165,6 @@ def main() -> None:
                                              pfam_longread, pfam_scan,
                                              pfam_subset)
 
-    launches: dict[str, int] = {}
     t0 = time.perf_counter()
     profiles, seqs = pfam_scan()
     ks_db = [p.core_size for p in profiles]
@@ -1050,6 +1293,9 @@ def main() -> None:
                 os.environ.pop(k, None)
         check(outs["cuda"] == outs["cpu"], f"{label}: card and CPU differ")
         check(outs["cuda"].count("\n") > 1, f"{label}: no products")
+        if not shrink:
+            kernels_bytes = outs["cuda"]
+    torch_engine_subset(torch, sub_prof, sub_seqs, kernels_bytes, launches)
     largek_subset_check(big_prof)
     say("subset", "products.tsv byte-identical on card and CPU")
     check(not [m for m in sys.modules

@@ -54,6 +54,7 @@ SIGNATURES = {
     "dtt_score_packed_chained": [_P] * 13 + [_I] * 7 + [_P],
     "dtt_path_pairs": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                        _I, _I, _I, _I, _I, _P],
+    "dtt_score_grid": [_P] * 9 + [_I] * 4 + [_P],
     "dtt_walk": [_P, _P, _P, _P, _P, _P, _P, _P,
                  _I, _I, _I, _I, _P],
 }

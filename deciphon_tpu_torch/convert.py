@@ -18,6 +18,7 @@ import numpy as np
 
 from .frame import TABLE_SIZE
 from .ops.costs import NUM_TRANS_VECS, ViterbiCosts
+from .ops.engine import ProfilePack
 from .profile import FrameProfile
 from .scan.sequence import Sequence
 
@@ -75,6 +76,22 @@ def costs_from_arrays(*, K: int, core, match, null, background, xt
         background=_array(background, np.float32, (TABLE_SIZE,),
                           "background"),
         xt=_array(xt, np.float32, (13,), "xt"))
+
+
+def profile_pack_from_arrays(*, K_pad: int, core, match, null, background,
+                             core_sizes) -> ProfilePack:
+    """ProfilePack from its fields: P profiles padded to K_pad nodes."""
+    K_pad = int(K_pad)
+    sizes = _array(core_sizes, np.int32, (len(core_sizes),), "core_sizes")
+    P = sizes.shape[0]
+    return ProfilePack(
+        K_pad=K_pad,
+        core=_array(core, np.float32, (P, NUM_TRANS_VECS, K_pad), "core"),
+        match=_array(match, np.float32, (P, TABLE_SIZE, K_pad), "match"),
+        null=_array(null, np.float32, (P, TABLE_SIZE), "null"),
+        background=_array(background, np.float32, (P, TABLE_SIZE),
+                          "background"),
+        core_sizes=sizes)
 
 
 def sequence_from_arrays(*, id: int, name: str, data: str, symbols, codes

@@ -6,8 +6,9 @@ Counterpart of deciphon_tpu/ops/traceback.py (which loads jax at import):
   * `walk`  — the batched device walk: the CUDA kernel
     csrc/traceback_walk.cu (one thread per survivor) on CUDA tensors,
     `walk_plain` (a vectorised torch loop over the batch) on CPU tensors;
-  * `assemble_path_entries` / `path_arrays` — fetched step arrays to the
-    (sids, sizes) arrays the scan pipeline decodes.
+  * `fetch_steps` / `assemble_path_entries` / `path_arrays` — the step
+    arrays, fetched in one transfer, to the (sids, sizes) arrays the scan
+    pipeline decodes.
 
 The walk reads the path kernel's trellis in place: xnode (R, Lk) and node
 (R, Lk, Kp) int32 with rows selected by `rows`; stage s reads row s-1 and
@@ -275,6 +276,22 @@ def rewalk(xn, nd, rows: list[int], lengths: list[int], max_steps: int):
             return sts.view(np.uint16), szs, ns
         if max_steps == limit or (ns[oks == 0] < max_steps).any():
             raise RuntimeError("traceback underflow: corrupt trellis")
+
+
+def fetch_steps(entries) -> list[np.ndarray]:
+    """Host copies of the step arrays (sts, szs, ns, oks) of every path
+    entry, in order, through ONE device-to-host transfer."""
+    flat = [a for e in entries for a in e[1:5]]
+    sizes = [a.numel() * a.element_size() for a in flat]
+    buf = torch.cat([a.reshape(-1).view(torch.uint8)
+                     for a in flat]).cpu().numpy()
+    fetched, pos = [], 0
+    for a, nb in zip(flat, sizes):
+        dt = {torch.int16: np.int16, torch.int8: np.int8,
+              torch.int32: np.int32, torch.uint8: np.uint8}[a.dtype]
+        fetched.append(buf[pos:pos + nb].view(dt).reshape(a.shape))
+        pos += nb
+    return fetched
 
 
 def assemble_path_entries(entries, fetched, out: dict) -> None:

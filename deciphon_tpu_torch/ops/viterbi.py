@@ -26,7 +26,11 @@ Counterparts in deciphon_tpu/ops/viterbi_pallas.py:
     per-segment window lists; `_chain_expand`, `_iseg_window_expand` and
     the end-block compaction fused);
   * `paths_pairs`   <- viterbi_paths_pairs (`_kernel_path`, with the
-    `_ck_end_from_starts` gather fused).
+    `_ck_end_from_starts` gather fused);
+  * `scores_grid` and `GridScanEngine`  <- viterbi_scores_grid and
+    PallasScanEngine (`_kernel`, the pull-form score kernel, in every
+    gather mode: B2's body without the trellis, over a dense grid of
+    profiles x windows).
 
 Shared contract: `tables` (P, 1364, Kp) f32 and `tvecs` (P, 8, Kp) f32 from
 ops/tables.py; per pair `pidx` (N,) int32; per (pair, slot) `xts`
@@ -41,6 +45,7 @@ raise.  `LAUNCHES` counts kernel launches per wrapper, and only those.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..frame import TABLE_SIZE
@@ -49,7 +54,7 @@ from ..xtrans import (XT_CC, XT_CT, XT_EB, XT_EC, XT_EJ, XT_ET,
                                  XT_SN)
 
 from .tables import (TV_BM, TV_DDCUM, TV_DMS, TV_II, TV_IMS, TV_MD, TV_MI,
-                     TV_MMS, packed_width)
+                     TV_MMS, common_kp, packed_width, stack_tables)
 
 INF = float("inf")
 # Length quanta of the scheduler's buckets: phase-1 windows are bucketed by
@@ -77,7 +82,7 @@ PACK_MAX_KP = 2048
 PACK_SEG_QUANTUM = 64
 
 LAUNCHES = {"score": 0, "chain": 0, "gang": 0, "carry": 0, "large": 0,
-            "packed": 0, "pchain": 0, "path": 0, "walk": 0}
+            "packed": 0, "pchain": 0, "path": 0, "grid": 0, "walk": 0}
 
 
 def reset_launches() -> None:
@@ -1073,3 +1078,182 @@ def paths_pairs(pidx, tables, tvecs, xts, lengths, starts, codes_all, *,
     _build.check(err, "dtt_path_pairs")
     LAUNCHES["path"] += 1
     return xn, nd
+
+
+# ---------------------------------------------------------------------------
+# B9: dense-grid scores, every profile against every window
+# ---------------------------------------------------------------------------
+
+
+def _check_grid(tables, tvecs, xts, lengths, starts, codes_all):
+    B = starts.shape[0]
+    P, _, Kp = tables.shape
+    _check(tables, "tables", torch.float32, (P, TABLE_SIZE, Kp))
+    _check(tvecs, "tvecs", torch.float32, (P, 8, Kp))
+    _check(xts, "xts", torch.float32, (B, 16))
+    _check(lengths, "lengths", torch.int32, (B,))
+    _check(starts, "starts", torch.int32, (B,))
+    _check(codes_all, "codes_all", torch.int32, (codes_all.shape[0], 5))
+    if codes_all.shape[0] == 0:
+        raise ValueError("codes_all: no rows")
+    _check_kp(Kp, MAX_LARGE_KP)
+    return P, B, Kp
+
+
+def scores_grid_plain(tables, tvecs, xts, lengths, starts, codes_all):
+    """Plain PyTorch B9: the pull form of `_kernel`, one Python step per DP
+    position over (P * B, Kp) planes, in the kernel's f32 operation order:
+    the five ring slots read, then min(shift1(min(M+MMs, I+IMs, D+DMs)),
+    B+BM) + ma, min(I+II, M+MI) + bg, min(S+SN, N+NN) + nil and
+    min_t(R + nil) + RR, T and R captured where l == length.  The
+    END-indexed row of position l and duration t is codes_all[clamp(starts
+    + l - t, 0, T - 1), t - 1], as B2 reads it.  Returns (alt, null) (P, B)
+    f32; windows of length 0 +inf."""
+    P, B = tables.shape[0], starts.shape[0]
+    Kp = tables.shape[2]
+    R = P * B
+    dev = tables.device
+    flat = tables.reshape(P * TABLE_SIZE, Kp)
+    prof = torch.arange(P, device=dev).repeat_interleave(B)
+    win = torch.arange(B, device=dev).repeat(P)
+    base = prof * TABLE_SIZE
+    tv = tvecs[prof]  # (R, 8, Kp)
+    xt = xts[win]  # (R, 16)
+    lens = lengths.long()[win]
+    st = starts.long()[win]
+    T = codes_all.shape[0]
+    M = torch.full((5, R, Kp), INF, device=dev)  # rings, slot = l % 5
+    I, D = M.clone(), M.clone()
+    SML = torch.full((7, 5, R), INF, device=dev)  # S B N J C E R rings
+    SML[0, 0] = 0.0
+    SML[1, 0] = xt[:, XT_SB]
+    SML[6, 0] = -xt[:, XT_RR]
+    Tfin = torch.full((R,), INF, device=dev)
+    Rfin = Tfin.clone()
+    inf_r = Tfin.clone()
+    t1 = torch.arange(1, 6, device=dev)  # duration t, row t - 1
+
+    def x(j):
+        return xt[:, j]
+
+    maxlen = int(lens.max()) if R else 0
+    for l in range(1, maxlen + 1):
+        ring = [(l - t) % 5 for t in range(1, 6)]  # slot of position l - t
+        crow = (st[None, :] + (l - t1)[:, None]).clamp(0, T - 1)  # (5, R)
+        ma = flat[base[None, :] + codes_all[crow, (t1 - 1)[:, None]].long()]
+        nil = ma[:, :, Kp - 2]  # (5, R)
+        bg = ma[:, :, Kp - 1:Kp]
+        Mr, Ir, Dr = M[ring], I[ring], D[ring]  # (5, R, Kp)
+        Sr, Br, Nr, Jr, Cr, Er, Rr = SML[:, ring]  # (5, R) each
+
+        inner = torch.minimum(torch.minimum(Mr + tv[:, TV_MMS],
+                                            Ir + tv[:, TV_IMS]),
+                              Dr + tv[:, TV_DMS])
+        shifted = torch.roll(inner, 1, -1)  # the wrap lane is +inf
+        bcand = Br[:, :, None] + tv[:, TV_BM]
+        M_l = (torch.minimum(shifted, bcand) + ma).amin(0)
+        icand = torch.minimum(Ir + tv[:, TV_II], Mr + tv[:, TV_MI])
+        I_l = (icand + bg).amin(0)
+        A = torch.roll(M_l, 1, -1) + tv[:, TV_MD]
+        D_l = (torch.cummin(A - tv[:, TV_DDCUM], dim=-1).values
+               + tv[:, TV_DDCUM])
+        E_l = torch.minimum(M_l.amin(-1), D_l.amin(-1))
+        N_l = (torch.minimum(Sr + x(XT_SN), Nr + x(XT_NN)) + nil).amin(0)
+        J_l = (torch.minimum(Er + x(XT_EJ), Jr + x(XT_JJ)) + nil).amin(0)
+        C_l = (torch.minimum(Er + x(XT_EC), Cr + x(XT_CC)) + nil).amin(0)
+        B_l = torch.minimum(torch.minimum(N_l + x(XT_NB), E_l + x(XT_EB)),
+                            J_l + x(XT_JB))
+        T_l = torch.minimum(E_l + x(XT_ET), C_l + x(XT_CT))
+        R_l = (Rr + nil).amin(0) + x(XT_RR)
+
+        at_end = lens == l
+        Tfin = torch.where(at_end, T_l, Tfin)
+        Rfin = torch.where(at_end, R_l, Rfin)
+        slot = l % 5
+        M[slot], I[slot], D[slot] = M_l, I_l, D_l
+        SML[:, slot] = torch.stack([inf_r, B_l, N_l, J_l, C_l, E_l, R_l])
+    return Tfin.reshape(P, B), Rfin.reshape(P, B)
+
+
+def scores_grid(tables, tvecs, xts, lengths, starts, codes_all):
+    """B9 wrapper: (alt, null) (P, B) f32 min-plus costs of every profile
+    of `tables` (P, 1364, Kp) against every window b of xts (B, 16),
+    lengths (B,) int32 (0 = pad, +inf out) and starts (B,) int32 into the
+    START-indexed code table codes_all (T, 5).  Lane planes up to
+    MAX_LARGE_KP: the rings live in shared memory up to PATH_SMEM_BYTES
+    per window and in a per-launch (P * B, 18 * Kp) f32 global scratch
+    beyond, as B2's do."""
+    P, B, Kp = _check_grid(tables, tvecs, xts, lengths, starts, codes_all)
+    if not on_cuda(tables, tvecs, xts, lengths, starts, codes_all):
+        return scores_grid_plain(tables, tvecs, xts, lengths, starts,
+                                 codes_all)
+    from .. import _build
+
+    dev = tables.device
+    alt = torch.empty((P, B), dtype=torch.float32, device=dev)
+    nul = torch.empty_like(alt)
+    scratch = None
+    if 18 * Kp * 4 > PATH_SMEM_BYTES:
+        scratch = torch.empty((P * B, 18 * Kp), dtype=torch.float32,
+                              device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = _build.lib().dtt_score_grid(
+        tables.data_ptr(), tvecs.data_ptr(), xts.data_ptr(),
+        lengths.data_ptr(), starts.data_ptr(), codes_all.data_ptr(),
+        alt.data_ptr(), nul.data_ptr(),
+        scratch.data_ptr() if scratch is not None else None,
+        P, B, Kp, codes_all.shape[0], stream)
+    _build.check(err, "dtt_score_grid")
+    LAUNCHES["grid"] += 1
+    return alt, nul
+
+
+class GridScanEngine:
+    """Profile tables on one device; scores dense (P, B) tiles with B9.
+
+    Counterpart of PallasScanEngine (viterbi_pallas.py:1663-1688): the
+    tables and transition vectors of every profile at their common Kp,
+    built once.  `scores` takes a host window batch as the reference's
+    engines do.  On a CUDA device every call launches B9 (no gather-mode
+    switch: the reference's slot/tregs/static layouts, PREFETCH and the
+    host code relayouts are TPU layouts of one computation); on the CPU it
+    runs the plain version."""
+
+    def __init__(self, costs_list, device="cuda"):
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(f"GridScanEngine(device={device!r}) but no "
+                               "CUDA device is available")
+        Kp = common_kp(costs_list)
+        _check_kp(Kp, MAX_LARGE_KP)
+        tables, tvecs = stack_tables(costs_list, Kp)
+        self.tables = tables.to(self.device)
+        self.tvecs = tvecs.to(self.device)
+
+    def grid_inputs(self, xt, codes, lengths):
+        """A host batch -> B9's inputs on the device: xts (B, 16),
+        lengths (B,), starts (B,) and codes_all (B * Lpad, 5).  xt (B, 13)
+        f32, codes (B, Lpad, 5) int32 END-indexed, lengths (B,).  Window b
+        owns rows [b * Lpad, (b + 1) * Lpad) of codes_all, its codes
+        START-indexed there (start_codes): row b * Lpad + i, column t - 1
+        is the fragment of length t starting at position i + 1."""
+        c = torch.as_tensor(np.asarray(codes, np.int32))
+        B, Lpad = c.shape[0], c.shape[1]
+        xts = torch.zeros((B, 16), dtype=torch.float32)
+        xts[:, :13] = torch.as_tensor(np.asarray(xt, np.float32))
+        lens = torch.as_tensor(np.asarray(lengths, np.int32))
+        sc = torch.zeros_like(c)
+        for t0 in range(5):
+            n = max(0, Lpad - t0)
+            sc[:, :n, t0] = c[:, t0:t0 + n, t0]
+        codes_all = sc.reshape(B * Lpad, 5)
+        if codes_all.shape[0] == 0:
+            codes_all = torch.zeros((1, 5), dtype=torch.int32)
+        starts = torch.arange(B, dtype=torch.int32) * Lpad
+        return [t.to(self.device) for t in (xts, lens, starts, codes_all)]
+
+    def scores(self, xt, codes, lengths):
+        """Returns (null_costs, alt_costs): (P, B) f32 numpy arrays."""
+        alt, nul = scores_grid(self.tables, self.tvecs,
+                               *self.grid_inputs(xt, codes, lengths))
+        return nul.cpu().numpy(), alt.cpu().numpy()

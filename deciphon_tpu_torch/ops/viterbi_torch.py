@@ -1,0 +1,265 @@
+"""Frame Viterbi in plain PyTorch: the single-device reference engine.
+
+Counterpart of deciphon_tpu/ops/viterbi_jax.py (the lax.scan engine): the
+min-plus recurrence of the reference's striped kernel in its logical form,
+
+  position l = 1..L, durations t = 1..5, fragment code c(l,t) = seq[l-t, l):
+
+    N_l = min_t min(S_{l-t}+SN, N_{l-t}+NN) + null[c]
+    J_l = min_t min(E_{l-t}+EJ, J_{l-t}+JJ) + null[c]
+    C_l = min_t min(E_{l-t}+EC, C_{l-t}+CC) + null[c]
+    M_l[k] = min_t [min(B_{l-t}+BM[k], M_{l-t}[k-1]+MM[k],
+                        I_{l-t}[k-1]+IM[k], D_{l-t}[k-1]+DM[k]) + match[c,k]]
+    I_l[k] = min_t [min(I_{l-t}[k]+II[k], M_{l-t}[k]+MI[k]) + bg[c]]
+    D_l[k] = cummin_k(M_l[k-1]+MD[k] - DDCUM[k]) + DDCUM[k]
+    E_l = min_k min(M_l[k], D_l[k]);  B_l = min(N_l+NB, E_l+EB, J_l+JB)
+    T_l = min(E_l+ET, C_l+CT)
+
+One Python step per DP position; the rows (windows, or profile x window
+pairs) are a leading dimension where the reference uses jax.vmap.  Every
+candidate keeps the reference's f32 grouping -- (state + trans) + emission,
+(S + SN) + nil, the delete chain as cummin(A - DDCUM) + DDCUM, the null
+model as min_t((R + RR) + nil) -- so scores agree bit for bit.  Path mode
+emits the reference's packed trellis (c-core/state.h:28-39) as int32
+planes: xnodes (B, Lpad+1) and nodes (B, Lpad+1, K), row 0 all zero, with
+the reference's first-minimum tie-breaks (torch's min over a dimension
+returns the first index of a tied minimum, as jnp.argmin does).
+
+Inputs are tensors on one device (the computation runs there): core
+(9, K) f32 in ops/costs.py's row order (DDCUM included), match (1364, K),
+null and background (1364,), xt (13,) or (B, 13) special costs, codes
+(Lpad, 5) or (B, Lpad, 5) int32 END-indexed fragment codes (codes[l-1,
+t-1] is the fragment of length t ending at position l; entries with t > l
+or past the length are ignored but must be valid table rows), length(s)
+int.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..xtrans import (XT_CC, XT_CT, XT_EB, XT_EC, XT_EJ, XT_ET, XT_JB, XT_JJ,
+                      XT_NB, XT_NN, XT_RR, XT_SB, XT_SN)
+from .costs import (CT_BM, CT_DDCUM, CT_DM, CT_II, CT_IM, CT_MD, CT_MI,
+                    CT_MM)
+
+INF = float("inf")
+TABLE_ROWS = 1364  # frame.TABLE_SIZE
+
+
+def _shift_k(x: torch.Tensor) -> torch.Tensor:
+    """Node shift: out[..., k] = x[..., k-1], out[..., 0] = +inf."""
+    pad = torch.full(x.shape[:-1] + (1,), INF, dtype=x.dtype,
+                     device=x.device)
+    return torch.cat([pad, x[..., :-1]], dim=-1)
+
+
+def _order2(c0: torch.Tensor, c1: torch.Tensor) -> torch.Tensor:
+    """(R, 5) candidates per duration (t = 1..5 along dim 1) of two sources
+    -> (R, 10) in the reference's scan order: t descending, c0 then c1."""
+    return torch.stack([c0, c1], dim=-1).flip(1).reshape(c0.shape[0], 10)
+
+
+def _first_min(cands: torch.Tensor, dim: int):
+    """Minimum and the index of its first occurrence along `dim`."""
+    best, idx = cands.min(dim)
+    return best, idx.to(torch.int32)
+
+
+def run(core, match, null, background, pidx, xt, codes, lengths, widx=None,
+        path: bool = False):
+    """The engine over R rows: row r scores window widx[r] (default r)
+    against profile pidx[r].
+
+    core (P, 9, K), match (P, 1364, K), null/background (P, 1364); pidx
+    (R,) int64; xt (B, 13); codes (B, Lpad, 5) int32; lengths (B,) int;
+    widx (R,) int64 or None.  Returns T (R,) f32, and in path mode also
+    xnodes (R, Lpad+1) and nodes (R, Lpad+1, K) int32."""
+    dev = core.device
+    P, _, K = core.shape
+    Lpad = codes.shape[1]
+    R = pidx.shape[0]
+    if widx is None:
+        widx = torch.arange(R, device=dev)
+    xr = xt[widx]  # (R, 13)
+    lens = lengths.to(torch.int64)[widx]
+
+    def trans(row):
+        return core[:, row][pidx]  # (R, K)
+
+    BM, MM, MI, MD = trans(CT_BM), trans(CT_MM), trans(CT_MI), trans(CT_MD)
+    IM, II, DM = trans(CT_IM), trans(CT_II), trans(CT_DM)
+    DD_cum = trans(CT_DDCUM)
+    flat_match = match.reshape(P * TABLE_ROWS, K)
+    base = pidx * TABLE_ROWS  # (R,) table row of code 0
+    flat_null = null.reshape(-1)
+    flat_bg = background.reshape(-1)
+
+    def x(j):
+        return xr[:, j:j + 1]  # (R, 1) against (R, 5) candidates
+
+    ts = torch.arange(1, 6, device=dev)
+    # rings, entry t-1 = position l-t
+    Mr = torch.full((R, 5, K), INF, device=dev)
+    Ir, Dr = Mr.clone(), Mr.clone()
+    Nr = torch.full((R, 5), INF, device=dev)
+    Jr, Er, Cr = Nr.clone(), Nr.clone(), Nr.clone()
+    Br = Nr.clone()
+    Br[:, 0] = xr[:, XT_SB]  # B_0 = SB
+    T_final = torch.full((R,), INF, device=dev)
+    if path:
+        i32 = torch.int32
+        xnodes = torch.zeros((R, Lpad + 1), dtype=i32, device=dev)
+        nodes = torch.zeros((R, Lpad + 1, K), dtype=i32, device=dev)
+
+    for l in range(1, Lpad + 1):
+        valid = ts <= l  # (5,)
+        idx = base[:, None] + codes[:, l - 1].long()[widx]  # (R, 5)
+        nil = torch.where(valid, flat_null[idx], INF)  # (R, 5)
+        bg = torch.where(valid, flat_bg[idx], INF)
+        ma = torch.where(valid[:, None], flat_match[idx], INF)  # (R, 5, K)
+        S_prev = torch.where(ts == l, 0.0, INF).expand(R, 5)
+
+        n_cands = _order2((S_prev + x(XT_SN)) + nil, (Nr + x(XT_NN)) + nil)
+        j_cands = _order2((Er + x(XT_EJ)) + nil, (Jr + x(XT_JJ)) + nil)
+        c_cands = _order2((Er + x(XT_EC)) + nil, (Cr + x(XT_CC)) + nil)
+        N_l, n_idx = _first_min(n_cands, 1)
+        J_l, j_idx = _first_min(j_cands, 1)
+        C_l, c_idx = _first_min(c_cands, 1)
+
+        # M: t descending, then BM, MM, IM, DM -> (R, 20, K)
+        m_cands = torch.stack([
+            (Br[:, :, None] + BM[:, None, :]) + ma,
+            (_shift_k(Mr) + MM[:, None, :]) + ma,
+            (_shift_k(Ir) + IM[:, None, :]) + ma,
+            (_shift_k(Dr) + DM[:, None, :]) + ma,
+        ], dim=2).flip(1).reshape(R, 20, K)
+        M_l, m_idx = _first_min(m_cands, 1)
+        # I: t descending, then II, MI -> (R, 10, K)
+        i_cands = torch.stack([
+            (Ir + II[:, None, :]) + bg[:, :, None],
+            (Mr + MI[:, None, :]) + bg[:, :, None],
+        ], dim=2).flip(1).reshape(R, 10, K)
+        I_l, i_idx = _first_min(i_cands, 1)
+
+        A = _shift_k(M_l) + MD
+        D_l = torch.cummin(A - DD_cum, dim=-1).values + DD_cum
+
+        E_l = torch.minimum(M_l.amin(-1), D_l.amin(-1))
+        b_cands = torch.stack([N_l + xr[:, XT_NB], E_l + xr[:, XT_EB],
+                               J_l + xr[:, XT_JB]], dim=1)
+        B_l, b_idx = _first_min(b_cands, 1)
+        t_cands = torch.stack([E_l + xr[:, XT_ET], C_l + xr[:, XT_CT]], dim=1)
+        T_l, t_idx = _first_min(t_cands, 1)
+        T_final = torch.where(lens == l, T_l, T_final)
+
+        if path:
+            m_choice = m_idx % 4  # 0 BM, 1 MM, 2 IM, 3 DM
+            m_t = 5 - m_idx // 4
+            i_choice = i_idx % 2  # 0 II, 1 MI
+            i_t = 5 - i_idx // 2
+            d_is_dd = (D_l < A).to(i32)  # strict: MD wins ties
+            _, e_idx = _first_min(torch.stack([M_l, D_l], -1)
+                                  .reshape(R, 2 * K), 1)  # 2k + isD
+
+            def field(i):
+                return (i % 2) * 5 + (5 - i // 2 - 1)
+
+            xnodes[:, l] = (field(n_idx) | ((b_idx + 1) << 4)
+                            | (e_idx << 6) | (field(c_idx) << 21)
+                            | (t_idx << 25) | (field(j_idx) << 26))
+            nodes[:, l] = ((m_choice * 5 + (m_t - 1)) | (d_is_dd << 5)
+                           | (((1 - i_choice) * 5 + (i_t - 1)) << 6))
+
+        # rotate rings: the newest position takes entry 0
+        Mr = torch.cat([M_l[:, None], Mr[:, :-1]], 1)
+        Ir = torch.cat([I_l[:, None], Ir[:, :-1]], 1)
+        Dr = torch.cat([D_l[:, None], Dr[:, :-1]], 1)
+        Nr = torch.cat([N_l[:, None], Nr[:, :-1]], 1)
+        Br = torch.cat([B_l[:, None], Br[:, :-1]], 1)
+        Jr = torch.cat([J_l[:, None], Jr[:, :-1]], 1)
+        Er = torch.cat([E_l[:, None], Er[:, :-1]], 1)
+        Cr = torch.cat([C_l[:, None], Cr[:, :-1]], 1)
+
+    if path:
+        return T_final, xnodes, nodes
+    return T_final
+
+
+def run_null(null, pidx, RR, codes, lengths, widx=None):
+    """Null-model DP over R rows (c-core/viterbi.c:696-719): row r scores
+    window widx[r] (default r) with profile pidx[r]'s null costs.
+
+    null (P, 1364); pidx (R,) int64; RR (B,) f32; codes (B, Lpad, 5);
+    lengths (B,).  Returns the null path costs (R,)."""
+    dev = null.device
+    R = pidx.shape[0]
+    if widx is None:
+        widx = torch.arange(R, device=dev)
+    rr = RR[widx][:, None]  # (R, 1)
+    lens = lengths.to(torch.int64)[widx]
+    flat = null.reshape(-1)
+    base = pidx * TABLE_ROWS
+    ts = torch.arange(1, 6, device=dev)
+    Rr = torch.full((R, 5), INF, device=dev)  # entry t-1 = position l-t
+    Rr[:, 0] = -rr[:, 0]  # R_0 = -RR
+    R_final = torch.full((R,), INF, device=dev)
+    for l in range(1, codes.shape[1] + 1):
+        valid = ts <= l
+        idx = base[:, None] + codes[:, l - 1].long()[widx]
+        nil = torch.where(valid, flat[idx], INF)
+        R_l = ((Rr + rr) + nil).amin(1)
+        R_final = torch.where(lens == l, R_l, R_final)
+        Rr = torch.cat([R_l[:, None], Rr[:, :-1]], 1)
+    return R_final
+
+
+def _batch(core, match, null, background, xt, codes, lengths, path):
+    B = codes.shape[0]
+    pidx = torch.zeros((B,), dtype=torch.int64, device=codes.device)
+    return run(core[None], match[None], null[None], background[None], pidx,
+               xt, codes, lengths, path=path)
+
+
+def viterbi(core, match, null, background, xt, codes, length, path=False):
+    """One window: core (9, K), match (1364, K), null/background
+    (1364,), xt (13,), codes (Lpad, 5), length int.  Returns the final T
+    cost (0-dim), or in path mode (T, xnodes (Lpad+1,), nodes (Lpad+1,
+    K)) int32."""
+    lt = torch.as_tensor([int(length)], device=codes.device)
+    out = _batch(core, match, null, background, xt[None], codes[None], lt,
+                 path)
+    if path:
+        return tuple(a[0] for a in out)
+    return out[0]
+
+
+def viterbi_null(null, RR, codes, length):
+    """One window's null path cost: null (1364,), RR f32 scalar or 0-dim,
+    codes (Lpad, 5), length int."""
+    dev = codes.device
+    rr = torch.as_tensor([float(RR)], dtype=torch.float32, device=dev)
+    lt = torch.as_tensor([int(length)], device=dev)
+    pidx = torch.zeros((1,), dtype=torch.int64, device=dev)
+    return run_null(null[None], pidx, rr, codes[None], lt)[0]
+
+
+def viterbi_batch(core, match, null, background, xt, codes, lengths):
+    """One profile, B windows: xt (B, 13), codes (B, Lpad, 5), lengths
+    (B,).  Returns T (B,)."""
+    return _batch(core, match, null, background, xt, codes, lengths, False)
+
+
+def viterbi_null_batch(null, RR, codes, lengths):
+    """One profile's null model over B windows, RR one f32 cost for all."""
+    dev = codes.device
+    B = codes.shape[0]
+    rr = torch.full((B,), float(RR), dtype=torch.float32, device=dev)
+    pidx = torch.zeros((B,), dtype=torch.int64, device=dev)
+    return run_null(null[None], pidx, rr, codes, lengths)
+
+
+def viterbi_path_batch(core, match, null, background, xt, codes, lengths):
+    """Path mode over B windows of one profile (phase 2 of the scan):
+    (T (B,), xnodes (B, Lpad+1), nodes (B, Lpad+1, K)) int32 planes."""
+    return _batch(core, match, null, background, xt, codes, lengths, True)

@@ -1,16 +1,23 @@
 """The scan pipeline on PyTorch: batched two-phase Viterbi over
 (profile, window) pairs.
 
-Counterpart of deciphon_tpu/scan/pipeline.py (Scanner.run with default
-flags, one device, no confirmer; with `warmup`, checkpoint/resume,
-`should_stop`, `progress` and `release`):
+Counterpart of deciphon_tpu/scan/pipeline.py (Scanner.run, one device,
+no confirmer; with `warmup`, checkpoint/resume, `should_stop`, `progress`
+and `release`), with two engines (ScanConfig.engine):
 
-  phase 1 (device, batched): null + alt costs of every in-flight
-    (profile, window) pair — the score kernels (packed tiers B7 and B6
-    for small-K profiles, chain tier B3, gang B5, carry B8, classic B1)
-    through the bucketed scheduler — then the LRT filter;
-  phase 2 (device + host): the B2 path kernel and the device walk for
-    every survivor, hit segmentation, ML codon/amino decode, product line.
+  "kernels" (the default; the reference's "pallas"):
+    phase 1 (device, batched, pipelined): null + alt costs of every
+      in-flight (profile, window) pair — the score kernels (packed tiers
+      B7 and B6 for small-K profiles, chain tier B3, gang B5, carry B8,
+      classic B1, large-K B4) through the bucketed scheduler — then the
+      LRT filter;
+    phase 2 (device + host): the B2 path kernel and the device walk for
+      every survivor, hit segmentation, ML codon/amino decode, product
+      line;
+  "torch" (the reference's "jax"): TorchPairScorer, the lax.scan
+    engine's counterpart in plain PyTorch, scores each wave when it is
+    dispatched; its phase 2 runs viterbi_path_batch per (profile, padded
+    length) group, then the device walk.
 
 Windows of one (profile, sequence) pair advance serially with last-hit
 feedback (speculated ahead and rewound on a hit, exactly as the
@@ -39,8 +46,9 @@ from ..scan.product import ProductLine, ProductWriter
 from ..scan.sequence import Sequence
 from ..scan.window import WindowCursor
 
-from ..ops.traceback import assemble_path_entries
-from .scheduler import BucketedPairScorer, DeviceSeqCodes, PairItem
+from ..ops.traceback import assemble_path_entries, fetch_steps
+from .scheduler import (BucketedPairScorer, DeviceSeqCodes, PairItem,
+                        TorchPairScorer)
 
 _state_name_cached = functools.lru_cache(maxsize=1 << 16)(st.state_name)
 
@@ -48,6 +56,9 @@ _state_name_cached = functools.lru_cache(maxsize=1 << 16)(st.state_name)
 def lrt(null_cost: float, alt_cost: float) -> float:
     """LRT from min-plus costs (lrt.h: -2(null_loglik - alt_loglik))."""
     return 2.0 * (float(null_cost) - float(alt_cost))
+
+
+ENGINES = ("kernels", "torch")
 
 
 @dataclass
@@ -60,6 +71,10 @@ class ScanConfig:
     # torch device of the scan: "cuda" (the kernels) or "cpu" (their
     # plain PyTorch versions)
     device: str = "cuda"
+    # "kernels": BucketedPairScorer (the hand-written kernels on the card,
+    # their plain versions on the CPU); "torch": TorchPairScorer, the
+    # lax.scan engine's counterpart
+    engine: str = "kernels"
 
 
 class Scanner:
@@ -96,9 +111,14 @@ class Scanner:
         self._dev_codes: DeviceSeqCodes | None = None  # set per run()
 
     def _make_scorer(self):
+        if self.config.engine not in ENGINES:
+            raise ValueError(f"ScanConfig(engine={self.config.engine!r}): "
+                             f"expected one of {ENGINES}")
         scorer = self._scorer_spec
         if scorer is not None:
             return scorer(self.costs) if callable(scorer) else scorer
+        if self.config.engine == "torch":
+            return TorchPairScorer(self.costs, self.device)
         return BucketedPairScorer(self.costs, self.device)
 
     def release(self) -> None:
@@ -349,27 +369,24 @@ class Scanner:
         return self._decoders[p_idx]
 
     def _batched_paths_dispatch(self, survivors) -> list:
-        """Launch the path kernel + device walk for every LRT survivor of
-        one wave without fetching; returns the un-fetched path entries."""
+        """Launch the trellis + device walk for every LRT survivor of one
+        wave without fetching; returns the un-fetched path entries (and
+        at most one dict of results the scorer collected early)."""
         return self.scorer.paths_dispatch([it for it, _ in survivors])
 
     def _batched_paths_collect(self, entries) -> dict[int, tuple]:
         """Fetch the step arrays of every entry in ONE host transfer and
-        assemble {id(item) -> (sids, sizes)}."""
+        assemble {id(item) -> (sids, sizes)}; a dict among the entries
+        holds results collected early."""
         out: dict[int, tuple] = {}
+        for e in entries:
+            if isinstance(e, dict):
+                out.update(e)
+        entries = [e for e in entries if not isinstance(e, dict)]
         if not entries:
             return out
         with self.metrics.timed("phase2_collect"):
-            flat = [a for e in entries for a in e[1:5]]
-            sizes = [a.numel() * a.element_size() for a in flat]
-            buf = torch.cat([a.reshape(-1).view(torch.uint8)
-                             for a in flat]).cpu().numpy()
-            fetched, pos = [], 0
-            for a, nb in zip(flat, sizes):
-                dt = {torch.int16: np.int16, torch.int8: np.int8,
-                      torch.int32: np.int32, torch.uint8: np.uint8}[a.dtype]
-                fetched.append(buf[pos:pos + nb].view(dt).reshape(a.shape))
-                pos += nb
+            fetched = fetch_steps(entries)
         assemble_path_entries(entries, fetched, out)
         return out
 

@@ -2,7 +2,8 @@
 
 Counterpart of deciphon_tpu/scan/scheduler.py on one device.  The host
 helpers are the port's own copies, equal in behaviour (PairItem,
-build_batches, bucket_arrays_meta, next_pow2, prev_pow2, quantize_nlb,
+build_batches, bucket_arrays, bucket_arrays_meta, next_pow2, prev_pow2,
+quantize_nlb, _pad_len (the reference pipeline's phase-2 group length),
 _mass_p90, chunk_sizes, pad_groups, NCHUNK, _Bucket, _ChainChunk,
 _PackedChainChunk, HBMLedger, _lpt_pack); what touches the device is
 written for torch:
@@ -20,7 +21,11 @@ written for torch:
     (B6); everything else, and phase 2, through an inner PairScorer;
   * BucketedPairScorer — profiles partitioned into packed classes, plain
     Kp buckets and large-K buckets, one scorer each, one host transfer per
-    phase-1 wave.
+    phase-1 wave;
+  * TorchPairScorer — the lax.scan engine's counterpart (ops/engine.py
+    scan_scores, plain PyTorch, no score kernel), group by group, with
+    the reference pipeline's generic phase 2 (viterbi_path_batch + the
+    device walk).
 
 Environment switches, read where the reference reads them:
 DECIPHON_NO_CHAIN=1 sends every window to the classic buckets (packed
@@ -34,6 +39,7 @@ device budget) and profiles beyond the reference's K = 16384.
 
 from __future__ import annotations
 
+import math
 import os
 import time
 from dataclasses import dataclass
@@ -44,9 +50,11 @@ import torch
 from ..frame import FRAG_OFFSETS
 from ..ops import viterbi as vk
 from ..ops.costs import ViterbiCosts
+from ..ops.engine import scan_scores
 from ..ops.tables import (common_kp, round_up, stack_tables,
                           stack_tables_packed)
-from ..ops.traceback import walk
+from ..ops.traceback import assemble_path_entries, fetch_steps, walk
+from ..ops.viterbi_torch import viterbi_path_batch
 from ..xtrans import xtrans_cost_vector
 from .window import Window
 
@@ -293,6 +301,53 @@ def build_batches(items: list[PairItem], kappa: int, w: int = W,
                                w=b.w))
             i += size
     return out
+
+
+def bucket_arrays(bucket: _Bucket, kappa: int, mode: str = "raw",
+                  w: int | None = None):
+    """Assemble padded host inputs for one bucket.
+
+    Returns (pidx (N,), xts (N,w,16), lens (N,w,1),
+    ck (N,NLB,kappa,5,w) | None, codes (N,w,Lk,5) | None) with
+    N = pad_groups(len(groups)); pad pairs have length 0 everywhere.
+    "raw" (the lax.scan scorer) builds only the duration-major END-indexed
+    `codes`, "pending" only the START-indexed `ck`.  The reference's other
+    modes are TPU code layouts of the grid kernel, which the port does not
+    have."""
+    if mode not in ("raw", "pending"):
+        raise ValueError(f"bucket_arrays: mode {mode!r} (the port builds "
+                         "'raw' and 'pending')")
+    w = bucket.w if w is None else w
+    n = len(bucket.groups)
+    N = pad_groups(n)
+    NLB = bucket.nlb
+    Lk = NLB * kappa
+
+    pidx = np.zeros((N,), np.int32)
+    xts = np.zeros((N, w, 16), np.float32)
+    lens = np.zeros((N, w, 1), np.int32)
+    for gi, g in enumerate(bucket.groups):
+        pidx[gi] = g[0].p_idx
+        for wi, it in enumerate(g):
+            xts[gi, wi, :13] = it.xt
+            lens[gi, wi, 0] = it.win.length
+
+    if mode == "raw":
+        codes = np.zeros((N, w, Lk, 5), np.int32)
+        for gi, g in enumerate(bucket.groups):
+            for wi, it in enumerate(g):
+                codes[gi, wi, : it.win.length] = it.codes
+        return pidx, xts, lens, None, codes
+
+    ck = np.zeros((N, NLB, kappa, 5, w), np.int32)
+    vt = ck.reshape(N, Lk, 5, w)
+    # start-indexed in place: vt[l, t0] = end-codes[l + t0, t0]
+    for gi, g in enumerate(bucket.groups):
+        for wi, it in enumerate(g):
+            L = it.win.length
+            for t0 in range(5):
+                vt[gi, : L - t0, t0, wi] = it.codes[t0:, t0]
+    return pidx, xts, lens, ck, None
 
 
 def bucket_arrays_meta(bucket: _Bucket, dev_codes: DeviceSeqCodes):
@@ -1513,3 +1568,140 @@ class BucketedPairScorer:
         finally:
             self._restore(items, remap)
 
+
+
+def _pad_len(n: int) -> int:
+    """Padded window length of a phase-2 group (few distinct shapes)."""
+    if n <= 256:
+        return round_up(max(n, 1), 64)
+    return 1 << math.ceil(math.log2(n))
+
+
+class TorchPairScorer:
+    """The lax.scan engine's scorer, counterpart of the reference's
+    JaxPairScorer (scheduler.py:2065-2099) with the reference pipeline's
+    generic phase 2 (pipeline.py:483-546): plain PyTorch on `device`, no
+    score or path kernel.  It keeps the kernel scorers' contract:
+    `dispatch_all` scores a wave at once (ops/engine.py scan_scores, one
+    call per window group) and `collect_all` hands the scores back;
+    `paths_dispatch` runs viterbi_path_batch per (profile, padded length)
+    group and the device walk on its trellis.  The per-profile cost
+    tensors stay on `device` ("cuda" runs there or raises when no card is
+    present)."""
+
+    KAPPA = 32  # positions per length block of its buckets (the reference's)
+    # Trellis bytes in flight in phase 2 (the reference pipeline's
+    # constant): ~(2K+8) bytes per position per survivor, so groups are
+    # chunked and older launches collected early to bound it.
+    PATH_BATCH_BYTES = 256 << 20
+
+    def __init__(self, costs_list: list[ViterbiCosts],
+                 device: torch.device | str = "cuda"):
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(f"TorchPairScorer(device={device!r}) but no "
+                               "CUDA device is available")
+        self.K = [c.K for c in costs_list]
+        self._dev = [_tensors(self.device, c.core, c.match, c.null,
+                              c.background) for c in costs_list]
+        self.metrics = None
+
+    def set_device_codes(self, dev_codes) -> None:
+        """Nothing to hold: the engine reads each window's own codes."""
+
+    def set_metrics(self, metrics) -> None:
+        self.metrics = metrics
+
+    def _wall(self, name: str, t0: float) -> None:
+        if self.metrics is not None:
+            self.metrics.add_wall(name, time.perf_counter() - t0)
+
+    def dispatch_all(self, items: list[PairItem]):
+        """Score one wave now (nothing is left in flight); the handle is
+        {id(item) -> (null_cost, alt_cost)}."""
+        t0 = time.perf_counter()
+        scores = self.score(items)
+        self._wall("dispatch", t0)
+        return scores
+
+    @staticmethod
+    def collect_all(scores) -> dict[int, tuple[float, float]]:
+        return scores
+
+    def score(self, items: list[PairItem]) -> dict[int, tuple[float, float]]:
+        """Returns {id(item) -> (null_cost, alt_cost)}."""
+        results: dict[int, tuple[float, float]] = {}
+        for bucket in build_batches(items, self.KAPPA):
+            _, xts, lens, _, codes = bucket_arrays(bucket, self.KAPPA,
+                                                   mode="raw")
+            for gi, g in enumerate(bucket.groups):
+                core, match, null, bg = self._dev[g[0].p_idx]
+                xt_g, codes_g, lens_g = _tensors(
+                    self.device, np.ascontiguousarray(xts[gi, :, :13]),
+                    codes[gi], np.ascontiguousarray(lens[gi, :, 0]))
+                nul, alt = scan_scores(core[None], match[None], null[None],
+                                       bg[None], xt_g, codes_g, lens_g)
+                nul = nul[0].cpu().numpy()
+                alt = alt[0].cpu().numpy()
+                for wi, it in enumerate(g):
+                    results[id(it)] = (float(nul[wi]), float(alt[wi]))
+        return results
+
+    def paths_dispatch(self, items: list[PairItem]) -> list:
+        """Trellis + device walk for every survivor of one wave: survivors
+        grouped by (profile, padded window length), each group chunked
+        within PATH_BATCH_BYTES and run as viterbi_path_batch calls, the
+        batch padded to a power of two; the walk reads the trellis (row 0
+        dropped) in place.  Returns the un-fetched path entries; when the
+        trellis bytes in flight pass PATH_BATCH_BYTES the oldest are
+        collected at once, and their results ride along as one dict
+        {id(item) -> (sids, sizes)} among the entries."""
+        groups: dict[tuple[int, int], list[PairItem]] = {}
+        for it in items:
+            groups.setdefault((it.p_idx, _pad_len(it.win.length)),
+                              []).append(it)
+        inflight: list[tuple] = []  # (entry, trellis bytes)
+        inflight_bytes = 0
+        early: dict[int, tuple] = {}
+        for (p_idx, Lpad), group in groups.items():
+            K = self.K[p_idx]
+            per = Lpad * (2 * K + 8)
+            chunk = max(1, self.PATH_BATCH_BYTES // max(per, 1))
+            for i0 in range(0, len(group), chunk):
+                sub = group[i0:i0 + chunk]
+                t0 = time.perf_counter()
+                Bp = next_pow2(len(sub))
+                codes = np.zeros((Bp, Lpad, 5), np.int32)
+                xts = np.zeros((Bp, 13), np.float32)
+                lengths = np.zeros((Bp,), np.int32)
+                for b, it in enumerate(sub):
+                    codes[b, :it.win.length] = it.codes
+                    xts[b] = it.xt
+                    lengths[b] = it.win.length
+                xt_t, codes_t, lens_t = _tensors(self.device, xts, codes,
+                                                 lengths)
+                _, xn, nd = viterbi_path_batch(*self._dev[p_idx], xt_t,
+                                               codes_t, lens_t)
+                xn = xn[:, 1:].contiguous()  # row l-1 holds position l
+                nd = nd[:, 1:].contiguous()
+                n = len(sub)
+                sts, szs, ns, oks = walk(
+                    xn, nd, torch.arange(n, dtype=torch.int32,
+                                         device=self.device),
+                    lens_t[:n].contiguous(), Lpad + 4 * K + 64)
+                self._wall("phase2_path", t0)
+                inflight.append(((sub, sts, szs, ns, oks, xn, nd,
+                                  list(range(n)), lengths[:n].tolist()),
+                                 n * per))
+                inflight_bytes += n * per
+                while (inflight_bytes > self.PATH_BATCH_BYTES
+                       and len(inflight) > 1):
+                    (old, old_bytes) = inflight.pop(0)
+                    t0 = time.perf_counter()
+                    assemble_path_entries([old], fetch_steps([old]), early)
+                    self._wall("phase2_collect", t0)
+                    inflight_bytes -= old_bytes
+        entries: list = [e for e, _ in inflight]
+        if early:
+            entries.append(early)
+        return entries

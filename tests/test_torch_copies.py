@@ -431,3 +431,36 @@ def test_large_k_constants_copy(name):
            "HBM_STATE_BYTES_PER_LANE": p_vk.HBM_STATE_BYTES_PER_LANE,
            "MAX_KP": p_sched.BucketedPairScorer.MAX_KP}[name]
     assert same(got, want)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_bucket_arrays_and_pad_len_copy(seed):
+    """The lax.scan engine's host inputs: `bucket_arrays` in its "raw"
+    (END-indexed codes) and "pending" (START-indexed) forms, and the
+    pipeline's phase-2 group length `_pad_len` (in the port's scheduler,
+    beside the torch engine's phase 2 that uses it)."""
+    import deciphon_tpu.scan.pipeline as r_pipeline
+
+    for n in (0, 1, 63, 64, 65, 255, 256, 257, 1000, 4096, 4097, 100_000):
+        assert p_sched._pad_len(n) == r_pipeline._pad_len(n)
+    rng = np.random.default_rng(seed)
+    p_items, r_items = [], []
+    for i in range(40):
+        L = int(rng.integers(1, 300))
+        codes = rng.integers(0, 1364, size=(L, 5)).astype(np.int32)
+        p_idx = int(rng.integers(0, 5))
+        for mod, win_mod, out in ((p_sched, p_window, p_items),
+                                  (r_sched, r_window, r_items)):
+            out.append(mod.PairItem(
+                p_idx=p_idx, s_idx=i, win=win_mod.Window(i % 3, 0, L),
+                multi_hits=bool(i % 2), hmmer3_compat=not i % 2,
+                codes=codes))
+    for kappa, mode in ((32, "raw"), (40, "pending")):
+        pb = p_sched.build_batches(p_items, kappa)
+        rb = r_sched.build_batches(r_items, kappa)
+        assert batches_key(pb) == batches_key(rb)
+        for a, b in zip(pb, rb):
+            assert same(list(p_sched.bucket_arrays(a, kappa, mode=mode)),
+                        list(r_sched.bucket_arrays(b, kappa, mode=mode)))
+    with pytest.raises(ValueError, match="static"):
+        p_sched.bucket_arrays(pb[0], 40, mode="static")

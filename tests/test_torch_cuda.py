@@ -188,6 +188,49 @@ def test_packed_chained_kernel_bit_equal_to_plain(cuda, seg, nseg,
     assert torch.isinf(alt[~real]).all() and torch.isinf(alt[-1]).all()
 
 
+def grid_inputs(dev, Ks, Kp, lens, seed):
+    """B9's inputs: P profiles against every window of `lens` (B,)."""
+    inp = inputs(dev, Ks, Kp, [lens], seed)
+    return dict(tables=inp["tables"], tvecs=inp["tvecs"],
+                xts=inp["xts"][0].contiguous(),
+                lengths=inp["lengths"][0, :, 0].contiguous(),
+                starts=inp["starts"][0].contiguous(),
+                codes_all=inp["codes_all"])
+
+
+@pytest.mark.parametrize("Kp", [128, 1024, 5632])
+def test_grid_kernel_bit_equal_to_plain(cuda, Kp):
+    inp = grid_inputs(cuda, [Kp - 2, 17], Kp, [300, 1, 0, 45, 97], Kp + 7)
+    before = vk.LAUNCHES["grid"]
+    alt, nul = vk.scores_grid(**inp)
+    assert vk.LAUNCHES["grid"] == before + 1
+    pa, pn = vk.scores_grid_plain(**inp)
+    torch.cuda.synchronize()
+    assert alt.shape == (2, 5)
+    assert torch.equal(alt, pa) and torch.equal(nul, pn)
+    assert torch.isinf(alt[:, 2]).all() and torch.isfinite(alt[:, 1]).all()
+
+
+@pytest.mark.parametrize("Kp", [1024, 5632])
+def test_grid_kernel_bit_equal_to_b1(cuda, Kp):
+    """B9 on every (profile, window) pair against the push form on the
+    same pairs: B1, or B4 past its 5120 lanes."""
+    lens = [300, 1, 0, 45, 97]
+    inp = grid_inputs(cuda, [Kp - 2, 17], Kp, lens, Kp + 9)
+    alt, nul = vk.scores_grid(**inp)
+    P, B = 2, len(lens)
+    pairs = dict(pidx=torch.arange(P, dtype=torch.int32, device=cuda),
+                 tables=inp["tables"], tvecs=inp["tvecs"],
+                 xts=inp["xts"].expand(P, B, 16).contiguous(),
+                 lengths=inp["lengths"][:, None].expand(P, B, 1).contiguous(),
+                 starts=inp["starts"].expand(P, B).contiguous(),
+                 codes_all=inp["codes_all"])
+    push = vk.scores_pairs if Kp <= vk.MAX_KP else vk.scores_pairs_large
+    a1, n1 = push(**pairs)
+    torch.cuda.synchronize()
+    assert torch.equal(alt, a1) and torch.equal(nul, n1)
+
+
 def test_kernels_raise_on_bad_launch(cuda):
     inp = inputs(cuda, [9], 128, [[10]], seed=3)
     with pytest.raises(ValueError):  # mixed devices never fall back
@@ -195,12 +238,13 @@ def test_kernels_raise_on_bad_launch(cuda):
 
 
 @pytest.mark.parametrize("tier", ["chain", "chain+gang", "chain+seg",
-                                  "classic", "large"])
+                                  "classic", "large", "torch"])
 def test_scan_on_card_matches_cpu(cuda, tmp_path, monkeypatch, tier):
     """Each phase-1 tier on the card writes the CPU's products; the
     shrunk caps send the 900-nt read's windows over the chain cap, and
     a plain-bucket cap of 64 lanes sends every profile to the large-K
-    tier."""
+    tier; engine="torch" on the card writes the kernels' bytes on the
+    CPU."""
     if tier == "large":
         monkeypatch.setattr(ts.BucketedPairScorer, "MAX_KP", 64)
         monkeypatch.setattr(ts.BucketedPairScorer, "PACK_MAX_SEG", 0)
@@ -220,7 +264,8 @@ def test_scan_on_card_matches_cpu(cuda, tmp_path, monkeypatch, tier):
     seqs = [Sequence.make(i, f"r{i}", r) for i, r in enumerate(reads)]
     out = {}
     for dev in ("cuda", "cpu"):
-        sc = tp.Scanner(profiles, tp.ScanConfig(device=dev))
+        engine = "torch" if tier == "torch" and dev == "cuda" else "kernels"
+        sc = tp.Scanner(profiles, tp.ScanConfig(device=dev, engine=engine))
         with open(sc.run(seqs, str(tmp_path / dev))) as fp:
             out[dev] = fp.read()
         assert sc.metrics.survivors > 0

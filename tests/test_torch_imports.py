@@ -34,7 +34,8 @@ def test_port_imports_no_jax():
             "deciphon_tpu_torch.scan.scheduler", "deciphon_tpu_torch.convert",
             "deciphon_tpu_torch.profile", "deciphon_tpu_torch.frame",
             "deciphon_tpu_torch.ops.costs", "deciphon_tpu_torch.scan.decoder",
-            "deciphon_tpu_torch.workload"} <= set(mods)
+            "deciphon_tpu_torch.workload", "deciphon_tpu_torch.ops.viterbi_torch",
+            "deciphon_tpu_torch.ops.engine"} <= set(mods)
     code = ("import importlib\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             + FOREIGN + "print('ok')\n")
@@ -127,7 +128,8 @@ def test_build_flags_and_source_hash(monkeypatch, tmp_path):
     assert set(_build.SIGNATURES) == {
         "dtt_score_pairs", "dtt_score_mixed", "dtt_score_chained",
         "dtt_score_chained_carry", "dtt_score_pairs_large", "dtt_score_packed",
-        "dtt_score_packed_chained", "dtt_path_pairs", "dtt_walk"}
+        "dtt_score_packed_chained", "dtt_path_pairs", "dtt_score_grid",
+        "dtt_walk"}
     # every export the wrappers call is bound with argtypes
     exported = "".join(p.read_text() for p in _build.sources())
     for fn, argtypes in _build.SIGNATURES.items():
