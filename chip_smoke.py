@@ -12,7 +12,9 @@ Phases, each reported on its own lines; any failure exits non-zero:
      per slot and an all-pad pair, timed beside B1 on the same windows),
      B5 gang (three profiles interleaved per slot), B8 carry (a 13-block
      window over 4 calls, equal to B1 on the whole window, a normal window
-     riding in a spare slot), B6 packed (two packs, one with a missing
+     riding in a spare slot), B4m (the streamed gang: B5's function with
+     B4's state in a global scratch) against the plain version and against
+     B5 at Kp 512, 1024 and 5120, B6 packed (two packs, one with a missing
      segment), B7 packed chain (once with the lists every segment shares,
      once with lists that differ per segment), B2 path and the walk; the
      large-K tier: B4 against its plain version at Kp 5632 and 16896 and
@@ -42,7 +44,17 @@ Phases, each reported on its own lines; any failure exits non-zero:
      scan with DECIPHON_CHAIN_SEG=1 (carry segments, same products);
      then the large-K scan: six profiles of K 5200..16384 (three buckets
      past Kp 5120, on B4) and six reads of 20 knt, three carrying planted
-     stretches: first scan, three warm scans (median wall), one profiled;
+     stretches: first scan, three warm scans, one profiled;
+  5c. streamed tables: the Pfam scan with the table budget at half its
+     table bytes (the largest scorers stream host->device per wave, the
+     small buckets stay resident): first scan, three warm scans, one
+     profiled (its host-to-device copy seconds), products byte-identical
+     to phase 4's; then the long-read scan with a budget of 1 byte (every
+     scorer streams, its gang runs B4m and never B5): first scan, one warm
+     scan, one profiled, products byte-identical to phase 5's; B4m against
+     B5 on every gang launch that scan made and against its plain version
+     on the widest of them, bit for bit; the peak allocation of the
+     resident and streamed scans side by side;
   6. every kernel against its plain version again, on arguments the scans
      themselves gave it (more scans record each wrapper's calls): B7 and
      B2 with its walk from the Pfam scan and from the long-read scan, B6
@@ -53,15 +65,18 @@ Phases, each reported on its own lines; any failure exits non-zero:
      for bit; the times and bounds of a kernel's last check go into the
      kernels line;
   7. the same code on the card and on the CPU (plain versions) on a
-     subset, at the reference's caps and with the chain caps shrunk so
-     that gang and carry fire on 1.2-knt reads, and on a large-K subset (K
-     5200 and 5300, two reads of 2 knt): products.tsv must be
-     byte-identical; and Scanner(ScanConfig(engine="torch")) on the card
-     on the subset at the reference's caps (the lax.scan engine's
-     counterpart: plain PyTorch scores, then its own phase 2 through the
-     walk kernel): the kernels' bytes, no score or path kernel launched,
-     and the walk on its largest recorded call bit-equal to the plain
-     walk.
+     subset: at the reference's caps; on plain buckets with the chain caps
+     shrunk and a 150-nt read added, so that the 1.2-knt windows ride the
+     gang (B5 must launch on the card), carry segments
+     (DECIPHON_CHAIN_SEG=1, B8 must launch) or, with every table
+     streamed, the gang on B4m (which must launch, and B5 not); and on a
+     large-K subset (K 5200 and 5300, two reads of 2 knt): products.tsv
+     must be byte-identical; and
+     Scanner(ScanConfig(engine="torch")) on the card on the subset at the
+     reference's caps (the lax.scan engine's counterpart: plain PyTorch
+     scores, then its own phase 2 through the walk kernel): the kernels'
+     bytes, no score or path kernel launched, and the walk on its largest
+     recorded call bit-equal to the plain walk.
 
 Every scan path is run with the launch counts set to 0 just before and
 read just after; each kernel must have launched on its path.  The line
@@ -92,7 +107,8 @@ PALLAS = "deciphon_tpu/ops/viterbi_pallas.py"
 SCORE_CU = "deciphon_tpu_torch/csrc/viterbi_score.cu"
 PACKED_CU = "deciphon_tpu_torch/csrc/viterbi_packed.cu"
 SOURCE = {"score": SCORE_CU, "chain": SCORE_CU, "gang": SCORE_CU,
-          "carry": SCORE_CU, "large": SCORE_CU, "packed": PACKED_CU,
+          "carry": SCORE_CU, "large": SCORE_CU, "gang_large": SCORE_CU,
+          "packed": PACKED_CU,
           "pchain": PACKED_CU,
           "path": "deciphon_tpu_torch/csrc/viterbi_path.cu",
           "grid": "deciphon_tpu_torch/csrc/viterbi_path.cu",
@@ -100,12 +116,13 @@ SOURCE = {"score": SCORE_CU, "chain": SCORE_CU, "gang": SCORE_CU,
 # kernel wrappers whose calls a captured scan records
 SPIED = ("scores_pairs", "scores_pairs_mixed", "scores_pairs_chained",
          "scores_pairs_chained_carry", "scores_pairs_large",
-         "scores_pairs_packed", "scores_pairs_packed_chained", "paths_pairs")
+         "scores_pairs_mixed_large", "scores_pairs_packed",
+         "scores_pairs_packed_chained", "paths_pairs")
 # plain versions by wrapper (B4's function is B1's, kept once)
 PLAIN = {"scores_pairs_large": "scores_pairs_plain"}
 REPLACES = {"score": f"{PALLAS}:376", "chain": f"{PALLAS}:1038",
             "gang": f"{PALLAS}:828", "carry": f"{PALLAS}:1111",
-            "large": f"{PALLAS}:1379",
+            "large": f"{PALLAS}:1379", "gang_large": f"{PALLAS}:1477",
             "packed": f"{PALLAS}:2265", "pchain": f"{PALLAS}:2331",
             "path": f"{PALLAS}:1707", "grid": f"{PALLAS}:158",
             "walk": "deciphon_tpu/ops/traceback.py:137"}
@@ -230,7 +247,7 @@ def score_bound(torch, report, key: str, a: dict, outs) -> None:
         lens = (a["win_len"] if "win_len" in a else a["lengths"][..., 0])
         lens = lens.double()
         per_pair = lens.reshape(lens.shape[0], -1)
-        if key == "gang":
+        if key in ("gang", "gang_large"):
             cells = (per_pair * K[:, 0][pidx]).sum()
         else:
             cells = (per_pair.sum(1) * K[:, 0][pidx]).sum()
@@ -360,6 +377,7 @@ def check_kernels(torch, report) -> None:
         report["gang"].update(max_abs_err=max_err(torch, ka, pa), ms=k_ms,
                               plain_ms=p_ms)
         score_bound(torch, report, "gang", inp, (ka, kn))
+    check_mixed_large(torch, report)
 
     for Kp in (256, 1024):
         case = carry_case(Kp, seed=60 + Kp, device="cuda")
@@ -511,6 +529,40 @@ def check_kernels(torch, report) -> None:
     report["walk"].update(max_abs_err=0.0, ms=k_ms, plain_ms=p_ms)
     walk_bound(report, ks[2])
     check_large(torch, report)
+
+
+def check_mixed_large(torch, report) -> None:
+    """Phase 3, B4m: 2 x 16 slots over three profiles (a different one in
+    neighbouring slots, one pad per pair) at Kp 512, 1024 and 5120, against
+    the one plain version of the gang's function and against B5 on the
+    same arguments, bit for bit, with both kernels' times; the bound
+    counts 34 operations a cell, as for B1 and B4."""
+    from deciphon_tpu_torch.ops import viterbi as vk
+    from deciphon_tpu_torch.workload import mixed_case
+
+    for Kp, hi in ((512, 2000), (1024, 2000), (5120, 600)):
+        inp = mixed_case(Kp, seed=150 + Kp, device="cuda", w=16, hi=hi)
+        (ka, kn), (pa, pn), k_ms, p_ms = kernel_vs_plain(
+            torch, vk.scores_pairs_mixed_large, vk.scores_pairs_mixed_plain,
+            inp)
+        exact = torch.equal(ka, pa) and torch.equal(kn, pn)
+        ba, bn = vk.scores_pairs_mixed(**inp)
+        b5_ms = cuda_ms(torch, lambda: vk.scores_pairs_mixed(**inp), 5)
+        same = torch.equal(ka, ba) and torch.equal(kn, bn)
+        pads = bool(torch.isinf(ka[:, -1]).all()
+                    and torch.isfinite(ka[:, :-1]).all())
+        L = int(inp["lengths"].max())
+        report["gang_large"].update(max_abs_err=max_err(torch, ka, pa),
+                                    ms=k_ms, plain_ms=p_ms)
+        score_bound(torch, report, "gang_large", inp, (ka, kn))
+        say("B4m", f"Kp={Kp} 2x16 slots over 3 profiles, windows <= {L} "
+            f"nt: bit-equal to plain {exact}, to B5 {same}, pads +inf "
+            f"{pads}; B4m {k_ms:.3f} ms ({k_ms * 1e3 / L:.3f} us/position), "
+            f"B5 {b5_ms:.3f} ms, plain {p_ms:.1f} ms; bound "
+            f"{report['gang_large']['bound_ms']:.6f} ms "
+            f"({report['gang_large']['bound_by']}); scratch "
+            f"{32 * 11 * Kp * 4 / 1e6:.3f} MB")
+        check(exact and same and pads, f"B4m Kp={Kp} differs")
 
 
 def check_large(torch, report) -> None:
@@ -877,6 +929,10 @@ class Scans:
         self.torch, self.seqs, self.phase = torch, seqs, phase
         self.scanner = Scanner(profiles, ScanConfig(device="cuda"),
                                scorer=scorer)
+        self.peaks: list[float] = []  # GiB, per counted scan
+        self.counts: dict = {}  # launches of the last counted scan
+        self.uploads: dict = {}  # table uploads of the last counted scan
+        self.htod_s = 0.0  # host-to-device copy seconds, profiled scan
 
     def scan(self, scanner=None):
         sc = scanner or self.scanner
@@ -895,15 +951,19 @@ class Scans:
         The counts are added to `launches`."""
         from deciphon_tpu_torch.ops import traceback as tb
         from deciphon_tpu_torch.ops import viterbi as vk
+        from deciphon_tpu_torch.scan import scheduler as ts
 
         with environ(env or {}):
             self.torch.cuda.reset_peak_memory_stats()
             vk.reset_launches()
+            ts.reset_uploads()
             tb.REWALKS["survivors"] = 0
             wall, lines = self.scan()
             counts, rewalks = dict(vk.LAUNCHES), tb.REWALKS["survivors"]
         m = self.scanner.metrics
         peak = self.torch.cuda.max_memory_allocated()
+        self.peaks.append(peak / 2**30)
+        self.counts, self.uploads = counts, dict(ts.UPLOADS)
         tag = " ".join(f"{k}={v}" for k, v in (env or {}).items()) or \
             "default tiers"
         say(self.phase, f"{tag}: wall {wall:.6f} s, "
@@ -911,7 +971,8 @@ class Scans:
             f"{m.cells / wall / 1e9:.6f} GCUPS ({m.cells} true cells), "
             f"windows {m.windows_scored}, survivors {m.survivors}, "
             f"products {m.products}, peak {peak / 2**30:.3f} GiB; launches "
-            f"{counts}, walks re-walked {rewalks}; walls " + json.dumps(
+            f"{counts}, table uploads {self.uploads}, walks re-walked "
+            f"{rewalks}; walls " + json.dumps(
                 {k: round(v, 4) for k, v in sorted(m.walls.items())}))
         for k in need:
             check(counts[k] > 0, f"kernel {k} never launched on the "
@@ -984,16 +1045,127 @@ class Scans:
                 dev_s[evt.key[:64]] = dev_s.get(evt.key[:64], 0.0) + us / 1e6
         busy = sum(dev_s.values())
         top = dict(sorted(dev_s.items(), key=lambda kv: -kv[1])[:8])
+        self.htod_s = sum(v for k, v in dev_s.items() if "HtoD" in k)
         say(self.phase, f"profiled scan: wall {prof_wall:.6f} s, device busy "
-            f"{busy:.6f} s, idle share {max(0.0, 1 - busy / prof_wall):.6f}; "
+            f"{busy:.6f} s, idle share {max(0.0, 1 - busy / prof_wall):.6f}, "
+            f"host-to-device copies {self.htod_s:.6f} s; "
             "device s by kernel " + json.dumps(top))
         return med
+
+
+def ledger_line(scorer) -> str:
+    """The capacity ledger's plan: (kind, Kp, GB) of the resident and of
+    the streamed scorers."""
+    def rows(plan):
+        return [(type(scorer.scorers[i]).__name__, scorer.scorers[i].Kp,
+                 round(b / 1e9, 6)) for i, b in plan]
+    led = scorer.ledger
+    return (f"budget {led.budget / 1e9:.6f} GB; resident "
+            f"{led.resident_bytes / 1e9:.6f} GB {rows(led.resident)}; "
+            f"streamed {led.streamed_bytes / 1e9:.6f} GB "
+            f"{rows(led.streamed)}")
+
+
+def stream_scans(torch, report, launches: dict, pfam, lr, lines,
+                 long_lines, resident_med: float, long_med: float) -> None:
+    """Phase 5c, the streamed-table tier: the Pfam scan with the table
+    budget at half its table bytes (first scan counted, three warm, one
+    profiled), then the long-read scan with a budget of 1 byte (counted,
+    one warm, one profiled; its gang must run B4m and never B5), each
+    writing its resident scan's bytes and set beside its resident warm
+    median; B4m against B5 on every gang launch of the streamed long-read
+    scan, and against its plain version on the widest of them, bit for
+    bit; the peak allocation of the resident and streamed scans."""
+    from deciphon_tpu_torch.ops import viterbi as vk
+    from deciphon_tpu_torch.scan.scheduler import BucketedPairScorer
+
+    profiles = pfam.scanner.profiles
+    tbytes = sum(s.table_bytes() for s in pfam.scanner.scorer.scorers)
+    budget = tbytes // 2
+    t0 = time.perf_counter()
+    sp = Scans(torch, profiles, pfam.seqs, "stream", scorer=lambda c:
+               BucketedPairScorer(c, "cuda", hbm_budget=budget))
+    led = sp.scanner.scorer.ledger
+    say("stream", f"Pfam, {tbytes / 1e9:.6f} GB of tables: "
+        f"{ledger_line(sp.scanner.scorer)}; host set-up "
+        f"{time.perf_counter() - t0:.1f} s")
+    check(led.streamed and led.resident,
+          "the half budget left no scorer streamed or none resident")
+    first, s_lines = sp.counted(launches, ("pchain", "chain", "path", "walk"))
+    check(s_lines == lines, "the streamed Pfam scan wrote other products "
+          "than the resident scan")
+    up = sp.uploads
+    med = sp.warm_and_profile(lines)
+    say("stream", f"Pfam streamed: first scan {first:.6f} s, warm median "
+        f"{med:.6f} s against the resident median {resident_med:.6f} s "
+        f"({med / resident_med:.3f}x); per scan {up['uploads']} table "
+        f"uploads ({up['phase2']} for phase 2), {up['bytes'] / 1e9:.6f} "
+        f"GB, host-to-device copies {sp.htod_s:.6f} s of device time in the "
+        f"profiled scan; products byte-identical")
+    peak_pfam = sp.peaks[0]
+    del sp
+
+    t0 = time.perf_counter()
+    sl = Scans(torch, profiles, lr.seqs, "stream-long", scorer=lambda c:
+               BucketedPairScorer(c, "cuda", hbm_budget=1))
+    say("stream", f"long read: {ledger_line(sl.scanner.scorer)}; host "
+        f"set-up {time.perf_counter() - t0:.1f} s")
+    check(not sl.scanner.scorer.ledger.resident, "a scorer stayed resident")
+    wall, s_long = sl.counted(launches, ("pchain", "chain", "gang_large",
+                                         "path", "walk"))
+    check(sl.counts["gang"] == 0, "the streamed long-read scan ran B5")
+    check(s_long == long_lines, "the streamed long-read scan wrote other "
+          "products than the resident scan")
+    up = sl.uploads
+    s_med = sl.warm_and_profile(s_long, n_warm=1)
+    say("stream", f"long read streamed: first scan {wall:.6f} s, warm "
+        f"{s_med:.6f} s against the resident warm scan {long_med:.6f} s "
+        f"({s_med / long_med:.3f}x); per scan {up['uploads']} table uploads "
+        f"({up['phase2']} for phase 2), {up['bytes'] / 1e9:.6f} GB, "
+        f"host-to-device copies {sl.htod_s:.6f} s of device time in the "
+        "profiled scan; products byte-identical")
+    calls = sl.captured(s_long)["scores_pairs_mixed_large"]
+    check(calls, "the captured streamed scan made no B4m launch")
+    exact, k_tot, b_tot = True, 0.0, 0.0
+    for args in calls:
+        ka, kn = vk.scores_pairs_mixed_large(**args)
+        ba, bn = vk.scores_pairs_mixed(**args)
+        exact &= torch.equal(ka, ba) and torch.equal(kn, bn)
+        k_tot += cuda_ms(torch, lambda: vk.scores_pairs_mixed_large(**args))
+        b_tot += cuda_ms(torch, lambda: vk.scores_pairs_mixed(**args))
+    shapes = sorted({(tuple(a["pidx"].shape), a["tables"].shape[2])
+                     for a in calls})
+    say("stream", f"B4m against B5 on the {len(calls)} gang launches of the "
+        f"streamed long-read scan ((N, W), Kp {shapes}, slots of <= "
+        f"{max(span(a) for a in calls)} positions): bit-equal {exact}; B4m "
+        f"{k_tot:.3f} ms, B5 {b_tot:.3f} ms for the launches")
+    check(exact, "B4m differs from B5 at the streamed scan's shapes")
+    i, args = widest(calls, "gang_large")
+    out, want, k_ms, p_ms = kernel_vs_plain(
+        torch, vk.scores_pairs_mixed_large, vk.scores_pairs_mixed_plain,
+        args, reps=1)
+    exact = all(torch.equal(a, b) for a, b in zip(out, want))
+    say("stream", f"B4m against its plain version on the widest gang launch "
+        f"of the streamed long-read scan (launch {i + 1} of {len(calls)}, "
+        f"Kp {args['tables'].shape[2]}, slots {tuple(args['pidx'].shape)}, "
+        f"{int((args['lengths'] > 0).sum())} windows, longest slot "
+        f"{span(args)} positions): bit-equal {exact}, kernel {k_ms:.3f} ms, "
+        f"plain {p_ms:.1f} ms")
+    check(exact, "B4m differs from plain at the streamed scan's shapes")
+    record(report, "gang_large",
+           max(max_err(torch, a, b) for a, b in zip(out, want)), k_ms, p_ms)
+    score_bound(torch, report, "gang_large", args, out)
+    peak_long = sl.peaks[0]
+    del sl, calls
+    say("stream", f"peak allocation, GiB: Pfam resident {pfam.peaks[0]:.3f}, "
+        f"streamed {peak_pfam:.3f}; long read resident {lr.peaks[0]:.3f}, "
+        f"streamed {peak_long:.3f}")
 
 
 def largek_scan(torch, launches: dict):
     """The large-K scan (`workload.pfam_largek`): every bucket past Kp 5120
     on B4, survivors on B2 and the walk; first scan (counted), three warm
-    scans (median wall) and one profiled.  Returns (its Scans, its product lines)."""
+    scans and one profiled.  Returns (its Scans, its product lines)."""
     from deciphon_tpu_torch.workload import (LARGEK_KS, LARGEK_PLANTED,
                                              pfam_largek)
 
@@ -1113,6 +1285,14 @@ def largek_subset_check(big_prof) -> None:
     check(outs["cuda"].count("\n") > 1, "large-K subset: no products")
 
 
+T0 = time.perf_counter()
+
+
+def elapsed(phase: str) -> None:
+    say("time", f"phases up to {phase} done at "
+        f"{time.perf_counter() - T0:.1f} s")
+
+
 def main() -> None:
     import torch
 
@@ -1147,13 +1327,16 @@ def main() -> None:
                   "replaces": REPLACES[k]} for k in SOURCE}
 
     # ---- 3. kernels against their plain versions ----------------------
+    elapsed("2")
     check_kernels(torch, report)
+    elapsed("3")
 
     # ---- 3b. the dense grid at full width --------------------------------
     launches: dict[str, int] = {}
     t0 = time.perf_counter()
     grid_full_width(torch, report, launches)
     say("grid", f"phase {time.perf_counter() - t0:.1f} s")
+    elapsed("3b")
 
     # ---- 4. the Pfam scan: packed route, classic tiers, unpacked route ---
     from deciphon_tpu_torch.ops.tables import common_kp
@@ -1229,6 +1412,7 @@ def main() -> None:
         f"reads_per_length=8) {warm_s:.6f} s, then first scan {after:.6f} s "
         f"(the process's cold first scan {first:.6f} s)")
     del fresh
+    elapsed("4")
 
     # ---- 5. the long-read scan: gang and carry over-cap tiers ----------
     t0 = time.perf_counter()
@@ -1241,7 +1425,7 @@ def main() -> None:
     hit_reads = {int(ln.split("\t")[0]) for ln in long_lines[1:]}
     say("long", f"products on reads {sorted(hit_reads)}")
     check({0, 1} <= hit_reads, "no survivors on the long-window reads 0/1")
-    lr.warm_and_profile(long_lines, n_warm=1)
+    long_med = lr.warm_and_profile(long_lines, n_warm=1)
     _, seg_lines = lr.counted(launches, ("carry", "path", "walk"),
                               {"DECIPHON_CHAIN_SEG": "1"})
     check(seg_lines == long_lines,
@@ -1250,6 +1434,12 @@ def main() -> None:
 
     # ---- 5b. the large-K scan: B4 and B2 past 5120 lanes ---------------
     big, big_lines = largek_scan(torch, launches)
+    elapsed("5b")
+
+    # ---- 5c. streamed tables: Pfam at half its table bytes, long read ---
+    stream_scans(torch, report, launches, pfam, lr, lines, long_lines,
+                 packed_med, long_med)
+    elapsed("5c")
 
     # ---- 6. kernels against plain at the scans' own shapes --------------
     t0 = time.perf_counter()
@@ -1264,14 +1454,39 @@ def main() -> None:
                       seg_calls, big_calls)
     del pfam_calls, nochain_calls, long_calls, seg_calls, big_calls
     say("main", f"phase {time.perf_counter() - t0:.1f} s")
+    elapsed("6")
 
     # ---- 7. card against CPU on the same code ---------------------------
+    import numpy as np
+
+    from deciphon_tpu_torch.ops import viterbi as vk
+    from deciphon_tpu_torch.scan.sequence import Sequence
+    from deciphon_tpu_torch.workload import random_bases
+
     sub_prof, sub_seqs = pfam_subset(profiles)
     caps = (PairScorer.CHAIN_MAX_BLK, PairScorer.NLB_FLOOR)
-    for label, shrink, env in (("reference caps", False, {}),
-                               ("caps 4, gang", True, {}),
-                               ("caps 4, carry", True,
-                                {"DECIPHON_CHAIN_SEG": "1"})):
+
+    def plain_buckets(dev, budget):
+        """Plain buckets only: the subset's profiles would all pack, and
+        whole-read windows of a packed class never reach the gang or the
+        carry segments."""
+        return lambda costs: BucketedPairScorer(
+            costs, dev, hbm_budget=budget, scorer_factory=lambda c:
+            PairScorer(c, dev, w=BucketedPairScorer.plain_w(common_kp(c))))
+
+    # with the caps shrunk, a 150-nt read pins a chain cap of 4 blocks, so
+    # that the 1.2-knt windows are over it and ride the gang (or carry)
+    short = Sequence.make(len(sub_seqs), "s2", random_bases(
+        np.random.default_rng(9), 150))
+    # (label, environment, table budget, kernel that must launch, kernel
+    # that must not)
+    for label, env, budget, must, never in (
+            ("reference caps", {}, None, None, None),
+            ("caps 4, gang", {}, None, "gang", "gang_large"),
+            ("caps 4, carry", {"DECIPHON_CHAIN_SEG": "1"}, None, "carry",
+             "gang"),
+            ("caps 4, gang, streamed", {}, 1, "gang_large", "gang")):
+        shrink = must is not None
         if shrink:
             PairScorer.CHAIN_MAX_BLK = PairScorer.NLB_FLOOR = 4
         os.environ.update(env)
@@ -1279,14 +1494,24 @@ def main() -> None:
         try:
             for dev in ("cuda", "cpu"):
                 t0 = time.perf_counter()
+                vk.reset_launches()
+                reads = sub_seqs + [short] if shrink else sub_seqs
                 with tempfile.TemporaryDirectory() as tmp:
-                    sc = Scanner(sub_prof, ScanConfig(device=dev))
-                    with open(sc.run(sub_seqs, os.path.join(tmp, "p"))) as fp:
+                    sc = Scanner(sub_prof, ScanConfig(device=dev),
+                                 scorer=plain_buckets(dev, budget)
+                                 if shrink else None)
+                    with open(sc.run(reads, os.path.join(tmp, "p"))) as fp:
                         outs[dev] = fp.read()
                 say("subset", f"{label}, {dev}: {len(sub_prof)} profiles x "
-                    f"{len(sub_seqs)} reads of {sub_seqs[0].size} nt, "
+                    f"{len(reads)} reads of {[q.size for q in reads]} nt, "
                     f"{sc.metrics.products} products, "
-                    f"{time.perf_counter() - t0:.3f} s")
+                    f"{time.perf_counter() - t0:.3f} s; launches "
+                    f"{dict(vk.LAUNCHES)}")
+                if shrink and dev == "cuda":
+                    check(vk.LAUNCHES[must] > 0 and vk.LAUNCHES[never] == 0,
+                          f"{label}: {must} did not launch, or {never} did")
+                    check(budget is None or not sc.scorer.ledger.resident,
+                          f"{label}: a scorer stayed resident")
         finally:
             PairScorer.CHAIN_MAX_BLK, PairScorer.NLB_FLOOR = caps
             for k in env:
@@ -1298,6 +1523,7 @@ def main() -> None:
     torch_engine_subset(torch, sub_prof, sub_seqs, kernels_bytes, launches)
     largek_subset_check(big_prof)
     say("subset", "products.tsv byte-identical on card and CPU")
+    elapsed("7")
     check(not [m for m in sys.modules
                if m.split(".")[0] in ("jax", "deciphon_tpu")],
           "jax or deciphon_tpu was imported")

@@ -48,6 +48,7 @@ SIGNATURES = {
     "dtt_score_mixed": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                         _I, _I, _I, _I, _P],
     "dtt_score_pairs_large": [_P] * 10 + [_I] * 4 + [_P],
+    "dtt_score_mixed_large": [_P] * 10 + [_I] * 4 + [_P],
     "dtt_score_chained": [_P] * 10 + [_I] * 5 + [_P],
     "dtt_score_chained_carry": [_P] * 15 + [_I] * 5 + [_P],
     "dtt_score_packed": [_P] * 9 + [_I] * 5 + [_P],

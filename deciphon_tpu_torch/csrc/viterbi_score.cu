@@ -1,6 +1,6 @@
-// Phase-1 score kernels (B1, B3, B5, B8, B4): null and alt min-plus costs
-// of every scheduled window, the push/pending formulation of the frame
-// Viterbi.  One DP body (`score_window`), five entry points:
+// Phase-1 score kernels (B1, B3, B5, B8, B4, B4m): null and alt min-plus
+// costs of every scheduled window, the push/pending formulation of the
+// frame Viterbi.  One DP body (`score_window`), six entry points:
 //
 //   dtt_score_pairs          B1  `_kernel_pending` plain pairs form
 //                                (`_scores_pairs_core`,
@@ -15,7 +15,13 @@
 //                                (`_scores_pairs_chain_carry_core`);
 //   dtt_score_pairs_large    B4  `_kernel_block_large`, the large-K tier
 //                                (`_scores_pairs_hbm_core`,
-//                                `_gather_scores_pairs_hbm_jit`).
+//                                `_gather_scores_pairs_hbm_jit`);
+//   dtt_score_mixed_large    B4m `_kernel_block_large` mixed=True, one
+//                                profile per slot with the state in a
+//                                global scratch: the gang of a scorer
+//                                whose tables stream per wave
+//                                (`_scores_pairs_hbm_core`,
+//                                `_gather_scores_pairs_hbm_mixed_jit`).
 //
 // all in deciphon_tpu/ops/viterbi_pallas.py, with the `_ck_from_starts` /
 // `_chain_expand` gathers fused: the body reads
@@ -47,6 +53,13 @@
 // path does not see the block's writes) and __syncthreads orders it as it
 // does shared memory.  A launch's scratch stays in the 50 MB L2 only while
 // about 50 windows of Kp 16896 are in flight.
+//
+// B4m is B4 with B5's profile per slot: the TPU ran it when a gang's table
+// stack did not fit VMEM or streamed in per wave.  On the card no table is
+// on-chip, so a resident gang stays on B5 at any stack size; a streamed
+// gang takes B4m as the reference's does.  Both compute B5's function, so
+// B4m equals B5 bit for bit; its scratch is N * W * 11 * Kp f32 (4.3 MB
+// for 96 windows at Kp 1024).
 //
 // Chains (B3, B8).  The TPU chained windows back to back in one sublane
 // slot only to fill its sublane floor; each window restarts from its own
@@ -327,9 +340,12 @@ __global__ void __launch_bounds__(kScoreThreads) score_pairs_kernel(
                nul + sw);
 }
 
-// B4: blockIdx = (slot, pair) as in B1; the state lives in the CTA's slice
-// of `scratch` (N * W, kStatePlanes * Kp) f32, written and read by the
-// block itself (so neither const nor __restrict__).
+// B4 (kMixed false) and B4m: blockIdx = (slot, pair) as in B1 and B5; the
+// state lives in the CTA's slice of `scratch` (N * W, kStatePlanes * Kp)
+// f32, written and read by the block itself (so neither const nor
+// __restrict__).  B4m reads pidx (N, W) and each slot's table and
+// transition rows in place, as B5 does.
+template <bool kMixed>
 __global__ void __launch_bounds__(kLargeThreads, 1) score_large_kernel(
     const int* __restrict__ pidx, const float* __restrict__ tables,
     const float* __restrict__ tvecs, const float* __restrict__ xts,
@@ -340,7 +356,7 @@ __global__ void __launch_bounds__(kLargeThreads, 1) score_large_kernel(
   const int sw = n * W + w;
   const int len = lens[sw];
   if (len <= 0) return write_pad(alt + sw, nul + sw);
-  const int p = pidx[n];
+  const int p = kMixed ? pidx[sw] : pidx[n];
   score_window(tables + (size_t)p * kTableRows * Kp,
                tvecs + (size_t)p * 8 * Kp, xts + (size_t)sw * 16,
                starts[sw], len, codes, Kp, T, lpt,
@@ -486,21 +502,41 @@ extern "C" int dtt_score_chained_carry(
                         nul, N, W, C, Kp, T, stream);
 }
 
-// B4: scratch is (N * W, 11 * Kp) f32 (ops/viterbi.py allocates it).
-extern "C" int dtt_score_pairs_large(
-    const void* pidx, const void* tables, const void* tvecs, const void* xts,
-    const void* lens, const void* starts, const void* codes, void* scratch,
-    void* alt, void* nul, int N, int W, int Kp, int T, void* stream) {
+template <bool kMixed>
+static int launch_large(const void* pidx, const void* tables,
+                        const void* tvecs, const void* xts, const void* lens,
+                        const void* starts, const void* codes, void* scratch,
+                        void* alt, void* nul, int N, int W, int Kp, int T,
+                        void* stream) {
   const int threads = Kp < kLargeThreads ? Kp : kLargeThreads;
   const int lpt = (Kp + threads - 1) / threads;
   if (N > 0 && W > 0) {
-    score_large_kernel<<<dim3(W, N), threads, 0, (cudaStream_t)stream>>>(
+    score_large_kernel<kMixed><<<dim3(W, N), threads, 0,
+                                 (cudaStream_t)stream>>>(
         (const int*)pidx, (const float*)tables, (const float*)tvecs,
         (const float*)xts, (const int*)lens, (const int*)starts,
         (const int*)codes, (float*)scratch, (float*)alt, (float*)nul, W, Kp,
         T, lpt);
   }
   return (int)cudaGetLastError();
+}
+
+// B4 and B4m: scratch is (N * W, 11 * Kp) f32 (ops/viterbi.py allocates
+// it); pidx is (N,) for B4 and (N, W) for B4m.
+extern "C" int dtt_score_pairs_large(
+    const void* pidx, const void* tables, const void* tvecs, const void* xts,
+    const void* lens, const void* starts, const void* codes, void* scratch,
+    void* alt, void* nul, int N, int W, int Kp, int T, void* stream) {
+  return launch_large<false>(pidx, tables, tvecs, xts, lens, starts, codes,
+                             scratch, alt, nul, N, W, Kp, T, stream);
+}
+
+extern "C" int dtt_score_mixed_large(
+    const void* pidx, const void* tables, const void* tvecs, const void* xts,
+    const void* lens, const void* starts, const void* codes, void* scratch,
+    void* alt, void* nul, int N, int W, int Kp, int T, void* stream) {
+  return launch_large<true>(pidx, tables, tvecs, xts, lens, starts, codes,
+                            scratch, alt, nul, N, W, Kp, T, stream);
 }
 
 extern "C" const char* dtt_error_string(int err) {

@@ -298,7 +298,7 @@ def assemble_path_entries(entries, fetched, out: dict) -> None:
     """Fetched path entries -> {id(item): (sids, sizes)}.
 
     `entries` are (items, sts, szs, ns, oks, xn, nd, rows, lengths) from
-    PairScorer.paths_group_dispatch; `fetched` holds the host numpy copies
+    a scorer's path launches; `fetched` holds the host numpy copies
     of (sts, szs, ns, oks) per entry, in order.  Walks that overflowed go
     through `rewalk`."""
     for i, e in enumerate(entries):

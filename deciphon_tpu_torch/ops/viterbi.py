@@ -1,7 +1,7 @@
 """Frame Viterbi kernels of the scan: phase-1 scores (B1, its chain, gang
-and carry modes B3, B5, B8, the large-K tier B4, and the lane-packed B6
-and B7) and phase-2 trellis (B2), each a CUDA kernel with its plain
-PyTorch version beside it.
+and carry modes B3, B5, B8, the large-K tier B4, the streamed gang B4m,
+and the lane-packed B6 and B7) and phase-2 trellis (B2), each a CUDA
+kernel with its plain PyTorch version beside it.
 
 Counterparts in deciphon_tpu/ops/viterbi_pallas.py:
 
@@ -12,6 +12,9 @@ Counterparts in deciphon_tpu/ops/viterbi_pallas.py:
     a global scratch instead of shared memory);
   * `scores_pairs_mixed`  <- _gather_scores_pairs_mixed_vmem_jit
     (`_kernel_pending` mixed: one profile per slot, the gang tier);
+  * `scores_pairs_mixed_large`  <- _gather_scores_pairs_hbm_mixed_jit
+    (`_kernel_block_large` mixed: B5's function with B4's state in a
+    global scratch, the gang of a scorer whose tables stream);
   * `scores_pairs_chained`  <- viterbi_scores_pairs_chained
     (`_kernel_pending` chain: C windows per slot, `_chain_expand` and
     `_chain_compact` fused);
@@ -82,7 +85,8 @@ PACK_MAX_KP = 2048
 PACK_SEG_QUANTUM = 64
 
 LAUNCHES = {"score": 0, "chain": 0, "gang": 0, "carry": 0, "large": 0,
-            "packed": 0, "pchain": 0, "path": 0, "grid": 0, "walk": 0}
+            "gang_large": 0, "packed": 0, "pchain": 0, "path": 0, "grid": 0,
+            "walk": 0}
 
 
 def reset_launches() -> None:
@@ -352,33 +356,43 @@ def scores_pairs(pidx, tables, tvecs, xts, lengths, starts, codes_all):
                          xts, lengths, starts, codes_all)
 
 
-def scores_pairs_large(pidx, tables, tvecs, xts, lengths, starts,
-                       codes_all):
-    """B4 wrapper, the large-K tier: `scores_pairs`' contract for lane
-    planes up to MAX_LARGE_KP.  (alt, null) (N, W) f32, pad slots +inf.
-    The function is B1's, so the plain version is `scores_pairs_plain`,
-    kept once; on the card the DP state of each window lives in its slice
-    of a (N * W, 11 * Kp) f32 scratch allocated per launch."""
-    N, W, Kp = _check_inputs(pidx, tables, tvecs, xts, lengths, starts,
-                             codes_all, max_kp=MAX_LARGE_KP)
-    if not on_cuda(pidx, tables, tvecs, xts, lengths, starts, codes_all):
-        return scores_pairs_plain(pidx, tables, tvecs, xts, lengths, starts,
-                                  codes_all)
+def _launch_large(fn: str, key: str, pidx, tables, tvecs, xts, lengths,
+                  starts, codes_all):
+    """One B4 or B4m launch: (alt, null) (N, W) f32.  The DP state of each
+    window lives in its slice of a (N * W, 11 * Kp) f32 scratch allocated
+    here, on the launch's stream."""
     from .. import _build
 
+    N, W = starts.shape
+    Kp = tables.shape[2]
     dev = tables.device
     alt = torch.empty((N, W), dtype=torch.float32, device=dev)
     nul = torch.empty_like(alt)
     scratch = torch.empty((N * W, 11 * Kp), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _build.lib().dtt_score_pairs_large(
+    err = getattr(_build.lib(), fn)(
         pidx.data_ptr(), tables.data_ptr(), tvecs.data_ptr(), xts.data_ptr(),
         lengths.data_ptr(), starts.data_ptr(), codes_all.data_ptr(),
         scratch.data_ptr(), alt.data_ptr(), nul.data_ptr(), N, W, Kp,
         codes_all.shape[0], stream)
-    _build.check(err, "dtt_score_pairs_large")
-    LAUNCHES["large"] += 1
+    _build.check(err, fn)
+    LAUNCHES[key] += 1
     return alt, nul
+
+
+def scores_pairs_large(pidx, tables, tvecs, xts, lengths, starts,
+                       codes_all):
+    """B4 wrapper, the large-K tier: `scores_pairs`' contract for lane
+    planes up to MAX_LARGE_KP.  (alt, null) (N, W) f32, pad slots +inf.
+    The function is B1's, so the plain version is `scores_pairs_plain`,
+    kept once; on the card the DP state lives in a global scratch."""
+    _check_inputs(pidx, tables, tvecs, xts, lengths, starts, codes_all,
+                  max_kp=MAX_LARGE_KP)
+    if not on_cuda(pidx, tables, tvecs, xts, lengths, starts, codes_all):
+        return scores_pairs_plain(pidx, tables, tvecs, xts, lengths, starts,
+                                  codes_all)
+    return _launch_large("dtt_score_pairs_large", "large", pidx, tables,
+                         tvecs, xts, lengths, starts, codes_all)
 
 
 def scores_pairs_mixed_plain(pidx, tables, tvecs, xts, lengths, starts,
@@ -406,6 +420,22 @@ def scores_pairs_mixed(pidx, tables, tvecs, xts, lengths, starts,
                                         starts, codes_all)
     return _launch_pairs("dtt_score_mixed", "gang", pidx, tables, tvecs,
                          xts, lengths, starts, codes_all)
+
+
+def scores_pairs_mixed_large(pidx, tables, tvecs, xts, lengths, starts,
+                             codes_all):
+    """B4m wrapper (the gang of a scorer whose tables stream):
+    `scores_pairs_mixed`' contract, pidx (N, W), for lane planes up to
+    MAX_LARGE_KP.  The function is B5's, so the plain version is
+    `scores_pairs_mixed_plain`, kept once; on the card the DP state lives
+    in a global scratch, as B4's does.  Returns (alt, null) (N, W) f32."""
+    _check_inputs(pidx, tables, tvecs, xts, lengths, starts, codes_all,
+                  mixed=True, max_kp=MAX_LARGE_KP)
+    if not on_cuda(pidx, tables, tvecs, xts, lengths, starts, codes_all):
+        return scores_pairs_mixed_plain(pidx, tables, tvecs, xts, lengths,
+                                        starts, codes_all)
+    return _launch_large("dtt_score_mixed_large", "gang_large", pidx,
+                         tables, tvecs, xts, lengths, starts, codes_all)
 
 
 def _check_chain(pidx, tables, tvecs, win_sblk, win_len, win_gstart,

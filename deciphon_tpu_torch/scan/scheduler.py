@@ -10,9 +10,11 @@ written for torch:
 
   * DeviceSeqCodes — the scan-resident START-indexed code table, built on
     the device from 1 byte/nt of uploaded bases;
-  * PairScorer — one common-Kp table stack; phase-1 dispatch through the
-    chain tier (B3) with its gang (B5) and carry (B8) over-cap tiers and
-    the classic rung buckets (B1), or, for an `hbm_table` scorer (the
+  * PairScorer — one common-Kp table stack, kept on the host and placed
+    on the device at first use (or per wave, when the capacity ledger
+    streams it); phase-1 dispatch through the chain tier (B3) with its
+    gang (B5, or B4m for streamed tables) and carry (B8) over-cap tiers
+    and the classic rung buckets (B1), or, for an `hbm_table` scorer (the
     large-K tier, Kp > 5120), classic buckets on B4 alone; phase-2
     trellis + traceback (B2 + walk);
   * PackedPairScorer — one seg-need class of small-K profiles, NSEG side
@@ -21,7 +23,9 @@ written for torch:
     (B6); everything else, and phase 2, through an inner PairScorer;
   * BucketedPairScorer — profiles partitioned into packed classes, plain
     Kp buckets and large-K buckets, one scorer each, one host transfer per
-    phase-1 wave;
+    phase-1 wave; a capacity ledger (HBMLedger) keeps the tables that fit
+    the device budget resident and streams the rest host->device per
+    wave; phase 2 holds its trellis bytes in flight under a bound;
   * TorchPairScorer — the lax.scan engine's counterpart (ops/engine.py
     scan_scores, plain PyTorch, no score kernel), group by group, with
     the reference pipeline's generic phase 2 (viterbi_path_batch + the
@@ -30,11 +34,12 @@ written for torch:
 Environment switches, read where the reference reads them:
 DECIPHON_NO_CHAIN=1 sends every window to the classic buckets (packed
 windows to B6); DECIPHON_CHAIN_SEG=1 sends over-cap windows to carry
-segments instead of the gang.
+segments instead of the gang; DECIPHON_HBM_BUDGET (bytes) sets the
+ledger's table budget; DECIPHON_SYNC_DEBUG=1 waits for each gang launch
+and records its wall under the reference's bucket name.
 
 Every scorer holds an explicit torch device; nothing falls back to the
-CPU.  What is not ported raises: streamed tables (a database over the
-device budget) and profiles beyond the reference's K = 16384.
+CPU.  Profiles beyond the reference's K = 16384 raise.
 """
 
 from __future__ import annotations
@@ -48,6 +53,7 @@ import numpy as np
 import torch
 
 from ..frame import FRAG_OFFSETS
+from ..logging import get_logger
 from ..ops import viterbi as vk
 from ..ops.costs import ViterbiCosts
 from ..ops.engine import scan_scores
@@ -59,6 +65,49 @@ from ..xtrans import xtrans_cost_vector
 from .window import Window
 
 W = 8  # default windows per group (scorers may choose wider groups)
+
+
+def _sync_debug() -> bool:
+    return os.environ.get("DECIPHON_SYNC_DEBUG", "").lower() not in (
+        "", "0", "false")
+
+
+# Table placements of streamed scorers (PairScorer.stream_tables), counted
+# where they are enqueued: every placement, its bytes, and how many of them
+# were for phase 2 (a streamed scorer's survivors place its tables once
+# more for the path kernel).  On the CPU a placement is the host tensor
+# itself; on the card it is a host->device copy.
+UPLOADS = {"uploads": 0, "bytes": 0, "phase2": 0}
+
+
+def reset_uploads() -> None:
+    for k in UPLOADS:
+        UPLOADS[k] = 0
+
+
+_COPY_STREAMS: dict = {}  # device -> the side stream of table uploads
+
+
+def _upload(host: tuple, device: torch.device) -> tuple:
+    """Copy pinned host tensors to the card on a side stream, so that a
+    wave's upload overlaps the kernels already queued (a copy on the
+    compute stream would wait behind them).  The compute stream waits for
+    the copy before any later launch, and `record_stream` keeps the
+    caching allocator from reusing the copies' memory until the compute
+    stream's work on them is done: dropping the last reference right
+    after the launches are enqueued is then safe."""
+    compute = torch.cuda.current_stream(device)
+    side = _COPY_STREAMS.get(device)
+    if side is None:
+        side = _COPY_STREAMS[device] = torch.cuda.Stream(device)
+    with torch.cuda.stream(side):
+        out = tuple(t.to(device, non_blocking=True) for t in host)
+        done = torch.cuda.Event()
+        done.record(side)
+    compute.wait_event(done)
+    for t in out:
+        t.record_stream(compute)
+    return out
 
 
 def next_pow2(n: int) -> int:
@@ -402,7 +451,93 @@ def _lpt_pack(wins: list[tuple[PairItem, int]], nslots: int,
     return [(s, l) for s, l in zip(slots, loads) if s]
 
 
-class PairScorer:
+class _HostTables:
+    """Profile tables held on the host and placed on the device at first
+    use: `table_bytes` counts the host tensors, so the capacity ledger
+    plans before anything is placed.  A streamed holder
+    (`set_streaming(True)`, the ledger's choice for tables past the device
+    budget) places them per wave instead, from pinned host memory on the
+    card, and drops them with `release_tables()` once a wave's launches
+    are enqueued."""
+
+    def __init__(self, device: torch.device | str,
+                 tables_host: torch.Tensor, tvecs_host: torch.Tensor):
+        self.device = torch.device(device)
+        self._tables_host, self._tvecs_host = tables_host, tvecs_host
+        self._tables_cache: tuple | None = None  # (tables, tvecs) placed
+        self.stream_tables = False
+
+    def table_bytes(self) -> int:
+        """Bytes of the emission/transition tables (host tensors)."""
+        return (self._tables_host.numel() + self._tvecs_host.numel()) * 4
+
+    def _place_tables(self) -> tuple:
+        host = (self._tables_host, self._tvecs_host)
+        if not self.stream_tables:
+            return tuple(t.to(self.device) for t in host)
+        UPLOADS["uploads"] += 1
+        UPLOADS["bytes"] += sum(t.numel() * 4 for t in host)
+        if self.device.type != "cuda":
+            return host
+        return _upload(host, self.device)
+
+    @property
+    def tables(self) -> torch.Tensor:
+        if self._tables_cache is None:
+            self._tables_cache = self._place_tables()
+        return self._tables_cache[0]
+
+    @property
+    def tvecs(self) -> torch.Tensor:
+        if self._tables_cache is None:
+            self._tables_cache = self._place_tables()
+        return self._tables_cache[1]
+
+    def release_tables(self) -> None:
+        """Streamed mode: drop the device tables once a wave's launches
+        are enqueued (the allocator frees them when those have run)."""
+        if self.stream_tables:
+            self._tables_cache = None
+
+    def set_streaming(self, on: bool) -> None:
+        """Stream the tables per wave (on) or keep them resident; on the
+        card a streamed holder's host tables are pinned, for asynchronous
+        copies."""
+        self.stream_tables = on
+        self._tables_cache = None
+        if on and self.device.type == "cuda":
+            self._tables_host = self._tables_host.pin_memory()
+            self._tvecs_host = self._tvecs_host.pin_memory()
+
+
+def dispatch_paths_bounded(launches, bound: int, metrics=None) -> list:
+    """Run phase-2 path launches, given as (trellis bytes, launch) pairs,
+    with at most `bound` trellis bytes in flight: before a launch that
+    would pass it, the oldest launches are collected early (the reference
+    pipeline's group loop), and their results ride along as one dict
+    {id(item) -> (sids, sizes)} among the returned un-fetched entries.  A
+    launch alone may pass the bound."""
+    inflight: list[tuple] = []  # (entry, trellis bytes)
+    held = 0
+    early: dict[int, tuple] = {}
+    for nbytes, launch in launches:
+        while inflight and held + nbytes > bound:
+            old, old_bytes = inflight.pop(0)
+            t0 = time.perf_counter()
+            assemble_path_entries([old], fetch_steps([old]), early)
+            del old  # its trellis is free before the launch
+            if metrics is not None:
+                metrics.add_wall("phase2_collect", time.perf_counter() - t0)
+            held -= old_bytes
+        inflight.append((launch(), nbytes))
+        held += nbytes
+    entries: list = [e for e, _ in inflight]
+    if early:
+        entries.append(early)
+    return entries
+
+
+class PairScorer(_HostTables):
     """Scores scheduled pairs of one table stack with the port's kernels.
 
     Phase 1 ships per launch only window metadata against the scan-resident
@@ -414,7 +549,10 @@ class PairScorer:
     for everything.  An `hbm_table` scorer (the reference's name for its
     large-K tier, Kp > 5120) never chains: every window rides the rung
     buckets on B4.  Phase 2 runs the path kernel and the device walk,
-    returning un-fetched step arrays."""
+    returning un-fetched step arrays.
+
+    Its tables are held as _HostTables holds them; a streamed scorer's
+    gang runs B4m, as the reference's streamed gang does."""
 
     # Merge length rungs below this into one bucket (short reads would
     # otherwise spray one near-empty launch per rung).
@@ -439,24 +577,18 @@ class PairScorer:
     def __init__(self, costs_list: list[ViterbiCosts],
                  device: torch.device | str, w: int = 8,
                  hbm_table: bool = False):
-        self.device = torch.device(device)
         self.w = w
         self.hbm_table = hbm_table
         self.Kp = common_kp(costs_list)
         vk._check_kp(self.Kp, vk.MAX_LARGE_KP if hbm_table else vk.MAX_KP)
-        tables, tvecs = stack_tables(costs_list, self.Kp)
-        self.tables = tables.to(self.device)
-        self.tvecs = tvecs.to(self.device)
+        super().__init__(device, *stack_tables(costs_list, self.Kp))
+        self._Ks = np.array([c.K for c in costs_list], np.int64)
         self.dev_codes: DeviceSeqCodes | None = None
         self.metrics = None  # optional ScanMetrics for phase walls
         self._chain_pin: tuple[int, int, int] | None = None
         self._xt_lut = np.zeros((self.XT_LUT_CAP, 16), np.float32)
         self._xt_lut_idx: dict = {}
         self._xt_lut_dev: torch.Tensor | None = None
-
-    def table_bytes(self) -> int:
-        """Device bytes of this scorer's emission/transition tables."""
-        return (self.tables.numel() + self.tvecs.numel()) * 4
 
     def set_device_codes(self, dev_codes: DeviceSeqCodes | None) -> None:
         self.dev_codes = dev_codes
@@ -755,11 +887,8 @@ class PairScorer:
             cbig, csml, self._xt_lut_dev, self.dev_codes.dev)
 
     def _dispatch_gang(self, items: list[PairItem]) -> list:
-        """Mixed-profile groups for over-cap windows (B5).  The reference
-        picks its VMEM-table kernel when the bucket's tables fit
-        MIXED_VMEM_TABLE_BUDGET (a TPU VMEM constant) and the HBM-table
-        kernel otherwise; on the card every table is in HBM, so every
-        gang group launches B5."""
+        """Mixed-profile groups for over-cap windows (B5, or B4m for
+        streamed tables: `_invoke_scores_gang`)."""
         # one length-sorted packing across all profiles: longest first
         # keeps same-scale windows together
         wins = sorted(items, key=lambda it: (-it.win.length, it.p_idx,
@@ -795,16 +924,45 @@ class PairScorer:
                 t1 = time.perf_counter()
                 alt, nul = self._invoke_scores_gang(pidx, xts, lens, starts)
                 self._walls(t0, t1)
+                if self.metrics is not None and _sync_debug():
+                    self._gang_bucket_wall(alt, pidx, lens, nlb, wg)
                 entries.append((_Bucket(nlb=nlb, groups=chunk, w=wg),
                                 alt, nul))
         return entries
 
+    def _gang_resident(self) -> bool:
+        """Which gang kernel runs: B5 (True) or B4m.  The reference runs
+        its VMEM-table kernel while the stack fits MIXED_VMEM_TABLE_BUDGET
+        (48 MB of a TPU's VMEM) and its tables neither stream nor are
+        large-K, and the HBM-table kernel otherwise.  On the card no table
+        is held on-chip, so that budget has no counterpart: a resident
+        stack keeps B5 at any size, a streamed one takes B4m."""
+        return not self.hbm_table and not self.stream_tables
+
     def _invoke_scores_gang(self, pidx, xts, lens, starts):
-        """Mixed-profile scoring call (one profile per slot)."""
+        """Mixed-profile scoring call (one profile per slot): B5, or B4m
+        for streamed tables."""
         pidx, xts, lens, starts = _tensors(self.device, pidx, xts, lens,
                                            starts)
-        return vk.scores_pairs_mixed(pidx, self.tables, self.tvecs, xts,
-                                     lens, starts, self.dev_codes.dev)
+        fn = (vk.scores_pairs_mixed if self._gang_resident()
+              else vk.scores_pairs_mixed_large)
+        return fn(pidx, self.tables, self.tvecs, xts, lens, starts,
+                  self.dev_codes.dev)
+
+    def _gang_bucket_wall(self, alt, pidx, lens, nlb: int, wg: int) -> None:
+        """DECIPHON_SYNC_DEBUG: wait for one gang launch and record its
+        wall and cells under the reference's bucket name
+        (bkt_gang[v]_kp.._nlb.._n.._w.., v for the resident kernel)."""
+        t0 = time.perf_counter()
+        alt.sum().item()
+        N = pidx.shape[0]
+        name = (f"bkt_gang{'v' if self._gang_resident() else ''}"
+                f"_kp{self.Kp}_nlb{nlb}_n{N}_w{wg}")
+        self.metrics.add_wall(name, time.perf_counter() - t0)
+        true = int((lens[:, :, 0].astype(np.int64) * 5
+                    * self._Ks[pidx]).sum())
+        self.metrics.add_bucket_cells(name, true,
+                                      N * wg * nlb * vk.KAPPA * 5 * self.Kp)
 
     @staticmethod
     def _collect_one(entry, results) -> None:
@@ -843,46 +1001,53 @@ class PairScorer:
 
     # -- phase 2: path kernel + device traceback -----------------------
 
-    def paths_group_dispatch(self, items: list[PairItem]) -> list:
-        """Trellis + traceback for LRT survivors, without fetching.
-
-        Returns entries (items, sts, szs, ns, oks, xn, nd, rows, lengths)
-        for ops/traceback.py assemble_path_entries; the caller fetches the
-        step arrays of a whole wave in one transfer."""
+    def path_launches(self, items: list[PairItem]):
+        """The path launches of these survivors, one at a time: yields
+        (trellis bytes, launch), and launch() runs B2 and the walk and
+        returns the entry, so a caller can make room before each launch.
+        A streamed scorer places its tables once more for these launches
+        (counted in UPLOADS["phase2"]) and drops them after the last."""
         if not items:
-            return []
-        m = self.metrics
-        inflight = []
-        for bucket in self._path_buckets(items):
-            t0 = time.perf_counter()
-            wb = bucket.w
-            meta = bucket_arrays_meta(bucket, self.dev_codes)
-            if self.hbm_table:  # no pad pairs: each one is Lk x Kp words
-                meta = [a[:len(bucket.groups)] for a in meta]
-            pidx, xts, lens, starts = _tensors(self.device, *meta)
-            xn, nd = vk.paths_pairs(pidx, self.tables, self.tvecs, xts,
-                                    lens, starts, self.dev_codes.dev,
-                                    nlb=bucket.nlb)
-            # the walk reads the real (pair, slot) rows in place
-            rows, flat_items, lengths = [], [], []
-            for gi, g in enumerate(bucket.groups):
-                for wi, it in enumerate(g):
-                    rows.append(gi * wb + wi)
-                    flat_items.append(it)
-                    lengths.append(it.win.length)
-            Lk = bucket.nlb * vk.PATH_KAPPA
-            NP = xn.shape[0]
-            xnf = xn.reshape(NP * wb, Lk)
-            ndf = nd.reshape(NP * wb, Lk, self.Kp)
-            rows_t = torch.tensor(rows, dtype=torch.int32).to(self.device)
-            lens_t = torch.tensor(lengths, dtype=torch.int32).to(self.device)
-            max_steps = Lk + 4 * self.Kp + 64
-            sts, szs, ns, oks = walk(xnf, ndf, rows_t, lens_t, max_steps)
-            if m is not None:
-                m.add_wall("phase2_path", time.perf_counter() - t0)
-            inflight.append((flat_items, sts, szs, ns, oks, xnf, ndf,
-                             rows, lengths))
-        return inflight
+            return
+        if self.stream_tables and self._tables_cache is None:
+            UPLOADS["phase2"] += 1
+        try:
+            for bucket in self._path_buckets(items):
+                n = (len(bucket.groups) if self.hbm_table
+                     else pad_groups(len(bucket.groups)))
+                yield (n * bucket.w * bucket.nlb * vk.PATH_KAPPA
+                       * (self.Kp + 1) * 4,
+                       lambda bucket=bucket: self._path_launch(bucket))
+        finally:
+            self.release_tables()
+
+    def _path_launch(self, bucket: _Bucket) -> tuple:
+        t0 = time.perf_counter()
+        wb = bucket.w
+        meta = bucket_arrays_meta(bucket, self.dev_codes)
+        if self.hbm_table:  # no pad pairs: each one is Lk x Kp words
+            meta = [a[:len(bucket.groups)] for a in meta]
+        pidx, xts, lens, starts = _tensors(self.device, *meta)
+        xn, nd = vk.paths_pairs(pidx, self.tables, self.tvecs, xts, lens,
+                                starts, self.dev_codes.dev, nlb=bucket.nlb)
+        # the walk reads the real (pair, slot) rows in place
+        rows, flat_items, lengths = [], [], []
+        for gi, g in enumerate(bucket.groups):
+            for wi, it in enumerate(g):
+                rows.append(gi * wb + wi)
+                flat_items.append(it)
+                lengths.append(it.win.length)
+        Lk = bucket.nlb * vk.PATH_KAPPA
+        NP = xn.shape[0]
+        xnf = xn.reshape(NP * wb, Lk)
+        ndf = nd.reshape(NP * wb, Lk, self.Kp)
+        rows_t = torch.tensor(rows, dtype=torch.int32).to(self.device)
+        lens_t = torch.tensor(lengths, dtype=torch.int32).to(self.device)
+        max_steps = Lk + 4 * self.Kp + 64
+        sts, szs, ns, oks = walk(xnf, ndf, rows_t, lens_t, max_steps)
+        if self.metrics is not None:
+            self.metrics.add_wall("phase2_path", time.perf_counter() - t0)
+        return (flat_items, sts, szs, ns, oks, xnf, ndf, rows, lengths)
 
     def _path_buckets(self, items: list[PairItem]) -> list[_Bucket]:
         """Path launches of these survivors: `build_batches`' rung buckets
@@ -907,7 +1072,7 @@ class PairScorer:
         return out
 
 
-class PackedPairScorer:
+class PackedPairScorer(_HostTables):
     """Lane-packed scorer for one seg-need class of small-K profiles.
 
     Profiles pack NSEG side by side on the lanes of one plane (pack i =
@@ -922,8 +1087,11 @@ class PackedPairScorer:
     whose tables are held beside the packed ones.
 
     Contract-compatible with PairScorer: dispatch()/collect()/score()/
-    paths_group_dispatch()/set_device_codes(); its entries interleave
+    path_launches()/set_device_codes(); its entries interleave
     freely with the inner scorer's in one wave handle.
+
+    Its tables, packed and inner, are held as _HostTables holds them:
+    `table_bytes`, `set_streaming` and `release_tables` act on both.
 
     PACKED_W and the chain pin's cmax of 4 are inherited from the
     reference, where they were tuned for another accelerator; they are not
@@ -938,7 +1106,6 @@ class PackedPairScorer:
     def __init__(self, costs_list: list[ViterbiCosts], nseg: int,
                  device: torch.device | str, inner_w: int | None = None,
                  seg: int | None = None):
-        self.device = torch.device(device)
         self.nseg = nseg
         self.seg = seg if seg is not None else max(
             round_up(c.K + 2, 64) for c in costs_list)
@@ -953,9 +1120,8 @@ class PackedPairScorer:
         self._uniform_pack = [
             len({c.K for c in costs_list[i * nseg:(i + 1) * nseg]}) == 1
             for i in range(npack)]
-        tables, tvecs = stack_tables_packed(costs_list, self.seg, nseg)
-        self.tables = tables.to(self.device)
-        self.tvecs = tvecs.to(self.device)
+        super().__init__(device, *stack_tables_packed(costs_list, self.seg,
+                                                      nseg))
         self.w = self.PACKED_W.get(self.Kp, 64)
         self.inner = PairScorer(costs_list, self.device,
                                 w=inner_w if inner_w is not None else W)
@@ -970,13 +1136,20 @@ class PackedPairScorer:
         self._chain_pin: tuple[int, int, int, int] | None = None
 
     def table_bytes(self) -> int:
-        """Device bytes of the packed tables and the inner scorer's."""
-        return ((self.tables.numel() + self.tvecs.numel()) * 4
-                + self.inner.table_bytes())
+        """Bytes of the packed tables and the inner scorer's (host
+        tensors)."""
+        return super().table_bytes() + self.inner.table_bytes()
 
     def set_streaming(self, on: bool) -> None:
-        raise NotImplementedError(
-            "streaming tables per wave is not ported (ROADMAP A5b)")
+        super().set_streaming(on)
+        self.inner.set_streaming(on)
+
+    def release_tables(self) -> None:
+        """Drop the packed tables and the inner scorer's (the reference
+        releases only the packed ones, so its streamed inner tables stay
+        on the device once placed)."""
+        super().release_tables()
+        self.inner.release_tables()
 
     # metrics propagate to the inner scorer so wall buckets stay unified
     @property
@@ -1251,26 +1424,33 @@ class PackedPairScorer:
     def score(self, items: list[PairItem]) -> dict[int, tuple[float, float]]:
         return self.collect(self.dispatch(items))
 
-    def paths_group_dispatch(self, items: list[PairItem]) -> list:
-        return self.inner.paths_group_dispatch(items)
+    def path_launches(self, items: list[PairItem]):
+        return self.inner.path_launches(items)
+
+
+def _device_memory(device: torch.device | str) -> int:
+    """Total memory of the device, 16 GB assumed for the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        return torch.cuda.mem_get_info(device)[1]
+    return 16 << 30
+
+
+def device_reserve(device: torch.device | str) -> int:
+    """The device's working reserve (codes, trellis, in-flight outputs):
+    a quarter of its memory, 2 GB at least."""
+    return max(int(_device_memory(device) * 0.25), 2 << 30)
 
 
 def device_table_budget(device: torch.device | str) -> int:
     """Device bytes available for resident profile tables.
 
     DECIPHON_HBM_BUDGET overrides (bytes); otherwise the device's total
-    memory minus a working reserve (codes, trellis, in-flight outputs),
-    with 16 GB assumed for the CPU."""
+    memory minus its working reserve."""
     env = os.environ.get("DECIPHON_HBM_BUDGET")
     if env:
         return int(env)
-    device = torch.device(device)
-    if device.type == "cuda":
-        _, limit = torch.cuda.mem_get_info(device)
-    else:
-        limit = 16 << 30
-    reserve = max(int(limit * 0.25), 2 << 30)
-    return max(limit - reserve, 1 << 30)
+    return max(_device_memory(device) - device_reserve(device), 1 << 30)
 
 
 class HBMLedger:
@@ -1328,9 +1508,13 @@ class BucketedPairScorer:
     multiples of 512 (the reference's rules, scheduler.py
     BucketedPairScorer, branch for branch).  A bucket past MAX_KP lanes
     gets an `hbm_table` scorer (B4), whatever the factory, with the
-    reference's `hbm_factory` slot width.  A capacity ledger checks that
-    every scorer's tables stay resident; streaming tables per wave is not
-    ported and raises.
+    reference's `hbm_factory` slot width.  A capacity ledger (HBMLedger)
+    keeps the largest tables that fit `hbm_budget` (device_table_budget
+    by default) resident and streams the rest host->device per wave: those
+    scorers drop their device tables after each dispatch.  Phase 2 holds
+    at most `path_inflight_bytes` of trellis in flight (PATH_INFLIGHT_SHARE
+    of the device's working reserve), collecting the oldest launches early
+    past it.
 
     PACK_MAX_SEG, PACK_KP_MAX, W_LANE_BUDGET, w_cap, HBM_STATE_BUDGET and
     vk.HBM_STATE_BYTES_PER_LANE are inherited from the reference, where
@@ -1356,6 +1540,12 @@ class BucketedPairScorer:
     # members within 2x (lane fill >= 0.5 before 64-lane quantization).
     PACK_MAX_SEG = 1024
     PACK_KP_MAX = vk.PACK_MAX_KP
+    # Phase 2's trellis bytes in flight: this share of the working reserve
+    # that device_table_budget leaves (20 GB of an 80 GB card), one launch
+    # at least; the other half holds codes, phase-1 outputs and streamed
+    # tables.  The port's own bound (the reference bounds its lax.scan
+    # fallback's groups by its PATH_BATCH_BYTES, 256 MB).
+    PATH_INFLIGHT_SHARE = 0.5
 
     @staticmethod
     def w_cap(kp: int) -> int:
@@ -1478,13 +1668,23 @@ class BucketedPairScorer:
             else:
                 self.scorers.append(factory(costs))
 
+        # capacity ledger: resident against streamed tables per scorer,
+        # planned from the host tables before anything is placed
         self.ledger = HBMLedger(hbm_budget if hbm_budget is not None
                                 else device_table_budget(self.device))
-        if any(self.ledger.plan([s.table_bytes() for s in self.scorers])):
-            raise NotImplementedError(
-                f"profile tables ({sum(s.table_bytes() for s in self.scorers) / 2**30:.2f} GB) "
-                f"exceed the device budget ({self.ledger.budget / 2**30:.2f} GB): "
-                "streaming tables per wave is not ported (ROADMAP)")
+        plan = self.ledger.plan([s.table_bytes() for s in self.scorers])
+        for scorer, stream in zip(self.scorers, plan):
+            if stream:
+                scorer.set_streaming(True)
+        if self.ledger.streamed:
+            get_logger("deciphon_tpu_torch.scan").warning(
+                "profile tables exceed the device budget: %d/%d buckets "
+                "(%.2f GB of %.2f GB) stream host->device per wave",
+                len(self.ledger.streamed), len(self.scorers),
+                self.ledger.streamed_bytes / 2**30,
+                self.ledger.budget / 2**30)
+        self.path_inflight_bytes = max(1, int(
+            device_reserve(self.device) * self.PATH_INFLIGHT_SHARE))
         self.metrics = None
 
     def set_device_codes(self, dev_codes) -> None:
@@ -1515,11 +1715,17 @@ class BucketedPairScorer:
 
     def dispatch_all(self, items: list[PairItem]):
         """Enqueue every sub-scorer's launches for one wave without
-        blocking; returns a handle for collect_all."""
+        blocking; returns a handle for collect_all.  A streamed scorer
+        drops its device tables right after its dispatch: the memory is
+        freed once the enqueued launches have run."""
         by_scorer, remap = self._split(items)
         try:
-            return [(self.scorers[si], self.scorers[si].dispatch(group))
-                    for si, group in by_scorer.items()]
+            pending = []
+            for si, group in by_scorer.items():
+                scorer = self.scorers[si]
+                pending.append((scorer, scorer.dispatch(group)))
+                scorer.release_tables()
+            return pending
         finally:
             self._restore(items, remap)
 
@@ -1558,16 +1764,20 @@ class BucketedPairScorer:
         rings in a global scratch past 2816 lanes), where the reference's
         path kernel stops at 5120 lanes and returns large-K survivors to
         the pipeline's lax.scan fallback (scheduler.py:2054-2058).  B2's
-        trellis equals that fallback's bit for bit."""
+        trellis equals that fallback's bit for bit.
+
+        The trellis bytes in flight stay within `path_inflight_bytes`
+        (`dispatch_paths_bounded`: the oldest launches are collected
+        early, and their results ride along as one dict among the
+        entries)."""
         by_scorer, remap = self._split(items)
         try:
-            entries: list = []
-            for si, group in by_scorer.items():
-                entries.extend(self.scorers[si].paths_group_dispatch(group))
-            return entries
+            return dispatch_paths_bounded(
+                (launch for si, group in by_scorer.items()
+                 for launch in self.scorers[si].path_launches(group)),
+                self.path_inflight_bytes, self.metrics)
         finally:
             self._restore(items, remap)
-
 
 
 def _pad_len(n: int) -> int:
@@ -1652,56 +1862,47 @@ class TorchPairScorer:
         grouped by (profile, padded window length), each group chunked
         within PATH_BATCH_BYTES and run as viterbi_path_batch calls, the
         batch padded to a power of two; the walk reads the trellis (row 0
-        dropped) in place.  Returns the un-fetched path entries; when the
-        trellis bytes in flight pass PATH_BATCH_BYTES the oldest are
-        collected at once, and their results ride along as one dict
-        {id(item) -> (sids, sizes)} among the entries."""
+        dropped) in place.  Returns the un-fetched path entries, with at
+        most PATH_BATCH_BYTES of trellis in flight
+        (`dispatch_paths_bounded`)."""
+        return dispatch_paths_bounded(self._path_launches(items),
+                                      self.PATH_BATCH_BYTES, self.metrics)
+
+    def _path_launches(self, items: list[PairItem]):
+        """Yields (trellis bytes, launch) for each chunk of survivors."""
         groups: dict[tuple[int, int], list[PairItem]] = {}
         for it in items:
             groups.setdefault((it.p_idx, _pad_len(it.win.length)),
                               []).append(it)
-        inflight: list[tuple] = []  # (entry, trellis bytes)
-        inflight_bytes = 0
-        early: dict[int, tuple] = {}
         for (p_idx, Lpad), group in groups.items():
-            K = self.K[p_idx]
-            per = Lpad * (2 * K + 8)
+            per = Lpad * (2 * self.K[p_idx] + 8)
             chunk = max(1, self.PATH_BATCH_BYTES // max(per, 1))
             for i0 in range(0, len(group), chunk):
                 sub = group[i0:i0 + chunk]
-                t0 = time.perf_counter()
-                Bp = next_pow2(len(sub))
-                codes = np.zeros((Bp, Lpad, 5), np.int32)
-                xts = np.zeros((Bp, 13), np.float32)
-                lengths = np.zeros((Bp,), np.int32)
-                for b, it in enumerate(sub):
-                    codes[b, :it.win.length] = it.codes
-                    xts[b] = it.xt
-                    lengths[b] = it.win.length
-                xt_t, codes_t, lens_t = _tensors(self.device, xts, codes,
-                                                 lengths)
-                _, xn, nd = viterbi_path_batch(*self._dev[p_idx], xt_t,
-                                               codes_t, lens_t)
-                xn = xn[:, 1:].contiguous()  # row l-1 holds position l
-                nd = nd[:, 1:].contiguous()
-                n = len(sub)
-                sts, szs, ns, oks = walk(
-                    xn, nd, torch.arange(n, dtype=torch.int32,
-                                         device=self.device),
-                    lens_t[:n].contiguous(), Lpad + 4 * K + 64)
-                self._wall("phase2_path", t0)
-                inflight.append(((sub, sts, szs, ns, oks, xn, nd,
-                                  list(range(n)), lengths[:n].tolist()),
-                                 n * per))
-                inflight_bytes += n * per
-                while (inflight_bytes > self.PATH_BATCH_BYTES
-                       and len(inflight) > 1):
-                    (old, old_bytes) = inflight.pop(0)
-                    t0 = time.perf_counter()
-                    assemble_path_entries([old], fetch_steps([old]), early)
-                    self._wall("phase2_collect", t0)
-                    inflight_bytes -= old_bytes
-        entries: list = [e for e, _ in inflight]
-        if early:
-            entries.append(early)
-        return entries
+                yield (len(sub) * per, lambda p_idx=p_idx, Lpad=Lpad,
+                       sub=sub: self._path_launch(p_idx, Lpad, sub))
+
+    def _path_launch(self, p_idx: int, Lpad: int,
+                     sub: list[PairItem]) -> tuple:
+        t0 = time.perf_counter()
+        K = self.K[p_idx]
+        Bp = next_pow2(len(sub))
+        codes = np.zeros((Bp, Lpad, 5), np.int32)
+        xts = np.zeros((Bp, 13), np.float32)
+        lengths = np.zeros((Bp,), np.int32)
+        for b, it in enumerate(sub):
+            codes[b, :it.win.length] = it.codes
+            xts[b] = it.xt
+            lengths[b] = it.win.length
+        xt_t, codes_t, lens_t = _tensors(self.device, xts, codes, lengths)
+        _, xn, nd = viterbi_path_batch(*self._dev[p_idx], xt_t, codes_t,
+                                       lens_t)
+        xn = xn[:, 1:].contiguous()  # row l-1 holds position l
+        nd = nd[:, 1:].contiguous()
+        n = len(sub)
+        sts, szs, ns, oks = walk(
+            xn, nd, torch.arange(n, dtype=torch.int32, device=self.device),
+            lens_t[:n].contiguous(), Lpad + 4 * K + 64)
+        self._wall("phase2_path", t0)
+        return (sub, sts, szs, ns, oks, xn, nd, list(range(n)),
+                lengths[:n].tolist())

@@ -130,6 +130,21 @@ def test_mixed_kernel_bit_equal_to_plain(cuda, Kp):
     assert torch.equal(alt, pa) and torch.equal(nul, pn)
 
 
+@pytest.mark.parametrize("Kp", [128, 1024, 5120])
+def test_mixed_large_kernel_bit_equal_to_plain_and_b5(cuda, Kp):
+    """B4m (the streamed gang) computes B5's function: bit-equal to the
+    one plain version and to B5 on the same arguments."""
+    inp = mixed_case(Kp, seed=Kp + 7, device=cuda, hi=600)
+    before = vk.LAUNCHES["gang_large"]
+    alt, nul = vk.scores_pairs_mixed_large(**inp)
+    assert vk.LAUNCHES["gang_large"] == before + 1
+    pa, pn = vk.scores_pairs_mixed_plain(**inp)
+    ba, bn = vk.scores_pairs_mixed(**inp)
+    torch.cuda.synchronize()
+    assert torch.equal(alt, pa) and torch.equal(nul, pn)
+    assert torch.equal(alt, ba) and torch.equal(nul, bn)
+
+
 @pytest.mark.parametrize("Kp", [128, 1024])
 def test_carry_kernel_segments_equal_whole_window(cuda, Kp):
     case = carry_case(Kp, seed=Kp + 3, device=cuda)
@@ -238,13 +253,16 @@ def test_kernels_raise_on_bad_launch(cuda):
 
 
 @pytest.mark.parametrize("tier", ["chain", "chain+gang", "chain+seg",
-                                  "classic", "large", "torch"])
+                                  "classic", "large", "torch", "streamed"])
 def test_scan_on_card_matches_cpu(cuda, tmp_path, monkeypatch, tier):
     """Each phase-1 tier on the card writes the CPU's products; the
     shrunk caps send the 900-nt read's windows over the chain cap, and
     a plain-bucket cap of 64 lanes sends every profile to the large-K
     tier; engine="torch" on the card writes the kernels' bytes on the
-    CPU."""
+    CPU; a table budget of 1 byte streams every scorer's tables, and its
+    gang runs B4m."""
+    if tier == "streamed":
+        monkeypatch.setenv("DECIPHON_HBM_BUDGET", "1")
     if tier == "large":
         monkeypatch.setattr(ts.BucketedPairScorer, "MAX_KP", 64)
         monkeypatch.setattr(ts.BucketedPairScorer, "PACK_MAX_SEG", 0)
@@ -266,7 +284,12 @@ def test_scan_on_card_matches_cpu(cuda, tmp_path, monkeypatch, tier):
     for dev in ("cuda", "cpu"):
         engine = "torch" if tier == "torch" and dev == "cuda" else "kernels"
         sc = tp.Scanner(profiles, tp.ScanConfig(device=dev, engine=engine))
+        vk.reset_launches()
         with open(sc.run(seqs, str(tmp_path / dev))) as fp:
             out[dev] = fp.read()
         assert sc.metrics.survivors > 0
+        if tier == "streamed" and dev == "cuda":
+            assert all(s.stream_tables for s in sc.scorer.scorers)
+            assert vk.LAUNCHES["gang_large"] > 0
+            assert vk.LAUNCHES["gang"] == 0
     assert out["cuda"] == out["cpu"]

@@ -127,7 +127,8 @@ def test_build_flags_and_source_hash(monkeypatch, tmp_path):
                      "viterbi_path.cu", "traceback_walk.cu"}
     assert set(_build.SIGNATURES) == {
         "dtt_score_pairs", "dtt_score_mixed", "dtt_score_chained",
-        "dtt_score_chained_carry", "dtt_score_pairs_large", "dtt_score_packed",
+        "dtt_score_chained_carry", "dtt_score_pairs_large",
+        "dtt_score_mixed_large", "dtt_score_packed",
         "dtt_score_packed_chained", "dtt_path_pairs", "dtt_score_grid",
         "dtt_walk"}
     # every export the wrappers call is bound with argtypes

@@ -86,13 +86,16 @@ def test_scan_rejects_untaken_tiers():
     assert [(s.hbm_table, s.Kp) for s in big.scorers] == [(True, 5248)]
     with pytest.raises(NotImplementedError, match="16384"):
         BucketedPairScorer([costs(1, 16385)], "cpu")
-    # tables beyond the device budget (the reference streams them)
-    with pytest.raises(NotImplementedError, match="budget"):
-        BucketedPairScorer([costs(2, 9)], "cpu", hbm_budget=1000)
-    # the same for a packed class, whose scorer cannot stream either
-    with pytest.raises(NotImplementedError, match="budget"):
-        BucketedPairScorer([costs(2, 9), costs(3, 12)], "cpu",
-                           hbm_budget=1000)
+    # tables beyond the device budget stream per wave, as the reference's
+    # capacity ledger plans them
+    over = BucketedPairScorer([costs(2, 9)], "cpu", hbm_budget=1000)
+    assert [s.stream_tables for s in over.scorers] == [True]
+    assert over.ledger.streamed_bytes == over.scorers[0].table_bytes()
+    # the same for a packed class, whose inner scorer streams with it
+    packed = BucketedPairScorer([costs(2, 9), costs(3, 12)], "cpu",
+                                hbm_budget=1000)
+    assert [(type(s).__name__, s.stream_tables, s.inner.stream_tables)
+            for s in packed.scorers] == [("PackedPairScorer", True, True)]
 
 
 def test_lrt_and_segment_hits_match_reference():

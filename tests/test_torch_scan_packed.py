@@ -222,5 +222,13 @@ def test_packed_dispatch_takes_items_without_a_read():
                for e in inflight)
     got = scorer.collect(inflight)
     assert [got[id(b)] for b in bare] == [want[id(it)] for it in items]
-    with pytest.raises(NotImplementedError):
-        scorer.set_streaming(True)
+    # streamed tables (the capacity ledger's mode): the next dispatch
+    # places them again and gives the same scores; release drops both the
+    # packed tables and the inner scorer's
+    scorer.set_streaming(True)
+    assert scorer.stream_tables and scorer.inner.stream_tables
+    scorer.set_device_codes(codes)
+    assert scorer.score(items) == want
+    scorer.release_tables()
+    assert scorer._tables_cache is None
+    assert scorer.inner._tables_cache is None
