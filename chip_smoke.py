@@ -81,7 +81,9 @@ Phases, each reported on its own lines; any failure exits non-zero:
 Every scan path is run with the launch counts set to 0 just before and
 read just after; each kernel must have launched on its path.  The line
 before the last is a JSON object of per-kernel launches (summed over those
-runs), errors, times and bounds; the last line is {"ok": true, "device":
+runs), errors, times, times per DP position (of the longest slot), bounds
+and the ptxas registers and spills of each compiled instance (from the
+build's -Xptxas -v report); the last line is {"ok": true, "device":
 {...}}.  A kernel's bound is the least time the card could take for the
 work of the measured call: the larger of its f32 add/min operations on
 true profile nodes over the card's non-tensor f32 peak, and the bytes it
@@ -145,6 +147,55 @@ PEAK_BYTES = 3.35e12
 # are its excess over the bound, not part of it.  The per-position
 # special states are O(1) per window and left out.
 CELL_OPS = {"score": 34, "path": 98, "grid": 34}
+
+
+# the kernels-line key each kernel instance serves, by its name and its
+# first bool template argument (pull_kernel's is its second)
+INSTANCE_KEYS = {("score_pairs_kernel", "false"): "score",
+                 ("score_pairs_kernel", "true"): "gang",
+                 ("score_chained_kernel", "false"): "chain",
+                 ("score_chained_kernel", "true"): "carry",
+                 ("score_large_kernel", "false"): "large",
+                 ("score_large_kernel", "true"): "gang_large",
+                 ("score_packed_chained_kernel", None): "pchain",
+                 ("score_packed_kernel", None): "packed",
+                 ("path_kernel", None): "path",
+                 ("pull_kernel", "true"): "path",
+                 ("pull_kernel", "false"): "grid",
+                 ("walk_kernel", None): "walk"}
+
+
+def ptxas_instances(log: str) -> dict:
+    """{key: {instance: {registers, spill_stores, spill_loads}}} from the
+    build's `-Xptxas -v` report; an instance is the kernel's name with its
+    template arguments (b: bool, i: int)."""
+    import re
+
+    out: dict = {}
+    cur = None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+            base = re.search(r"\d+([a-z_]+_kernel)", name).group(1)
+            targs = [("true" if v == "1" else "false") if t == "b" else v
+                     for t, v in re.findall(r"L([bi])(\d+)E", name)]
+            args = ",".join(targs)
+            flag = next((a for a in targs if a in ("true", "false")), None)
+            key = INSTANCE_KEYS[(base, flag)]
+            cur = out.setdefault(key, {}).setdefault(
+                f"{base}<{args}>" if args else base, {})
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and cur is not None:
+            cur.update(spill_stores=int(m.group(1)),
+                       spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur is not None:
+            cur["registers"] = int(m.group(1))
+            cur = None
+    return out
 
 
 def fail(msg: str) -> None:
@@ -324,12 +375,14 @@ def check_kernels(torch, report) -> None:
             torch, vk.scores_pairs, vk.scores_pairs_plain, inp)
         exact = torch.equal(ka, pa) and torch.equal(kn, pn)
         fin = torch.isfinite(ka).all().item() and torch.isfinite(kn).all()
-        say("B1", f"Kp={Kp} w=32 64 windows <= {maxlen} nt: bit-equal "
-            f"{exact}, kernel {k_ms:.3f} ms, plain {p_ms:.1f} ms")
-        check(exact and bool(fin), f"B1 Kp={Kp} differs from plain")
         report["score"].update(max_abs_err=max_err(torch, ka, pa), ms=k_ms,
                                plain_ms=p_ms)
         score_bound(torch, report, "score", inp, (ka, kn))
+        say("B1", f"Kp={Kp} w=32 64 windows <= {maxlen} nt: bit-equal "
+            f"{exact}, kernel {k_ms:.3f} ms ({k_ms * 1e3 / maxlen:.3f} "
+            f"us/position), plain {p_ms:.1f} ms; bound "
+            f"{report['score']['bound_ms']:.6f} ms")
+        check(exact and bool(fin), f"B1 Kp={Kp} differs from plain")
 
     for Kp in (256, 1024):
         inp = chain_case(Kp, seed=40 + Kp, device="cuda", cmax=4,
@@ -479,7 +532,8 @@ def check_kernels(torch, report) -> None:
             exact &= torch.equal(a, b) and torch.equal(c, d)
             err = max(err, int((a - b).abs().max()), int((c - d).abs().max()))
         say("B2", f"Kp={Kp} {w} windows <= {maxlen} nt: bit-equal {exact}, "
-            f"kernel {k_ms:.3f} ms, plain {p_ms:.1f} ms")
+            f"kernel {k_ms:.3f} ms ({k_ms * 1e3 / maxlen:.3f} us/position), "
+            f"plain {p_ms:.1f} ms")
         check(exact, f"B2 Kp={Kp} differs from plain")
         if trellis is None:
             report["path"].update(max_abs_err=float(err), ms=k_ms,
@@ -752,7 +806,8 @@ def grid_full_width(torch, report, launches: dict) -> None:
             f"{k_ms / max(t_ops, t_bytes):.1f}x it")
         if K == 400:
             report["grid"].update(max_abs_err=max_err(torch, ka, pa),
-                                  ms=k_ms, plain_ms=p_ms)
+                                  ms=k_ms, plain_ms=p_ms,
+                                  us_per_position=k_ms * 1e3 / L)
             bound(report, "grid", ops, byts)
         del eng, g, pairs, out, ka, kn, pa, pn
 
@@ -776,10 +831,15 @@ def widest(calls: list, key: str, narrowest: bool = False):
     return i, calls[i]
 
 
-def record(report, key: str, err: float, k_ms: float, p_ms: float) -> None:
+def record(report, key: str, err: float, k_ms: float, p_ms: float,
+           positions: int) -> None:
+    """A kernel's check into the kernels line: its error, times and time
+    per DP position (kernel ms over the positions of the longest slot, the
+    ones a CTA runs in series)."""
     report[key].update(max_abs_err=max(report[key].get("max_abs_err", 0.0),
                                        err),
-                       ms=k_ms, plain_ms=p_ms)
+                       ms=k_ms, plain_ms=p_ms,
+                       us_per_position=k_ms * 1e3 / positions)
 
 
 def check_main_shapes(torch, report, pfam_calls, nochain_calls, long_calls,
@@ -830,8 +890,11 @@ def check_main_shapes(torch, report, pfam_calls, nochain_calls, long_calls,
                 f"{int((lens > 0).sum()) * 11 * Kp * 4 / 1e6:.3f} MB of it "
                 "for its real windows, against the card's 50 MB of L2")
         record(report, key, max(max_err(torch, a, b) for a, b in zip(out, want)),
-               k_ms, p_ms)
+               k_ms, p_ms, span(args))
         score_bound(torch, report, key, args, out)
+        say("main", f"{key}: that launch {report[key]['us_per_position']:.3f}"
+            f" us/position, bound {report[key]['bound_ms']:.6f} ms "
+            f"({report[key]['bound_by']})")
 
     calls = seg_calls["scores_pairs_chained_carry"]
     check(calls, "the DECIPHON_CHAIN_SEG=1 scan made no carry launch")
@@ -858,8 +921,11 @@ def check_main_shapes(torch, report, pfam_calls, nochain_calls, long_calls,
         f"(scores and carry planes) {exact}, kernel {k_tot:.3f} ms, plain "
         f"{p_tot:.1f} ms for the calls")
     check(exact, "carry differs from plain at the long-read shapes")
-    record(report, "carry", err, k_tot, p_tot)
+    record(report, "carry", err, k_tot, p_tot, sum(span(a) for a in calls))
     carry_bound(torch, report, {}, calls, outs)
+    say("main", f"carry: {report['carry']['us_per_position']:.3f} "
+        f"us/position over the calls' longest slots, bound "
+        f"{report['carry']['bound_ms']:.6f} ms ({report['carry']['bound_by']})")
 
     for scan, calls in (("Pfam", pfam_calls), ("long-read", long_calls)):
         check_path_shapes(torch, report, scan, calls)
@@ -895,8 +961,11 @@ def check_path_shapes(torch, report, scan: str, calls,
         f"positions: bit-equal {exact}, kernel {k_ms:.3f} ms, plain "
         f"{p_ms:.1f} ms")
     check(exact, f"path differs from plain at the {scan} scan's shapes")
-    record(report, "path", float(err), k_ms, p_ms)
+    record(report, "path", float(err), k_ms, p_ms, span(args))
     path_bound(torch, report, args, kx)
+    say("main", f"path: that launch {report['path']['us_per_position']:.3f} "
+        f"us/position, bound {report['path']['bound_ms']:.6f} ms "
+        f"({report['path']['bound_by']})")
 
     # the walk of those survivors, as the scheduler launches it
     xnf, ndf = kx.reshape(N * W, Lk), kd.reshape(N * W, Lk, Kp)
@@ -915,7 +984,7 @@ def check_path_shapes(torch, report, scan: str, calls,
         f"{exact}, kernel {k_ms:.3f} ms, plain {p_ms:.1f} ms")
     check(exact and bool(got[3].all()),
           f"walk differs at the {scan} scan's shapes")
-    record(report, "walk", 0.0, k_ms, p_ms)
+    record(report, "walk", 0.0, k_ms, p_ms, int(lt.max()))
     walk_bound(report, got[2])
 
 
@@ -1153,7 +1222,8 @@ def stream_scans(torch, report, launches: dict, pfam, lr, lines,
         f"plain {p_ms:.1f} ms")
     check(exact, "B4m differs from plain at the streamed scan's shapes")
     record(report, "gang_large",
-           max(max_err(torch, a, b) for a, b in zip(out, want)), k_ms, p_ms)
+           max(max_err(torch, a, b) for a, b in zip(out, want)), k_ms, p_ms,
+           span(args))
     score_bound(torch, report, "gang_large", args, out)
     peak_long = sl.peaks[0]
     del sl, calls
@@ -1325,6 +1395,13 @@ def main() -> None:
 
     report = {k: {"name": k, "route": "cuda", "source": SOURCE[k],
                   "replaces": REPLACES[k]} for k in SOURCE}
+    for k, inst in ptxas_instances(_build.build_log).items():
+        report[k]["ptxas"] = inst
+        say("build", f"{k}: " + "; ".join(
+            f"{i} {v['registers']} registers, {v['spill_stores']} B spill "
+            f"stores" for i, v in inst.items()))
+    check(all("ptxas" in r for r in report.values()),
+          "the ptxas report lacks a kernel")
 
     # ---- 3. kernels against their plain versions ----------------------
     elapsed("2")
@@ -1531,6 +1608,7 @@ def main() -> None:
     for k, r in report.items():
         r["launches"] = launches.get(k, 0)
         check(r["launches"] > 0, f"kernel {k} never launched on a scan path")
+        check("us_per_position" in r, f"kernel {k} has no time per position")
     print(json.dumps({"kernels": list(report.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

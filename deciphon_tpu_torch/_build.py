@@ -62,7 +62,7 @@ SIGNATURES = {
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
-build_log: str = ""  # ptxas report of the last build in this process
+build_log: str = ""  # ptxas report of the library (kept beside it)
 
 
 def find_nvcc() -> str:
@@ -101,7 +101,10 @@ def build() -> Path:
     global build_log
     nvcc = find_nvcc()
     out = BUILD_DIR / f"libdtt_{_digest(nvcc)}.so"
+    report = out.with_suffix(".log")
     if out.is_file():
+        if report.is_file():
+            build_log = report.read_text()
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tag = f"{out.stem}.{os.getpid()}"
@@ -128,6 +131,7 @@ def build() -> Path:
         obj.unlink(missing_ok=True)
     if any(codes):
         raise RuntimeError(f"nvcc failed ({codes}):\n{build_log}")
+    report.write_text(build_log)
     os.replace(tmp, out)
     return out
 

@@ -110,4 +110,174 @@ __device__ __forceinline__ float seg_min(float v, float* red, int sf,
   return r;
 }
 
+
+// ---- Helpers of the redesigned bodies (B1/B3/B5/B8 score body, B2) ------
+//
+// A thread owns LPT consecutive lanes [tid * LPT, tid * LPT + LPT); LPT is
+// a compile-time constant (2 or 4), so a chunk lives in registers and
+// moves as 16-byte (LPT % 4 == 0) or 8-byte accesses.  Kp is a multiple of
+// 128 and every plane starts at a multiple of Kp floats, so chunks are
+// aligned.
+
+__device__ __forceinline__ int bits(float v) { return __float_as_int(v); }
+__device__ __forceinline__ int bits(int v) { return v; }
+__device__ __forceinline__ void unbits(float& v, int b) { v = __int_as_float(b); }
+__device__ __forceinline__ void unbits(int& v, int b) { v = b; }
+
+template <int LPT, typename V>
+__device__ __forceinline__ void ld_chunk(V* v, const V* p) {
+  static_assert(sizeof(V) == 4 && LPT % 2 == 0, "pairs of 32-bit lanes");
+  if constexpr (LPT % 4 == 0) {
+#pragma unroll
+    for (int q = 0; q < LPT / 4; ++q) {
+      const int4 x = reinterpret_cast<const int4*>(p)[q];
+      unbits(v[4 * q], x.x);
+      unbits(v[4 * q + 1], x.y);
+      unbits(v[4 * q + 2], x.z);
+      unbits(v[4 * q + 3], x.w);
+    }
+  } else {
+#pragma unroll
+    for (int q = 0; q < LPT / 2; ++q) {
+      const int2 x = reinterpret_cast<const int2*>(p)[q];
+      unbits(v[2 * q], x.x);
+      unbits(v[2 * q + 1], x.y);
+    }
+  }
+}
+
+// The same through the read-only path, for inputs no thread writes.
+template <int LPT>
+__device__ __forceinline__ void ldg_chunk(float* v, const float* p) {
+  static_assert(LPT % 2 == 0, "pairs of lanes");
+  if constexpr (LPT % 4 == 0) {
+#pragma unroll
+    for (int q = 0; q < LPT / 4; ++q) {
+      const float4 x = __ldg(reinterpret_cast<const float4*>(p) + q);
+      v[4 * q] = x.x;
+      v[4 * q + 1] = x.y;
+      v[4 * q + 2] = x.z;
+      v[4 * q + 3] = x.w;
+    }
+  } else {
+#pragma unroll
+    for (int q = 0; q < LPT / 2; ++q) {
+      const float2 x = __ldg(reinterpret_cast<const float2*>(p) + q);
+      v[2 * q] = x.x;
+      v[2 * q + 1] = x.y;
+    }
+  }
+}
+
+template <int LPT, typename V>
+__device__ __forceinline__ void st_chunk(V* p, const V* v) {
+  static_assert(sizeof(V) == 4 && LPT % 2 == 0, "pairs of 32-bit lanes");
+  if constexpr (LPT % 4 == 0) {
+#pragma unroll
+    for (int q = 0; q < LPT / 4; ++q)
+      reinterpret_cast<int4*>(p)[q] = make_int4(
+          bits(v[4 * q]),
+          bits(v[4 * q + 1]),
+          bits(v[4 * q + 2]),
+          bits(v[4 * q + 3]));
+  } else {
+#pragma unroll
+    for (int q = 0; q < LPT / 2; ++q)
+      reinterpret_cast<int2*>(p)[q] =
+          make_int2(bits(v[2 * q]), bits(v[2 * q + 1]));
+  }
+}
+
+// Inclusive prefix min over the lanes of a warp, in lane order.
+__device__ __forceinline__ float warp_incl_min(float v) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const float u = __shfl_up_sync(kFull, v, o);
+    if (lane >= o) v = fminf(v, u);
+  }
+  return v;
+}
+
+// Min over the lanes of a warp; every lane gets it.
+__device__ __forceinline__ float warp_min(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fminf(v, __shfl_xor_sync(kFull, v, o));
+  return v;
+}
+
+// Cross-warp part of a block-wide lane cummin that takes one barrier: each
+// warp has stored, before the barrier, the min of its lane terms without
+// the term of its first lane (part[w]) and the value its last lane hands
+// to the next warp's first lane (hand[w]; hand[kMaxWarps] is lane Kp-1's,
+// handed round to lane 0).  After the barrier every warp rebuilds every
+// first-lane term x_i = (hand[i-1] + md_i) - ddc_i itself (lane i holds
+// md_i and ddc_i, the first lane's MD and DDCUM values) and combines the
+// warps before its own with one warp-wide load and a shuffle scan.
+// Returns the min of every term before this warp's lanes; *xw gets this
+// warp's own first-lane term.
+__device__ __forceinline__ float cross_warp_carry(const float* part,
+                                                  const float* hand,
+                                                  float md_i, float ddc_i,
+                                                  float* xw) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5;
+  float x = inf_f(), f = inf_f();
+  if (lane < nw) {
+    x = (hand[lane == 0 ? kMaxWarps : lane - 1] + md_i) - ddc_i;
+    f = fminf(part[lane], x);
+  }
+  f = warp_incl_min(f);
+  float before = __shfl_up_sync(kFull, f, 1);
+  if (lane == 0) before = inf_f();
+  *xw = __shfl_sync(kFull, x, warp);
+  return __shfl_sync(kFull, before, warp);
+}
+
+// Lexicographic min of (value, key) over the lanes of a warp; every lane
+// gets it.  Keys are distinct, so the order is total and the result the
+// same in every lane.
+__device__ __forceinline__ void key_min(float& v, int& k) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    const float ov = __shfl_xor_sync(kFull, v, o);
+    const int ok = __shfl_xor_sync(kFull, k, o);
+    if (ov < v || (ov == v && ok < k)) {
+      v = ov;
+      k = ok;
+    }
+  }
+}
+
+// Own-lane staging of emission rows: LPT consecutive floats copied from
+// global to shared memory by cp.async (16-byte copies bypass L1, 8-byte
+// ones go through it).  The issuing thread alone reads them back, after
+// cp_async_wait(), so no barrier is needed for the data itself.
+template <int LPT>
+__device__ __forceinline__ void cp_chunk(float* dst, const float* src) {
+  static_assert(LPT % 2 == 0, "pairs of lanes");
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  if constexpr (LPT % 4 == 0) {
+#pragma unroll
+    for (int q = 0; q < LPT / 4; ++q)
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                       s + 16 * q),
+                   "l"(src + 4 * q));
+  } else {
+#pragma unroll
+    for (int q = 0; q < LPT / 2; ++q)
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(
+                       s + 8 * q),
+                   "l"(src + 2 * q));
+  }
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
 }  // namespace dtt

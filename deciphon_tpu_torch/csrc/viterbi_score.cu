@@ -33,12 +33,15 @@
 // Mapping.  The TPU ran positions as a sequential grid axis with W windows
 // on sublanes.  Here one CTA scans one real window, the position loop runs
 // inside the block, and the Kp lanes are split into consecutive chunks, one
-// per thread.  The 5-slot pending rings PM/PI (5 x Kp each) and the
-// previous delete row (11 * Kp f32, the body's `state`) live in shared
-// memory for B1, B3, B5 and B8 (44 * Kp bytes: 220 KB at Kp = 5120); the
-// special states and their pending rings live in registers, computed
-// redundantly by every thread, with ring slots made static by unrolling the
-// position loop into 5 phases (as the Pallas kernel does).
+// per thread.  Up to Kp 2048, B1, B3, B5 and B8 run the redesigned body
+// (score_window_fast): Kp / LPT threads of LPT lanes each (LPT 2 up to Kp
+// 512, 4 beyond), the 5-slot pending rings PM/PI, the 8 transition rows
+// and the staged emission rows of the next position in shared memory (23 *
+// Kp f32: 188 KB at Kp 2048), the special states in warp 0, ring slots made
+// static by unrolling the position loop into 5 phases (as the Pallas
+// kernel does).  Past Kp 2048 (up to 5120) they run score_window, the
+// first port's lane loop: the rings and the previous delete row in shared
+// memory (11 * Kp f32), 512 threads, the specials in every thread.
 //
 // Large K (B4).  Past Kp = 5120 the state no longer fits a CTA's 227 KB
 // (743 KB at Kp = 16896), so B4 runs the same body on the CTA's own slice
@@ -77,11 +80,23 @@
 // delete row), small (32, CW) = PSM.reshape(20) | SS[20:27] | zeros[27:32].
 //
 // What bounds it.  Each position reads 5 emission rows of Kp f32 (from
-// the (1364, Kp) table through L2) per window, far below L2 bandwidth;
-// the kernel is bound by latency per position: one lane shift, one
-// block-wide prefix min for the delete chain and one block-wide min for E,
-// each a __syncthreads round.  Enough windows (CTAs) must be in flight to
-// hide it; several windows per CTA and staged rows come in later work.
+// the (1364, Kp) table through L2) per window, far below L2 bandwidth, and
+// does 34 adds and mins a lane; the kernel is bound by latency per
+// position.  score_window spends it on six __syncthreads rounds (the
+// shift, the prefix min and E, each block-wide reduction two rounds with a
+// serial cross-warp loop), on codes and then emission rows loaded from
+// global memory at the head of every position, and on transition rows
+// re-read each position.  score_window_fast takes two rounds a position:
+// the shift and the delete chain's cross-warp carry share the first (each
+// warp's last lane hands its M on, and every warp rebuilds the first-lane
+// terms and combines the warp scans with one warp-wide load and a shuffle
+// scan), E's warp minima and the next position's inner hand-over share the
+// second; the next position's emission rows are copied (cp.async) while
+// the delete chain and E run, their codes fetched a position earlier; the
+// special states are warp 0's, so the other warps skip them.  On one H100
+// (700 W), per position: B1 1.42 us at Kp 1024 (score_window 3.21) and
+// 2.30 us at Kp 2048 (7.39); B3 1.43 us at Kp 1024 (3.16).  Scores stay
+// latency-bound: hundreds of times their operation bound (PERF.md).
 //
 // Exactness.  Min-plus uses only adds and mins, so the body keeps the
 // Pallas f32 operation order: contrib = min(shift1(min(min(sm+MMs,
@@ -99,6 +114,14 @@ constexpr int kScoreThreads = 512;
 constexpr int kLargeThreads = 1024;  // B4: <= 17 lanes a thread at Kp 16896
 constexpr int kCW = 8;  // carry slots per pair (viterbi_pallas.CW)
 constexpr int kStatePlanes = 11;  // PM (5) | PI (5) | Dv (1), Kp f32 each
+// The redesigned body (score_window_fast) takes Kp up to kFastMaxKp, with
+// LPT 2 lanes a thread up to kLpt2MaxKp and LPT 4 beyond (Kp / LPT
+// threads); wider planes keep score_window's lane loop.
+constexpr int kFastMaxKp = 2048;
+constexpr int kLpt2MaxKp = 512;
+// its shared planes: PM (5) | PI (5) | transition rows (8) | staged
+// emission rows (5)
+constexpr int kFastPlanes = 23;
 
 // Carry planes of one (pair, slot): plane j of big at big + j * kCW * Kp,
 // plane j of small at sml + j * kCW.
@@ -310,6 +333,357 @@ __device__ __forceinline__ void score_window(
   }
 }
 
+// The redesigned body of B1, B3, B5 and B8 (shared-memory state, Kp up to
+// kFastMaxKp): score_window's DP with blockDim.x * LPT == Kp.  Per
+// position: the pushes (own lanes only); the next position's emission
+// values fetched; the delete chain, whose warp scans, the M hand-over of
+// each warp's last lane and lane Kp-1's wrap share one barrier
+// (cross_warp_carry); then E and the next position's inner row, whose
+// warp minima and inner hand-over share the second.  Neighbour lanes cross
+// threads by shuffles inside a warp and through those two barriers between
+// warps, so a thread touches only its own lanes of the rings.  The next
+// position's emission rows are copied (cp.async) into a staging plane set
+// on the own lanes right after the pushes (a thread stages and reads only
+// its own lanes), their codes fetched a position earlier; the transition
+// rows sit in shared memory beside the rings.
+// `state` holds kFastPlanes * Kp f32.
+template <int LPT, bool kCarry>
+__device__ __forceinline__ void score_window_fast(
+    const float* __restrict__ table, const float* __restrict__ tv,
+    const float* __restrict__ xtp, int start, int len,
+    const int* __restrict__ codes, int Kp, int T, float* state, Carry cy,
+    float* alt, float* nul) {
+  __shared__ float xs[kMaxWarps];      // warp scans, first lane left out
+  __shared__ float xm[kMaxWarps + 1];  // M handed on by each warp's last lane
+  __shared__ float xe[kMaxWarps];      // warp minima of min(M, D)
+  __shared__ float xi[kMaxWarps + 1];  // next inner handed on likewise
+  __shared__ float xt[16];
+  // The special states are warp 0's: its lanes compute them identically
+  // and keep them here, the pending N/J/C/R rings and the specials of the
+  // previous position [S B N J C E R]; before the first barrier it hands
+  // N, J of the position to the other warps (njcr), which form B after
+  // the second.
+  __shared__ float sp[4][5], sst[7], njcr[2];
+  const float INF = inf_f();
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nw = blockDim.x >> 5;
+  const int k0 = tid * LPT;
+  const bool last = k0 + LPT == Kp;  // owns lane Kp-1 (lane 0's neighbour)
+  const int nb = warp == 0 ? kMaxWarps : warp - 1;  // hand-over slot
+  float* PM = state;         // [5][Kp] pending M
+  float* PI = PM + 5 * Kp;   // [5][Kp] pending I
+  float* TVs = PI + 5 * Kp;  // [8][Kp] transition rows
+  float* EMs = TVs + 8 * Kp; // [5][Kp] emission rows of the next position
+  const size_t cstride = (size_t)kCW * Kp;
+
+  // transition rows of the own lanes; MD and DDCUM of warp `lane`'s first
+  // lane for the cross-warp scan
+#pragma unroll
+  for (int q = 0; q < 8; ++q) {
+    float v[LPT];
+    ldg_chunk<LPT>(v, tv + q * Kp + k0);
+    st_chunk<LPT>(TVs + q * Kp + k0, v);
+  }
+  auto row = [&](int q, float* v) { ld_chunk<LPT>(v, TVs + q * Kp + k0); };
+  // MD and DDCUM of warp `lane`'s first lane, for the cross-warp carry
+  float md_w = INF, ddc_w = 0.f;
+  if (lane < nw) {
+    md_w = __ldg(tv + TV_MD * Kp + lane * 32 * LPT);
+    ddc_w = __ldg(tv + TV_DDCUM * Kp + lane * 32 * LPT);
+  }
+  if (tid < 13) xt[tid] = xtp[tid];
+
+  // B of the previous position (every thread); D of the previous
+  // position on the own lanes
+  float Bprev;
+  float Dp[LPT];
+  if (kCarry && cy.big_in != nullptr) {  // continue a segmented window
+#pragma unroll
+    for (int s = 0; s < 5; ++s) {
+      float v[LPT];
+      ldg_chunk<LPT>(v, cy.big_in + s * cstride + k0);
+      st_chunk<LPT>(PM + s * Kp + k0, v);
+      ldg_chunk<LPT>(v, cy.big_in + (5 + s) * cstride + k0);
+      st_chunk<LPT>(PI + s * Kp + k0, v);
+    }
+    ldg_chunk<LPT>(Dp, cy.big_in + 12 * cstride + k0);
+    if (warp == 0) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 5; ++j) sp[i][j] = cy.sml_in[(i * 5 + j) * kCW];
+#pragma unroll
+      for (int j = 0; j < 7; ++j) sst[j] = cy.sml_in[(20 + j) * kCW];
+    }
+    Bprev = cy.sml_in[21 * kCW];
+  } else {
+    float v[LPT];
+#pragma unroll
+    for (int j = 0; j < LPT; ++j) v[j] = Dp[j] = INF;
+#pragma unroll
+    for (int s = 0; s < 5; ++s) {
+      st_chunk<LPT>(PM + s * Kp + k0, v);
+      st_chunk<LPT>(PI + s * Kp + k0, v);
+    }
+    if (warp == 0) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 5; ++j) sp[i][j] = INF;
+      sst[0] = 0.f;
+      sst[1] = xtp[XT_SB];
+      sst[2] = sst[3] = sst[4] = sst[5] = INF;
+      sst[6] = -xtp[XT_RR];
+    }
+    Bprev = xtp[XT_SB];
+  }
+  // inner row of position 1 (M_0 and I_0 sit in ring slot 0) and its
+  // hand-over
+  float inn[LPT];
+  {
+    float Mp[LPT], Ip[LPT], mms[LPT], ims[LPT], dms[LPT];
+    ld_chunk<LPT>(Mp, PM + k0);
+    ld_chunk<LPT>(Ip, PI + k0);
+    row(TV_MMS, mms);
+    row(TV_IMS, ims);
+    row(TV_DMS, dms);
+#pragma unroll
+    for (int j = 0; j < LPT; ++j)
+      inn[j] = fminf(fminf(Mp[j] + mms[j], Ip[j] + ims[j]), Dp[j] + dms[j]);
+  }
+  float innb = __shfl_up_sync(kFull, inn[LPT - 1], 1);
+  if (lane == 31) xi[warp] = inn[LPT - 1];
+  if (last) xi[kMaxWarps] = inn[LPT - 1];
+
+  // emission rows of position 1 (staged), codes of position 2
+  // The next position's bg (lane Kp-1) values stay in registers; its nil
+  // (lane Kp-2) values and the codes of the position after it are loaded
+  // behind the first barrier and parked after the second in the warp's
+  // own copy (every lane stores the same values).
+  __shared__ float wst[kMaxWarps][15];
+  float* ws = wst[warp];  // nil of duration t at 4 + t, codes at 9 + t
+  float bgr[5], nlr[5];
+  int cn[5];
+  auto codes_of = [&](int l) {  // codes of the fragments starting at l
+    const int crow = min(start + l - 1, T - 1);
+#pragma unroll
+    for (int t = 0; t < 5; ++t) cn[t] = __ldg(codes + (size_t)crow * 5 + t);
+  };
+  auto fetch = [&]() {
+#pragma unroll
+    for (int t = 0; t < 5; ++t) {
+      const float* er = table + (size_t)cn[t] * Kp;
+      cp_chunk<LPT>(EMs + t * Kp + k0, er + k0);
+      bgr[t] = __ldg(er + Kp - 1);
+      nlr[t] = __ldg(er + Kp - 2);
+    }
+    cp_async_commit();
+  };
+  auto park = [&]() {
+#pragma unroll
+    for (int t = 0; t < 5; ++t) {
+      ws[5 + t] = nlr[t];
+      ws[10 + t] = __int_as_float(cn[t]);
+    }
+  };
+  codes_of(1);
+  fetch();
+  codes_of(2);
+  park();
+  __syncthreads();
+  if (lane == 0) innb = xi[nb];
+
+  for (int l0 = 0; l0 < len; l0 += 5) {
+#pragma unroll
+    for (int r = 0; r < 5; ++r) {
+      const int l = l0 + r + 1;  // l % 5 == (r + 1) % 5
+      if (l > len) break;
+
+      // -- push the contributions of state l-1 (own lanes) -------------
+      float Ml[LPT], Il[LPT];
+      {
+        float bm[LPT], ii[LPT], mi[LPT], contrib[LPT], icand[LPT];
+        float Mp[LPT], Ip[LPT];  // M_{l-1} and I_{l-1}: ring slot r
+        ld_chunk<LPT>(Mp, PM + r * Kp + k0);
+        ld_chunk<LPT>(Ip, PI + r * Kp + k0);
+        row(TV_BM, bm);
+        row(TV_II, ii);
+        row(TV_MI, mi);
+#pragma unroll
+        for (int j = 0; j < LPT; ++j) {
+          contrib[j] = fminf(j == 0 ? innb : inn[j - 1], Bprev + bm[j]);
+          icand[j] = fminf(Ip[j] + ii[j], Mp[j] + mi[j]);
+        }
+        cp_async_wait();  // this position's emission rows
+#pragma unroll
+        for (int t = 1; t <= 5; ++t) {
+          const int st = (r + t) % 5;  // (l-1+t) % 5
+          float* pm = PM + st * Kp + k0;
+          float* pi = PI + st * Kp + k0;
+          float em[LPT], vm[LPT], vi[LPT];
+          ld_chunk<LPT>(em, EMs + (t - 1) * Kp + k0);
+          if (t == 5) {  // slot consumed at l-1: fresh assignment
+#pragma unroll
+            for (int j = 0; j < LPT; ++j) {
+              vm[j] = contrib[j] + em[j];
+              vi[j] = icand[j] + bgr[4];
+            }
+          } else {
+            ld_chunk<LPT>(vm, pm);
+            ld_chunk<LPT>(vi, pi);
+#pragma unroll
+            for (int j = 0; j < LPT; ++j) {
+              vm[j] = fminf(vm[j], contrib[j] + em[j]);
+              vi[j] = fminf(vi[j], icand[j] + bgr[t - 1]);
+            }
+          }
+          st_chunk<LPT>(pm, vm);
+          st_chunk<LPT>(pi, vi);
+          if (t == 1) {
+#pragma unroll
+            for (int j = 0; j < LPT; ++j) {
+              Ml[j] = vm[j];
+              Il[j] = vi[j];
+            }
+          }
+        }
+      }
+      const int slot = (r + 1) % 5;
+      if (warp == 0) {  // the pending specials, then N and J of l
+        const float cN = fminf(sst[0] + xt[XT_SN], sst[2] + xt[XT_NN]);
+        const float cJ = fminf(sst[5] + xt[XT_EJ], sst[3] + xt[XT_JJ]);
+        const float cC = fminf(sst[5] + xt[XT_EC], sst[4] + xt[XT_CC]);
+        const float cR = sst[6];
+#pragma unroll
+        for (int t = 1; t <= 5; ++t) {
+          const int st = (r + t) % 5;
+          const float nl = ws[4 + t];
+          if (t == 5) {
+            sp[0][st] = cN + nl;
+            sp[1][st] = cJ + nl;
+            sp[2][st] = cC + nl;
+            sp[3][st] = cR + nl;
+          } else {
+            sp[0][st] = fminf(sp[0][st], cN + nl);
+            sp[1][st] = fminf(sp[1][st], cJ + nl);
+            sp[2][st] = fminf(sp[2][st], cC + nl);
+            sp[3][st] = fminf(sp[3][st], cR + nl);
+          }
+        }
+        njcr[0] = sp[0][slot];
+        njcr[1] = sp[1][slot];
+      }
+      // this thread has read its lanes of this position's staged rows:
+      // stage l+1's (a thread stages and reads only its own lanes), then
+      // fetch the codes of l+2
+#pragma unroll
+      for (int t = 0; t < 5; ++t) cn[t] = __float_as_int(ws[10 + t]);
+      fetch();
+      codes_of(l + 2);
+
+      // -- consume position l: the delete chain (barrier 1) ------------
+      float md[LPT], ddc[LPT];
+      row(TV_MD, md);
+      row(TV_DDCUM, ddc);
+      const float mb = __shfl_up_sync(kFull, Ml[LPT - 1], 1);
+      float loc = INF;
+#pragma unroll
+      for (int j = 0; j < LPT; ++j) {
+        if (j == 0 && lane == 0) continue;  // its neighbour is another warp's
+        const float A = (j == 0 ? mb : Ml[j - 1]) + md[j];
+        loc = fminf(loc, A - ddc[j]);
+      }
+      const float incl = warp_incl_min(loc);
+      float run = __shfl_up_sync(kFull, incl, 1);
+      if (lane == 31) {
+        xs[warp] = incl;
+        xm[warp] = Ml[LPT - 1];
+      }
+      if (last) xm[kMaxWarps] = Ml[LPT - 1];
+      __syncthreads();
+      float xw;
+      const float before = cross_warp_carry(xs, xm, md_w, ddc_w, &xw);
+      const float N = njcr[0], J = njcr[1];
+      run = lane == 0 ? before : fminf(fminf(before, xw), run);
+      const float nbm = lane == 0 ? xm[nb] : mb;
+      float emin = INF;
+      {
+        float mms[LPT], ims[LPT], dms[LPT];
+        row(TV_MMS, mms);
+        row(TV_IMS, ims);
+        row(TV_DMS, dms);
+#pragma unroll
+        for (int j = 0; j < LPT; ++j) {
+          const float A = (j == 0 ? nbm : Ml[j - 1]) + md[j];
+          run = fminf(run, A - ddc[j]);
+          const float D = run + ddc[j];
+          emin = fminf(emin, fminf(Ml[j], D));
+          inn[j] = fminf(fminf(Ml[j] + mms[j], Il[j] + ims[j]), D + dms[j]);
+          if (kCarry) Dp[j] = D;
+        }
+        // the carry exports D_len: park it on the own lanes of the BM
+        // plane, which nothing reads after the last position's pushes
+        if (kCarry && l == len) st_chunk<LPT>(TVs + TV_BM * Kp + k0, Dp);
+      }
+      // -- E and the next inner hand-over (barrier 2) ------------------
+      emin = warp_min(emin);
+      const float ib = __shfl_up_sync(kFull, inn[LPT - 1], 1);
+      if (lane == 0) xe[warp] = emin;
+      if (lane == 31) xi[warp] = inn[LPT - 1];
+      if (last) xi[kMaxWarps] = inn[LPT - 1];
+      __syncthreads();
+      const float E = warp_min(lane < nw ? xe[lane] : INF);
+      innb = lane == 0 ? xi[nb] : ib;
+      park();
+
+      const float B = fminf(fminf(N + xt[XT_NB], E + xt[XT_EB]),
+                            J + xt[XT_JB]);
+      Bprev = B;
+      if (warp == 0) {
+        const float C = sp[2][slot];
+        const float R = sp[3][slot] + xt[XT_RR];
+        if (l == len && tid == 0) {
+          *alt = fminf(E + xt[XT_ET], C + xt[XT_CT]);
+          *nul = R;
+        }
+        sst[0] = INF;
+        sst[1] = B;
+        sst[2] = N;
+        sst[3] = J;
+        sst[4] = C;
+        sst[5] = E;
+        sst[6] = R;
+      }
+    }
+  }
+  if (kCarry && cy.big_out != nullptr) {
+    // every thread exports its lanes; M_len and I_len are ring slot
+    // len % 5, D_len the last delete row
+    const int lst = len % 5;
+    float v[LPT];
+#pragma unroll
+    for (int s = 0; s < 5; ++s) {
+      ld_chunk<LPT>(v, PM + s * Kp + k0);
+      st_chunk<LPT>(cy.big_out + s * cstride + k0, v);
+      if (s == lst) st_chunk<LPT>(cy.big_out + 10 * cstride + k0, v);
+      ld_chunk<LPT>(v, PI + s * Kp + k0);
+      st_chunk<LPT>(cy.big_out + (5 + s) * cstride + k0, v);
+      if (s == lst) st_chunk<LPT>(cy.big_out + 11 * cstride + k0, v);
+    }
+    ld_chunk<LPT>(v, TVs + TV_BM * Kp + k0);  // D_len
+    st_chunk<LPT>(cy.big_out + 12 * cstride + k0, v);
+    if (threadIdx.x == 0) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 5; ++j) cy.sml_out[(i * 5 + j) * kCW] = sp[i][j];
+#pragma unroll
+      for (int j = 0; j < 7; ++j) cy.sml_out[(20 + j) * kCW] = sst[j];
+      for (int j = 27; j < 32; ++j) cy.sml_out[j * kCW] = 0.f;
+    }
+  }
+}
+
 __device__ __forceinline__ void write_pad(float* alt, float* nul) {
   if (threadIdx.x == 0) {
     *alt = inf_f();
@@ -320,8 +694,9 @@ __device__ __forceinline__ void write_pad(float* alt, float* nul) {
 // B1 (kMixed false): blockIdx = (slot, pair), one profile per pair, pidx
 // (N,).  B5: one profile per (pair, slot), pidx (N, W); the slot's
 // transition rows are read in place (the reference gathers them per slot
-// beforehand).
-template <bool kMixed>
+// beforehand).  LPT > 0: the redesigned body at LPT lanes a thread; 0:
+// score_window's lane loop at `lpt` lanes.
+template <bool kMixed, int LPT>
 __global__ void __launch_bounds__(kScoreThreads) score_pairs_kernel(
     const int* __restrict__ pidx, const float* __restrict__ tables,
     const float* __restrict__ tvecs, const float* __restrict__ xts,
@@ -334,10 +709,15 @@ __global__ void __launch_bounds__(kScoreThreads) score_pairs_kernel(
   if (len <= 0) return write_pad(alt + sw, nul + sw);
   extern __shared__ float smem[];
   const int p = kMixed ? pidx[sw] : pidx[n];
-  score_window(tables + (size_t)p * kTableRows * Kp,
-               tvecs + (size_t)p * 8 * Kp, xts + (size_t)sw * 16,
-               starts[sw], len, codes, Kp, T, lpt, smem, Carry{}, alt + sw,
-               nul + sw);
+  const float* table = tables + (size_t)p * kTableRows * Kp;
+  const float* tv = tvecs + (size_t)p * 8 * Kp;
+  if constexpr (LPT > 0)
+    score_window_fast<LPT, false>(table, tv, xts + (size_t)sw * 16,
+                                  starts[sw], len, codes, Kp, T, smem,
+                                  Carry{}, alt + sw, nul + sw);
+  else
+    score_window(table, tv, xts + (size_t)sw * 16, starts[sw], len, codes,
+                 Kp, T, lpt, smem, Carry{}, alt + sw, nul + sw);
 }
 
 // B4 (kMixed false) and B4m: blockIdx = (slot, pair) as in B1 and B5; the
@@ -366,7 +746,7 @@ __global__ void __launch_bounds__(kLargeThreads, 1) score_large_kernel(
 
 // B3 (kCarry false) and B8: blockIdx = (slot * C + entry, pair); xtrans
 // rows from the per-scan LUT.  B8 reads and writes the carry planes.
-template <bool kCarry>
+template <bool kCarry, int LPT>
 __global__ void __launch_bounds__(kScoreThreads) score_chained_kernel(
     const int* __restrict__ pidx, const float* __restrict__ tables,
     const float* __restrict__ tvecs, const int* __restrict__ wlen,
@@ -394,30 +774,61 @@ __global__ void __launch_bounds__(kScoreThreads) score_chained_kernel(
   }
   extern __shared__ float smem[];
   const int p = pidx[n];
-  score_window(tables + (size_t)p * kTableRows * Kp,
-               tvecs + (size_t)p * 8 * Kp, lut + (size_t)xti[e] * 16,
-               gst[e], len, codes, Kp, T, lpt, smem, cy, alt + e, nul + e);
+  const float* table = tables + (size_t)p * kTableRows * Kp;
+  const float* tv = tvecs + (size_t)p * 8 * Kp;
+  if constexpr (LPT > 0)
+    score_window_fast<LPT, kCarry>(table, tv, lut + (size_t)xti[e] * 16,
+                                   gst[e], len, codes, Kp, T, smem, cy,
+                                   alt + e, nul + e);
+  else
+    score_window(table, tv, lut + (size_t)xti[e] * 16, gst[e], len, codes,
+                 Kp, T, lpt, smem, cy, alt + e, nul + e);
 }
 
-// Threads per CTA and lanes per thread for lane width Kp.
-void shape(int Kp, int* threads, int* lpt) {
-  *threads = Kp < kScoreThreads ? Kp : kScoreThreads;
-  *lpt = (Kp + *threads - 1) / *threads;
+// Lanes a thread of the redesigned body for lane width Kp; 0 past
+// kFastMaxKp (score_window's lane loop).
+int fast_lpt(int Kp) {
+  return Kp > kFastMaxKp ? 0 : Kp <= kLpt2MaxKp ? 2 : 4;
 }
 
-// Shared memory of one CTA for lane width Kp (the DP state).
-size_t smem_bytes(int Kp) {
-  return (size_t)kStatePlanes * Kp * sizeof(float);
-}
-
-template <typename K>
-cudaError_t allow_smem(K kernel, int Kp) {
-  return cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem_bytes(Kp));
+// Launch shape of one instance: threads per CTA, lanes a thread and the
+// dynamic shared memory (the DP state).
+template <int LPT>
+void shape(int Kp, int* threads, int* lpt, size_t* smem) {
+  if constexpr (LPT > 0) {
+    *threads = Kp / LPT;
+    *lpt = LPT;
+    *smem = (size_t)kFastPlanes * Kp * sizeof(float);
+  } else {
+    *threads = Kp < kScoreThreads ? Kp : kScoreThreads;
+    *lpt = (Kp + *threads - 1) / *threads;
+    *smem = (size_t)kStatePlanes * Kp * sizeof(float);
+  }
 }
 
 }  // namespace
+
+template <bool kMixed, int LPT>
+static int go_pairs(const void* pidx, const void* tables, const void* tvecs,
+                    const void* xts, const void* lens, const void* starts,
+                    const void* codes, void* alt, void* nul, int N, int W,
+                    int Kp, int T, void* stream) {
+  int threads, lpt;
+  size_t smem;
+  shape<LPT>(Kp, &threads, &lpt, &smem);
+  cudaError_t err = cudaFuncSetAttribute(
+      score_pairs_kernel<kMixed, LPT>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  if (N > 0 && W > 0) {
+    score_pairs_kernel<kMixed, LPT><<<dim3(W, N), threads, smem,
+                                      (cudaStream_t)stream>>>(
+        (const int*)pidx, (const float*)tables, (const float*)tvecs,
+        (const float*)xts, (const int*)lens, (const int*)starts,
+        (const int*)codes, (float*)alt, (float*)nul, W, Kp, T, lpt);
+  }
+  return (int)cudaGetLastError();
+}
 
 template <bool kMixed>
 static int launch_pairs(const void* pidx, const void* tables,
@@ -425,18 +836,17 @@ static int launch_pairs(const void* pidx, const void* tables,
                         const void* starts, const void* codes, void* alt,
                         void* nul, int N, int W, int Kp, int T,
                         void* stream) {
-  int threads, lpt;
-  shape(Kp, &threads, &lpt);
-  cudaError_t err = allow_smem(score_pairs_kernel<kMixed>, Kp);
-  if (err != cudaSuccess) return (int)err;
-  if (N > 0 && W > 0) {
-    score_pairs_kernel<kMixed><<<dim3(W, N), threads, smem_bytes(Kp),
-                                 (cudaStream_t)stream>>>(
-        (const int*)pidx, (const float*)tables, (const float*)tvecs,
-        (const float*)xts, (const int*)lens, (const int*)starts,
-        (const int*)codes, (float*)alt, (float*)nul, W, Kp, T, lpt);
+  switch (fast_lpt(Kp)) {
+    case 2:
+      return go_pairs<kMixed, 2>(pidx, tables, tvecs, xts, lens, starts,
+                                 codes, alt, nul, N, W, Kp, T, stream);
+    case 4:
+      return go_pairs<kMixed, 4>(pidx, tables, tvecs, xts, lens, starts,
+                                 codes, alt, nul, N, W, Kp, T, stream);
+    default:
+      return go_pairs<kMixed, 0>(pidx, tables, tvecs, xts, lens, starts,
+                                 codes, alt, nul, N, W, Kp, T, stream);
   }
-  return (int)cudaGetLastError();
 }
 
 // B1 and B5 share one signature; pidx is (N,) for B1 and (N, W) for B5.
@@ -456,6 +866,33 @@ extern "C" int dtt_score_mixed(
                             alt, nul, N, W, Kp, T, stream);
 }
 
+template <bool kCarry, int LPT>
+static int go_chained(const void* pidx, const void* tables,
+                      const void* tvecs, const void* wlen, const void* gst,
+                      const void* xti, const void* lut, const void* codes,
+                      const void* conts, const void* cbig_in,
+                      const void* csml_in, void* cbig_out, void* csml_out,
+                      void* alt, void* nul, int N, int W, int C, int Kp,
+                      int T, void* stream) {
+  int threads, lpt;
+  size_t smem;
+  shape<LPT>(Kp, &threads, &lpt, &smem);
+  cudaError_t err = cudaFuncSetAttribute(
+      score_chained_kernel<kCarry, LPT>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  if (N > 0 && W > 0 && C > 0) {
+    score_chained_kernel<kCarry, LPT><<<dim3(W * C, N), threads, smem,
+                                        (cudaStream_t)stream>>>(
+        (const int*)pidx, (const float*)tables, (const float*)tvecs,
+        (const int*)wlen, (const int*)gst, (const int*)xti,
+        (const float*)lut, (const int*)codes, (const int*)conts,
+        (const float*)cbig_in, (const float*)csml_in, (float*)cbig_out,
+        (float*)csml_out, (float*)alt, (float*)nul, W, C, Kp, T, lpt);
+  }
+  return (int)cudaGetLastError();
+}
+
 template <bool kCarry>
 static int launch_chained(const void* pidx, const void* tables,
                           const void* tvecs, const void* wlen,
@@ -465,20 +902,23 @@ static int launch_chained(const void* pidx, const void* tables,
                           void* cbig_out, void* csml_out, void* alt,
                           void* nul, int N, int W, int C, int Kp, int T,
                           void* stream) {
-  int threads, lpt;
-  shape(Kp, &threads, &lpt);
-  cudaError_t err = allow_smem(score_chained_kernel<kCarry>, Kp);
-  if (err != cudaSuccess) return (int)err;
-  if (N > 0 && W > 0 && C > 0) {
-    score_chained_kernel<kCarry><<<dim3(W * C, N), threads, smem_bytes(Kp),
-                           (cudaStream_t)stream>>>(
-        (const int*)pidx, (const float*)tables, (const float*)tvecs,
-        (const int*)wlen, (const int*)gst, (const int*)xti,
-        (const float*)lut, (const int*)codes, (const int*)conts,
-        (const float*)cbig_in, (const float*)csml_in, (float*)cbig_out,
-        (float*)csml_out, (float*)alt, (float*)nul, W, C, Kp, T, lpt);
+  switch (fast_lpt(Kp)) {
+    case 2:
+      return go_chained<kCarry, 2>(pidx, tables, tvecs, wlen, gst, xti, lut,
+                                   codes, conts, cbig_in, csml_in, cbig_out,
+                                   csml_out, alt, nul, N, W, C, Kp, T,
+                                   stream);
+    case 4:
+      return go_chained<kCarry, 4>(pidx, tables, tvecs, wlen, gst, xti, lut,
+                                   codes, conts, cbig_in, csml_in, cbig_out,
+                                   csml_out, alt, nul, N, W, C, Kp, T,
+                                   stream);
+    default:
+      return go_chained<kCarry, 0>(pidx, tables, tvecs, wlen, gst, xti, lut,
+                                   codes, conts, cbig_in, csml_in, cbig_out,
+                                   csml_out, alt, nul, N, W, C, Kp, T,
+                                   stream);
   }
-  return (int)cudaGetLastError();
 }
 
 extern "C" int dtt_score_chained(

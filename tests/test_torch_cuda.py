@@ -8,13 +8,16 @@ them without the repo's conftest:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
 from deciphon_tpu_torch.ops import traceback as tb
 from deciphon_tpu_torch.ops import viterbi as vk
-from deciphon_tpu_torch.ops.costs import build_costs
+from deciphon_tpu_torch.ops.costs import (CT_DD, CT_DDCUM, build_costs,
+                                         dd_cum_row)
 from deciphon_tpu_torch.ops.tables import stack_tables
 from deciphon_tpu_torch.profile import sample_profile
 from deciphon_tpu_torch.scan import pipeline as tp
@@ -36,9 +39,24 @@ def cuda():
     return torch.device("cuda")
 
 
-def inputs(dev, Ks, Kp, lens, seed):
+def tied(costs):
+    """The same profile with every emission and transition cost equal:
+    paths of one length tie, so the first-minimum order of the candidates
+    decides nearly every trellis word."""
+    core = costs.core.copy()
+    core[:8] = np.where(np.isfinite(core[:8]), np.float32(0.5), core[:8])
+    core[CT_DDCUM] = dd_cum_row(core[CT_DD])
+    return dataclasses.replace(
+        costs, core=core, match=np.full_like(costs.match, 2.0),
+        null=np.full_like(costs.null, 1.5),
+        background=np.full_like(costs.background, 1.5))
+
+
+def inputs(dev, Ks, Kp, lens, seed, ties=False):
     costs = [build_costs(sample_profile(seed + i, k)) for i, k in
              enumerate(Ks)]
+    if ties:
+        costs = [tied(c) for c in costs]
     tables, tvecs = (t.to(dev) for t in stack_tables(costs, Kp))
     lens = np.asarray(lens, np.int32)
     pidx = torch.tensor([i % len(Ks) for i in range(lens.shape[0])],
@@ -73,7 +91,7 @@ def test_large_kernel_bit_equal_to_plain(cuda, Kp):
     assert torch.isinf(alt[0, 2]) and torch.isfinite(alt[0, 0])
 
 
-@pytest.mark.parametrize("Kp", [1024, 5120])
+@pytest.mark.parametrize("Kp", [1024, 2048, 5120])
 def test_large_kernel_bit_equal_to_b1(cuda, Kp):
     lens = [[300, 1, 0, 45], [81, 0, 200, 0]]
     inp = inputs(cuda, [Kp - 2, 17], Kp, lens, seed=Kp + 5)
@@ -130,7 +148,7 @@ def test_mixed_kernel_bit_equal_to_plain(cuda, Kp):
     assert torch.equal(alt, pa) and torch.equal(nul, pn)
 
 
-@pytest.mark.parametrize("Kp", [128, 1024, 5120])
+@pytest.mark.parametrize("Kp", [128, 1024, 2048, 5120])
 def test_mixed_large_kernel_bit_equal_to_plain_and_b5(cuda, Kp):
     """B4m (the streamed gang) computes B5's function: bit-equal to the
     one plain version and to B5 on the same arguments."""
@@ -226,7 +244,7 @@ def test_grid_kernel_bit_equal_to_plain(cuda, Kp):
     assert torch.isinf(alt[:, 2]).all() and torch.isfinite(alt[:, 1]).all()
 
 
-@pytest.mark.parametrize("Kp", [1024, 5632])
+@pytest.mark.parametrize("Kp", [1024, 2048, 5632])
 def test_grid_kernel_bit_equal_to_b1(cuda, Kp):
     """B9 on every (profile, window) pair against the push form on the
     same pairs: B1, or B4 past its 5120 lanes."""
@@ -244,6 +262,69 @@ def test_grid_kernel_bit_equal_to_b1(cuda, Kp):
     a1, n1 = push(**pairs)
     torch.cuda.synchronize()
     assert torch.equal(alt, a1) and torch.equal(nul, n1)
+
+
+# The redesigned B1/B3/B5/B8 body and B2 choose lanes a thread by Kp band:
+# the score body 2 up to 512 and 4 up to 2048, B2 2 up to 1024 and 4 up to
+# 2048, the earlier lane loops past it (B2: past 2048 its 256-thread form,
+# past 2816 its global-scratch form).  Window lengths 1-12 cover every
+# phase of the 5-position unroll with the codes fetched two positions
+# ahead running past the window's end; 41 and 300 run many rounds.
+BAND_KPS = [128, 512, 640, 1024, 1152, 2048, 2176]
+SHORT_LENS = [[1, 2, 3, 4, 5, 6, 0, 300], [7, 8, 9, 10, 11, 12, 41, 0]]
+
+
+@pytest.mark.parametrize("ties", [False, True])
+@pytest.mark.parametrize("Kp", BAND_KPS)
+def test_score_bands_bit_equal_to_plain(cuda, Kp, ties):
+    inp = inputs(cuda, [Kp - 2, 17], Kp, SHORT_LENS, seed=Kp + 11, ties=ties)
+    alt, nul = vk.scores_pairs(**inp)
+    pa, pn = vk.scores_pairs_plain(**inp)
+    torch.cuda.synchronize()
+    assert torch.equal(alt, pa) and torch.equal(nul, pn)
+
+
+@pytest.mark.parametrize("ties", [False, True])
+@pytest.mark.parametrize("Kp", BAND_KPS + [2816])
+def test_path_bands_bit_equal_to_plain(cuda, Kp, ties):
+    """Every trellis word of windows of 1-12, 41 and 300 positions; with
+    `ties` on a profile whose candidates tie nearly everywhere, so the
+    first-minimum order decides the words."""
+    inp = inputs(cuda, [Kp - 2, 17], Kp, SHORT_LENS, seed=Kp + 13, ties=ties)
+    nlb = -(-300 // vk.PATH_KAPPA)
+    xn, nd = vk.paths_pairs(**inp, nlb=nlb)
+    px, pd = vk.paths_pairs_plain(**inp, nlb=nlb)
+    torch.cuda.synchronize()
+    for n, row in enumerate(SHORT_LENS):
+        for w, L in enumerate(row):
+            assert torch.equal(xn[n, w, :L], px[n, w, :L]), (n, w)
+            assert torch.equal(nd[n, w, :L], pd[n, w, :L]), (n, w)
+
+
+@pytest.mark.parametrize("Kp", [1152, 2048, 2176])
+def test_chained_mixed_carry_bands_bit_equal_to_plain(cuda, Kp):
+    """B3, B5 and B8 on the bands past the first (the earlier tests take
+    128, 1024 and 5120)."""
+    inp = chain_case(Kp, seed=Kp, device=cuda, lo=1, hi=60)
+    got = vk.scores_pairs_chained(**inp)
+    want = vk.scores_pairs_chained_plain(**inp)
+    inp = mixed_case(Kp, seed=Kp + 2, device=cuda, hi=300)
+    got += vk.scores_pairs_mixed(**inp)
+    want += vk.scores_pairs_mixed_plain(**inp)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    case = carry_case(Kp, seed=Kp + 3, device=cuda)
+    got = run_carry_calls(vk.scores_pairs_chained_carry, case)
+    want = run_carry_calls(vk.scores_pairs_chained_carry_plain, case)
+    torch.cuda.synchronize()
+    last = len(got) - 1
+    for t, (g, w) in enumerate(zip(got, want)):
+        for slot in ([0, 1] if t == last else [1]):
+            assert torch.equal(g[0][0, slot, 0], w[0][0, slot, 0]), (t, slot)
+            assert torch.equal(g[1][0, slot, 0], w[1][0, slot, 0]), (t, slot)
+        if t < last:  # the continuing slot's exported planes
+            assert torch.equal(g[2][:, :, 0], w[2][:, :, 0])
+            assert torch.equal(g[3][:, :, 0], w[3][:, :, 0])
 
 
 def test_kernels_raise_on_bad_launch(cuda):

@@ -1,6 +1,8 @@
 """Port parity: the B2 path kernel's plain version against the Pallas path
 kernel (interpret mode) and the viterbi_jax oracle, bit for bit."""
 
+import dataclasses
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -12,6 +14,7 @@ from deciphon_tpu.ops.viterbi_jax import viterbi_path_batch
 from deciphon_tpu.profile import sample_profile
 from deciphon_tpu.scan.sequence import frag_codes_ending
 from deciphon_tpu_torch.convert import costs_from_arrays
+from deciphon_tpu_torch.ops.costs import CT_DD, CT_DDCUM, dd_cum_row
 from deciphon_tpu_torch.ops import viterbi as vk
 from deciphon_tpu_torch.ops.tables import stack_tables
 from deciphon_tpu_torch.workload import window_batch
@@ -89,3 +92,40 @@ def test_paths_plain_bit_equal_to_viterbi_jax(Ks):
             kn = nd[n, w, :L, :c.K].numpy().astype(np.uint16)
             assert (kx == oxn[b, 1:L + 1]).all(), (n, w)
             assert (kn == ond[b, 1:L + 1, :c.K]).all(), (n, w)
+
+
+def tied(costs):
+    """The same profile with every emission and transition cost equal:
+    paths of one length tie, so the first-minimum order of the candidates
+    decides nearly every trellis word."""
+    core = costs.core.copy()
+    core[:8] = np.where(np.isfinite(core[:8]), np.float32(0.5), core[:8])
+    core[CT_DDCUM] = dd_cum_row(core[CT_DD])
+    return dataclasses.replace(
+        costs, core=core, match=np.full_like(costs.match, 2.0),
+        null=np.full_like(costs.null, 1.5),
+        background=np.full_like(costs.background, 1.5))
+
+
+def test_paths_plain_bit_equal_to_pallas_on_ties():
+    """A tie-heavy profile pins the candidate order (t 5..1, then BM, MM,
+    IM, DM and II, MI, first minimum kept) that the path kernel keeps."""
+    costs = [tied(costs_from_arrays(**vars(build_costs(sample_profile(
+        31 + i, k))))) for i, k in enumerate((9, 40))]
+    tables, tvecs = stack_tables(costs)
+    batch = window_batch(np.random.default_rng(31), LENS, "cpu")
+    inp = dict(pidx=torch.tensor([0, 1], dtype=torch.int32), tables=tables,
+               tvecs=tvecs, **batch)
+    nlb = -(-int(LENS.max()) // vk.PATH_KAPPA)
+    xn, nd = vk.paths_pairs(**inp, nlb=nlb)
+    args = [jnp.asarray(inp[k].numpy()) for k in
+            ("pidx", "tables", "tvecs", "xts", "lengths")]
+    rx, rd = vp.viterbi_paths_pairs(
+        *args, starts=jnp.asarray(inp["starts"].numpy()),
+        codes_all=jnp.asarray(inp["codes_all"].numpy()), nlb=nlb,
+        kappa=vk.PATH_KAPPA, interpret=True)
+    rx, rd = np.asarray(rx), np.asarray(rd)
+    for n, w in real_slots():
+        L = LENS[n, w]
+        assert np.array_equal(xn[n, w, :L].numpy(), rx[n, w, :L]), (n, w)
+        assert np.array_equal(nd[n, w, :L].numpy(), rd[n, w, :L]), (n, w)
