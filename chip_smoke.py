@@ -12,14 +12,17 @@ Phases, each reported on its own lines; any failure exits non-zero:
      per slot and an all-pad pair, timed beside B1 on the same windows),
      B5 gang (three profiles interleaved per slot), B8 carry (a 13-block
      window over 4 calls, equal to B1 on the whole window, a normal window
-     riding in a spare slot), B4m (the streamed gang: B5's function with
-     B4's state in a global scratch) against the plain version and against
-     B5 at Kp 512, 1024 and 5120, B6 packed (two packs, one with a missing
-     segment), B7 packed chain (once with the lists every segment shares,
-     once with lists that differ per segment), B2 path and the walk; the
-     large-K tier: B4 against its plain version at Kp 5632 and 16896 and
-     against B1 at Kp 1024 and 5120 (8 windows of <= 600 nt, one a pad),
-     B2 also at Kp 16896; the dense grid, B9, against its plain version
+     riding in a spare slot), B4m (the streamed gang: B5's function, on
+     B5's kernel up to Kp 2048 and on clusters past it) against the plain
+     version at Kp 512, 1024, 5120 and 16896 and against B5 up to 5120,
+     B6 packed (two packs, one with a missing segment), B7 packed chain
+     (once with the lists every segment shares, once with lists that
+     differ per segment), B2 path and the walk; the clustered kernels at
+     CLUSTER_KPS (2176 to 16896), each with its launch shape (c, w, lpt,
+     threads, shared bytes, clusters resident at once): B4 against its
+     plain version (8 windows of <= 600 nt, one a pad) and against B1 at
+     Kp 1024 and 5120, B2 against its plain version (3 windows of <= 300
+     nt, one a pad); the dense grid, B9, against its plain version
      and against B1 (B4 at Kp 5632) on the same (profile, window) pairs at
      Kp 128, 512, 1024 and 5632 (9 windows of <= 600 nt, a pad and a
      length-1 window among them), with both times per position;
@@ -43,8 +46,9 @@ Phases, each reported on its own lines; any failure exits non-zero:
      that ride the gang: first scan, one warm scan, one profiled; then one
      scan with DECIPHON_CHAIN_SEG=1 (carry segments, same products);
      then the large-K scan: six profiles of K 5200..16384 (three buckets
-     past Kp 5120, on B4) and six reads of 20 knt, three carrying planted
-     stretches: first scan, three warm scans, one profiled;
+     past Kp 5120, on B4's clusters, survivors on B2's) and six reads of
+     20 knt, three carrying planted stretches: first scan, three warm
+     scans, one profiled;
   5c. streamed tables: the Pfam scan with the table budget at half its
      table bytes (the largest scorers stream host->device per wave, the
      small buckets stay resident): first scan, three warm scans, one
@@ -60,8 +64,10 @@ Phases, each reported on its own lines; any failure exits non-zero:
      B2 with its walk from the Pfam scan and from the long-read scan, B6
      from the DECIPHON_NO_CHAIN=1 Pfam scan, B1, B3 and B5 from the
      long-read scan and every B8 call of its DECIPHON_CHAIN_SEG=1 scan,
-     B4 from the large-K scan and B2 with its walk from that scan's
-     narrowest bucket; per wrapper and scan the widest, longest launch, bit
+     B4 from the large-K scan, B2 on that scan's widest launch (the
+     largest cluster, over its first WIDEST_PATH_POSITIONS positions) and
+     with its walk on its narrowest bucket; per wrapper and scan the
+     widest, longest launch, bit
      for bit; the times and bounds of a kernel's last check go into the
      kernels line;
   7. the same code on the card and on the CPU (plain versions) on a
@@ -81,9 +87,10 @@ Phases, each reported on its own lines; any failure exits non-zero:
 Every scan path is run with the launch counts set to 0 just before and
 read just after; each kernel must have launched on its path.  The line
 before the last is a JSON object of per-kernel launches (summed over those
-runs), errors, times, times per DP position (of the longest slot), bounds
-and the ptxas registers and spills of each compiled instance (from the
-build's -Xptxas -v report); the last line is {"ok": true, "device":
+runs), errors, times, times per DP position (of the longest slot), bounds,
+the ptxas registers and spills of each compiled instance (from the
+build's -Xptxas -v report) and, for B4, B4m and B2, the launch shape at
+every lane width they ran; the last line is {"ok": true, "device":
 {...}}.  A kernel's bound is the least time the card could take for the
 work of the measured call: the larger of its f32 add/min operations on
 true profile nodes over the card's non-tensor f32 peak, and the bytes it
@@ -147,10 +154,18 @@ PEAK_BYTES = 3.35e12
 # are its excess over the bound, not part of it.  The per-position
 # special states are O(1) per window and left out.
 CELL_OPS = {"score": 34, "path": 98, "grid": 34}
+# lane widths at which phase 3 holds the clustered kernels (B4, B2) against
+# their plain versions: 2176, the first clustered width, and the large-K
+# buckets' and band widths of the card tests
+CLUSTER_KPS = (2176, 2816, 3072, 5376, 5632, 8704, 16896)
+# phase 6 holds B2 on the large-K scan's widest launch over the first this
+# many positions of its windows (a prefix: the trellis rows of positions
+# up to Lk do not depend on Lk), to bound its plain version's time
+WIDEST_PATH_POSITIONS = 2048
 
 
 # the kernels-line key each kernel instance serves, by its name and its
-# first bool template argument (pull_kernel's is its second)
+# first bool template argument
 INSTANCE_KEYS = {("score_pairs_kernel", "false"): "score",
                  ("score_pairs_kernel", "true"): "gang",
                  ("score_chained_kernel", "false"): "chain",
@@ -159,9 +174,9 @@ INSTANCE_KEYS = {("score_pairs_kernel", "false"): "score",
                  ("score_large_kernel", "true"): "gang_large",
                  ("score_packed_chained_kernel", None): "pchain",
                  ("score_packed_kernel", None): "packed",
-                 ("path_kernel", None): "path",
-                 ("pull_kernel", "true"): "path",
-                 ("pull_kernel", "false"): "grid",
+                 ("path_kernel", "false"): "path",
+                 ("path_kernel", "true"): "path",
+                 ("pull_kernel", None): "grid",
                  ("walk_kernel", None): "walk"}
 
 
@@ -512,10 +527,13 @@ def check_kernels(torch, report) -> None:
             score_bound(torch, report, "pchain", inp, (ka, kn))
 
     trellis = None
-    for Kp, lo, hi, w in ((256, 200, 2000, 8), (3200, 100, 300, 2),
-                          (16896, 40, 150, 4)):
+    for Kp, lo, hi, w in ((256, 200, 2000, 8),
+                          *((Kp, 40, 300, 3) for Kp in CLUSTER_KPS)):
         inp, maxlen = score_inputs(Kp, w, 1, lo, hi, seed=30 + Kp,
                                    device="cuda")
+        if Kp > 2048:
+            inp["lengths"][:, -1] = 0  # a pad among the clustered windows
+            maxlen = int(inp["lengths"].max())
         nlb = -(-maxlen // vk.PATH_KAPPA)
         kx, kd = vk.paths_pairs(**inp, nlb=nlb)
         torch.cuda.synchronize()
@@ -527,13 +545,17 @@ def check_kernels(torch, report) -> None:
         lens = inp["lengths"].reshape(-1).tolist()
         exact, err = True, 0
         for i, n in enumerate(lens):
+            if n == 0:  # a pad: no row is written
+                continue
             a, b = kx[0, i, :n], px[0, i, :n]
             c, d = kd[0, i, :n], pd[0, i, :n]
             exact &= torch.equal(a, b) and torch.equal(c, d)
             err = max(err, int((a - b).abs().max()), int((c - d).abs().max()))
-        say("B2", f"Kp={Kp} {w} windows <= {maxlen} nt: bit-equal {exact}, "
+        pad = " (the last a pad)" if Kp > 2048 else ""
+        say("B2", f"Kp={Kp} {w} windows <= {maxlen} nt{pad}: bit-equal "
+            f"{exact}, "
             f"kernel {k_ms:.3f} ms ({k_ms * 1e3 / maxlen:.3f} us/position), "
-            f"plain {p_ms:.1f} ms")
+            f"plain {p_ms:.1f} ms; {shape_note(vk, 'path', Kp)}")
         check(exact, f"B2 Kp={Kp} differs from plain")
         if trellis is None:
             report["path"].update(max_abs_err=float(err), ms=k_ms,
@@ -585,24 +607,39 @@ def check_kernels(torch, report) -> None:
     check_large(torch, report)
 
 
+def shape_note(vk, key: str, Kp: int) -> str:
+    """The launch shape a clustered wrapper last used at lane width Kp."""
+    s = vk.SHAPES[(key, Kp)]
+    note = (f"c={s['c']} w={s['w']} lpt={s['lpt']} threads={s['threads']} "
+            f"smem={s['smem']} B")
+    if s["c"] > 1:
+        note += f", {s['active']} clusters resident at once"
+    return note
+
+
 def check_mixed_large(torch, report) -> None:
     """Phase 3, B4m: 2 x 16 slots over three profiles (a different one in
-    neighbouring slots, one pad per pair) at Kp 512, 1024 and 5120, against
-    the one plain version of the gang's function and against B5 on the
-    same arguments, bit for bit, with both kernels' times; the bound
-    counts 34 operations a cell, as for B1 and B4."""
+    neighbouring slots, one pad per pair) at Kp 512, 1024 (one CTA a
+    window: B5's kernel), 5120 and 16896 (clusters), against the one plain
+    version of the gang's function and, where B5 takes the width, against
+    B5 on the same arguments, bit for bit, with both kernels' times; the
+    bound counts 34 operations a cell, as for B1 and B4."""
     from deciphon_tpu_torch.ops import viterbi as vk
     from deciphon_tpu_torch.workload import mixed_case
 
-    for Kp, hi in ((512, 2000), (1024, 2000), (5120, 600)):
+    for Kp, hi in ((512, 2000), (1024, 2000), (5120, 600), (16896, 300)):
         inp = mixed_case(Kp, seed=150 + Kp, device="cuda", w=16, hi=hi)
         (ka, kn), (pa, pn), k_ms, p_ms = kernel_vs_plain(
             torch, vk.scores_pairs_mixed_large, vk.scores_pairs_mixed_plain,
             inp)
         exact = torch.equal(ka, pa) and torch.equal(kn, pn)
-        ba, bn = vk.scores_pairs_mixed(**inp)
-        b5_ms = cuda_ms(torch, lambda: vk.scores_pairs_mixed(**inp), 5)
-        same = torch.equal(ka, ba) and torch.equal(kn, bn)
+        b5 = "B5 does not take this width"
+        same = True
+        if Kp <= vk.MAX_KP:
+            ba, bn = vk.scores_pairs_mixed(**inp)
+            b5_ms = cuda_ms(torch, lambda: vk.scores_pairs_mixed(**inp), 5)
+            same = torch.equal(ka, ba) and torch.equal(kn, bn)
+            b5 = f"B5 {b5_ms:.3f} ms, bit-equal to B5 {same}"
         pads = bool(torch.isinf(ka[:, -1]).all()
                     and torch.isfinite(ka[:, :-1]).all())
         L = int(inp["lengths"].max())
@@ -610,28 +647,28 @@ def check_mixed_large(torch, report) -> None:
                                     ms=k_ms, plain_ms=p_ms)
         score_bound(torch, report, "gang_large", inp, (ka, kn))
         say("B4m", f"Kp={Kp} 2x16 slots over 3 profiles, windows <= {L} "
-            f"nt: bit-equal to plain {exact}, to B5 {same}, pads +inf "
-            f"{pads}; B4m {k_ms:.3f} ms ({k_ms * 1e3 / L:.3f} us/position), "
-            f"B5 {b5_ms:.3f} ms, plain {p_ms:.1f} ms; bound "
+            f"nt: bit-equal to plain {exact}, pads +inf {pads}; B4m "
+            f"{k_ms:.3f} ms ({k_ms * 1e3 / L:.3f} us/position), {b5}, plain "
+            f"{p_ms:.1f} ms; bound "
             f"{report['gang_large']['bound_ms']:.6f} ms "
-            f"({report['gang_large']['bound_by']}); scratch "
-            f"{32 * 11 * Kp * 4 / 1e6:.3f} MB")
+            f"({report['gang_large']['bound_by']}); "
+            f"{shape_note(vk, 'gang_large', Kp)}")
         check(exact and same and pads, f"B4m Kp={Kp} differs")
 
 
 def check_large(torch, report) -> None:
     """Phase 3, the large-K tier: B4 on 8 windows of <= 600 nt (the last a
-    pad) against its plain version at Kp 5632 and 16896 and against B1 at
-    Kp 1024 and 5120 (B2 at Kp 16896 is checked with the other B2
-    cases)."""
+    pad) against B1 at Kp 1024 (one CTA a window) and 5120 (a cluster; B1
+    there is the lane loop), and against its plain version on clusters at
+    CLUSTER_KPS (B2 at those widths is checked with the other B2 cases)."""
     from deciphon_tpu_torch.ops import viterbi as vk
     from deciphon_tpu_torch.workload import score_inputs
 
-    for Kp in (1024, 5120, 5632, 16896):
+    for Kp in (1024, 5120, *CLUSTER_KPS):
         inp, maxlen = score_inputs(Kp, 8, 1, 100, 600, seed=90 + Kp,
                                    device="cuda")
         inp["lengths"][:, -1] = 0
-        if Kp <= vk.MAX_KP:
+        if Kp in (1024, 5120):
             a1, n1 = vk.scores_pairs(**inp)
             a4, n4 = vk.scores_pairs_large(**inp)
             torch.cuda.synchronize()
@@ -641,7 +678,8 @@ def check_large(torch, report) -> None:
             say("B4", f"Kp={Kp} 7 windows <= {maxlen} nt + 1 pad: equal to "
                 f"B1 bit for bit {same}; B4 {b4_ms:.3f} ms "
                 f"({b4_ms * 1e3 / maxlen:.3f} us/position), B1 "
-                f"{b1_ms:.3f} ms ({b1_ms * 1e3 / maxlen:.3f} us/position)")
+                f"{b1_ms:.3f} ms ({b1_ms * 1e3 / maxlen:.3f} us/position); "
+                f"{shape_note(vk, 'large', Kp)}")
             check(same, f"B4 differs from B1 at Kp={Kp}")
             continue
         (ka, kn), (pa, pn), k_ms, p_ms = kernel_vs_plain(
@@ -652,9 +690,9 @@ def check_large(torch, report) -> None:
         say("B4", f"Kp={Kp} 7 windows <= {maxlen} nt + 1 pad: bit-equal "
             f"{exact}, pad +inf and real slots finite {pads}; kernel "
             f"{k_ms:.3f} ms ({k_ms * 1e3 / maxlen:.3f} us/position), plain "
-            f"{p_ms:.1f} ms; scratch {8 * 11 * Kp * 4 / 1e6:.3f} MB "
-            f"({11 * Kp * 4 / 1e3:.1f} KB per window)")
+            f"{p_ms:.1f} ms; {shape_note(vk, 'large', Kp)}")
         check(exact and pads, f"B4 Kp={Kp} differs from plain")
+        check(vk.SHAPES[("large", Kp)]["c"] > 1, f"B4 Kp={Kp} not clustered")
         report["large"].update(max_abs_err=max_err(torch, ka, pa), ms=k_ms,
                                plain_ms=p_ms)
         score_bound(torch, report, "large", inp, (ka, kn))
@@ -882,13 +920,8 @@ def check_main_shapes(torch, report, pfam_calls, nochain_calls, long_calls,
             f"{p_ms:.1f} ms")
         check(exact, f"{key} differs from plain at the {scan} scan's shapes")
         if key == "large":
-            N, W = lens.shape[:2]
             Kp = args["tables"].shape[2]
-            say("main", f"large: that launch holds a scratch of "
-                f"{N * W * 11 * Kp * 4 / 1e6:.3f} MB ({N * W} slots of "
-                f"{11 * Kp * 4 / 1e3:.1f} KB), "
-                f"{int((lens > 0).sum()) * 11 * Kp * 4 / 1e6:.3f} MB of it "
-                "for its real windows, against the card's 50 MB of L2")
+            say("main", f"large: that launch's shape {shape_note(vk, key, Kp)}")
         record(report, key, max(max_err(torch, a, b) for a, b in zip(out, want)),
                k_ms, p_ms, span(args))
         score_bound(torch, report, key, args, out)
@@ -929,22 +962,29 @@ def check_main_shapes(torch, report, pfam_calls, nochain_calls, long_calls,
 
     for scan, calls in (("Pfam", pfam_calls), ("long-read", long_calls)):
         check_path_shapes(torch, report, scan, calls)
+    check_path_shapes(torch, report, "large-K", big_calls,
+                      positions=WIDEST_PATH_POSITIONS)
     check_path_shapes(torch, report, "large-K", big_calls, narrowest=True)
 
 
 def check_path_shapes(torch, report, scan: str, calls,
-                      narrowest: bool = False) -> None:
+                      narrowest: bool = False,
+                      positions: int | None = None) -> None:
     """B2 against its plain version on the widest (or narrowest), longest
     path launch a captured scan recorded, and the walk of that launch's
-    survivors as the scheduler launches it."""
+    survivors as the scheduler launches it.  With `positions`, both run the
+    launch's first `positions` positions only (a smaller nlb) and the walk
+    is left out."""
     from deciphon_tpu_torch.ops import traceback as tb
     from deciphon_tpu_torch.ops import viterbi as vk
 
     calls = calls["paths_pairs"]
     i, args = widest(calls, "path", narrowest)
+    if positions is not None:
+        args = dict(args, nlb=min(args["nlb"], -(-positions // vk.PATH_KAPPA)))
     (kx, kd), (px, pd), k_ms, p_ms = kernel_vs_plain(
         torch, vk.paths_pairs, vk.paths_pairs_plain, args, reps=1)
-    lens = args["lengths"][..., 0]
+    lens = args["lengths"][..., 0].clamp(max=kx.shape[2])
     N, W = lens.shape
     Lk, Kp = kx.shape[2], args["tables"].shape[2]
     real = torch.nonzero(lens.reshape(-1) > 0)[:, 0]
@@ -955,17 +995,21 @@ def check_path_shapes(torch, report, scan: str, calls,
                                                      pd[n, w, :L])):
             exact &= torch.equal(a, b)
             err = max(err, int((a - b).abs().max()))
+    run = int(lens.max())
     say("main", f"path: {scan} scan, launch {i + 1} of {len(calls)}, "
         f"Kp={Kp}, slots {(N, W)}, {real.numel()} windows, longest "
-        f"{span(args)} "
-        f"positions: bit-equal {exact}, kernel {k_ms:.3f} ms, plain "
-        f"{p_ms:.1f} ms")
+        f"{span(args)} positions"
+        + (f", its first {run} run" if run < span(args) else "")
+        + f": bit-equal {exact}, kernel {k_ms:.3f} ms, plain {p_ms:.1f} ms; "
+        f"{shape_note(vk, 'path', Kp)}")
     check(exact, f"path differs from plain at the {scan} scan's shapes")
-    record(report, "path", float(err), k_ms, p_ms, span(args))
-    path_bound(torch, report, args, kx)
+    record(report, "path", float(err), k_ms, p_ms, run)
+    path_bound(torch, report, dict(args, lengths=lens[..., None]), kx)
     say("main", f"path: that launch {report['path']['us_per_position']:.3f} "
         f"us/position, bound {report['path']['bound_ms']:.6f} ms "
         f"({report['path']['bound_by']})")
+    if positions is not None:
+        return
 
     # the walk of those survivors, as the scheduler launches it
     xnf, ndf = kx.reshape(N * W, Lk), kd.reshape(N * W, Lk, Kp)
@@ -1255,6 +1299,14 @@ def largek_scan(torch, launches: dict):
         "on the card")
     first, big_lines = big.counted(launches, ("large", "path", "walk"))
     say("largek", f"first scan of these tables (cold): {first:.6f} s")
+    from deciphon_tpu_torch.ops import viterbi as vk
+
+    for (key, Kp), _ in sorted(vk.SHAPES.items()):
+        if key in ("large", "path") and Kp in {s.Kp for s in bscorers}:
+            say("largek", f"{key} at Kp {Kp}: {shape_note(vk, key, Kp)}")
+        check(key not in ("large", "path") or Kp not in {
+            s.Kp for s in bscorers} or vk.SHAPES[(key, Kp)]["c"] > 1,
+            f"{key} at Kp {Kp} did not run on a cluster")
     hit_reads = {int(ln.split("\t")[0]) for ln in big_lines[1:]}
     say("largek", f"products on reads {sorted(hit_reads)}")
     check({0, 1, 2} <= hit_reads, "no products on a planted large-K read")
@@ -1605,6 +1657,9 @@ def main() -> None:
                if m.split(".")[0] in ("jax", "deciphon_tpu")],
           "jax or deciphon_tpu was imported")
 
+    for k in ("large", "gang_large", "path"):  # the clustered wrappers
+        report[k]["shapes"] = {str(Kp): sh for (key, Kp), sh
+                               in sorted(vk.SHAPES.items()) if key == k}
     for k, r in report.items():
         r["launches"] = launches.get(k, 0)
         check(r["launches"] > 0, f"kernel {k} never launched on a scan path")

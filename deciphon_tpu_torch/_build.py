@@ -40,6 +40,7 @@ NVCC_FLAGS = [
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_IP = ctypes.POINTER(ctypes.c_int)
 # exported C functions and their argument types (pointers and the stream
 # as void*, counts as int)
 SIGNATURES = {
@@ -47,14 +48,15 @@ SIGNATURES = {
                         _I, _I, _I, _I, _P],
     "dtt_score_mixed": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                         _I, _I, _I, _I, _P],
-    "dtt_score_pairs_large": [_P] * 10 + [_I] * 4 + [_P],
-    "dtt_score_mixed_large": [_P] * 10 + [_I] * 4 + [_P],
+    # B4, B4m and B2 end with the launch shape (c, w, lpt, threads, smem),
+    # an int* for the resident clusters and the stream
+    "dtt_score_pairs_large": [_P] * 9 + [_I] * 9 + [_IP, _P],
+    "dtt_score_mixed_large": [_P] * 9 + [_I] * 9 + [_IP, _P],
     "dtt_score_chained": [_P] * 10 + [_I] * 5 + [_P],
     "dtt_score_chained_carry": [_P] * 15 + [_I] * 5 + [_P],
     "dtt_score_packed": [_P] * 9 + [_I] * 5 + [_P],
     "dtt_score_packed_chained": [_P] * 13 + [_I] * 7 + [_P],
-    "dtt_path_pairs": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                       _I, _I, _I, _I, _I, _P],
+    "dtt_path_pairs": [_P] * 9 + [_I] * 10 + [_IP, _P],
     "dtt_score_grid": [_P] * 9 + [_I] * 4 + [_P],
     "dtt_walk": [_P, _P, _P, _P, _P, _P, _P, _P,
                  _I, _I, _I, _I, _P],

@@ -6,6 +6,7 @@
 // scratch can be reused by the next call without a race.
 #pragma once
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 namespace dtt {
@@ -280,4 +281,129 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
+
+// ---- Thread-block clusters: the large-K forms of the bodies ------------
+//
+// A window too wide for one CTA's shared memory is split over a cluster of
+// c CTAs (c <= kMaxCluster, along x): rank r owns lanes [r * w, min((r + 1)
+// * w, Kp)), w = blockDim.x * LPT a multiple of 32 * LPT, so that only the
+// last rank has dead warps (every lane of a warp past Kp).  Per-warp
+// values cross CTAs through distributed shared memory (DSMEM) on cluster
+// barriers.
+
+constexpr int kMaxCluster = 16;
+
+__device__ __forceinline__ int cluster_rank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return (int)r;
+}
+
+__device__ __forceinline__ int cluster_size() {
+  unsigned n;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(n));
+  return (int)n;
+}
+
+// One barrier round over every thread of the cluster: shared-memory
+// writes before the arrive are released to the cluster, and acquired by
+// every thread past the wait (this CTA's own included).
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// `p`, an address in this CTA's shared memory, in CTA `rank`'s.
+template <typename T>
+__device__ __forceinline__ T* at_rank(T* p, int rank) {
+  return cooperative_groups::this_cluster().map_shared_rank(p, (unsigned)rank);
+}
+
+// Values cross CTAs by pushes: before a cluster barrier the owner of a
+// per-warp value stores it into the exchange array of every CTA that
+// needs it, at [its rank][its warp]; past the barrier each CTA reads its
+// own copy, so no remote load sits on the path from one barrier to the
+// next.
+
+// Store v at `slot` (an address in this CTA's shared memory) in CTA ranks
+// j0 .. j1 - 1.
+template <typename T>
+__device__ __forceinline__ void push(T* slot, T v, int j0, int j1) {
+  for (int j = j0; j < j1; ++j) *at_rank(slot, j) = v;
+}
+
+// Min of `m` and v[j][i] over ranks j < nr and warps i < nw (lane i reads
+// warp i's of each rank); every lane gets it.
+__device__ __forceinline__ float ranks_min(const float (*v)[kMaxWarps],
+                                           int nw, int nr, float m) {
+  const int lane = threadIdx.x & 31;
+  if (lane < nw) {
+#pragma unroll
+    for (int j = 0; j < kMaxCluster; ++j)
+      if (j < nr) m = fminf(m, v[j][lane]);
+  }
+  return warp_min(m);
+}
+
+// key_min over the pushed (value, key) pairs of every rank and this
+// lane's (bv, bk); every lane gets the result.
+__device__ __forceinline__ void ranks_key_min(const float (*v)[kMaxWarps],
+                                              const int (*k)[kMaxWarps],
+                                              int nw, int nr, float& bv,
+                                              int& bk) {
+  const int lane = threadIdx.x & 31;
+  if (lane < nw) {
+#pragma unroll
+    for (int j = 0; j < kMaxCluster; ++j) {
+      if (j >= nr) break;
+      const float x = v[j][lane];
+      const int y = k[j][lane];
+      if (x < bv || (x == bv && y < bk)) {
+        bv = x;
+        bk = y;
+      }
+    }
+  }
+  key_min(bv, bk);
+}
+
 }  // namespace dtt
+
+// Host side: launch `kernel` on `grid` in clusters of c CTAs along x,
+// after checking that at least one such cluster can be resident
+// (cudaOccupancyMaxActiveClusters; a cluster must fit in one GPC).
+// *active gets that count.  Returns a cudaError_t; a shape that cannot be
+// resident gives cudaErrorLaunchOutOfResources and is not launched.
+template <typename... KArgs, typename... Args>
+inline int dtt_launch_clusters(void (*kernel)(KArgs...), dim3 grid, int c,
+                               int threads, size_t smem, void* stream,
+                               int* active, Args... args) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = c;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(c, 1, 1);  // one cluster, for the residency query
+  cfg.blockDim = dim3(threads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = (cudaStream_t)stream;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  int n = 0;
+  err = cudaOccupancyMaxActiveClusters(&n, (void*)kernel, &cfg);
+  if (err != cudaSuccess) return (int)err;
+  if (active) *active = n;
+  if (n < 1) return (int)cudaErrorLaunchOutOfResources;
+  if (grid.x == 0 || grid.y == 0) return (int)cudaGetLastError();
+  cfg.gridDim = grid;
+  err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}

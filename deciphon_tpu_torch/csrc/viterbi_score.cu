@@ -17,8 +17,7 @@
 //                                (`_scores_pairs_hbm_core`,
 //                                `_gather_scores_pairs_hbm_jit`);
 //   dtt_score_mixed_large    B4m `_kernel_block_large` mixed=True, one
-//                                profile per slot with the state in a
-//                                global scratch: the gang of a scorer
+//                                profile per slot: the gang of a scorer
 //                                whose tables stream per wave
 //                                (`_scores_pairs_hbm_core`,
 //                                `_gather_scores_pairs_hbm_mixed_jit`).
@@ -43,26 +42,29 @@
 // first port's lane loop: the rings and the previous delete row in shared
 // memory (11 * Kp f32), 512 threads, the specials in every thread.
 //
-// Large K (B4).  Past Kp = 5120 the state no longer fits a CTA's 227 KB
-// (743 KB at Kp = 16896), so B4 runs the same body on the CTA's own slice
-// of a global scratch of (N * W, 11 * Kp) f32 that the wrapper allocates
-// per launch, 1024 threads per CTA (at most 17 lanes a thread).  The TPU
-// kernel launched once per 40-position block, gathered the block's emission
-// planes with XLA and carried its state through HBM between launches, all
-// because VMEM could not hold the table; here the body reads emission rows
-// from the table in place and one launch runs every window to its length.
-// The state is written and read by the block itself, so it is read through
-// plain pointers (never `const __restrict__` or __ldg, whose non-coherent
-// path does not see the block's writes) and __syncthreads orders it as it
-// does shared memory.  A launch's scratch stays in the 50 MB L2 only while
-// about 50 windows of Kp 16896 are in flight.
+// Large K (B4).  Past Kp 2048 a window's state (23 planes, 1.55 MB at Kp
+// 16896) no longer fits one CTA's 227 KB, so B4 gives a window a thread-
+// block cluster of c CTAs (up to 16, along x: grid (W * c, N)), each
+// holding w lanes of every plane in its own shared memory and running the
+// redesigned body on them; the hand-overs, the delete chain's carry and E
+// cross CTAs through distributed shared memory on the body's two barrier
+// rounds, now cluster barriers (see score_window_fast).  Up to Kp 2048 it
+// is c = 1 and B4 launches B1's kernel.  The shape (c, w, LPT, threads,
+// shared bytes) is ops/viterbi.py cluster_shape's, checked here, and a
+// launch first asks cudaOccupancyMaxActiveClusters whether one such
+// cluster can be resident (it must fit one GPC): if not it is refused.
+// The TPU kernel launched once per 40-position block, gathered the
+// block's emission planes with XLA and carried its state through HBM
+// between launches, all because VMEM could not hold the table; here the
+// body reads emission rows from the table in place and one launch runs
+// every window to its length, with no state in global memory.
 //
 // B4m is B4 with B5's profile per slot: the TPU ran it when a gang's table
 // stack did not fit VMEM or streamed in per wave.  On the card no table is
 // on-chip, so a resident gang stays on B5 at any stack size; a streamed
 // gang takes B4m as the reference's does.  Both compute B5's function, so
-// B4m equals B5 bit for bit; its scratch is N * W * 11 * Kp f32 (4.3 MB
-// for 96 windows at Kp 1024).
+// B4m equals B5 bit for bit; up to Kp 2048 (c = 1) it launches B5's
+// kernel.
 //
 // Chains (B3, B8).  The TPU chained windows back to back in one sublane
 // slot only to fill its sublane floor; each window restarts from its own
@@ -94,9 +96,12 @@
 // second; the next position's emission rows are copied (cp.async) while
 // the delete chain and E run, their codes fetched a position earlier; the
 // special states are warp 0's, so the other warps skip them.  On one H100
-// (700 W), per position: B1 1.42 us at Kp 1024 (score_window 3.21) and
-// 2.30 us at Kp 2048 (7.39); B3 1.43 us at Kp 1024 (3.16).  Scores stay
-// latency-bound: hundreds of times their operation bound (PERF.md).
+// 80GB HBM3 (700.00 W), per position: B1 1.42 us at Kp 1024 (score_window
+// 3.21) and 2.30 us at Kp 2048 (7.39); B3 1.43 us at Kp 1024 (3.16); B4
+// on clusters 7.79 us at Kp 16512 (12 windows in two waves of 7 resident
+// clusters; the global-state form 268), two cluster barriers taking 0.4-
+// 0.7 us each of it.  Scores stay latency-bound: hundreds of times their
+// operation bound (PERF.md).
 //
 // Exactness.  Min-plus uses only adds and mins, so the body keeps the
 // Pallas f32 operation order: contrib = min(shift1(min(min(sm+MMs,
@@ -111,7 +116,6 @@ namespace {
 using namespace dtt;
 
 constexpr int kScoreThreads = 512;
-constexpr int kLargeThreads = 1024;  // B4: <= 17 lanes a thread at Kp 16896
 constexpr int kCW = 8;  // carry slots per pair (viterbi_pallas.CW)
 constexpr int kStatePlanes = 11;  // PM (5) | PI (5) | Dv (1), Kp f32 each
 // The redesigned body (score_window_fast) takes Kp up to kFastMaxKp, with
@@ -132,10 +136,11 @@ struct Carry {
   float* sml_out = nullptr;
 };
 
-// The DP of one window: `len` positions of profile table/tv from code row
+// The first port's lane loop, kept for B1/B3/B5/B8 at 2048 < Kp <= 5120:
+// the DP of one window, `len` positions of profile table/tv from code row
 // `start`, (alt, null) written to *alt / *nul.  `state` holds the CTA's
-// kStatePlanes * Kp f32, in shared memory or in its global scratch slice.
-// Every thread of the CTA calls it; a length-0 window never gets here.
+// kStatePlanes * Kp f32 of shared memory.  Every thread of the CTA calls
+// it; a length-0 window never gets here.
 __device__ __forceinline__ void score_window(
     const float* __restrict__ table, const float* __restrict__ tv,
     const float* __restrict__ xtp, int start, int len,
@@ -334,29 +339,59 @@ __device__ __forceinline__ void score_window(
 }
 
 // The redesigned body of B1, B3, B5 and B8 (shared-memory state, Kp up to
-// kFastMaxKp): score_window's DP with blockDim.x * LPT == Kp.  Per
-// position: the pushes (own lanes only); the next position's emission
-// values fetched; the delete chain, whose warp scans, the M hand-over of
-// each warp's last lane and lane Kp-1's wrap share one barrier
-// (cross_warp_carry); then E and the next position's inner row, whose
-// warp minima and inner hand-over share the second.  Neighbour lanes cross
-// threads by shuffles inside a warp and through those two barriers between
-// warps, so a thread touches only its own lanes of the rings.  The next
-// position's emission rows are copied (cp.async) into a staging plane set
-// on the own lanes right after the pushes (a thread stages and reads only
-// its own lanes), their codes fetched a position earlier; the transition
-// rows sit in shared memory beside the rings.
-// `state` holds kFastPlanes * Kp f32.
-template <int LPT, bool kCarry>
+// kFastMaxKp) and, clustered, of B4 and B4m: score_window's DP with
+// blockDim.x * LPT == Kp (kClu false) or == w, this CTA's share of a
+// cluster (kClu true; common.cuh).  Per position: the pushes (own lanes
+// only); the next position's emission values fetched; the delete chain,
+// whose warp scans, the M hand-over of each warp's last lane and lane
+// Kp-1's wrap share one barrier (cross_warp_carry); then E and the next
+// position's inner row, whose warp minima and inner hand-over share the
+// second.  Neighbour lanes cross threads by shuffles inside a warp and
+// through those two barriers between warps, so a thread touches only its
+// own lanes of the rings.  The next position's emission rows are copied
+// (cp.async) into a staging plane set on the own lanes right after the
+// pushes (a thread stages and reads only its own lanes), their codes
+// fetched a position earlier; the transition rows sit in shared memory
+// beside the rings.  `state` holds kFastPlanes * (Kp or w) f32.
+//
+// Clustered, the two barriers are cluster barriers and values cross CTAs
+// by DSMEM pushes made before them (common.cuh): a warp's first lane takes
+// the M and inner row handed on by the previous warp, in the previous rank
+// for warp 0 (lane Kp-1's, in the last rank, for rank 0), which the
+// rank's last live lane pushes there.  The delete chain's carry into a
+// warp is the min of the wrap term x_0 = (M_{Kp-1} + MD_0) - DDCUM_0 and of
+// every earlier warp's term y, the min of its lanes' terms but its first
+// and of the term of the lane after its last one (which it computes with
+// the same f32 operations as the next lane's owner): that way the carry
+// counts each lane's term up to the warp's own first lane, and counting
+// that one twice changes no min.  A warp pushes y to its own rank and
+// every later one, and its min of min(M, D) to every rank: E is the min
+// over every warp of the cluster.  Every rank computes the specials
+// identically; rank 0 writes alt and null.  Exchange slots: round 1 fills
+// cly, cl1[0] and cl1[1], read only between the first and the second
+// barrier; round 2 fills cle and cl1[2], read only between the second
+// barrier and the next position's first; so a slot is rewritten only
+// after every rank has passed the barrier that follows its reads.  Dead
+// warps load nothing from global memory and push +inf; no live lane reads
+// a dead one (the shift reads the left neighbour, and lane Kp-1 is live).
+template <int LPT, bool kCarry, bool kClu>
 __device__ __forceinline__ void score_window_fast(
     const float* __restrict__ table, const float* __restrict__ tv,
     const float* __restrict__ xtp, int start, int len,
     const int* __restrict__ codes, int Kp, int T, float* state, Carry cy,
     float* alt, float* nul) {
+  static_assert(!(kCarry && kClu), "no carry on the clustered form");
   __shared__ float xs[kMaxWarps];      // warp scans, first lane left out
   __shared__ float xm[kMaxWarps + 1];  // M handed on by each warp's last lane
   __shared__ float xe[kMaxWarps];      // warp minima of min(M, D)
   __shared__ float xi[kMaxWarps + 1];  // next inner handed on likewise
+  // clustered exchange arrays, filled by pushes: the warps' terms y
+  // (round 1) and minima of min(M, D) (round 2) at [rank][warp]; the M
+  // (0) and inner row (2) handed on to this rank's warp 0, and the wrap
+  // term x_0 (1)
+  __shared__ float cly[kClu ? kMaxCluster : 1][kMaxWarps];
+  __shared__ float cle[kClu ? kMaxCluster : 1][kMaxWarps];
+  __shared__ float cl1[3];
   __shared__ float xt[16];
   // The special states are warp 0's: its lanes compute them identically
   // and keep them here, the pending N/J/C/R rings and the specials of the
@@ -367,27 +402,57 @@ __device__ __forceinline__ void score_window_fast(
   const float INF = inf_f();
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int nw = blockDim.x >> 5;
-  const int k0 = tid * LPT;
-  const bool last = k0 + LPT == Kp;  // owns lane Kp-1 (lane 0's neighbour)
+  const int P = kClu ? (int)blockDim.x * LPT : Kp;  // lanes of a plane here
+  const int rank = kClu ? cluster_rank() : 0;
+  const int nc = kClu ? cluster_size() : 1;
+  const int k0 = tid * LPT;      // first own lane in this CTA's planes
+  const int kg = rank * P + k0;  // ... and in the window's
+  const bool live = !kClu || rank * P + warp * 32 * LPT < Kp;
+  const bool last = kg + LPT == Kp;  // owns lane Kp-1 (lane 0's neighbour)
   const int nb = warp == 0 ? kMaxWarps : warp - 1;  // hand-over slot
-  float* PM = state;         // [5][Kp] pending M
-  float* PI = PM + 5 * Kp;   // [5][Kp] pending I
-  float* TVs = PI + 5 * Kp;  // [8][Kp] transition rows
-  float* EMs = TVs + 8 * Kp; // [5][Kp] emission rows of the next position
+  // clustered: owns this rank's last live lane, whose M and inner row go
+  // to the next rank's warp 0 (lane Kp-1's to rank 0)
+  const bool ends =
+      kClu && (last || (rank < nc - 1 && tid == (int)blockDim.x - 1));
+  const int nxt = last ? 0 : rank + 1;
+  float* PM = state;         // [5][P] pending M
+  float* PI = PM + 5 * P;    // [5][P] pending I
+  float* TVs = PI + 5 * P;   // [8][P] transition rows
+  float* EMs = TVs + 8 * P;  // [5][P] emission rows of the next position
   const size_t cstride = (size_t)kCW * Kp;
+  // the value handed on to this warp's first lane by the lane before it
+  // (clustered warp 0: pushed into cl1[h])
+  auto handed = [&](float* slots, int h) {
+    if constexpr (kClu) {
+      if (warp == 0) return cl1[h];
+    }
+    return slots[nb];
+  };
 
-  // transition rows of the own lanes; MD and DDCUM of warp `lane`'s first
-  // lane for the cross-warp scan
+  // transition rows of the own lanes
 #pragma unroll
   for (int q = 0; q < 8; ++q) {
     float v[LPT];
-    ldg_chunk<LPT>(v, tv + q * Kp + k0);
-    st_chunk<LPT>(TVs + q * Kp + k0, v);
+    if (live) {
+      ldg_chunk<LPT>(v, tv + q * Kp + kg);
+    } else {
+#pragma unroll
+      for (int j = 0; j < LPT; ++j) v[j] = INF;
+    }
+    st_chunk<LPT>(TVs + q * P + k0, v);
   }
-  auto row = [&](int q, float* v) { ld_chunk<LPT>(v, TVs + q * Kp + k0); };
-  // MD and DDCUM of warp `lane`'s first lane, for the cross-warp carry
+  auto row = [&](int q, float* v) { ld_chunk<LPT>(v, TVs + q * P + k0); };
+  // MD and DDCUM: of warp `lane`'s first lane, for the cross-warp carry;
+  // clustered, of the lane after this thread's last one (lane 0 after
+  // lane Kp-1), for the term a warp's last lane publishes
   float md_w = INF, ddc_w = 0.f;
-  if (lane < nw) {
+  if (kClu) {
+    if (lane == 31 && live) {
+      const int kn = last ? 0 : kg + LPT;
+      md_w = __ldg(tv + TV_MD * Kp + kn);
+      ddc_w = __ldg(tv + TV_DDCUM * Kp + kn);
+    }
+  } else if (lane < nw) {
     md_w = __ldg(tv + TV_MD * Kp + lane * 32 * LPT);
     ddc_w = __ldg(tv + TV_DDCUM * Kp + lane * 32 * LPT);
   }
@@ -402,9 +467,9 @@ __device__ __forceinline__ void score_window_fast(
     for (int s = 0; s < 5; ++s) {
       float v[LPT];
       ldg_chunk<LPT>(v, cy.big_in + s * cstride + k0);
-      st_chunk<LPT>(PM + s * Kp + k0, v);
+      st_chunk<LPT>(PM + s * P + k0, v);
       ldg_chunk<LPT>(v, cy.big_in + (5 + s) * cstride + k0);
-      st_chunk<LPT>(PI + s * Kp + k0, v);
+      st_chunk<LPT>(PI + s * P + k0, v);
     }
     ldg_chunk<LPT>(Dp, cy.big_in + 12 * cstride + k0);
     if (warp == 0) {
@@ -422,8 +487,8 @@ __device__ __forceinline__ void score_window_fast(
     for (int j = 0; j < LPT; ++j) v[j] = Dp[j] = INF;
 #pragma unroll
     for (int s = 0; s < 5; ++s) {
-      st_chunk<LPT>(PM + s * Kp + k0, v);
-      st_chunk<LPT>(PI + s * Kp + k0, v);
+      st_chunk<LPT>(PM + s * P + k0, v);
+      st_chunk<LPT>(PI + s * P + k0, v);
     }
     if (warp == 0) {
 #pragma unroll
@@ -454,6 +519,7 @@ __device__ __forceinline__ void score_window_fast(
   float innb = __shfl_up_sync(kFull, inn[LPT - 1], 1);
   if (lane == 31) xi[warp] = inn[LPT - 1];
   if (last) xi[kMaxWarps] = inn[LPT - 1];
+  if (kClu && tid == 0) cl1[2] = INF;  // no carry: the rows start at +inf
 
   // emission rows of position 1 (staged), codes of position 2
   // The next position's bg (lane Kp-1) values stay in registers; its nil
@@ -473,7 +539,7 @@ __device__ __forceinline__ void score_window_fast(
 #pragma unroll
     for (int t = 0; t < 5; ++t) {
       const float* er = table + (size_t)cn[t] * Kp;
-      cp_chunk<LPT>(EMs + t * Kp + k0, er + k0);
+      if (live) cp_chunk<LPT>(EMs + t * P + k0, er + kg);
       bgr[t] = __ldg(er + Kp - 1);
       nlr[t] = __ldg(er + Kp - 2);
     }
@@ -490,8 +556,11 @@ __device__ __forceinline__ void score_window_fast(
   fetch();
   codes_of(2);
   park();
-  __syncthreads();
-  if (lane == 0) innb = xi[nb];
+  if (kClu)
+    cluster_sync();  // also: every CTA of the cluster has started
+  else
+    __syncthreads();
+  if (lane == 0) innb = handed(xi, 2);
 
   for (int l0 = 0; l0 < len; l0 += 5) {
 #pragma unroll
@@ -504,8 +573,8 @@ __device__ __forceinline__ void score_window_fast(
       {
         float bm[LPT], ii[LPT], mi[LPT], contrib[LPT], icand[LPT];
         float Mp[LPT], Ip[LPT];  // M_{l-1} and I_{l-1}: ring slot r
-        ld_chunk<LPT>(Mp, PM + r * Kp + k0);
-        ld_chunk<LPT>(Ip, PI + r * Kp + k0);
+        ld_chunk<LPT>(Mp, PM + r * P + k0);
+        ld_chunk<LPT>(Ip, PI + r * P + k0);
         row(TV_BM, bm);
         row(TV_II, ii);
         row(TV_MI, mi);
@@ -518,10 +587,10 @@ __device__ __forceinline__ void score_window_fast(
 #pragma unroll
         for (int t = 1; t <= 5; ++t) {
           const int st = (r + t) % 5;  // (l-1+t) % 5
-          float* pm = PM + st * Kp + k0;
-          float* pi = PI + st * Kp + k0;
+          float* pm = PM + st * P + k0;
+          float* pi = PI + st * P + k0;
           float em[LPT], vm[LPT], vi[LPT];
-          ld_chunk<LPT>(em, EMs + (t - 1) * Kp + k0);
+          ld_chunk<LPT>(em, EMs + (t - 1) * P + k0);
           if (t == 5) {  // slot consumed at l-1: fresh assignment
 #pragma unroll
             for (int j = 0; j < LPT; ++j) {
@@ -595,17 +664,38 @@ __device__ __forceinline__ void score_window_fast(
       }
       const float incl = warp_incl_min(loc);
       float run = __shfl_up_sync(kFull, incl, 1);
-      if (lane == 31) {
+      if (kClu) {
+        if (lane == 31) {
+          // this warp's terms and the next lane's (lane 0's, the wrap,
+          // after lane Kp-1), to this rank and every later one
+          const float xn = (Ml[LPT - 1] + md_w) - ddc_w;
+          const float y = !live ? INF : last ? incl : fminf(incl, xn);
+          push(&cly[rank][warp], y, rank, nc);
+          xm[warp] = Ml[LPT - 1];
+          if (last) push(&cl1[1], xn, 0, nc);
+          if (ends) *at_rank(&cl1[0], nxt) = Ml[LPT - 1];
+        }
+      } else if (lane == 31) {
         xs[warp] = incl;
         xm[warp] = Ml[LPT - 1];
       }
       if (last) xm[kMaxWarps] = Ml[LPT - 1];
-      __syncthreads();
-      float xw;
-      const float before = cross_warp_carry(xs, xm, md_w, ddc_w, &xw);
+      if (kClu) {
+        cluster_sync();
+        // every term before this warp's first lane: the earlier warps of
+        // this rank, every warp of the earlier ranks, and the wrap
+        float bf = lane < warp ? cly[rank][lane] : INF;
+        bf = ranks_min(cly, nw, rank, bf);
+        bf = fminf(bf, cl1[1]);
+        run = lane == 0 ? bf : fminf(bf, run);
+      } else {
+        __syncthreads();
+        float xw;
+        const float before = cross_warp_carry(xs, xm, md_w, ddc_w, &xw);
+        run = lane == 0 ? before : fminf(fminf(before, xw), run);
+      }
       const float N = njcr[0], J = njcr[1];
-      run = lane == 0 ? before : fminf(fminf(before, xw), run);
-      const float nbm = lane == 0 ? xm[nb] : mb;
+      const float nbm = lane == 0 ? handed(xm, 0) : mb;
       float emin = INF;
       {
         float mms[LPT], ims[LPT], dms[LPT];
@@ -623,17 +713,28 @@ __device__ __forceinline__ void score_window_fast(
         }
         // the carry exports D_len: park it on the own lanes of the BM
         // plane, which nothing reads after the last position's pushes
-        if (kCarry && l == len) st_chunk<LPT>(TVs + TV_BM * Kp + k0, Dp);
+        if (kCarry && l == len) st_chunk<LPT>(TVs + TV_BM * P + k0, Dp);
       }
       // -- E and the next inner hand-over (barrier 2) ------------------
       emin = warp_min(emin);
       const float ib = __shfl_up_sync(kFull, inn[LPT - 1], 1);
-      if (lane == 0) xe[warp] = emin;
+      if (kClu) {
+        if (lane == 0) push(&cle[rank][warp], live ? emin : INF, 0, nc);
+        if (ends) *at_rank(&cl1[2], nxt) = inn[LPT - 1];
+      } else if (lane == 0) {
+        xe[warp] = emin;
+      }
       if (lane == 31) xi[warp] = inn[LPT - 1];
       if (last) xi[kMaxWarps] = inn[LPT - 1];
-      __syncthreads();
-      const float E = warp_min(lane < nw ? xe[lane] : INF);
-      innb = lane == 0 ? xi[nb] : ib;
+      float E;
+      if (kClu) {
+        cluster_sync();
+        E = ranks_min(cle, nw, nc, INF);
+      } else {
+        __syncthreads();
+        E = warp_min(lane < nw ? xe[lane] : INF);
+      }
+      innb = lane == 0 ? handed(xi, 2) : ib;
       park();
 
       const float B = fminf(fminf(N + xt[XT_NB], E + xt[XT_EB]),
@@ -642,7 +743,7 @@ __device__ __forceinline__ void score_window_fast(
       if (warp == 0) {
         const float C = sp[2][slot];
         const float R = sp[3][slot] + xt[XT_RR];
-        if (l == len && tid == 0) {
+        if (l == len && tid == 0 && rank == 0) {
           *alt = fminf(E + xt[XT_ET], C + xt[XT_CT]);
           *nul = R;
         }
@@ -656,6 +757,8 @@ __device__ __forceinline__ void score_window_fast(
       }
     }
   }
+  // no CTA leaves while another may still read its shared memory
+  if (kClu) cluster_sync();
   if (kCarry && cy.big_out != nullptr) {
     // every thread exports its lanes; M_len and I_len are ring slot
     // len % 5, D_len the last delete row
@@ -663,14 +766,14 @@ __device__ __forceinline__ void score_window_fast(
     float v[LPT];
 #pragma unroll
     for (int s = 0; s < 5; ++s) {
-      ld_chunk<LPT>(v, PM + s * Kp + k0);
+      ld_chunk<LPT>(v, PM + s * P + k0);
       st_chunk<LPT>(cy.big_out + s * cstride + k0, v);
       if (s == lst) st_chunk<LPT>(cy.big_out + 10 * cstride + k0, v);
-      ld_chunk<LPT>(v, PI + s * Kp + k0);
+      ld_chunk<LPT>(v, PI + s * P + k0);
       st_chunk<LPT>(cy.big_out + (5 + s) * cstride + k0, v);
       if (s == lst) st_chunk<LPT>(cy.big_out + 11 * cstride + k0, v);
     }
-    ld_chunk<LPT>(v, TVs + TV_BM * Kp + k0);  // D_len
+    ld_chunk<LPT>(v, TVs + TV_BM * P + k0);  // D_len
     st_chunk<LPT>(cy.big_out + 12 * cstride + k0, v);
     if (threadIdx.x == 0) {
 #pragma unroll
@@ -712,36 +815,40 @@ __global__ void __launch_bounds__(kScoreThreads) score_pairs_kernel(
   const float* table = tables + (size_t)p * kTableRows * Kp;
   const float* tv = tvecs + (size_t)p * 8 * Kp;
   if constexpr (LPT > 0)
-    score_window_fast<LPT, false>(table, tv, xts + (size_t)sw * 16,
-                                  starts[sw], len, codes, Kp, T, smem,
-                                  Carry{}, alt + sw, nul + sw);
+    score_window_fast<LPT, false, false>(
+        table, tv, xts + (size_t)sw * 16, starts[sw], len, codes, Kp, T, smem,
+        Carry{}, alt + sw, nul + sw);
   else
     score_window(table, tv, xts + (size_t)sw * 16, starts[sw], len, codes,
                  Kp, T, lpt, smem, Carry{}, alt + sw, nul + sw);
 }
 
-// B4 (kMixed false) and B4m: blockIdx = (slot, pair) as in B1 and B5; the
-// state lives in the CTA's slice of `scratch` (N * W, kStatePlanes * Kp)
-// f32, written and read by the block itself (so neither const nor
-// __restrict__).  B4m reads pidx (N, W) and each slot's table and
-// transition rows in place, as B5 does.
-template <bool kMixed>
-__global__ void __launch_bounds__(kLargeThreads, 1) score_large_kernel(
+// B4 (kMixed false) and B4m, clustered: blockIdx = (slot * c + rank, pair),
+// one window a cluster of c CTAs, each holding its w lanes of the state
+// in shared memory (kFastPlanes * w f32).  B4m reads pidx (N, W) and each
+// slot's table and transition rows in place, as B5 does.  A window of
+// length 0 leaves on every rank before the first cluster barrier (len is
+// the same on every rank); rank 0 writes its +inf.
+template <bool kMixed, int LPT>
+__global__ void __launch_bounds__(kScoreThreads) score_large_kernel(
     const int* __restrict__ pidx, const float* __restrict__ tables,
     const float* __restrict__ tvecs, const float* __restrict__ xts,
     const int* __restrict__ lens, const int* __restrict__ starts,
-    const int* __restrict__ codes, float* scratch, float* __restrict__ alt,
-    float* __restrict__ nul, int W, int Kp, int T, int lpt) {
-  const int n = blockIdx.y, w = blockIdx.x;
+    const int* __restrict__ codes, float* __restrict__ alt,
+    float* __restrict__ nul, int W, int Kp, int T) {
+  const int n = blockIdx.y, w = blockIdx.x / cluster_size();
   const int sw = n * W + w;
   const int len = lens[sw];
-  if (len <= 0) return write_pad(alt + sw, nul + sw);
+  if (len <= 0) {
+    if (cluster_rank() == 0) write_pad(alt + sw, nul + sw);
+    return;
+  }
+  extern __shared__ float smem[];
   const int p = kMixed ? pidx[sw] : pidx[n];
-  score_window(tables + (size_t)p * kTableRows * Kp,
-               tvecs + (size_t)p * 8 * Kp, xts + (size_t)sw * 16,
-               starts[sw], len, codes, Kp, T, lpt,
-               scratch + (size_t)sw * kStatePlanes * Kp, Carry{}, alt + sw,
-               nul + sw);
+  score_window_fast<LPT, false, true>(
+      tables + (size_t)p * kTableRows * Kp, tvecs + (size_t)p * 8 * Kp,
+      xts + (size_t)sw * 16, starts[sw], len, codes, Kp, T, smem, Carry{},
+      alt + sw, nul + sw);
 }
 
 // B3 (kCarry false) and B8: blockIdx = (slot * C + entry, pair); xtrans
@@ -777,9 +884,9 @@ __global__ void __launch_bounds__(kScoreThreads) score_chained_kernel(
   const float* table = tables + (size_t)p * kTableRows * Kp;
   const float* tv = tvecs + (size_t)p * 8 * Kp;
   if constexpr (LPT > 0)
-    score_window_fast<LPT, kCarry>(table, tv, lut + (size_t)xti[e] * 16,
-                                   gst[e], len, codes, Kp, T, smem, cy,
-                                   alt + e, nul + e);
+    score_window_fast<LPT, kCarry, false>(
+        table, tv, lut + (size_t)xti[e] * 16, gst[e], len, codes, Kp, T, smem,
+        cy, alt + e, nul + e);
   else
     score_window(table, tv, lut + (size_t)xti[e] * 16, gst[e], len, codes,
                  Kp, T, lpt, smem, cy, alt + e, nul + e);
@@ -942,41 +1049,56 @@ extern "C" int dtt_score_chained_carry(
                         nul, N, W, C, Kp, T, stream);
 }
 
+// B4 and B4m: the shape (c, w, lpt, threads, smem) comes from
+// ops/viterbi.py cluster_shape; c = 1 runs B1's (B5's) kernel, c > 1 the
+// clustered one.  *active gets the clusters that can be resident at once
+// (left as it is when c = 1); a shape that cannot run is refused, never
+// replaced.
 template <bool kMixed>
 static int launch_large(const void* pidx, const void* tables,
                         const void* tvecs, const void* xts, const void* lens,
-                        const void* starts, const void* codes, void* scratch,
-                        void* alt, void* nul, int N, int W, int Kp, int T,
+                        const void* starts, const void* codes, void* alt,
+                        void* nul, int N, int W, int Kp, int T, int c, int w,
+                        int lpt, int threads, int smem, int* active,
                         void* stream) {
-  const int threads = Kp < kLargeThreads ? Kp : kLargeThreads;
-  const int lpt = (Kp + threads - 1) / threads;
-  if (N > 0 && W > 0) {
-    score_large_kernel<kMixed><<<dim3(W, N), threads, 0,
-                                 (cudaStream_t)stream>>>(
-        (const int*)pidx, (const float*)tables, (const float*)tvecs,
-        (const float*)xts, (const int*)lens, (const int*)starts,
-        (const int*)codes, (float*)scratch, (float*)alt, (float*)nul, W, Kp,
-        T, lpt);
-  }
-  return (int)cudaGetLastError();
+  if (c < 1 || c > kMaxCluster || threads * lpt != w || threads % 32 ||
+      threads > kScoreThreads || (size_t)smem != (size_t)kFastPlanes * w * 4 ||
+      (size_t)c * w < (size_t)Kp || (size_t)(c - 1) * w >= (size_t)Kp ||
+      (c == 1 && lpt != fast_lpt(Kp)) || (c > 1 && lpt != 4))
+    return (int)cudaErrorInvalidValue;
+  if (c == 1)
+    return lpt == 2 ? go_pairs<kMixed, 2>(pidx, tables, tvecs, xts, lens,
+                                          starts, codes, alt, nul, N, W, Kp,
+                                          T, stream)
+                    : go_pairs<kMixed, 4>(pidx, tables, tvecs, xts, lens,
+                                          starts, codes, alt, nul, N, W, Kp,
+                                          T, stream);
+  return dtt_launch_clusters(
+      score_large_kernel<kMixed, 4>, dim3(W * c, N), c, threads, smem, stream,
+      active, (const int*)pidx, (const float*)tables, (const float*)tvecs,
+      (const float*)xts, (const int*)lens, (const int*)starts,
+      (const int*)codes, (float*)alt, (float*)nul, W, Kp, T);
 }
 
-// B4 and B4m: scratch is (N * W, 11 * Kp) f32 (ops/viterbi.py allocates
-// it); pidx is (N,) for B4 and (N, W) for B4m.
+// pidx is (N,) for B4 and (N, W) for B4m.
 extern "C" int dtt_score_pairs_large(
     const void* pidx, const void* tables, const void* tvecs, const void* xts,
-    const void* lens, const void* starts, const void* codes, void* scratch,
-    void* alt, void* nul, int N, int W, int Kp, int T, void* stream) {
+    const void* lens, const void* starts, const void* codes, void* alt,
+    void* nul, int N, int W, int Kp, int T, int c, int w, int lpt,
+    int threads, int smem, int* active, void* stream) {
   return launch_large<false>(pidx, tables, tvecs, xts, lens, starts, codes,
-                             scratch, alt, nul, N, W, Kp, T, stream);
+                             alt, nul, N, W, Kp, T, c, w, lpt, threads, smem,
+                             active, stream);
 }
 
 extern "C" int dtt_score_mixed_large(
     const void* pidx, const void* tables, const void* tvecs, const void* xts,
-    const void* lens, const void* starts, const void* codes, void* scratch,
-    void* alt, void* nul, int N, int W, int Kp, int T, void* stream) {
+    const void* lens, const void* starts, const void* codes, void* alt,
+    void* nul, int N, int W, int Kp, int T, int c, int w, int lpt,
+    int threads, int smem, int* active, void* stream) {
   return launch_large<true>(pidx, tables, tvecs, xts, lens, starts, codes,
-                            scratch, alt, nul, N, W, Kp, T, stream);
+                            alt, nul, N, W, Kp, T, c, w, lpt, threads, smem,
+                            active, stream);
 }
 
 extern "C" const char* dtt_error_string(int err) {

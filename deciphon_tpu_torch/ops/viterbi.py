@@ -8,13 +8,13 @@ Counterparts in deciphon_tpu/ops/viterbi_pallas.py:
   * `scores_pairs`  <- viterbi_scores_pairs_from_starts (`_kernel_pending`,
     plain pairs form, with the `_ck_from_starts` gather fused);
   * `scores_pairs_large`  <- _gather_scores_pairs_hbm_jit
-    (`_kernel_block_large`: B1's function for Kp > 5120, the DP state in
-    a global scratch instead of shared memory);
+    (`_kernel_block_large`: B1's function for Kp > 5120, each window's DP
+    state split over the shared memory of a thread-block cluster);
   * `scores_pairs_mixed`  <- _gather_scores_pairs_mixed_vmem_jit
     (`_kernel_pending` mixed: one profile per slot, the gang tier);
   * `scores_pairs_mixed_large`  <- _gather_scores_pairs_hbm_mixed_jit
-    (`_kernel_block_large` mixed: B5's function with B4's state in a
-    global scratch, the gang of a scorer whose tables stream);
+    (`_kernel_block_large` mixed: B5's function on B4's clusters, the gang
+    of a scorer whose tables stream);
   * `scores_pairs_chained`  <- viterbi_scores_pairs_chained
     (`_kernel_pending` chain: C windows per slot, `_chain_expand` and
     `_chain_compact` fused);
@@ -44,9 +44,15 @@ ops/tables.py; per pair `pidx` (N,) int32; per (pair, slot) `xts`
 Each wrapper picks by the device of its tensors: CPU tensors run the plain
 version, CUDA tensors launch the kernel (built from csrc/ on first use) or
 raise.  `LAUNCHES` counts kernel launches per wrapper, and only those.
+B4, B4m and B2 take their launch shape from `cluster_shape` (one CTA per
+window up to Kp 2048, a cluster of CTAs past it); `SHAPES` keeps each
+launched shape with its resident cluster count.
 """
 
 from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -65,9 +71,11 @@ INF = float("inf")
 # nlb * 32 rows (scheduler.PairScorer.PATH_KAPPA).
 KAPPA = 40
 PATH_KAPPA = 32
-# The path kernel keeps its rings in shared memory up to this many bytes
-# per window (18 f32 planes of Kp lanes), in a global scratch beyond it.
-PATH_SMEM_BYTES = 200 * 1024
+# The dense-grid kernel (B9) keeps its rings in shared memory up to this
+# many bytes per window (GRID_PLANES f32 planes of Kp lanes), in a global
+# scratch beyond it.
+GRID_SMEM_BYTES = 200 * 1024
+GRID_PLANES = 17
 MAX_KP = 5120  # widest lane plane the kernels take (B1: 44 * Kp B of smem)
 # The large-K tier (B4) and B2 take planes up to the bucket of the
 # reference's largest profile, K = 16384 (c-core/model.h:12):
@@ -92,6 +100,59 @@ LAUNCHES = {"score": 0, "chain": 0, "gang": 0, "carry": 0, "large": 0,
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+# Launch shapes of the redesigned bodies.  Up to FAST_MAX_KP lanes a
+# window runs in one CTA at LPT lanes a thread (the score body 2 up to
+# SCORE_LPT2_MAX_KP, B2 2 up to PATH_LPT2_MAX_KP, 4 beyond); past it on a
+# thread-block cluster of c CTAs of w lanes each, LPT 4, w a multiple of
+# 128 (so that only the last rank has dead warps).  c aims at
+# CLUSTER_TARGET_W lanes a CTA, the band's fastest share on one H100 80GB
+# HBM3 at 700.00 W (PERF.md §6, PR 8; fewer lanes a CTA shorten each
+# position's own work, more CTAs lengthen its exchanges), within
+# MAX_CLUSTER; a share stays under 1408 lanes, 352 threads, inside both
+# clustered kernels' thread bounds (B2's is 384, which leaves it enough
+# registers not to spill).
+SMEM_BYTES = 232_448  # shared memory one CTA can use on an H100
+SCORE_PLANES = 23  # csrc/viterbi_score.cu kFastPlanes
+PATH_PLANES = 28  # csrc/viterbi_path.cu kPathFastPlanes
+FAST_MAX_KP = 2048
+SCORE_LPT2_MAX_KP = 512
+PATH_LPT2_MAX_KP = 1024
+MAX_THREADS = 512
+MAX_CLUSTER = 16
+CLUSTER_TARGET_W = ((6144, 768), (MAX_LARGE_KP, 1280))  # (up to Kp, lanes)
+SHAPES: dict = {}  # (LAUNCHES key, Kp) -> the launched shape's _asdict()
+
+
+class ClusterShape(NamedTuple):
+    c: int  # CTAs a window
+    w: int  # lanes a CTA (its planes' width)
+    lpt: int  # lanes a thread
+    threads: int  # threads a CTA
+    smem: int  # dynamic shared bytes a CTA
+
+
+def cluster_shape(Kp: int, body: str = "score") -> ClusterShape:
+    """The launch shape of B4/B4m (`body="score"`) or B2 (`"path"`) at
+    lane width Kp: rank r of a window's cluster owns lanes [r * w,
+    min((r + 1) * w, Kp))."""
+    if body not in ("score", "path"):
+        raise ValueError(f"no clustered body {body!r}")
+    if Kp <= FAST_MAX_KP:
+        lpt2 = SCORE_LPT2_MAX_KP if body == "score" else PATH_LPT2_MAX_KP
+        c, w, lpt = 1, Kp, 2 if Kp <= lpt2 else 4
+    else:
+        lpt = 4
+        target = next(w for top, w in CLUSTER_TARGET_W if Kp <= top)
+        c = min(-(-Kp // target), MAX_CLUSTER)
+        while True:
+            w = -(-Kp // (128 * c)) * 128  # ceil(Kp / c) up to 128 lanes
+            if (c - 1) * w < Kp:  # every rank holds live lanes
+                break
+            c -= 1
+    planes = SCORE_PLANES if body == "score" else PATH_PLANES
+    return ClusterShape(c, w, lpt, w // lpt, planes * w * 4)
 
 
 def on_cuda(*tensors: torch.Tensor) -> bool:
@@ -356,27 +417,36 @@ def scores_pairs(pidx, tables, tvecs, xts, lengths, starts, codes_all):
                          xts, lengths, starts, codes_all)
 
 
-def _launch_large(fn: str, key: str, pidx, tables, tvecs, xts, lengths,
-                  starts, codes_all):
-    """One B4 or B4m launch: (alt, null) (N, W) f32.  The DP state of each
-    window lives in its slice of a (N * W, 11 * Kp) f32 scratch allocated
-    here, on the launch's stream."""
+def _launch_shaped(fn: str, key: str, Kp: int, body: str, *args) -> None:
+    """Call a clustered entry point (B4, B4m or B2) with its launch shape
+    and `args` before it; the shape and its resident clusters (0 when
+    c = 1) go into SHAPES.  A shape that cannot be resident is refused by
+    the entry point, and raises here."""
     from .. import _build
 
+    shape = cluster_shape(Kp, body)
+    active = ctypes.c_int(0)
+    dev = args[1].device
+    err = getattr(_build.lib(), fn)(
+        *[a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args],
+        *shape, ctypes.byref(active),
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, f"{fn} (shape {tuple(shape)})")
+    LAUNCHES[key] += 1
+    SHAPES[(key, Kp)] = dict(shape._asdict(), active=active.value)
+
+
+def _launch_large(fn: str, key: str, pidx, tables, tvecs, xts, lengths,
+                  starts, codes_all):
+    """One B4 or B4m launch: (alt, null) (N, W) f32, each window's DP
+    state in the shared memory of its CTA or cluster."""
     N, W = starts.shape
     Kp = tables.shape[2]
-    dev = tables.device
-    alt = torch.empty((N, W), dtype=torch.float32, device=dev)
+    alt = torch.empty((N, W), dtype=torch.float32, device=tables.device)
     nul = torch.empty_like(alt)
-    scratch = torch.empty((N * W, 11 * Kp), dtype=torch.float32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = getattr(_build.lib(), fn)(
-        pidx.data_ptr(), tables.data_ptr(), tvecs.data_ptr(), xts.data_ptr(),
-        lengths.data_ptr(), starts.data_ptr(), codes_all.data_ptr(),
-        scratch.data_ptr(), alt.data_ptr(), nul.data_ptr(), N, W, Kp,
-        codes_all.shape[0], stream)
-    _build.check(err, fn)
-    LAUNCHES[key] += 1
+    _launch_shaped(fn, key, Kp, "score", pidx, tables, tvecs, xts, lengths,
+                   starts, codes_all, alt, nul, N, W, Kp,
+                   codes_all.shape[0])
     return alt, nul
 
 
@@ -385,7 +455,7 @@ def scores_pairs_large(pidx, tables, tvecs, xts, lengths, starts,
     """B4 wrapper, the large-K tier: `scores_pairs`' contract for lane
     planes up to MAX_LARGE_KP.  (alt, null) (N, W) f32, pad slots +inf.
     The function is B1's, so the plain version is `scores_pairs_plain`,
-    kept once; on the card the DP state lives in a global scratch."""
+    kept once; on the card a window past Kp 2048 runs on a cluster."""
     _check_inputs(pidx, tables, tvecs, xts, lengths, starts, codes_all,
                   max_kp=MAX_LARGE_KP)
     if not on_cuda(pidx, tables, tvecs, xts, lengths, starts, codes_all):
@@ -427,8 +497,9 @@ def scores_pairs_mixed_large(pidx, tables, tvecs, xts, lengths, starts,
     """B4m wrapper (the gang of a scorer whose tables stream):
     `scores_pairs_mixed`' contract, pidx (N, W), for lane planes up to
     MAX_LARGE_KP.  The function is B5's, so the plain version is
-    `scores_pairs_mixed_plain`, kept once; on the card the DP state lives
-    in a global scratch, as B4's does.  Returns (alt, null) (N, W) f32."""
+    `scores_pairs_mixed_plain`, kept once; on the card it runs B5's body
+    up to Kp 2048 and B4's clusters past it.  Returns (alt, null) (N, W)
+    f32."""
     _check_inputs(pidx, tables, tvecs, xts, lengths, starts, codes_all,
                   mixed=True, max_kp=MAX_LARGE_KP)
     if not on_cuda(pidx, tables, tvecs, xts, lengths, starts, codes_all):
@@ -1088,25 +1159,13 @@ def paths_pairs(pidx, tables, tvecs, xts, lengths, starts, codes_all, *,
     if not on_cuda(pidx, tables, tvecs, xts, lengths, starts, codes_all):
         return paths_pairs_plain(pidx, tables, tvecs, xts, lengths, starts,
                                  codes_all, nlb=nlb)
-    from .. import _build
-
     Lk = nlb * PATH_KAPPA
     dev = tables.device
     xn = torch.empty((N, W, Lk), dtype=torch.int32, device=dev)
     nd = torch.empty((N, W, Lk, Kp), dtype=torch.int32, device=dev)
-    scratch = None
-    if 18 * Kp * 4 > PATH_SMEM_BYTES:
-        scratch = torch.empty((N * W, 18 * Kp), dtype=torch.float32,
-                              device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _build.lib().dtt_path_pairs(
-        pidx.data_ptr(), tables.data_ptr(), tvecs.data_ptr(), xts.data_ptr(),
-        lengths.data_ptr(), starts.data_ptr(), codes_all.data_ptr(),
-        xn.data_ptr(), nd.data_ptr(),
-        scratch.data_ptr() if scratch is not None else None,
-        N, W, Kp, codes_all.shape[0], Lk, stream)
-    _build.check(err, "dtt_path_pairs")
-    LAUNCHES["path"] += 1
+    _launch_shaped("dtt_path_pairs", "path", Kp, "path", pidx, tables,
+                   tvecs, xts, lengths, starts, codes_all, xn, nd, N, W, Kp,
+                   codes_all.shape[0], Lk)
     return xn, nd
 
 
@@ -1210,9 +1269,9 @@ def scores_grid(tables, tvecs, xts, lengths, starts, codes_all):
     of `tables` (P, 1364, Kp) against every window b of xts (B, 16),
     lengths (B,) int32 (0 = pad, +inf out) and starts (B,) int32 into the
     START-indexed code table codes_all (T, 5).  Lane planes up to
-    MAX_LARGE_KP: the rings live in shared memory up to PATH_SMEM_BYTES
-    per window and in a per-launch (P * B, 18 * Kp) f32 global scratch
-    beyond, as B2's do."""
+    MAX_LARGE_KP: the rings live in shared memory up to GRID_SMEM_BYTES
+    per window and in a per-launch (P * B, GRID_PLANES * Kp) f32 global
+    scratch beyond."""
     P, B, Kp = _check_grid(tables, tvecs, xts, lengths, starts, codes_all)
     if not on_cuda(tables, tvecs, xts, lengths, starts, codes_all):
         return scores_grid_plain(tables, tvecs, xts, lengths, starts,
@@ -1223,8 +1282,8 @@ def scores_grid(tables, tvecs, xts, lengths, starts, codes_all):
     alt = torch.empty((P, B), dtype=torch.float32, device=dev)
     nul = torch.empty_like(alt)
     scratch = None
-    if 18 * Kp * 4 > PATH_SMEM_BYTES:
-        scratch = torch.empty((P * B, 18 * Kp), dtype=torch.float32,
+    if GRID_PLANES * Kp * 4 > GRID_SMEM_BYTES:
+        scratch = torch.empty((P * B, GRID_PLANES * Kp), dtype=torch.float32,
                               device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _build.lib().dtt_score_grid(

@@ -1760,8 +1760,8 @@ class BucketedPairScorer:
     def paths_dispatch(self, items: list[PairItem]) -> list:
         """Phase-2 trellis + walk dispatch through each sub-scorer's path
         kernel; returns un-fetched path entries.  Nothing is left over:
-        B2 takes every tier's lane planes, the large-K tier's too (its
-        rings in a global scratch past 2816 lanes), where the reference's
+        B2 takes every tier's lane planes, the large-K tier's too (a
+        cluster of CTAs a window past 2048 lanes), where the reference's
         path kernel stops at 5120 lanes and returns large-K survivors to
         the pipeline's lax.scan fallback (scheduler.py:2054-2058).  B2's
         trellis equals that fallback's bit for bit.

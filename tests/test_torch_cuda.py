@@ -16,8 +16,8 @@ import torch
 
 from deciphon_tpu_torch.ops import traceback as tb
 from deciphon_tpu_torch.ops import viterbi as vk
-from deciphon_tpu_torch.ops.costs import (CT_DD, CT_DDCUM, build_costs,
-                                         dd_cum_row)
+from deciphon_tpu_torch.ops.costs import (CT_BM, CT_DD, CT_DDCUM,
+                                         build_costs, dd_cum_row)
 from deciphon_tpu_torch.ops.tables import stack_tables
 from deciphon_tpu_torch.profile import sample_profile
 from deciphon_tpu_torch.scan import pipeline as tp
@@ -93,12 +93,15 @@ def test_large_kernel_bit_equal_to_plain(cuda, Kp):
 
 @pytest.mark.parametrize("Kp", [1024, 2048, 5120])
 def test_large_kernel_bit_equal_to_b1(cuda, Kp):
+    """B4 against B1 on the same windows: one CTA a window up to Kp 2048
+    (B1's kernel), a cluster at 5120 (B1 there: the lane loop)."""
     lens = [[300, 1, 0, 45], [81, 0, 200, 0]]
     inp = inputs(cuda, [Kp - 2, 17], Kp, lens, seed=Kp + 5)
     a1, n1 = vk.scores_pairs(**inp)
     a4, n4 = vk.scores_pairs_large(**inp)
     torch.cuda.synchronize()
     assert torch.equal(a1, a4) and torch.equal(n1, n4)
+    assert (vk.SHAPES[("large", Kp)]["c"] > 1) == (Kp > 2048)
 
 
 @pytest.mark.parametrize("Kp", [128, 640, 3072, 16896])
@@ -374,3 +377,152 @@ def test_scan_on_card_matches_cpu(cuda, tmp_path, monkeypatch, tier):
             assert vk.LAUNCHES["gang_large"] > 0
             assert vk.LAUNCHES["gang"] == 0
     assert out["cuda"] == out["cpu"]
+
+
+# The clustered kernels (B4, B4m, B2 past Kp 2048): a window on a cluster of
+# `cluster_shape(Kp).c` CTAs.  CLUSTER_KPS are the widths the scans reach
+# (and 2176, the first clustered one); the edges are the first and the last
+# Kp of every cluster size the shape function picks, so that every shape
+# the launchers can take runs.  SHORT_LENS puts length-0 windows in every
+# launch.
+CLUSTER_KPS = [2176, 2816, 3072, 5376, 5632, 8704, 16896]
+
+
+def cluster_edges(body):
+    """Both sides of every change of cluster size over the clustered
+    widths, and the first and the last of them."""
+    kps = list(range(2176, vk.MAX_LARGE_KP + 1, 128))
+    c = [vk.cluster_shape(Kp, body).c for Kp in kps]
+    edges = {kps[0], kps[-1]}
+    for i in range(1, len(kps)):
+        if c[i] != c[i - 1]:
+            edges |= {kps[i - 1], kps[i]}
+    return sorted(edges)
+
+
+def cluster_cases(body):
+    """(Kp, ties): both at CLUSTER_KPS, ties=False at the other edges."""
+    return ([(Kp, t) for Kp in CLUSTER_KPS for t in (False, True)]
+            + [(Kp, False) for Kp in cluster_edges(body)
+               if Kp not in CLUSTER_KPS])
+
+
+def mixed_inputs(dev, Ks, Kp, lens, seed, ties=False):
+    """inputs() with one profile per (pair, slot), neighbours differing."""
+    inp = inputs(dev, Ks, Kp, lens, seed, ties)
+    N, W = inp["starts"].shape
+    inp["pidx"] = torch.tensor([[(n + w) % len(Ks) for w in range(W)]
+                                for n in range(N)], dtype=torch.int32,
+                               device=dev)
+    return inp
+
+
+@pytest.mark.parametrize("Kp,ties", cluster_cases("score"))
+def test_large_cluster_bands_bit_equal_to_plain(cuda, Kp, ties):
+    inp = inputs(cuda, [Kp - 2, 17], Kp, SHORT_LENS, seed=Kp + 17, ties=ties)
+    before = vk.LAUNCHES["large"]
+    alt, nul = vk.scores_pairs_large(**inp)
+    assert vk.LAUNCHES["large"] == before + 1
+    shape = vk.SHAPES[("large", Kp)]
+    assert shape["c"] == vk.cluster_shape(Kp).c > 1 and shape["active"] > 0
+    pa, pn = vk.scores_pairs_plain(**inp)
+    torch.cuda.synchronize()
+    assert torch.equal(alt, pa) and torch.equal(nul, pn)
+    assert torch.isinf(alt[0, 6]) and torch.isfinite(alt[0, 7])
+
+
+@pytest.mark.parametrize("Kp,ties", cluster_cases("score"))
+def test_mixed_large_cluster_bands_bit_equal_to_plain_and_b5(cuda, Kp, ties):
+    """B4m on clusters: its plain version, and B5 where B5 takes the
+    width (up to Kp 5120)."""
+    inp = mixed_inputs(cuda, [Kp - 2, Kp // 2, 17], Kp, SHORT_LENS,
+                       seed=Kp + 19, ties=ties)
+    before = vk.LAUNCHES["gang_large"]
+    alt, nul = vk.scores_pairs_mixed_large(**inp)
+    assert vk.LAUNCHES["gang_large"] == before + 1
+    assert vk.SHAPES[("gang_large", Kp)]["c"] > 1
+    pa, pn = vk.scores_pairs_mixed_plain(**inp)
+    torch.cuda.synchronize()
+    assert torch.equal(alt, pa) and torch.equal(nul, pn)
+    if Kp <= vk.MAX_KP:
+        ba, bn = vk.scores_pairs_mixed(**inp)
+        torch.cuda.synchronize()
+        assert torch.equal(alt, ba) and torch.equal(nul, bn)
+
+
+def check_paths_and_walk(dev, inp, lens):
+    """B2 against its plain version on every real window's rows, and the
+    walk of those windows against the plain walk."""
+    L = max(max(r) for r in lens)
+    nlb = -(-L // vk.PATH_KAPPA)
+    xn, nd = vk.paths_pairs(**inp, nlb=nlb)
+    px, pd = vk.paths_pairs_plain(**inp, nlb=nlb)
+    torch.cuda.synchronize()
+    for n, row in enumerate(lens):
+        for w, L in enumerate(row):
+            assert torch.equal(xn[n, w, :L], px[n, w, :L]), (n, w)
+            assert torch.equal(nd[n, w, :L], pd[n, w, :L]), (n, w)
+    N, W, Lk, Kp = nd.shape
+    flat = [L for row in lens for L in row]
+    rows = [i for i, L in enumerate(flat) if L > 0]
+    xnf, ndf = xn.reshape(N * W, Lk), nd.reshape(N * W, Lk, Kp)
+    r = torch.tensor(rows, dtype=torch.int32, device=dev)
+    lt = torch.tensor([flat[i] for i in rows], dtype=torch.int32, device=dev)
+    steps = Lk + 4 * Kp + 64
+    got = tb.walk(xnf, ndf, r, lt, steps)
+    want = tb.walk_plain(xnf, ndf, r, lt, steps)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert got[3].all()
+    return px
+
+
+@pytest.mark.parametrize("Kp,ties", cluster_cases("path"))
+def test_path_cluster_bands_bit_equal_to_plain(cuda, Kp, ties):
+    inp = inputs(cuda, [Kp - 2, 17], Kp, SHORT_LENS, seed=Kp + 23, ties=ties)
+    before = vk.LAUNCHES["path"]
+    check_paths_and_walk(cuda, inp, SHORT_LENS)
+    assert vk.LAUNCHES["path"] == before + 1
+    shape = vk.SHAPES[("path", Kp)]
+    assert shape["c"] == vk.cluster_shape(Kp, "path").c > 1
+    assert shape["active"] > 0
+
+
+@pytest.mark.parametrize("rank", [1, 2])
+def test_path_e_tie_across_cta_boundary(cuda, rank):
+    """B->M entries only at the last lane of rank `rank` - 1 and the
+    first lane of rank `rank`, at equal cost on a profile whose costs tie:
+    E's minimum is taken at both, and its field must name the earlier
+    lane (the first minimum), as the plain version does."""
+    Kp = 5376
+    w = vk.cluster_shape(Kp, "path").w
+    k1 = rank * w - 1
+    costs = tied(build_costs(sample_profile(Kp, Kp - 2)))
+    bm = np.full_like(costs.core[CT_DD], np.inf)
+    bm[[k1, k1 + 1]] = 0.5
+    costs.core[CT_BM] = bm
+    tables, tvecs = (t.to(cuda) for t in stack_tables([costs], Kp))
+    lens = [[3, 0, 40, 7]]
+    inp = dict(pidx=torch.zeros(1, dtype=torch.int32, device=cuda),
+               tables=tables, tvecs=tvecs,
+               **window_batch(np.random.default_rng(5),
+                              np.asarray(lens, np.int32), cuda))
+    px = check_paths_and_walk(cuda, inp, lens)
+    e_lane = (px[0, 0, :3] >> 6) & 0x7fff
+    assert (e_lane == 2 * k1).any()  # the tie happened and went to k1
+
+
+@pytest.mark.parametrize("Kp", [5376, 16896])
+def test_clustered_launch_of_pads_only(cuda, Kp):
+    """A launch whose windows are all of length 0: B4 and B4m write +inf,
+    B2 writes no row, and every rank leaves before any cluster barrier."""
+    lens = [[0, 0, 0], [0, 0, 0]]
+    inp = inputs(cuda, [Kp - 2, 17], Kp, lens, seed=Kp + 29)
+    alt, nul = vk.scores_pairs_large(**inp)
+    ma, mn = vk.scores_pairs_mixed_large(**mixed_inputs(
+        cuda, [Kp - 2, 17], Kp, lens, seed=Kp + 29))
+    xn, nd = vk.paths_pairs(**inp, nlb=1)
+    torch.cuda.synchronize()
+    for t in (alt, nul, ma, mn):
+        assert t.shape == (2, 3) and torch.isinf(t).all()
+    assert xn.shape == (2, 3, vk.PATH_KAPPA)
