@@ -17,7 +17,8 @@ Phases, each reported on its own lines; any failure exits non-zero:
      version at Kp 512, 1024, 5120 and 16896 and against B5 up to 5120,
      B6 packed (two packs, one with a missing segment), B7 packed chain
      (once with the lists every segment shares, once with lists that
-     differ per segment), B2 path and the walk; the clustered kernels at
+     differ per segment), both on PACKED_PLANES with their launch shape,
+     CTAs an SM and registers, B2 path and the walk; the clustered kernels at
      CLUSTER_KPS (2176 to 16896), each with its launch shape (c, w, lpt,
      threads, shared bytes, clusters resident at once): B4 against its
      plain version (8 windows of <= 600 nt, one a pad) and against B1 at
@@ -89,8 +90,8 @@ read just after; each kernel must have launched on its path.  The line
 before the last is a JSON object of per-kernel launches (summed over those
 runs), errors, times, times per DP position (of the longest slot), bounds,
 the ptxas registers and spills of each compiled instance (from the
-build's -Xptxas -v report) and, for B4, B4m and B2, the launch shape at
-every lane width they ran; the last line is {"ok": true, "device":
+build's -Xptxas -v report) and, for B4, B4m, B2, B6 and B7, the launch
+shape at every lane width they ran; the last line is {"ok": true, "device":
 {...}}.  A kernel's bound is the least time the card could take for the
 work of the measured call: the larger of its f32 add/min operations on
 true profile nodes over the card's non-tensor f32 peak, and the bytes it
@@ -141,7 +142,7 @@ REPLACES = {"score": f"{PALLAS}:376", "chain": f"{PALLAS}:1038",
 PEAK_F32_OPS = 67e12
 PEAK_BYTES = 3.35e12
 # f32 adds and mins per (position, profile node) cell, counted from the
-# kernel bodies.  Score family (`score_window`, `score_window_packed`):
+# kernel bodies.  Score family (`score_window`, `score_window_packed_fast`):
 # inner 3 adds + 2 mins, contrib 1 + 1, icand 2 + 1, the five pushes of M
 # and of I 5 adds + 4 mins each, and at consume A, A - DDCUM, the prefix
 # min, D, min(M, D) and the E reduction, one each: 34.  Path kernel: per
@@ -154,6 +155,9 @@ PEAK_BYTES = 3.35e12
 # are its excess over the bound, not part of it.  The per-position
 # special states are O(1) per window and left out.
 CELL_OPS = {"score": 34, "path": 98, "grid": 34}
+# planes (seg, nseg) on which phase 3 holds B6 and B7 against their plain
+# versions
+PACKED_PLANES = ((64, 4), (128, 8), (256, 8), (448, 2), (192, 6), (64, 32))
 # lane widths at which phase 3 holds the clustered kernels (B4, B2) against
 # their plain versions: 2176, the first clustered width, and the large-K
 # buckets' and band widths of the card tests
@@ -485,8 +489,11 @@ def check_kernels(torch, report) -> None:
         report["carry"].update(max_abs_err=err, ms=k_ms, plain_ms=p_ms)
         carry_bound(torch, report, case, case["calls"], got)
 
-    # B6 and B7 on planes of 1, 2 and 4 lanes per thread
-    for seg, nseg in ((64, 4), (128, 8), (256, 8)):
+    # B6 and B7 on planes of 2 and 4 lanes a thread: segments of 32, 64
+    # and 128 threads, the Pfam scan's classes (448, 2) and (192, 6) (112
+    # and 48 threads: a segment boundary inside a warp), 32 segments of 16
+    # threads
+    for seg, nseg in PACKED_PLANES:
         inp = packed_case(seg, nseg, seed=70 + seg, device="cuda", hi=2000)
         (ka, kn), (pa, pn), k_ms, p_ms = kernel_vs_plain(
             torch, vk.scores_pairs_packed, vk.scores_pairs_packed_plain,
@@ -495,11 +502,13 @@ def check_kernels(torch, report) -> None:
         shape = bool(torch.isfinite(ka[0, 0]).all()
                      and torch.isinf(ka[1, :, -1]).all()
                      and torch.isfinite(ka[1, 0, :-1]).all())
+        L = int(inp["lengths"].max())
         say("B6", f"Kp={seg * nseg} ({nseg} segments of {seg} lanes) "
             f"{tuple(inp['lengths'].shape[:2])} slots over 2 packs, windows "
-            f"<= {int(inp['lengths'].max())} nt: bit-equal {exact}, full "
-            f"pack finite and the missing segment +inf {shape}; kernel "
-            f"{k_ms:.3f} ms, plain {p_ms:.1f} ms")
+            f"<= {L} nt: bit-equal {exact}, full pack finite and the missing "
+            f"segment +inf {shape}; kernel {k_ms:.3f} ms "
+            f"({k_ms * 1e3 / L:.3f} us/position), plain {p_ms:.1f} ms; "
+            f"{packed_note(vk, report, 'packed', seg * nseg)}")
         check(exact and shape, f"B6 seg={seg} nseg={nseg} differs")
         report["packed"].update(max_abs_err=max_err(torch, ka, pa), ms=k_ms,
                                 plain_ms=p_ms)
@@ -520,7 +529,10 @@ def check_kernels(torch, report) -> None:
                 f"{int(real.sum())} entries <= {int(inp['win_len'].max())} "
                 f"nt, lists {'per segment' if per_segment else 'shared'}: "
                 f"bit-equal {exact}, pads +inf and a full pack finite "
-                f"{pads}; kernel {k_ms:.3f} ms, plain {p_ms:.1f} ms")
+                f"{pads}; kernel {k_ms:.3f} ms "
+                f"({k_ms * 1e3 / int(inp['win_len'].max()):.3f} us/position"
+                f" of the longest entry), plain {p_ms:.1f} ms; "
+                f"{packed_note(vk, report, 'pchain', seg * nseg)}")
             check(exact and pads, f"B7 seg={seg} nseg={nseg} differs")
             report["pchain"].update(max_abs_err=max_err(torch, ka, pa),
                                     ms=k_ms, plain_ms=p_ms)
@@ -605,6 +617,19 @@ def check_kernels(torch, report) -> None:
     report["walk"].update(max_abs_err=0.0, ms=k_ms, plain_ms=p_ms)
     walk_bound(report, ks[2])
     check_large(torch, report)
+
+
+def packed_note(vk, report, key: str, Kp: int) -> str:
+    """The launch shape B6 or B7 used at lane width Kp, the CTAs an SM
+    holds at once, and the instance's ptxas registers and spills."""
+    s = vk.SHAPES[(key, Kp)]
+    base = ("score_packed_kernel" if key == "packed"
+            else "score_packed_chained_kernel")
+    p = report[key]["ptxas"][f"{base}<{s['lpt']}>"]
+    return (f"lpt={s['lpt']} threads={s['threads']} smem={s['smem']} B, "
+            f"{s['active']} CTAs an SM; {base}<{s['lpt']}> "
+            f"{p['registers']} registers, {p['spill_stores']} B spill "
+            f"stores")
 
 
 def shape_note(vk, key: str, Kp: int) -> str:
@@ -1657,7 +1682,8 @@ def main() -> None:
                if m.split(".")[0] in ("jax", "deciphon_tpu")],
           "jax or deciphon_tpu was imported")
 
-    for k in ("large", "gang_large", "path"):  # the clustered wrappers
+    # the wrappers that keep their launch shapes
+    for k in ("large", "gang_large", "path", "packed", "pchain"):
         report[k]["shapes"] = {str(Kp): sh for (key, Kp), sh
                                in sorted(vk.SHAPES.items()) if key == k}
     for k, r in report.items():

@@ -54,8 +54,10 @@ SIGNATURES = {
     "dtt_score_mixed_large": [_P] * 9 + [_I] * 9 + [_IP, _P],
     "dtt_score_chained": [_P] * 10 + [_I] * 5 + [_P],
     "dtt_score_chained_carry": [_P] * 15 + [_I] * 5 + [_P],
-    "dtt_score_packed": [_P] * 9 + [_I] * 5 + [_P],
-    "dtt_score_packed_chained": [_P] * 13 + [_I] * 7 + [_P],
+    # B6 and B7 end with the launch shape (lpt, threads, smem), an int*
+    # for the CTAs an SM holds at once and the stream
+    "dtt_score_packed": [_P] * 9 + [_I] * 8 + [_IP, _P],
+    "dtt_score_packed_chained": [_P] * 13 + [_I] * 10 + [_IP, _P],
     "dtt_path_pairs": [_P] * 9 + [_I] * 10 + [_IP, _P],
     "dtt_score_grid": [_P] * 9 + [_I] * 4 + [_P],
     "dtt_walk": [_P, _P, _P, _P, _P, _P, _P, _P,

@@ -70,48 +70,6 @@ __device__ __forceinline__ float block_excl_prefix_min(float v, float* red) {
   return excl;
 }
 
-// The two segmented forms below serve the lane-packed kernels: the block's
-// threads are cut into segments of `tps` consecutive threads (a multiple
-// of 16), `sf` being the first thread of the caller's segment, and nothing
-// crosses a segment boundary.  blockDim.x is a multiple of 32.
-
-// Exclusive prefix min over the caller's segment in threadIdx order (+inf
-// for the segment's first thread).
-__device__ __forceinline__ float seg_excl_prefix_min(float v, float* red,
-                                                     int sf) {
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  float incl = v;  // min over [max(sf, warp * 32), tid]
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const float u = __shfl_up_sync(kFull, incl, o);
-    if (lane >= o && tid - o >= sf) incl = fminf(incl, u);
-  }
-  if (lane == 31) red[warp] = incl;
-  __syncthreads();
-  float excl = __shfl_up_sync(kFull, incl, 1);
-  if (lane == 0 || tid - 1 < sf) excl = inf_f();
-  // earlier warps that hold threads of this segment: their lane 31 lies
-  // in it, and its inclusive min starts at the segment's first thread
-  for (int i = sf >> 5; i < warp; ++i) excl = fminf(excl, red[i]);
-  __syncthreads();
-  return excl;
-}
-
-// Min over the caller's segment; every thread of the segment gets it.
-__device__ __forceinline__ float seg_min(float v, float* red, int sf,
-                                         int tps) {
-  const int tid = threadIdx.x;
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v = fminf(v, __shfl_xor_sync(kFull, v, o));
-  if ((tid & 15) == 0) red[tid >> 4] = v;
-  __syncthreads();
-  float r = inf_f();
-  for (int i = sf >> 4; i < (sf + tps) >> 4; ++i) r = fminf(r, red[i]);
-  __syncthreads();
-  return r;
-}
-
-
 // ---- Helpers of the redesigned bodies (B1/B3/B5/B8 score body, B2) ------
 //
 // A thread owns LPT consecutive lanes [tid * LPT, tid * LPT + LPT); LPT is
@@ -196,6 +154,21 @@ __device__ __forceinline__ float warp_incl_min(float v) {
   for (int o = 1; o < 32; o <<= 1) {
     const float u = __shfl_up_sync(kFull, v, o);
     if (lane >= o) v = fminf(v, u);
+  }
+  return v;
+}
+
+// The same restarted at segments of consecutive lanes: a lane combines
+// only the lanes of its own segment, `first` being the index of the
+// segment's first lane counted as `idx` counts this lane (idx - lane is
+// the same in every lane of the warp).
+__device__ __forceinline__ float warp_seg_incl_min(float v, int idx,
+                                                   int first) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const float u = __shfl_up_sync(kFull, v, o);
+    if (lane >= o && idx - o >= first) v = fminf(v, u);
   }
   return v;
 }

@@ -45,8 +45,9 @@ Each wrapper picks by the device of its tensors: CPU tensors run the plain
 version, CUDA tensors launch the kernel (built from csrc/ on first use) or
 raise.  `LAUNCHES` counts kernel launches per wrapper, and only those.
 B4, B4m and B2 take their launch shape from `cluster_shape` (one CTA per
-window up to Kp 2048, a cluster of CTAs past it); `SHAPES` keeps each
-launched shape with its resident cluster count.
+window up to Kp 2048, a cluster of CTAs past it), B6 and B7 from
+`packed_shape`; `SHAPES` keeps each launched shape with its resident
+cluster count (B6, B7: CTAs an SM holds at once).
 """
 
 from __future__ import annotations
@@ -115,6 +116,10 @@ def reset_launches() -> None:
 # registers not to spill).
 SMEM_BYTES = 232_448  # shared memory one CTA can use on an H100
 SCORE_PLANES = 23  # csrc/viterbi_score.cu kFastPlanes
+PACKED_PLANES = 23  # csrc/viterbi_packed.cu kPackedPlanes
+# csrc/viterbi_packed.cu's static shared arrays (the exchange slots, the
+# specials of 32 segments and the run table, 7440 B) fit in this many bytes
+PACKED_STATIC_BYTES = 8 * 1024
 PATH_PLANES = 28  # csrc/viterbi_path.cu kPathFastPlanes
 FAST_MAX_KP = 2048
 SCORE_LPT2_MAX_KP = 512
@@ -153,6 +158,34 @@ def cluster_shape(Kp: int, body: str = "score") -> ClusterShape:
             c -= 1
     planes = SCORE_PLANES if body == "score" else PATH_PLANES
     return ClusterShape(c, w, lpt, w // lpt, planes * w * 4)
+
+
+class PackedShape(NamedTuple):
+    lpt: int  # lanes a thread
+    threads: int  # threads a CTA
+    smem: int  # dynamic shared bytes a CTA
+
+
+# B6 and B7 run LPT 2 lanes a thread up to this Kp and 4 beyond, the score
+# body's band, chosen from the times of both on one H100 80GB HBM3 at the
+# Pfam classes' planes (PERF.md section 6).
+PACK_LPT2_MAX_KP = 512
+
+
+def packed_shape(Kp: int, nseg: int) -> PackedShape:
+    """The launch shape of B6 and B7 on a plane of `nseg` segments of Kp
+    lanes: one CTA of Kp / lpt threads a (slot, entry, pair), segment s on
+    threads [s * tps, (s + 1) * tps), tps = Kp / nseg / lpt, and the
+    specials of every segment in warp 0 (nseg <= 32).  Raises on a plane
+    the kernels do not take."""
+    if (nseg <= 0 or Kp % 128 or not 0 < Kp <= PACK_MAX_KP or Kp % nseg
+            or (Kp // nseg) % PACK_SEG_QUANTUM):
+        raise NotImplementedError(
+            f"Kp={Kp}, nseg={nseg}: packed planes take multiples of 128 "
+            f"lanes up to {PACK_MAX_KP} in segments of a multiple of "
+            f"{PACK_SEG_QUANTUM} lanes")
+    lpt = 2 if Kp <= PACK_LPT2_MAX_KP else 4
+    return PackedShape(lpt, Kp // lpt, PACKED_PLANES * Kp * 4)
 
 
 def on_cuda(*tensors: torch.Tensor) -> bool:
@@ -417,14 +450,14 @@ def scores_pairs(pidx, tables, tvecs, xts, lengths, starts, codes_all):
                          xts, lengths, starts, codes_all)
 
 
-def _launch_shaped(fn: str, key: str, Kp: int, body: str, *args) -> None:
-    """Call a clustered entry point (B4, B4m or B2) with its launch shape
-    and `args` before it; the shape and its resident clusters (0 when
-    c = 1) go into SHAPES.  A shape that cannot be resident is refused by
-    the entry point, and raises here."""
+def _launch_shaped(fn: str, key: str, Kp: int, shape, *args) -> None:
+    """Call an entry point that takes its launch shape (B4, B4m and B2
+    `cluster_shape`, B6 and B7 `packed_shape`) with `args` before it; the
+    shape and what is resident at once (clusters, 0 when c = 1; B6, B7:
+    CTAs an SM) go into SHAPES.  A shape the entry point does not take, or
+    that cannot be resident, is refused there, and raises here."""
     from .. import _build
 
-    shape = cluster_shape(Kp, body)
     active = ctypes.c_int(0)
     dev = args[1].device
     err = getattr(_build.lib(), fn)(
@@ -444,8 +477,8 @@ def _launch_large(fn: str, key: str, pidx, tables, tvecs, xts, lengths,
     Kp = tables.shape[2]
     alt = torch.empty((N, W), dtype=torch.float32, device=tables.device)
     nul = torch.empty_like(alt)
-    _launch_shaped(fn, key, Kp, "score", pidx, tables, tvecs, xts, lengths,
-                   starts, codes_all, alt, nul, N, W, Kp,
+    _launch_shaped(fn, key, Kp, cluster_shape(Kp), pidx, tables, tvecs, xts,
+                   lengths, starts, codes_all, alt, nul, N, W, Kp,
                    codes_all.shape[0])
     return alt, nul
 
@@ -825,12 +858,7 @@ def _check_packed_tables(pidx, tables, tvecs, nseg: int, N: int) -> int:
     _check(pidx, "pidx", torch.int32, (N,))
     _check(tables, "tables", torch.float32, (P, TABLE_SIZE, packed_width(Kp)))
     _check(tvecs, "tvecs", torch.float32, (P, 8, Kp))
-    if (nseg <= 0 or Kp % 128 or Kp > PACK_MAX_KP or Kp % nseg
-            or (Kp // nseg) % PACK_SEG_QUANTUM):
-        raise NotImplementedError(
-            f"Kp={Kp}, nseg={nseg}: packed planes take multiples of 128 "
-            f"lanes up to {PACK_MAX_KP} in segments of a multiple of "
-            f"{PACK_SEG_QUANTUM} lanes")
+    packed_shape(Kp, nseg)  # raises on a plane the kernels do not take
     return Kp
 
 
@@ -886,19 +914,11 @@ def scores_pairs_packed(pidx, tables, tvecs, xts, lengths, starts,
     args = (pidx, tables, tvecs, xts, lengths, starts, codes_all)
     if not on_cuda(*args):
         return scores_pairs_packed_plain(*args, nseg=nseg)
-    from .. import _build
-
     alt = torch.empty((N, W, nseg), dtype=torch.float32,
                       device=tables.device)
     nul = torch.empty_like(alt)
-    stream = torch.cuda.current_stream(tables.device).cuda_stream
-    err = _build.lib().dtt_score_packed(
-        pidx.data_ptr(), tables.data_ptr(), tvecs.data_ptr(), xts.data_ptr(),
-        lengths.data_ptr(), starts.data_ptr(), codes_all.data_ptr(),
-        alt.data_ptr(), nul.data_ptr(), N, W, nseg, Kp, codes_all.shape[0],
-        stream)
-    _build.check(err, "dtt_score_packed")
-    LAUNCHES["packed"] += 1
+    _launch_shaped("dtt_score_packed", "packed", Kp, packed_shape(Kp, nseg),
+                   *args, alt, nul, N, W, nseg, Kp, codes_all.shape[0])
     return alt, nul
 
 
@@ -996,20 +1016,12 @@ def scores_pairs_packed_chained(pidx, tables, tvecs, run_sblk, run_len,
             win_len, win_xti, xt_lut, codes_all)
     if not on_cuda(*args):
         return scores_pairs_packed_chained_plain(*args, nseg=nseg)
-    from .. import _build
-
     alt = torch.empty((N, W, nseg, C), dtype=torch.float32,
                       device=tables.device)
     nul = torch.empty_like(alt)
-    stream = torch.cuda.current_stream(tables.device).cuda_stream
-    err = _build.lib().dtt_score_packed_chained(
-        pidx.data_ptr(), tables.data_ptr(), tvecs.data_ptr(),
-        run_sblk.data_ptr(), run_len.data_ptr(), run_gstart.data_ptr(),
-        win_sblk.data_ptr(), win_len.data_ptr(), win_xti.data_ptr(),
-        xt_lut.data_ptr(), codes_all.data_ptr(), alt.data_ptr(),
-        nul.data_ptr(), N, W, nseg, C, CR, Kp, codes_all.shape[0], stream)
-    _build.check(err, "dtt_score_packed_chained")
-    LAUNCHES["pchain"] += 1
+    _launch_shaped("dtt_score_packed_chained", "pchain", Kp,
+                   packed_shape(Kp, nseg), *args, alt, nul, N, W, nseg, C,
+                   CR, Kp, codes_all.shape[0])
     return alt, nul
 
 
@@ -1163,9 +1175,9 @@ def paths_pairs(pidx, tables, tvecs, xts, lengths, starts, codes_all, *,
     dev = tables.device
     xn = torch.empty((N, W, Lk), dtype=torch.int32, device=dev)
     nd = torch.empty((N, W, Lk, Kp), dtype=torch.int32, device=dev)
-    _launch_shaped("dtt_path_pairs", "path", Kp, "path", pidx, tables,
-                   tvecs, xts, lengths, starts, codes_all, xn, nd, N, W, Kp,
-                   codes_all.shape[0], Lk)
+    _launch_shaped("dtt_path_pairs", "path", Kp, cluster_shape(Kp, "path"),
+                   pidx, tables, tvecs, xts, lengths, starts, codes_all, xn,
+                   nd, N, W, Kp, codes_all.shape[0], Lk)
     return xn, nd
 
 

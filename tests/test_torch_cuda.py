@@ -188,9 +188,13 @@ def test_carry_kernel_segments_equal_whole_window(cuda, Kp):
     assert got[last][0][0, 0, 0] == wa[0] and got[last][1][0, 0, 0] == wn[0]
 
 
-# planes (seg, nseg): 1, 2 and 4 lanes per thread, segments of 16, 48 and
-# 64 threads, Kp 384 (not a power of two) and the widest plane
-PACKED_PLANES = [(64, 2), (192, 2), (128, 8), (192, 8), (64, 32), (1024, 2)]
+# planes (seg, nseg): 2 lanes a thread (Kp 128, 384) and 4 (the rest),
+# segments of 16, 32, 48, 112 and 256 threads (16, 48 and 112 put a
+# segment boundary inside a warp), Kp 384 (not a power of two), the Pfam
+# scan's classes (64, 2), (448, 2), (192, 6) and (1024, 2), and the widest
+# plane in 32 segments
+PACKED_PLANES = [(64, 2), (192, 2), (128, 8), (192, 8), (64, 32), (1024, 2),
+                 (448, 2), (192, 6)]
 
 
 @pytest.mark.parametrize("seg,nseg", PACKED_PLANES)
@@ -330,10 +334,30 @@ def test_chained_mixed_carry_bands_bit_equal_to_plain(cuda, Kp):
             assert torch.equal(g[3][:, :, 0], w[3][:, :, 0])
 
 
-def test_kernels_raise_on_bad_launch(cuda):
+def test_kernels_raise_on_bad_launch(cuda, monkeypatch):
     inp = inputs(cuda, [9], 128, [[10]], seed=3)
     with pytest.raises(ValueError):  # mixed devices never fall back
         vk.scores_pairs(**dict(inp, starts=inp["starts"].cpu()))
+    # a packed plane outside the accepted set (segments of 32 lanes)
+    inp = packed_case(64, 2, seed=5, device=cuda, n_pairs=1, w=2, lo=20,
+                      hi=50)
+    with pytest.raises(NotImplementedError):
+        vk.scores_pairs_packed(**dict(inp, nseg=4))
+    # shapes the launchers refuse: 8 lanes a thread, threads that do not
+    # cover the plane, shared bytes of another body
+    before = dict(vk.LAUNCHES)
+    chain = packed_chain_case(64, 2, seed=6, device=cuda, n_pairs=1, lo=40,
+                              hi=80)
+    Kp = 128
+    for bad in (vk.PackedShape(8, Kp // 8, vk.PACKED_PLANES * Kp * 4),
+                vk.PackedShape(2, Kp // 4, vk.PACKED_PLANES * Kp * 4),
+                vk.PackedShape(2, Kp // 2, vk.SCORE_PLANES * Kp * 4 + 4)):
+        monkeypatch.setattr(vk, "packed_shape", lambda Kp, nseg, b=bad: b)
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            vk.scores_pairs_packed(**inp)
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            vk.scores_pairs_packed_chained(**chain)
+    assert vk.LAUNCHES == before  # a refused launch is not counted
 
 
 @pytest.mark.parametrize("tier", ["chain", "chain+gang", "chain+seg",
