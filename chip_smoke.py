@@ -18,20 +18,23 @@ Phases, each reported on its own lines; any failure exits non-zero:
      B6 packed (two packs, one with a missing segment), B7 packed chain
      (once with the lists every segment shares, once with lists that
      differ per segment), both on PACKED_PLANES with their launch shape,
-     CTAs an SM and registers, B2 path and the walk; the clustered kernels at
+     CTAs an SM and registers, B2 path and the walk, the walk again on
+     `walk_cases` (planted edge cases, an overflow walked again on the
+     card, an underflow) at two layouts; the clustered kernels at
      CLUSTER_KPS (2176 to 16896), each with its launch shape (c, w, lpt,
      threads, shared bytes, clusters resident at once): B4 against its
      plain version (8 windows of <= 600 nt, one a pad) and against B1 at
      Kp 1024 and 5120, B2 against its plain version (3 windows of <= 300
-     nt, one a pad); the dense grid, B9, against its plain version
-     and against B1 (B4 at Kp 5632) on the same (profile, window) pairs at
-     Kp 128, 512, 1024 and 5632 (9 windows of <= 600 nt, a pad and a
-     length-1 window among them), with both times per position;
+     nt, one a pad); the dense grid, B9 (the score body in B4's launch
+     shape), against its plain version and against B1 (B4 at Kp 5632) on
+     the same (profile, window) pairs at Kp 128, 512, 1024, 2048, 2176 and
+     5632 (9 windows of <= 600 nt, a pad and a length-1 window among
+     them), with both times per position and B9's launch shape;
   3b. the dense grid at full width, through GridScanEngine.scores on
      `bench.py`'s kernel shapes: 8 profiles x 128 windows of 4096 nt at K
      400 and K 1000, 8 x 8 at K 16382; B9's time (median of 3), its GCUPS
-     (P*B*L*5*K cells) and bound, B1 (B4 at K 16382) on the same pairs and
-     B9's plain version on the card, all bit-equal;
+     (P*B*L*5*K cells), bound and launch shape, B1 (B4 at K 16382) on the
+     same pairs and B9's plain version on the card, all bit-equal;
   4. the Pfam scan, Scanner(ScanConfig(device="cuda")).run, on a
      Pfam-shaped database of 200 random profiles (K geometric over
      50..2000) and 8 reads of 10 knt, four carrying a planted domain,
@@ -70,7 +73,8 @@ Phases, each reported on its own lines; any failure exits non-zero:
      with its walk on its narrowest bucket; per wrapper and scan the
      widest, longest launch, bit
      for bit; the times and bounds of a kernel's last check go into the
-     kernels line;
+     kernels line, and the walk's time, ns a step and bound on each of the
+     three scans' launches under its "scans";
   7. the same code on the card and on the CPU (plain versions) on a
      subset: at the reference's caps; on plain buckets with the chain caps
      shrunk and a 150-nt read added, so that the 1.2-knt windows ride the
@@ -90,7 +94,7 @@ read just after; each kernel must have launched on its path.  The line
 before the last is a JSON object of per-kernel launches (summed over those
 runs), errors, times, times per DP position (of the longest slot), bounds,
 the ptxas registers and spills of each compiled instance (from the
-build's -Xptxas -v report) and, for B4, B4m, B2, B6 and B7, the launch
+build's -Xptxas -v report) and, for B4, B4m, B2, B9, B6 and B7, the launch
 shape at every lane width they ran; the last line is {"ok": true, "device":
 {...}}.  A kernel's bound is the least time the card could take for the
 work of the measured call: the larger of its f32 add/min operations on
@@ -121,7 +125,7 @@ SOURCE = {"score": SCORE_CU, "chain": SCORE_CU, "gang": SCORE_CU,
           "packed": PACKED_CU,
           "pchain": PACKED_CU,
           "path": "deciphon_tpu_torch/csrc/viterbi_path.cu",
-          "grid": "deciphon_tpu_torch/csrc/viterbi_path.cu",
+          "grid": SCORE_CU,
           "walk": "deciphon_tpu_torch/csrc/traceback_walk.cu"}
 # kernel wrappers whose calls a captured scan records
 SPIED = ("scores_pairs", "scores_pairs_mixed", "scores_pairs_chained",
@@ -180,7 +184,8 @@ INSTANCE_KEYS = {("score_pairs_kernel", "false"): "score",
                  ("score_packed_kernel", None): "packed",
                  ("path_kernel", "false"): "path",
                  ("path_kernel", "true"): "path",
-                 ("pull_kernel", None): "grid",
+                 ("score_grid_kernel", "false"): "grid",
+                 ("score_grid_kernel", "true"): "grid",
                  ("walk_kernel", None): "walk"}
 
 
@@ -368,10 +373,11 @@ def path_bound(torch, report, a: dict, xn) -> None:
 
 
 def walk_bound(report, ns) -> None:
-    """Bound of a batch of walks: a walk reads two trellis words and
-    writes one step (3 bytes) per step, and computes next to nothing."""
+    """Bound of a batch of walks: a step reads one trellis word (a special
+    state its xnode word, a core state its node word) and writes one step
+    (3 bytes), and computes next to nothing."""
     steps = float(ns.double().sum())
-    bound(report, "walk", steps, steps * 11)
+    bound(report, "walk", steps, steps * 7)
 
 
 def check_kernels(torch, report) -> None:
@@ -616,7 +622,62 @@ def check_kernels(torch, report) -> None:
           and oracle[16] == (W, True), "walk differs from plain or unzip")
     report["walk"].update(max_abs_err=0.0, ms=k_ms, plain_ms=p_ms)
     walk_bound(report, ks[2])
+    check_walk_cases(torch)
     check_large(torch, report)
+
+
+def check_walk_cases(torch) -> None:
+    """Phase 3, the walk on `walk_cases` (E jumping to k = 0 and Kp - 1,
+    a D chain along a row, an I run down a column, stretches of special
+    states, a domain from stage 1, a diagonal domain over most columns, an
+    overflow at max_steps, an underflow and a length-0 walk) at Kp 1024 x
+    Lk 4096 (16-byte copies) and Kp 37 x Lk 301 (4-byte copies, the torch
+    engine's layout): bit-equal to the plain walk; through
+    `assemble_path_entries`, which walks the overflow again on the card,
+    equal to each case's planted path; the underflow raises in `rewalk`."""
+    import numpy as np
+
+    from deciphon_tpu_torch.ops import traceback as tb
+    from deciphon_tpu_torch.workload import assemble_walk_cases, walk_cases
+
+    for Kp, Lk in ((1024, 4096), (37, 301)):
+        c = walk_cases(Kp, Lk, seed=Kp, device="cuda")
+        args = [c[k] for k in ("xn", "nd", "rows", "lengths")]
+        steps = c["max_steps"]
+        got = tb.walk(*args, steps)
+        torch.cuda.synchronize()
+        plain = {}
+        p_ms = cuda_ms(torch, lambda: plain.update(
+            r=tb.walk_plain(*args, steps)))
+        k_ms = cuda_ms(torch, lambda: tb.walk(*args, steps), 3)
+        exact = all(torch.equal(a, b) for a, b in zip(got, plain["r"]))
+        names, oks = c["names"], got[3].tolist()
+        ok_as_planned = all(bool(ok) == (n not in ("overflow", "underflow",
+                                                     "empty"))
+                            for n, ok in zip(names, oks))
+        # the walks that end (the overflow after its re-walk) as the
+        # pipeline assembles them, against the planted paths
+        tb.REWALKS["survivors"] = 0
+        out = assemble_walk_cases(c, got)
+        rewalked = tb.REWALKS["survivors"]
+        planted = all(
+            all(np.array_equal(x, y) for x, y in zip(
+                path, tb.path_arrays(c["paths"][b])))
+            for b, path in out.items())
+        b = names.index("underflow")
+        try:
+            tb.rewalk(c["xn"], c["nd"], [int(c["rows"][b])], [2], steps)
+            raised = False
+        except RuntimeError:
+            raised = True
+        say("walk", f"walk_cases Kp={Kp} Lk={Lk}: {len(names)} walks "
+            f"({', '.join(f'{n} {int(k)}' for n, k in zip(names, got[2]))}"
+            f" steps), max_steps {steps}: bit-equal to plain {exact}, ok as "
+            f"planned {ok_as_planned}, paths as planted {planted} "
+            f"({rewalked} re-walked on the card), underflow raises "
+            f"{raised}; kernel {k_ms:.3f} ms, plain {p_ms:.1f} ms")
+        check(exact and ok_as_planned and planted and rewalked == 1
+              and raised, f"walk differs on walk_cases Kp={Kp}")
 
 
 def packed_note(vk, report, key: str, Kp: int) -> str:
@@ -744,14 +805,14 @@ def push_form(vk, Kp: int):
 
 def check_grid(torch) -> None:
     """Phase 3, B9: two profiles (K = Kp - 2 and Kp // 2) against 9
-    windows of <= 600 nt (one a pad, one of length 1) at Kp 128, 512, 1024
-    and 5632 (the global-scratch form), against the plain version and
-    against the push form on the same pairs, with both times per
-    position."""
+    windows of <= 600 nt (one a pad, one of length 1) at Kp 128, 512, 1024,
+    2048 (the last one-CTA width), 2176 (the first clustered one) and
+    5632, against the plain version and against the push form on the same
+    pairs, with both times per position and B9's launch shape."""
     from deciphon_tpu_torch.ops import viterbi as vk
     from deciphon_tpu_torch.workload import score_inputs
 
-    for Kp in (128, 512, 1024, 5632):
+    for Kp in (128, 512, 1024, 2048, 2176, 5632):
         inp, maxlen = score_inputs(Kp, 9, 1, 100, 600, seed=120 + Kp,
                                    device="cuda")
         inp["lengths"][0, 3] = 0
@@ -776,7 +837,8 @@ def check_grid(torch) -> None:
             f"a length-1): bit-equal {exact}, pad +inf {pads}, equal to "
             f"{name} on the same pairs {same}; B9 {k_ms:.3f} ms "
             f"({k_ms * 1e3 / maxlen:.3f} us/position), {name} {b1_ms:.3f} ms "
-            f"({b1_ms * 1e3 / maxlen:.3f} us/position), plain {p_ms:.1f} ms")
+            f"({b1_ms * 1e3 / maxlen:.3f} us/position), plain {p_ms:.1f} ms; "
+            f"{shape_note(vk, 'grid', Kp)}")
         check(exact and pads and same, f"B9 Kp={Kp} differs")
 
 
@@ -856,7 +918,8 @@ def grid_full_width(torch, report, launches: dict) -> None:
             f"{name} on the same pairs {b1_ms:.3f} ms "
             f"({cells / (b1_ms / 1e3) / 1e9:.3f} GCUPS), bit-equal "
             f"{same_b1}; plain {p_ms:.1f} ms, bit-equal {exact}; scores "
-            f"equal to the engine's {same_scores}")
+            f"equal to the engine's {same_scores}; "
+            f"{shape_note(vk, 'grid', Kp)}")
         check(exact and same_b1 and same_scores,
               f"grid K={K} differs from plain or {name}")
         ops = CELL_OPS["grid"] * P * B * L * K
@@ -1048,13 +1111,24 @@ def check_path_shapes(torch, report, scan: str, calls,
         r=tb.walk_plain(xnf, ndf, rows, lt, steps)))
     k_ms = cuda_ms(torch, lambda: tb.walk(xnf, ndf, rows, lt, steps), 3)
     exact = all(torch.equal(a, b) for a, b in zip(got, plain["r"]))
-    say("main", f"walk: the {real.numel()} walks of that trellis, "
-        f"max_steps {steps}: all ok {bool(got[3].all())}, bit-equal "
-        f"{exact}, kernel {k_ms:.3f} ms, plain {p_ms:.1f} ms")
     check(exact and bool(got[3].all()),
           f"walk differs at the {scan} scan's shapes")
     record(report, "walk", 0.0, k_ms, p_ms, int(lt.max()))
     walk_bound(report, got[2])
+    # per scan: a launch's walks run side by side, so its time is the
+    # longest walk's chain of steps
+    longest = int(got[2].max())
+    w = report["walk"]
+    w.setdefault("scans", {})[scan] = dict(
+        walks=real.numel(), steps=int(got[2].sum()), longest=longest,
+        ms=k_ms, ns_per_step=k_ms * 1e6 / longest, plain_ms=p_ms,
+        bound_ms=w["bound_ms"], bound_by=w["bound_by"])
+    say("main", f"walk: the {real.numel()} walks of that trellis, "
+        f"max_steps {steps}: all ok {bool(got[3].all())}, bit-equal "
+        f"{exact}, kernel {k_ms:.3f} ms ({k_ms * 1e6 / longest:.1f} ns a "
+        f"step of the longest walk, {longest} steps; "
+        f"{int(got[2].sum())} steps in all), plain {p_ms:.1f} ms, bound "
+        f"{w['bound_ms']:.6f} ms ({w['bound_by']})")
 
 
 class Scans:
@@ -1184,9 +1258,11 @@ class Scans:
         busy = sum(dev_s.values())
         top = dict(sorted(dev_s.items(), key=lambda kv: -kv[1])[:8])
         self.htod_s = sum(v for k, v in dev_s.items() if "HtoD" in k)
+        walk_s = sum(v for k, v in dev_s.items() if "walk_kernel" in k)
         say(self.phase, f"profiled scan: wall {prof_wall:.6f} s, device busy "
             f"{busy:.6f} s, idle share {max(0.0, 1 - busy / prof_wall):.6f}, "
-            f"host-to-device copies {self.htod_s:.6f} s; "
+            f"host-to-device copies {self.htod_s:.6f} s, walk "
+            f"{walk_s:.6f} s; "
             "device s by kernel " + json.dumps(top))
         return med
 
@@ -1683,7 +1759,7 @@ def main() -> None:
           "jax or deciphon_tpu was imported")
 
     # the wrappers that keep their launch shapes
-    for k in ("large", "gang_large", "path", "packed", "pchain"):
+    for k in ("large", "gang_large", "path", "grid", "packed", "pchain"):
         report[k]["shapes"] = {str(Kp): sh for (key, Kp), sh
                                in sorted(vk.SHAPES.items()) if key == k}
     for k, r in report.items():

@@ -48,7 +48,7 @@ SIGNATURES = {
                         _I, _I, _I, _I, _P],
     "dtt_score_mixed": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                         _I, _I, _I, _I, _P],
-    # B4, B4m and B2 end with the launch shape (c, w, lpt, threads, smem),
+    # B4, B4m, B9 and B2 end with the launch shape (c, w, lpt, threads, smem),
     # an int* for the resident clusters and the stream
     "dtt_score_pairs_large": [_P] * 9 + [_I] * 9 + [_IP, _P],
     "dtt_score_mixed_large": [_P] * 9 + [_I] * 9 + [_IP, _P],
@@ -59,7 +59,7 @@ SIGNATURES = {
     "dtt_score_packed": [_P] * 9 + [_I] * 8 + [_IP, _P],
     "dtt_score_packed_chained": [_P] * 13 + [_I] * 10 + [_IP, _P],
     "dtt_path_pairs": [_P] * 9 + [_I] * 10 + [_IP, _P],
-    "dtt_score_grid": [_P] * 9 + [_I] * 4 + [_P],
+    "dtt_score_grid": [_P] * 8 + [_I] * 9 + [_IP, _P],
     "dtt_walk": [_P, _P, _P, _P, _P, _P, _P, _P,
                  _I, _I, _I, _I, _P],
 }

@@ -1,72 +1,45 @@
-// Pull-form Viterbi kernels: the phase-2 path kernel (B2), the packed
-// backpointer trellis of every (pair, slot) window, and the dense-grid
-// score kernel (B9), the alt cost T and the null cost R of every (profile,
-// window) pair.
+// Pull-form Viterbi kernel of phase 2 (B2): the packed backpointer
+// trellis of every (pair, slot) window.
 //
 // B2 replaces deciphon_tpu/ops/viterbi_pallas.py `_kernel_path` (reached
 // through `_paths_pairs_core` and `viterbi_paths_pairs`), with the
 // `_ck_end_from_starts` gather fused: the END-indexed row of position l and
 // duration t is codes_all[clamp(starts[n, w] + l - t, 0, T - 1), t - 1].
-// B9 replaces `_kernel` (the pull-form score kernel of `_scores_grid_jit`,
-// `viterbi_scores_grid` and `PallasScanEngine`) in every gather mode
-// (slot, tregs, static: TPU layouts of one computation).  It reads the
-// same start-indexed code buffer through per-window `starts`; the caller
-// (ops/viterbi.py GridScanEngine) builds it from end-indexed codes.
+// (The dense-grid score kernel B9, `_kernel`, computes B1's function and
+// runs the score body: viterbi_score.cu dtt_score_grid.)
 //
-// Mapping.  B2 (path_kernel): one real window per CTA up to Kp 2048 and
-// per thread-block cluster of c CTAs past it (grid (W * c, N), c up to 16,
-// each CTA holding w lanes of every plane; blockIdx = (slot * c + rank,
-// pair), the profile pidx[pair]); the position loop inside the block,
-// LPT consecutive lanes a thread; the M/I/D rings, the transition rows and
-// the staged emission rows (28 planes) in shared memory, no state in
-// global memory at any Kp; the N/J/C states in warp 0, with static ring
-// slots from a 5-phase unrolled loop.  Output: xnode (N, W, Lk) and node
-// (N, W, Lk, Kp) int32, row l-1 holding position l; rows at or past a
-// window's length are not written (the walk never reads them), and
-// positions past Lk are not run; length-0 slots exit at once.  B9
-// (pull_kernel): blockIdx = (window, profile), the windows shared by every
-// profile (length-0 windows write +inf and exit); the Kp lanes split into
-// consecutive chunks, one per thread; the 5-slot M/I/D rings (15 x Kp f32)
-// plus the position's new M and I (2 x Kp) in shared memory when they fit
-// (Kp <= 2944, 256 threads) and otherwise in a global scratch slice per
-// CTA, read through L1/L2 (1024 threads, at most 17 lanes a thread up to
-// Kp 16896); the same code runs on either pointer; the special-state rings
-// and R in registers, computed redundantly by every thread.  Output: alt
-// and null (P, B) f32, T and R captured where l == length.
+// Mapping.  One real window per CTA up to Kp 2048 and per thread-block
+// cluster of c CTAs past it (grid (W * c, N), c up to 16, each CTA holding
+// w lanes of every plane; blockIdx = (slot * c + rank, pair), the profile
+// pidx[pair]); the position loop inside the block, LPT consecutive lanes a
+// thread; the M/I/D rings, the transition rows and the staged emission
+// rows (28 planes) in shared memory, no state in global memory at any Kp;
+// the N/J/C states in warp 0, with static ring slots from a 5-phase
+// unrolled loop.  Output: xnode (N, W, Lk) and node (N, W, Lk, Kp) int32,
+// row l-1 holding position l; rows at or past a window's length are not
+// written (the walk never reads them), and positions past Lk are not run;
+// length-0 slots exit at once.
 //
-// What bounds it.  Latency per position, plus B2's Kp int32 trellis row
-// per position.  path_kernel takes two barrier rounds a position (the
-// shift and the delete chain's cross-warp carry on the first, one
-// reduction of the key (min(M, D), 2k + (M == min ? 0 : 1)) for E and its
-// field on the second), copies the next position's emission rows
-// (cp.async) ahead of the first round, keeps the transition rows in
-// shared memory and makes 16-byte ring and trellis accesses; clustered,
-// the rounds are cluster barriers and the per-warp values cross CTAs
-// through distributed shared memory (path_kernel's note).  On one H100
-// 80GB HBM3 (700.00 W), B2 per position: 4.15 us at Kp 2048 and 2.75 us at
-// Kp 1024, 6.48 us at Kp 5376 on a cluster of 7 CTAs (the global-scratch
-// form 41.5) (PERF.md).  B9 (pull_kernel) spends seven __syncthreads rounds a
-// position (the shift, the prefix min and E, each reduction with a serial
-// cross-warp loop), loads codes and then emission rows at the head of
-// every position, and reads 5 ring slots of M/I/D per position and redoes
-// the shift and min on each, about twice the push form's (B1's) adds and
-// mins per cell; it runs every pair of a dense grid, so at full width it
-// is the one kernel of this file whose throughput counts (ROADMAP: its
-// registers).
+// What bounds it.  Latency per position, plus the Kp int32 trellis row per
+// position.  path_kernel takes two barrier rounds a position (the shift
+// and the delete chain's cross-warp carry on the first, one reduction of
+// the key (min(M, D), 2k + (M == min ? 0 : 1)) for E and its field on the
+// second), copies the next position's emission rows (cp.async) ahead of
+// the first round, keeps the transition rows in shared memory and makes
+// 16-byte ring and trellis accesses; clustered, the rounds are cluster
+// barriers and the per-warp values cross CTAs through distributed shared
+// memory (path_kernel's note).  On one H100 80GB HBM3 (700.00 W), per
+// position: 4.15 us at Kp 2048 and 2.75 us at Kp 1024, 6.48 us at Kp 5376
+// on a cluster of 7 CTAs (the global-scratch form 41.5) (PERF.md).
 //
-// Exactness.  B2: candidate values are (state + trans) + emission in the
+// Exactness.  Candidate values are (state + trans) + emission in the
 // reference's f32 order; t runs 5..1, then BM, MM, IM, DM and II, MI, with
 // a strict `<` so the first minimum wins; field codes are choice*5 + t-1,
 // initialised to the first candidate (bm 4, bi 9, n/j/c 4) so unreachable
 // rows still match; e_field = 2*k_first + (1 - m_at_k) over all Kp lanes;
 // D = cummin(A - DDCUM) + DDCUM and the D bit is D < A.  xnode bits:
 // N(4@0) B(2@4) E(15@6) C(4@21) T(1@25) J(4@26); node: M(5@0) D(1@5) I(4@6).
-// B9 keeps `_kernel`'s grouping: min(shift1(min(M+MMs, I+IMs, D+DMs)),
-// B+BM) + ma, min(I+II, M+MI) + bg, min(S+SN, N+NN) + nil and
-// min_t(R_{l-t} + nil_t) + RR; rounding is monotone, so min(a, b) + e ==
-// min(a + e, b + e) and M, I, N, J, C equal B2's values bit for bit, and
-// T and R equal B1's (the push form) and the Pallas kernel's.  Built with
-// -ftz=false -fmad=false (_build.py).
+// Built with -ftz=false -fmad=false (_build.py).
 #include "common.cuh"
 
 namespace {
@@ -89,9 +62,6 @@ __device__ __forceinline__ void consider_at(float& best, int& word,
   best = fminf(best, cand);
 }
 
-constexpr int kPullThreads = 256;       // B9, rings in shared memory
-constexpr int kPullWideThreads = 1024;  // B9, rings in the global scratch
-constexpr int kPullPlanes = 17;  // B9's M, I, D rings (15) | new M, I (2)
 // The redesigned B2 (path_kernel) takes Kp up to kPathFastMaxKp in one CTA,
 // LPT 2 lanes a thread up to kPathLpt2MaxKp and LPT 4 beyond (Kp / LPT
 // threads, at most kPathFastThreads), and wider planes on a cluster of CTAs
@@ -107,156 +77,6 @@ constexpr int kPathFastPlanes = 28;
 // schedulers, which leaves a thread 168 registers (at 512 threads: 128,
 // and the clustered instance spilled)
 constexpr int kPathClusterThreads = 384;
-
-// B9: blockIdx = (window, profile), xts/lens/starts per window, alt/nul
-// out per (profile, window).
-template <int kThreads>
-__global__ void __launch_bounds__(kThreads) pull_kernel(
-    const float* __restrict__ tables, const float* __restrict__ tvecs,
-    const float* __restrict__ xts, const int* __restrict__ lens,
-    const int* __restrict__ starts, const int* __restrict__ codes,
-    float* __restrict__ alt, float* __restrict__ nul,
-    float* __restrict__ scratch, int W, int Kp, int T, int lpt) {
-  extern __shared__ float smem[];
-  __shared__ float red[kMaxWarps];
-  const int n = blockIdx.y, w = blockIdx.x;
-  const int sw = n * W + w;  // output row
-  const float INF = inf_f();
-  const int len = lens[w];
-  if (len <= 0) {
-    if (threadIdx.x == 0) alt[sw] = nul[sw] = INF;
-    return;
-  }
-  float* buf = scratch ? scratch + (size_t)sw * kPullPlanes * Kp : smem;
-  float* Mr = buf;             // [5][Kp]
-  float* Ir = Mr + 5 * Kp;     // [5][Kp]
-  float* Dr = Ir + 5 * Kp;     // [5][Kp]
-  float* Mn = Dr + 5 * Kp;     // [Kp] M of this position
-  float* In = Mn + Kp;         // [Kp] I of this position
-
-  const float* table = tables + (size_t)n * kTableRows * Kp;
-  const float* tv = tvecs + (size_t)n * 8 * Kp;
-  const float* tBM = tv + TV_BM * Kp;
-  const float* tMMS = tv + TV_MMS * Kp;
-  const float* tIMS = tv + TV_IMS * Kp;
-  const float* tDMS = tv + TV_DMS * Kp;
-  const float* tII = tv + TV_II * Kp;
-  const float* tMI = tv + TV_MI * Kp;
-  const float* tMD = tv + TV_MD * Kp;
-  const float* tDDC = tv + TV_DDCUM * Kp;
-  float xt[13];
-#pragma unroll
-  for (int j = 0; j < 13; ++j) xt[j] = xts[(size_t)w * 16 + j];
-  const int start = starts[w];
-  const int k0 = min((int)threadIdx.x * lpt, Kp);
-  const int k1 = min(k0 + lpt, Kp);
-
-  for (int k = threadIdx.x; k < 15 * Kp; k += blockDim.x) Mr[k] = INF;
-  // special rings [S B N J C E R] x 5 slots; slot 0 holds position 0
-  float sml[7][5];
-#pragma unroll
-  for (int i = 0; i < 7; ++i)
-#pragma unroll
-    for (int j = 0; j < 5; ++j) sml[i][j] = INF;
-  sml[0][0] = 0.f;
-  sml[1][0] = xt[XT_SB];
-  sml[6][0] = -xt[XT_RR];
-  float Tfin = INF, Rfin = INF;
-  __syncthreads();
-
-  for (int l0 = 0; l0 < len; l0 += 5) {
-#pragma unroll
-    for (int r = 0; r < 5; ++r) {
-      const int l = l0 + r + 1;  // l % 5 == (r + 1) % 5
-      if (l > len) break;
-      const float* er[6];  // er[t]: row of the duration-t fragment ending at l
-#pragma unroll
-      for (int t = 1; t <= 5; ++t) {
-        const int row = min(max(start + l - t, 0), T - 1);
-        er[t] = table + (size_t)codes[(size_t)row * 5 + t - 1] * Kp;
-      }
-
-      // ---- M and I candidates, t descending ---------------------------
-      for (int k = k0; k < k1; ++k) {
-        const int km = k == 0 ? Kp - 1 : k - 1;
-        float bm = INF, bi = INF;
-#pragma unroll
-        for (int t = 5; t >= 1; --t) {
-          const int s = (r + 1 - t + 10) % 5;  // (l - t + 10) % 5
-          const float ma = er[t][k];
-          const float bg = er[t][Kp - 1];
-          const float* M_ = Mr + s * Kp;
-          const float* I_ = Ir + s * Kp;
-          const float* D_ = Dr + s * Kp;
-          const float inner = fminf(
-              fminf(M_[km] + tMMS[km], I_[km] + tIMS[km]),
-              D_[km] + tDMS[km]);
-          bm = fminf(bm, fminf(inner, sml[1][s] + tBM[k]) + ma);
-          bi = fminf(bi, fminf(I_[k] + tII[k], M_[k] + tMI[k]) + bg);
-        }
-        Mn[k] = bm;
-        In[k] = bi;
-      }
-      // ---- N, J, C and R candidates (every thread) ---------------------
-      float bn = INF, bj = INF, bc = INF, br = INF;
-#pragma unroll
-      for (int t = 5; t >= 1; --t) {
-        const int s = (r + 1 - t + 10) % 5;
-        const float nil = er[t][Kp - 2];
-        bn = fminf(bn, fminf(sml[0][s] + xt[XT_SN], sml[2][s] + xt[XT_NN])
-                           + nil);
-        bj = fminf(bj, fminf(sml[5][s] + xt[XT_EJ], sml[3][s] + xt[XT_JJ])
-                           + nil);
-        bc = fminf(bc, fminf(sml[5][s] + xt[XT_EC], sml[4][s] + xt[XT_CC])
-                           + nil);
-        br = fminf(br, sml[6][s] + nil);
-      }
-      __syncthreads();
-
-      // ---- delete chain, ring writes -----------------------------------
-      const int slot = (r + 1) % 5;
-      float loc = INF;
-      for (int k = k0; k < k1; ++k) {
-        const int km = k == 0 ? Kp - 1 : k - 1;
-        loc = fminf(loc, (Mn[km] + tMD[k]) - tDDC[k]);
-      }
-      float run = block_excl_prefix_min(loc, red);
-      float vmin = INF;
-      for (int k = k0; k < k1; ++k) {
-        const int km = k == 0 ? Kp - 1 : k - 1;
-        const float A = Mn[km] + tMD[k];
-        run = fminf(run, A - tDDC[k]);
-        const float D = run + tDDC[k];
-        Mr[slot * Kp + k] = Mn[k];
-        Ir[slot * Kp + k] = In[k];
-        Dr[slot * Kp + k] = D;
-        vmin = fminf(vmin, fminf(Mn[k], D));
-      }
-      const float E = block_min(vmin, red);
-
-      // ---- B / T --------------------------------------------------------
-      const float B = fminf(fminf(bn + xt[XT_NB], E + xt[XT_EB]),
-                            bj + xt[XT_JB]);
-      const float Tl = fminf(E + xt[XT_ET], bc + xt[XT_CT]);
-      br = br + xt[XT_RR];
-      if (l == len) {
-        Tfin = Tl;
-        Rfin = br;
-      }
-      sml[0][slot] = INF;
-      sml[1][slot] = B;
-      sml[2][slot] = bn;
-      sml[3][slot] = bj;
-      sml[4][slot] = bc;
-      sml[5][slot] = E;
-      sml[6][slot] = br;
-    }
-  }
-  if (threadIdx.x == 0) {
-    alt[sw] = Tfin;
-    nul[sw] = Rfin;
-  }
-}
 
 // The redesigned B2 (rings in shared memory): blockDim.x * LPT == Kp (kClu
 // false, Kp up to kPathFastMaxKp) or == w, this CTA's share of a cluster
@@ -653,37 +473,6 @@ __global__ void __launch_bounds__(kClu ? kPathClusterThreads
   if (kClu) cluster_sync();
 }
 
-// B9: one launch over a grid of (B, P) CTAs, the rings in shared memory
-// or, when the caller passes `scratch` (ops/viterbi.py GRID_SMEM_BYTES
-// decides), in its global slice.
-int launch_grid(const void* tables, const void* tvecs, const void* xts,
-                const void* lens, const void* starts, const void* codes,
-                void* alt, void* nul, void* scratch, int P, int B, int Kp,
-                int T, void* stream) {
-  if (P <= 0 || B <= 0) return (int)cudaGetLastError();
-  const dim3 grid(B, P);
-  if (scratch) {
-    const int wide = Kp < kPullWideThreads ? Kp : kPullWideThreads;
-    pull_kernel<kPullWideThreads><<<grid, wide, 0, (cudaStream_t)stream>>>(
-        (const float*)tables, (const float*)tvecs, (const float*)xts,
-        (const int*)lens, (const int*)starts, (const int*)codes,
-        (float*)alt, (float*)nul, (float*)scratch, B, Kp, T,
-        (Kp + wide - 1) / wide);
-    return (int)cudaGetLastError();
-  }
-  const int threads = Kp < kPullThreads ? Kp : kPullThreads;
-  const size_t smem = (size_t)kPullPlanes * Kp * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      pull_kernel<kPullThreads>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  pull_kernel<kPullThreads><<<grid, threads, smem, (cudaStream_t)stream>>>(
-      (const float*)tables, (const float*)tvecs, (const float*)xts,
-      (const int*)lens, (const int*)starts, (const int*)codes, (float*)alt,
-      (float*)nul, nullptr, B, Kp, T, (Kp + threads - 1) / threads);
-  return (int)cudaGetLastError();
-}
-
 // B2: the shape (c, w, lpt, threads, smem) comes from ops/viterbi.py
 // cluster_shape, checked here; c = 1 up to kPathFastMaxKp, clusters past
 // it.  *active gets the clusters that can be resident at once (left as it
@@ -730,13 +519,4 @@ extern "C" int dtt_path_pairs(
   return launch_path(pidx, tables, tvecs, xts, lens, starts, codes, xnode,
                      node, N, W, Kp, T, Lk, c, w, lpt, threads, smem, active,
                      stream);
-}
-
-// B9: every (profile, window) pair of P profiles and B windows.
-extern "C" int dtt_score_grid(
-    const void* tables, const void* tvecs, const void* xts, const void* lens,
-    const void* starts, const void* codes, void* alt, void* nul,
-    void* scratch, int P, int B, int Kp, int T, void* stream) {
-  return launch_grid(tables, tvecs, xts, lens, starts, codes, alt, nul,
-                     scratch, P, B, Kp, T, stream);
 }

@@ -1,6 +1,6 @@
-// Phase-1 score kernels (B1, B3, B5, B8, B4, B4m): null and alt min-plus
+// Score kernels (B1, B3, B5, B8, B4, B4m, B9): null and alt min-plus
 // costs of every scheduled window, the push/pending formulation of the
-// frame Viterbi.  One DP body (`score_window`), six entry points:
+// frame Viterbi.  One DP body (`score_window`), seven entry points:
 //
 //   dtt_score_pairs          B1  `_kernel_pending` plain pairs form
 //                                (`_scores_pairs_core`,
@@ -20,7 +20,12 @@
 //                                profile per slot: the gang of a scorer
 //                                whose tables stream per wave
 //                                (`_scores_pairs_hbm_core`,
-//                                `_gather_scores_pairs_hbm_mixed_jit`).
+//                                `_gather_scores_pairs_hbm_mixed_jit`);
+//   dtt_score_grid           B9  `_kernel`, the pull-form score kernel of
+//                                the dense grid (`_scores_grid_jit`,
+//                                `viterbi_scores_grid`, `PallasScanEngine`)
+//                                in every gather mode: every profile
+//                                against every window.
 //
 // all in deciphon_tpu/ops/viterbi_pallas.py, with the `_ck_from_starts` /
 // `_chain_expand` gathers fused: the body reads
@@ -58,6 +63,15 @@
 // between launches, all because VMEM could not hold the table; here the
 // body reads emission rows from the table in place and one launch runs
 // every window to its length, with no state in global memory.
+//
+// B9 computes B1's function over a dense (profile x window) grid: the
+// pull form's T and R equal the push form's bit for bit (rounding is
+// monotone, so min(a, b) + e == min(a + e, b + e)), and the START-indexed
+// code row of the fragment of length t ending at l is the row of the one
+// starting at l - t + 1, which the push form reads.  So B9 is a grid
+// instance of B4's body: one CTA a window up to Kp 2048, a cluster past
+// it, in B4's launch shape, with no DP body and no state scratch of its
+// own.
 //
 // B4m is B4 with B5's profile per slot: the TPU ran it when a gang's table
 // stack did not fit VMEM or streamed in per wave.  On the card no table is
@@ -100,8 +114,9 @@
 // 3.21) and 2.30 us at Kp 2048 (7.39); B3 1.43 us at Kp 1024 (3.16); B4
 // on clusters 7.79 us at Kp 16512 (12 windows in two waves of 7 resident
 // clusters; the global-state form 268), two cluster barriers taking 0.4-
-// 0.7 us each of it.  Scores stay latency-bound: hundreds of times their
-// operation bound (PERF.md).
+// 0.7 us each of it; B9 on 8 x 8 pairs at K 16382 160.9 ms (B4 on the same
+// pairs 160.5; the pull form it replaced, 2775).  Scores stay
+// latency-bound: hundreds of times their operation bound (PERF.md).
 //
 // Exactness.  Min-plus uses only adds and mins, so the body keeps the
 // Pallas f32 operation order: contrib = min(shift1(min(min(sm+MMs,
@@ -851,6 +866,39 @@ __global__ void __launch_bounds__(kScoreThreads) score_large_kernel(
       alt + sw, nul + sw);
 }
 
+// B9, the dense grid: blockIdx = (window * c + rank, profile), windows
+// fastest, so that the CTAs resident at once share one profile's table in
+// L2; one CTA a window up to Kp 2048 (kClu false, LPT 2 or 4) and a
+// cluster of c CTAs past it.  The other order (profiles fastest: the
+// CTAs of one window share its codes) took as long or longer on one H100
+// 80GB HBM3 at 700.00 W, both orders in one call: 8 profiles x 128 windows
+// of 4096 nt, 25.92 ms against 26.00 at K 400 and 35.03-35.33 against
+// 35.18 at K 1000; 8 x 8 at K 16382, 160.84 against 161.67; 2 x 9 windows
+// at Kp 5632, 1.90 against 1.98.  A window's xtrans row, length and code
+// row are shared by every profile; the output is (profile, window).  A
+// window of length 0 leaves on every rank before the first cluster
+// barrier; rank 0 writes its +inf.
+template <int LPT, bool kClu>
+__global__ void __launch_bounds__(kScoreThreads) score_grid_kernel(
+    const float* __restrict__ tables, const float* __restrict__ tvecs,
+    const float* __restrict__ xts, const int* __restrict__ lens,
+    const int* __restrict__ starts, const int* __restrict__ codes,
+    float* __restrict__ alt, float* __restrict__ nul, int B, int Kp, int T) {
+  const int p = blockIdx.y;
+  const int w = kClu ? (int)blockIdx.x / cluster_size() : (int)blockIdx.x;
+  const int o = p * B + w;
+  const int len = lens[w];
+  if (len <= 0) {
+    if (!kClu || cluster_rank() == 0) write_pad(alt + o, nul + o);
+    return;
+  }
+  extern __shared__ float smem[];
+  score_window_fast<LPT, false, kClu>(
+      tables + (size_t)p * kTableRows * Kp, tvecs + (size_t)p * 8 * Kp,
+      xts + (size_t)w * 16, starts[w], len, codes, Kp, T, smem, Carry{},
+      alt + o, nul + o);
+}
+
 // B3 (kCarry false) and B8: blockIdx = (slot * C + entry, pair); xtrans
 // rows from the per-scan LUT.  B8 reads and writes the carry planes.
 template <bool kCarry, int LPT>
@@ -1099,6 +1147,38 @@ extern "C" int dtt_score_mixed_large(
   return launch_large<true>(pidx, tables, tvecs, xts, lens, starts, codes,
                             alt, nul, N, W, Kp, T, c, w, lpt, threads, smem,
                             active, stream);
+}
+
+// B9: P profiles against every one of B windows, the shape (c, w, lpt,
+// threads, smem) ops/viterbi.py cluster_shape(Kp, "score")'s, checked as
+// B4's is; c = 1 up to kFastMaxKp, clusters past it.
+extern "C" int dtt_score_grid(
+    const void* tables, const void* tvecs, const void* xts, const void* lens,
+    const void* starts, const void* codes, void* alt, void* nul, int P,
+    int B, int Kp, int T, int c, int w, int lpt, int threads, int smem,
+    int* active, void* stream) {
+  if (c < 1 || c > kMaxCluster || threads * lpt != w || threads % 32 ||
+      threads > kScoreThreads || (size_t)smem != (size_t)kFastPlanes * w * 4 ||
+      (size_t)c * w < (size_t)Kp || (size_t)(c - 1) * w >= (size_t)Kp ||
+      (c == 1 && lpt != fast_lpt(Kp)) || (c > 1 && lpt != 4))
+    return (int)cudaErrorInvalidValue;
+  if (c > 1)
+    return dtt_launch_clusters(
+        score_grid_kernel<4, true>, dim3(B * c, P), c, threads, smem, stream,
+        active, (const float*)tables, (const float*)tvecs, (const float*)xts,
+        (const int*)lens, (const int*)starts, (const int*)codes, (float*)alt,
+        (float*)nul, B, Kp, T);
+  auto kernel = lpt == 2 ? score_grid_kernel<2, false>
+                         : score_grid_kernel<4, false>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  if (P > 0 && B > 0)
+    kernel<<<dim3(B, P), threads, smem, (cudaStream_t)stream>>>(
+        (const float*)tables, (const float*)tvecs, (const float*)xts,
+        (const int*)lens, (const int*)starts, (const int*)codes, (float*)alt,
+        (float*)nul, B, Kp, T);
+  return (int)cudaGetLastError();
 }
 
 extern "C" const char* dtt_error_string(int err) {

@@ -4,8 +4,9 @@ Counterpart of deciphon_tpu/ops/traceback.py (which loads jax at import):
 
   * `unzip` — host numpy walk, the oracle (trellis.c:147-167);
   * `walk`  — the batched device walk: the CUDA kernel
-    csrc/traceback_walk.cu (one thread per survivor) on CUDA tensors,
-    `walk_plain` (a vectorised torch loop over the batch) on CPU tensors;
+    csrc/traceback_walk.cu (one warp per survivor, reading the trellis
+    from shared-memory tiles) on CUDA tensors, `walk_plain` (a vectorised
+    torch loop over the batch) on CPU tensors;
   * `fetch_steps` / `assemble_path_entries` / `path_arrays` — the step
     arrays, fetched in one transfer, to the (sids, sizes) arrays the scan
     pipeline decodes.

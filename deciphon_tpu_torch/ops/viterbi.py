@@ -32,8 +32,8 @@ Counterparts in deciphon_tpu/ops/viterbi_pallas.py:
     `_ck_end_from_starts` gather fused);
   * `scores_grid` and `GridScanEngine`  <- viterbi_scores_grid and
     PallasScanEngine (`_kernel`, the pull-form score kernel, in every
-    gather mode: B2's body without the trellis, over a dense grid of
-    profiles x windows).
+    gather mode: B1's function over a dense grid of profiles x windows,
+    on the score body of B1 and B4).
 
 Shared contract: `tables` (P, 1364, Kp) f32 and `tvecs` (P, 8, Kp) f32 from
 ops/tables.py; per pair `pidx` (N,) int32; per (pair, slot) `xts`
@@ -44,8 +44,8 @@ ops/tables.py; per pair `pidx` (N,) int32; per (pair, slot) `xts`
 Each wrapper picks by the device of its tensors: CPU tensors run the plain
 version, CUDA tensors launch the kernel (built from csrc/ on first use) or
 raise.  `LAUNCHES` counts kernel launches per wrapper, and only those.
-B4, B4m and B2 take their launch shape from `cluster_shape` (one CTA per
-window up to Kp 2048, a cluster of CTAs past it), B6 and B7 from
+B4, B4m, B9 and B2 take their launch shape from `cluster_shape` (one CTA
+per window up to Kp 2048, a cluster of CTAs past it), B6 and B7 from
 `packed_shape`; `SHAPES` keeps each launched shape with its resident
 cluster count (B6, B7: CTAs an SM holds at once).
 """
@@ -72,11 +72,6 @@ INF = float("inf")
 # nlb * 32 rows (scheduler.PairScorer.PATH_KAPPA).
 KAPPA = 40
 PATH_KAPPA = 32
-# The dense-grid kernel (B9) keeps its rings in shared memory up to this
-# many bytes per window (GRID_PLANES f32 planes of Kp lanes), in a global
-# scratch beyond it.
-GRID_SMEM_BYTES = 200 * 1024
-GRID_PLANES = 17
 MAX_KP = 5120  # widest lane plane the kernels take (B1: 44 * Kp B of smem)
 # The large-K tier (B4) and B2 take planes up to the bucket of the
 # reference's largest profile, K = 16384 (c-core/model.h:12):
@@ -139,8 +134,8 @@ class ClusterShape(NamedTuple):
 
 
 def cluster_shape(Kp: int, body: str = "score") -> ClusterShape:
-    """The launch shape of B4/B4m (`body="score"`) or B2 (`"path"`) at
-    lane width Kp: rank r of a window's cluster owns lanes [r * w,
+    """The launch shape of B4/B4m/B9 (`body="score"`) or B2 (`"path"`)
+    at lane width Kp: rank r of a window's cluster owns lanes [r * w,
     min((r + 1) * w, Kp))."""
     if body not in ("score", "path"):
         raise ValueError(f"no clustered body {body!r}")
@@ -451,7 +446,7 @@ def scores_pairs(pidx, tables, tvecs, xts, lengths, starts, codes_all):
 
 
 def _launch_shaped(fn: str, key: str, Kp: int, shape, *args) -> None:
-    """Call an entry point that takes its launch shape (B4, B4m and B2
+    """Call an entry point that takes its launch shape (B4, B4m, B9 and B2
     `cluster_shape`, B6 and B7 `packed_shape`) with `args` before it; the
     shape and what is resident at once (clusters, 0 when c = 1; B6, B7:
     CTAs an SM) go into SHAPES.  A shape the entry point does not take, or
@@ -1281,31 +1276,19 @@ def scores_grid(tables, tvecs, xts, lengths, starts, codes_all):
     of `tables` (P, 1364, Kp) against every window b of xts (B, 16),
     lengths (B,) int32 (0 = pad, +inf out) and starts (B,) int32 into the
     START-indexed code table codes_all (T, 5).  Lane planes up to
-    MAX_LARGE_KP: the rings live in shared memory up to GRID_SMEM_BYTES
-    per window and in a per-launch (P * B, GRID_PLANES * Kp) f32 global
-    scratch beyond."""
+    MAX_LARGE_KP.  On the card a (profile, window) pair runs the score
+    body of B1 and B4 in B4's launch shape, `cluster_shape(Kp)`: one CTA
+    up to Kp 2048, a thread-block cluster past it, its DP state in shared
+    memory at any Kp."""
     P, B, Kp = _check_grid(tables, tvecs, xts, lengths, starts, codes_all)
     if not on_cuda(tables, tvecs, xts, lengths, starts, codes_all):
         return scores_grid_plain(tables, tvecs, xts, lengths, starts,
                                  codes_all)
-    from .. import _build
-
-    dev = tables.device
-    alt = torch.empty((P, B), dtype=torch.float32, device=dev)
+    alt = torch.empty((P, B), dtype=torch.float32, device=tables.device)
     nul = torch.empty_like(alt)
-    scratch = None
-    if GRID_PLANES * Kp * 4 > GRID_SMEM_BYTES:
-        scratch = torch.empty((P * B, GRID_PLANES * Kp), dtype=torch.float32,
-                              device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _build.lib().dtt_score_grid(
-        tables.data_ptr(), tvecs.data_ptr(), xts.data_ptr(),
-        lengths.data_ptr(), starts.data_ptr(), codes_all.data_ptr(),
-        alt.data_ptr(), nul.data_ptr(),
-        scratch.data_ptr() if scratch is not None else None,
-        P, B, Kp, codes_all.shape[0], stream)
-    _build.check(err, "dtt_score_grid")
-    LAUNCHES["grid"] += 1
+    _launch_shaped("dtt_score_grid", "grid", Kp, cluster_shape(Kp), tables,
+                   tvecs, xts, lengths, starts, codes_all, alt, nul, P, B,
+                   Kp, codes_all.shape[0])
     return alt, nul
 
 

@@ -16,6 +16,7 @@
 * `pfam_scan` / `pfam_subset` / `pfam_longread` / `pfam_largek` /
   `largek_subset` — chip_smoke.py's scans and its card-against-CPU
   subsets.
+* `walk_cases` — trellises planted with the traceback walk's edge cases.
 """
 
 from __future__ import annotations
@@ -612,3 +613,182 @@ def largek_subset(profiles):
              random_bases(rng, 2000)]
     return profiles, [Sequence.make(i, n, r) for i, (n, r) in
                       enumerate(zip(("k0", "k1"), reads))]
+
+
+# xnode and node fields of the trellis words: (offset, width)
+_XN_FIELD = {"N": (0, 4), "B": (4, 2), "E": (6, 15), "C": (21, 4),
+             "T": (25, 1), "J": (26, 4)}
+_ND_FIELD = {"M": (0, 5), "D": (5, 1), "I": (6, 4)}
+
+
+def _plant(xn: np.ndarray, nd: np.ndarray, path: list, taken: dict) -> int:
+    """Write the trellis fields that make the walk from T follow `path`
+    (forward (state, size) steps, S first, T last) back to S; returns its
+    length.  The walk at state X and stage s reads row s-1 (the zero row
+    at stage 0): X's field there names the state before X and X's size."""
+    from . import states as st
+
+    names = {st.STATE_S: "S", st.STATE_N: "N", st.STATE_B: "B",
+             st.STATE_E: "E", st.STATE_J: "J", st.STATE_C: "C",
+             st.STATE_T: "T"}
+    stage = 0
+    for (p, _), (x, size) in zip(path, path[1:]):
+        stage += size
+        if st.is_core(x):
+            k = st.core_idx(x)
+            if st.is_match(x):
+                field = "M"
+                choice = 0 if p == st.STATE_B else {
+                    st.STATE_M: 1, st.STATE_I: 2,
+                    st.STATE_D: 3}[st.state_class(p)]
+                assert choice == 0 or st.core_idx(p) == k - 1, (p, x)
+                v = choice * 5 + size - 1
+            elif st.is_delete(x):
+                field = "D"
+                assert size == 0 and st.core_idx(p) == k - 1, (p, x)
+                assert not st.is_insert(p), (p, x)
+                v = int(st.is_delete(p))
+            else:
+                field = "I"
+                assert st.core_idx(p) == k and not st.is_delete(p), (p, x)
+                v = int(st.is_insert(p)) * 5 + size - 1
+            off, width = _ND_FIELD[field]
+        else:
+            field, k = names[x], 0
+            if field == "B":
+                v = {"S": 0, "N": 1, "E": 2, "J": 3}[names[p]]
+            elif field == "E":
+                v = 2 * st.core_idx(p) + int(st.is_delete(p))
+            elif field == "T":
+                v = int(names[p] == "C")
+            else:  # N, C, J: the state before is the field's first or itself
+                v = int(p == x) * 5 + size - 1
+            off, width = _XN_FIELD[field]
+        assert 0 <= v < (1 << width) and 0 <= size <= 5, (x, v, size)
+        if stage == 0:  # the zero row: only B <- S reads it
+            assert v == 0 and field == "B", (x, v)
+            continue
+        key = (stage - 1, field, k)
+        assert taken.setdefault(key, v) == v, key
+        plane = nd[stage - 1] if st.is_core(x) else xn
+        col = k if st.is_core(x) else stage - 1
+        mask = ((1 << width) - 1) << off
+        plane[col] = (int(plane[col]) & ~mask) | (v << off)
+    return stage
+
+
+def walk_cases(Kp: int = 256, Lk: int = 1024, seed: int = 0,
+               device="cpu") -> dict:
+    """Trellises planted with the traceback walk's edge cases, one row each
+    of xn (R, Lk) and nd (R, Lk, Kp) int32, every word off the paths
+    random (as rows past a window's length are): E jumping to k = 0 and
+    to k = Kp - 1; a D chain over every column but two, in one row; an I
+    run in one column over Lk / 3 rows; stretches of N, J and C only; a
+    domain starting at stage 1; a diagonal domain over most columns, with
+    I runs, deletes and codons of 2 and 4 nt; an overflow at `max_steps`
+    (Lk + 4 Kp + 64, the scan's first try: rounds of a D chain over every
+    column), an underflow (C claiming 5 nt at stage 2) and a length-0 walk.
+    Returns dict(xn, nd, rows, lengths, max_steps) as `walk` takes them,
+    with `names` and `paths` (each case's forward (state, size) steps, None
+    where no walk reaches S)."""
+    import torch
+
+    from . import states as st
+
+    assert Kp >= 8 and Lk >= 64, (Kp, Lk)
+    S, N, B, E, J, C, T = (st.STATE_S, st.STATE_N, st.STATE_B, st.STATE_E,
+                           st.STATE_J, st.STATE_C, st.STATE_T)
+    M, I, D = st.make_match_id, st.make_insert_id, st.make_delete_id
+    max_steps = Lk + 4 * Kp + 64
+
+    def run(state, n, sizes=(3,)):
+        return [(state, sizes[i % len(sizes)]) for i in range(n)]
+
+    def fill(path, n_left):
+        """C steps of 3 nt (or fewer) up to n_left nt, then T."""
+        return path + run(C, n_left // 3) + [(T, 0)]
+
+    q = Lk // 12
+    cols = min(Kp - 10, (Lk - 120) * 10 // 36)  # the diagonal domain
+    dom = [(B, 0)]
+    for i, k in enumerate(range(8, 8 + cols)):
+        if i % 23 == 22 and st.is_match(dom[-1][0]):
+            dom.append((D(k), 0))  # D follows M or D only
+            continue
+        dom.append((M(k), (2, 3, 3, 4, 3)[i % 5]))
+        if i % 17 == 5:
+            dom += run(I(k), 2)
+    rounds = max_steps // (Kp + 3) + 2
+    loop = [(S, 0), (N, 3)]
+    for r in range(rounds):
+        loop += [(B, 0), (M(0), 3), *[(D(k), 0) for k in range(1, Kp - 1)],
+                 (M(Kp - 1), 3), (E, 0)]
+        loop += [(J, 3)] if r < rounds - 1 else [(C, 3), (T, 0)]
+    cases = {
+        "e_to_k0": fill([(S, 0), *run(N, 4), (B, 0), (M(0), 3), (E, 0)], 30),
+        "e_to_last": fill([(S, 0), (N, 2), (B, 0),
+                           *[(M(k), 3) for k in range(Kp - 6, Kp)], (E, 0)],
+                          20),
+        "d_chain": fill([(S, 0), (N, 3), (B, 0), (M(1), 3),
+                         *[(D(k), 0) for k in range(2, Kp)], (E, 0)], 9),
+        "i_run": fill([(S, 0), *run(N, 2), (B, 0), (M(3), 3),
+                       *run(I(3), Lk // 9, (3, 2, 4)), (M(4), 3), (M(5), 1),
+                       (E, 0)], 12),
+        "specials": [(S, 0), *run(N, q, (1, 2, 3, 4, 5)), (B, 0),
+                     (M(Kp // 2), 3), (E, 0), *run(J, q, (5, 4, 3, 2, 1)),
+                     (B, 0), (M(Kp // 3), 3), (E, 0), *run(C, q, (2, 4, 3)),
+                     (T, 0)],
+        "stage1": fill([(S, 0), (B, 0), (M(7), 1), (M(8), 3), (M(9), 3),
+                        (E, 0)], 6),
+        "long_domain": fill([(S, 0), *run(N, 10), *dom, (E, 0)], 30),
+        "overflow": loop,
+        "underflow": None,
+        "empty": None,
+    }
+    rng = np.random.default_rng(seed)
+    R = len(cases) + 1  # and a row no walk reads
+    xn = rng.integers(0, 1 << 30, size=(R, Lk), dtype=np.int64)
+    nd = rng.integers(0, 1 << 30, size=(R, Lk, Kp), dtype=np.int64)
+    lengths, paths = [], []
+    for r, (name, path) in enumerate(cases.items()):
+        if name == "underflow":
+            # T <- C at stage 2; C claims 5 nt there (its own previous)
+            xn[r, 1] = (1 << 25) | ((5 + 4) << 21)
+            lengths.append(2)
+        elif name == "empty":
+            lengths.append(0)
+        else:
+            lengths.append(_plant(xn[r], nd[r], path, {}))
+            assert lengths[-1] <= Lk, (name, lengths[-1], Lk)
+            assert (len(path) - 1 > max_steps) == (name == "overflow"), name
+        paths.append(path)
+    order = rng.permutation(len(cases))
+    return dict(
+        xn=torch.from_numpy(xn.astype(np.int32)).to(device),
+        nd=torch.from_numpy(nd.astype(np.int32)).to(device),
+        rows=torch.tensor(order, dtype=torch.int32, device=device),
+        lengths=torch.tensor([lengths[i] for i in order], dtype=torch.int32,
+                             device=device),
+        max_steps=max_steps,
+        names=[list(cases)[i] for i in order],
+        paths=[paths[i] for i in order])
+
+
+def assemble_walk_cases(c: dict, got) -> dict:
+    """The walks of `walk_cases` `c` that end, as the scan pipeline
+    assembles them from the walk's output `got` (sts, szs, ns, oks on the
+    trellis's device): {case index: (sids, sizes)}, the overflow walked
+    again by `rewalk` on that device (counted in REWALKS)."""
+    from .ops import traceback as tb
+
+    keep = [b for b, n in enumerate(c["names"])
+            if n not in ("underflow", "empty")]
+    items = [object() for _ in keep]
+    out: dict = {}
+    tb.assemble_path_entries(
+        [(items, *(a[keep] for a in got), c["xn"], c["nd"],
+          [int(c["rows"][b]) for b in keep],
+          [int(c["lengths"][b]) for b in keep])],
+        [a.cpu().numpy()[keep] for a in got], out)
+    return {b: out[id(it)] for b, it in zip(keep, items)}
+

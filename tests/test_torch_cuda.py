@@ -23,11 +23,12 @@ from deciphon_tpu_torch.profile import sample_profile
 from deciphon_tpu_torch.scan import pipeline as tp
 from deciphon_tpu_torch.scan import scheduler as ts
 from deciphon_tpu_torch.scan.sequence import Sequence
-from deciphon_tpu_torch.workload import (carry_case, chain_case, mixed_case,
+from deciphon_tpu_torch.workload import (assemble_walk_cases, carry_case,
+                                         chain_case, mixed_case,
                                          packed_case, packed_chain_case,
                                          planted_read, random_bases,
-                                         run_carry_calls, window_batch,
-                                         window_scores)
+                                         run_carry_calls, walk_cases,
+                                         window_batch, window_scores)
 
 pytestmark = pytest.mark.cuda
 
@@ -238,12 +239,20 @@ def grid_inputs(dev, Ks, Kp, lens, seed):
                 codes_all=inp["codes_all"])
 
 
-@pytest.mark.parametrize("Kp", [128, 1024, 5632])
+# B9 runs the score body in B4's launch shape: one CTA a window up to Kp
+# 2048, a cluster from 2176
+GRID_KPS = [128, 1024, 2048, 2176, 5632]
+
+
+@pytest.mark.parametrize("Kp", GRID_KPS)
 def test_grid_kernel_bit_equal_to_plain(cuda, Kp):
     inp = grid_inputs(cuda, [Kp - 2, 17], Kp, [300, 1, 0, 45, 97], Kp + 7)
     before = vk.LAUNCHES["grid"]
     alt, nul = vk.scores_grid(**inp)
     assert vk.LAUNCHES["grid"] == before + 1
+    shape = vk.SHAPES[("grid", Kp)]
+    assert shape["c"] == vk.cluster_shape(Kp).c and (shape["c"] > 1) == (
+        Kp > 2048)
     pa, pn = vk.scores_grid_plain(**inp)
     torch.cuda.synchronize()
     assert alt.shape == (2, 5)
@@ -251,7 +260,7 @@ def test_grid_kernel_bit_equal_to_plain(cuda, Kp):
     assert torch.isinf(alt[:, 2]).all() and torch.isfinite(alt[:, 1]).all()
 
 
-@pytest.mark.parametrize("Kp", [1024, 2048, 5632])
+@pytest.mark.parametrize("Kp", GRID_KPS)
 def test_grid_kernel_bit_equal_to_b1(cuda, Kp):
     """B9 on every (profile, window) pair against the push form on the
     same pairs: B1, or B4 past its 5120 lanes."""
@@ -501,6 +510,25 @@ def check_paths_and_walk(dev, inp, lens):
     return px
 
 
+@pytest.mark.parametrize("Kp,ties", cluster_cases("score"))
+def test_grid_cluster_bands_bit_equal_to_plain(cuda, Kp, ties):
+    """B9 on clusters at both sides of every change of cluster size: two
+    profiles against the windows of SHORT_LENS (pads among them)."""
+    lens = [L for row in SHORT_LENS for L in row]
+    inp = grid_inputs(cuda, [Kp - 2, 17], Kp, lens, Kp + 31)
+    if ties:
+        costs = [tied(build_costs(sample_profile(Kp + 31 + i, k)))
+                 for i, k in enumerate((Kp - 2, 17))]
+        inp["tables"], inp["tvecs"] = (t.to(cuda) for t in
+                                       stack_tables(costs, Kp))
+    alt, nul = vk.scores_grid(**inp)
+    assert vk.SHAPES[("grid", Kp)]["c"] == vk.cluster_shape(Kp).c > 1
+    pa, pn = vk.scores_grid_plain(**inp)
+    torch.cuda.synchronize()
+    assert torch.equal(alt, pa) and torch.equal(nul, pn)
+    assert torch.isinf(alt[:, lens.index(0)]).all()
+
+
 @pytest.mark.parametrize("Kp,ties", cluster_cases("path"))
 def test_path_cluster_bands_bit_equal_to_plain(cuda, Kp, ties):
     inp = inputs(cuda, [Kp - 2, 17], Kp, SHORT_LENS, seed=Kp + 23, ties=ties)
@@ -538,15 +566,49 @@ def test_path_e_tie_across_cta_boundary(cuda, rank):
 
 @pytest.mark.parametrize("Kp", [5376, 16896])
 def test_clustered_launch_of_pads_only(cuda, Kp):
-    """A launch whose windows are all of length 0: B4 and B4m write +inf,
-    B2 writes no row, and every rank leaves before any cluster barrier."""
+    """A launch whose windows are all of length 0: B4, B4m and B9 write
+    +inf, B2 writes no row, and every rank leaves before any cluster
+    barrier."""
     lens = [[0, 0, 0], [0, 0, 0]]
     inp = inputs(cuda, [Kp - 2, 17], Kp, lens, seed=Kp + 29)
     alt, nul = vk.scores_pairs_large(**inp)
     ma, mn = vk.scores_pairs_mixed_large(**mixed_inputs(
         cuda, [Kp - 2, 17], Kp, lens, seed=Kp + 29))
     xn, nd = vk.paths_pairs(**inp, nlb=1)
+    ga, gn = vk.scores_grid(**grid_inputs(cuda, [Kp - 2, 17], Kp, lens[0],
+                                          Kp + 29))
     torch.cuda.synchronize()
-    for t in (alt, nul, ma, mn):
+    for t in (alt, nul, ma, mn, ga.reshape(2, 3), gn.reshape(2, 3)):
         assert t.shape == (2, 3) and torch.isinf(t).all()
     assert xn.shape == (2, 3, vk.PATH_KAPPA)
+
+
+@pytest.mark.parametrize("Kp,Lk", [(256, 1024), (1024, 4096), (37, 301)])
+def test_walk_kernel_on_walk_cases(cuda, Kp, Lk):
+    """The walk kernel on the planted edge cases (16-byte copies, and
+    4-byte ones at the torch engine's layout): bit-equal to the plain walk;
+    every walk that ends, the overflow after its re-walk on the card,
+    equal to its planted path; the underflow raises in rewalk."""
+    c = walk_cases(Kp, Lk, seed=Kp + Lk, device=cuda)
+    args = [c[k] for k in ("xn", "nd", "rows", "lengths")]
+    before = vk.LAUNCHES["walk"]
+    got = tb.walk(*args, c["max_steps"])
+    assert vk.LAUNCHES["walk"] == before + 1
+    want = tb.walk_plain(*args, c["max_steps"])
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    names = c["names"]
+    for n, ok in zip(names, got[3].tolist()):
+        assert bool(ok) == (n not in ("overflow", "underflow", "empty")), n
+    tb.REWALKS["survivors"] = 0
+    out = assemble_walk_cases(c, got)
+    assert tb.REWALKS["survivors"] == 1  # the overflow, on the card
+    assert len(out) == len(names) - 2  # all but the underflow and empty
+    for b, path in out.items():
+        for x, y in zip(path, tb.path_arrays(c["paths"][b])):
+            assert np.array_equal(x, y), names[b]
+    b = names.index("underflow")
+    with pytest.raises(RuntimeError, match="underflow"):
+        tb.rewalk(c["xn"], c["nd"], [int(c["rows"][b])], [2],
+                  c["max_steps"])
+

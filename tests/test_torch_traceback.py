@@ -17,7 +17,9 @@ from deciphon_tpu_torch.ops import traceback as tb
 from deciphon_tpu_torch.ops import viterbi as vk
 from deciphon_tpu_torch.ops.tables import stack_tables
 from deciphon_tpu_torch.scan.scheduler import DeviceSeqCodes
-from deciphon_tpu_torch.workload import planted_read, random_bases
+from deciphon_tpu_torch.workload import (assemble_walk_cases,
+                                         planted_read, random_bases,
+                                         walk_cases)
 from deciphon_tpu_torch.xtrans import xtrans_cost_vector
 
 # One torch thread: the plain versions run thousands of small ops, and
@@ -98,6 +100,57 @@ def test_walk_plain_matches_unzip_and_jax_walk(K, seed):
         assert list(zip(sid.tolist(), sz.tolist())) == want
     # the planted windows pass through match states
     assert any((out[id(items[1])][0] >> 14) == 0)
+
+
+@pytest.mark.parametrize("Kp,Lk", [(256, 1024), (37, 301)])
+def test_walk_cases_plain_matches_unzip_and_jax_walk(Kp, Lk):
+    """The planted edge cases (E to k = 0 and Kp - 1, a D chain along a
+    row, an I run down a column, special-state stretches, a domain from
+    stage 1, a diagonal domain, an overflow at max_steps, an underflow and
+    a length-0 walk): the walk equals the reference's device walk step for
+    step, every walk that ends equals its planted path and the host
+    `unzip` (the overflow after its re-walk), and the underflow raises in
+    both `unzip` and `rewalk`."""
+    c = walk_cases(Kp, Lk, seed=Kp)
+    xn, nd, rows, lt = c["xn"], c["nd"], c["rows"], c["lengths"]
+    names, max_steps = c["names"], c["max_steps"]
+    sts, szs, ns, oks = tb.walk(xn, nd, rows, lt, max_steps)  # plain
+
+    sel = np.pad(xn[rows.long()].numpy(), ((0, 0), (1, 0)))
+    nsel = np.pad(nd[rows.long()].numpy(), ((0, 0), (1, 0), (0, 0)))
+    rs, rz, rn, rok = ref_tb._unzip_batch_jit(
+        jnp.asarray(sel), jnp.asarray(nsel), jnp.asarray(lt.numpy()),
+        max_steps=max_steps)
+    assert np.array_equal(ns.numpy(), np.asarray(rn))
+    assert np.array_equal(oks.numpy().astype(bool), np.asarray(rok))
+    for b in range(len(names)):
+        n = int(ns[b])
+        assert np.array_equal(sts[b, :n].numpy().view(np.uint16),
+                              np.asarray(rs)[b, :n]), names[b]
+        assert np.array_equal(szs[b, :n].numpy(), np.asarray(rz)[b, :n])
+
+    ends = {"overflow", "underflow", "empty"}
+    assert [bool(o) for o in oks] == [n not in ends for n in names]
+    assert int(ns[names.index("overflow")]) == max_steps
+    assert int(ns[names.index("underflow")]) == 2
+    assert int(ns[names.index("empty")]) == 0
+    tb.REWALKS["survivors"] = 0
+    out = assemble_walk_cases(c, (sts, szs, ns, oks))
+    assert tb.REWALKS["survivors"] == 1  # the overflow
+    assert len(out) == len(names) - 2  # all but the underflow and empty
+    for b, (sid, sz) in out.items():
+        r, L = int(rows[b]), int(lt[b])
+        x, n = tb.host_trellis(xn[r].numpy(), nd[r].numpy(), L)
+        want = tb.unzip(x, n, L, Kp)
+        assert want == ref_tb.unzip(x, n, L, Kp) == c["paths"][b], names[b]
+        assert list(zip(sid.tolist(), sz.tolist())) == want, names[b]
+    b = names.index("underflow")
+    r = int(rows[b])
+    x, n = tb.host_trellis(xn[r].numpy(), nd[r].numpy(), 2)
+    with pytest.raises(RuntimeError):
+        tb.unzip(x, n, 2, Kp)
+    with pytest.raises(RuntimeError):
+        tb.rewalk(xn, nd, [r], [2], max_steps)
 
 
 def test_walk_overflow_falls_back_to_host_unzip():
