@@ -70,7 +70,9 @@ Phases, each reported on its own lines; any failure exits non-zero:
      long-read scan and every B8 call of its DECIPHON_CHAIN_SEG=1 scan,
      B4 from the large-K scan, B2 on that scan's widest launch (the
      largest cluster, over its first WIDEST_PATH_POSITIONS positions) and
-     with its walk on its narrowest bucket; per wrapper and scan the
+     with its walk on its narrowest bucket; B6, B1, B5, B4 and B2 with
+     its walks over their windows' first PREFIX_POSITIONS positions (the
+     chain forms whole); per wrapper and scan the
      widest, longest launch, bit
      for bit; the times and bounds of a kernel's last check go into the
      kernels line, and the walk's time, ns a step and bound on each of the
@@ -87,7 +89,20 @@ Phases, each reported on its own lines; any failure exits non-zero:
      reference's caps (the lax.scan engine's counterpart: plain PyTorch
      scores, then its own phase 2 through the walk kernel): the kernels'
      bytes, no score or path kernel launched, and the walk on its largest
-     recorded call bit-equal to the plain walk.
+     recorded call bit-equal to the plain walk;
+  8. confirmation ("confirm"): the amino Forward and posterior kernels
+     against their plain versions at AMINO_KPADS (16 to 16384; L 1,
+     degenerate residues, a batch of hits a launch) within the
+     reference's tolerance (rtol 1e-4, atol 1e-3, scores in bits); the
+     Pfam scan with NativeConfirmer(pfam_scan_hmms(), device="cuda"):
+     first scan counted, three warm, one profiled (the kernels' device
+     seconds, the warm median beside phase 4's unconfirmed one), its lines
+     the unconfirmed scan's kept lines (every column but the e-value), one
+     counted scan with null2=False (the Forward kernel); the recorded call
+     with the widest Kpad and the one with the longest L against the
+     plain versions on the card; and the confirmed scan on the card
+     against the CPU on the Pfam subset and on `confirm_case` (hits kept
+     and dropped, h3r files).
 
 Every scan path is run with the launch counts set to 0 just before and
 read just after; each kernel must have launched on its path.  The line
@@ -120,13 +135,16 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 PALLAS = "deciphon_tpu/ops/viterbi_pallas.py"
 SCORE_CU = "deciphon_tpu_torch/csrc/viterbi_score.cu"
 PACKED_CU = "deciphon_tpu_torch/csrc/viterbi_packed.cu"
+AMINO_CU = "deciphon_tpu_torch/csrc/amino_forward.cu"
+FORWARD_PY = "deciphon_tpu/hmmer/forward.py"
 SOURCE = {"score": SCORE_CU, "chain": SCORE_CU, "gang": SCORE_CU,
           "carry": SCORE_CU, "large": SCORE_CU, "gang_large": SCORE_CU,
           "packed": PACKED_CU,
           "pchain": PACKED_CU,
           "path": "deciphon_tpu_torch/csrc/viterbi_path.cu",
           "grid": SCORE_CU,
-          "walk": "deciphon_tpu_torch/csrc/traceback_walk.cu"}
+          "walk": "deciphon_tpu_torch/csrc/traceback_walk.cu",
+          "amino_forward": AMINO_CU, "amino_posterior": AMINO_CU}
 # kernel wrappers whose calls a captured scan records
 SPIED = ("scores_pairs", "scores_pairs_mixed", "scores_pairs_chained",
          "scores_pairs_chained_carry", "scores_pairs_large",
@@ -139,7 +157,9 @@ REPLACES = {"score": f"{PALLAS}:376", "chain": f"{PALLAS}:1038",
             "large": f"{PALLAS}:1379", "gang_large": f"{PALLAS}:1477",
             "packed": f"{PALLAS}:2265", "pchain": f"{PALLAS}:2331",
             "path": f"{PALLAS}:1707", "grid": f"{PALLAS}:158",
-            "walk": "deciphon_tpu/ops/traceback.py:137"}
+            "walk": "deciphon_tpu/ops/traceback.py:137",
+            "amino_forward": f"{FORWARD_PY}:58",
+            "amino_posterior": f"{FORWARD_PY}:128"}
 # Published peaks of one H100 SXM: f32 outside the tensor cores (an FMA
 # counted as two operations, so adds and mins alone reach half of it: the
 # operation bound below is the generous one) and HBM3 bandwidth.
@@ -159,6 +179,20 @@ PEAK_BYTES = 3.35e12
 # are its excess over the bound, not part of it.  The per-position
 # special states are O(1) per window and left out.
 CELL_OPS = {"score": 34, "path": 98, "grid": 34}
+# The amino Forward and posterior, f32 operations per (position, true
+# node) cell, a logaddexp counted as 5 (max, subtract, exp, log1p, add) and
+# an exp as 1, from csrc/amino_forward.cu: Forward, the inner lse (3 adds,
+# 2 lae), Mrow (2 adds, 1 lae), Irow (2, 1), the D chain (2 adds, 1 lae in
+# the scan, 1 add), E's two sums (4 each): 43; Backward, mb and bB (1 + 5),
+# R (1 add, 1 lae, 1 select), the suffix scan (1 sub, 1 lae, 1 add), bM (3
+# adds, 3 lae), bI (2, 1), the usages gM and gI (4 each): 53.  The
+# transcendentals run on the SFU at 16 a clock an SM, slower than the FMA
+# pipes; counting them at the f32 peak makes the bound the generous one.
+AMINO_OPS = {"amino_forward": 43, "amino_posterior": 43 + 53}
+# Kpad at which the confirm phase holds both amino kernels against their
+# plain versions (16384: the bucket of the largest profile, on a short
+# string so that the plain version stays cheap)
+AMINO_KPADS = (16, 128, 2048, 16384)
 # planes (seg, nseg) on which phase 3 holds B6 and B7 against their plain
 # versions
 PACKED_PLANES = ((64, 4), (128, 8), (256, 8), (448, 2), (192, 6), (64, 32))
@@ -170,6 +204,12 @@ CLUSTER_KPS = (2176, 2816, 3072, 5376, 5632, 8704, 16896)
 # many positions of its windows (a prefix: the trellis rows of positions
 # up to Lk do not depend on Lk), to bound its plain version's time
 WIDEST_PATH_POSITIONS = 2048
+# phase 6 holds B6 (Pfam, DECIPHON_NO_CHAIN=1), B1 and B5 (long read), B4
+# (large K), and B2 with its walk on the Pfam, long-read and large-K
+# narrowest launches over the first this many positions of their windows
+# (10 to 24 knt), so that their host-bound plain versions fit the run's
+# time; the chain forms (B3, B7, B8) run whole
+PREFIX_POSITIONS = 6000
 
 
 # the kernels-line key each kernel instance serves, by its name and its
@@ -186,7 +226,9 @@ INSTANCE_KEYS = {("score_pairs_kernel", "false"): "score",
                  ("path_kernel", "true"): "path",
                  ("score_grid_kernel", "false"): "grid",
                  ("score_grid_kernel", "true"): "grid",
-                 ("walk_kernel", None): "walk"}
+                 ("walk_kernel", None): "walk",
+                 ("amino_kernel", "false"): "amino_forward",
+                 ("amino_kernel", "true"): "amino_posterior"}
 
 
 def ptxas_instances(log: str) -> dict:
@@ -984,18 +1026,25 @@ def check_main_shapes(torch, report, pfam_calls, nochain_calls, long_calls,
     the kernels line."""
     from deciphon_tpu_torch.ops import viterbi as vk
 
-    for key, name, scan, calls in (
-            ("pchain", "scores_pairs_packed_chained", "Pfam", pfam_calls),
+    for key, name, scan, calls, prefix in (
+            ("pchain", "scores_pairs_packed_chained", "Pfam", pfam_calls,
+             None),
             ("packed", "scores_pairs_packed", "Pfam DECIPHON_NO_CHAIN=1",
-             nochain_calls),
+             nochain_calls, PREFIX_POSITIONS),
             ("pchain", "scores_pairs_packed_chained", "long-read",
-             long_calls),
-            ("score", "scores_pairs", "long-read", long_calls),
-            ("gang", "scores_pairs_mixed", "long-read", long_calls),
-            ("chain", "scores_pairs_chained", "long-read", long_calls),
-            ("large", "scores_pairs_large", "large-K", big_calls)):
+             long_calls, None),
+            ("score", "scores_pairs", "long-read", long_calls,
+             PREFIX_POSITIONS),
+            ("gang", "scores_pairs_mixed", "long-read", long_calls,
+             PREFIX_POSITIONS),
+            ("chain", "scores_pairs_chained", "long-read", long_calls, None),
+            ("large", "scores_pairs_large", "large-K", big_calls,
+             PREFIX_POSITIONS)):
         calls = calls[name]
         i, args = widest(calls, key)
+        full = span(args)
+        if prefix is not None:  # each window's first `prefix` positions
+            args = dict(args, lengths=args["lengths"].clamp(max=prefix))
         out, want, k_ms, p_ms = kernel_vs_plain(
             torch, getattr(vk, name),
             getattr(vk, PLAIN.get(name, name + "_plain")), args, reps=2)
@@ -1003,8 +1052,10 @@ def check_main_shapes(torch, report, pfam_calls, nochain_calls, long_calls,
         lens = args["win_len"] if "win_len" in args else args["lengths"]
         say("main", f"{key}: {scan} scan, launch {i + 1} of {len(calls)}, "
             f"Kp={args['tvecs'].shape[2]}, slots {tuple(lens.shape)}, "
-            f"{int((lens > 0).sum())} windows, longest slot {span(args)} "
-            f"positions: bit-equal {exact}, kernel {k_ms:.3f} ms, plain "
+            f"{int((lens > 0).sum())} windows, longest slot {full} "
+            f"positions" + (f", its first {span(args)} run"
+                            if span(args) < full else "")
+            + f": bit-equal {exact}, kernel {k_ms:.3f} ms, plain "
             f"{p_ms:.1f} ms")
         check(exact, f"{key} differs from plain at the {scan} scan's shapes")
         if key == "large":
@@ -1048,21 +1099,25 @@ def check_main_shapes(torch, report, pfam_calls, nochain_calls, long_calls,
         f"us/position over the calls' longest slots, bound "
         f"{report['carry']['bound_ms']:.6f} ms ({report['carry']['bound_by']})")
 
-    for scan, calls in (("Pfam", pfam_calls), ("long-read", long_calls)):
-        check_path_shapes(torch, report, scan, calls)
+    check_path_shapes(torch, report, "Pfam", pfam_calls,
+                      positions=PREFIX_POSITIONS)
+    check_path_shapes(torch, report, "long-read", long_calls,
+                      positions=PREFIX_POSITIONS)
     check_path_shapes(torch, report, "large-K", big_calls,
-                      positions=WIDEST_PATH_POSITIONS)
-    check_path_shapes(torch, report, "large-K", big_calls, narrowest=True)
+                      positions=WIDEST_PATH_POSITIONS, walk=False)
+    check_path_shapes(torch, report, "large-K", big_calls, narrowest=True,
+                      positions=PREFIX_POSITIONS)
 
 
 def check_path_shapes(torch, report, scan: str, calls,
                       narrowest: bool = False,
-                      positions: int | None = None) -> None:
+                      positions: int | None = None,
+                      walk: bool = True) -> None:
     """B2 against its plain version on the widest (or narrowest), longest
-    path launch a captured scan recorded, and the walk of that launch's
-    survivors as the scheduler launches it.  With `positions`, both run the
-    launch's first `positions` positions only (a smaller nlb) and the walk
-    is left out."""
+    path launch a captured scan recorded, and (with `walk`) the walk of
+    that launch's survivors as the scheduler launches it.  With
+    `positions`, both run the launch's first `positions` positions only
+    (a smaller nlb; the walks start from T at the last of them)."""
     from deciphon_tpu_torch.ops import traceback as tb
     from deciphon_tpu_torch.ops import viterbi as vk
 
@@ -1096,7 +1151,7 @@ def check_path_shapes(torch, report, scan: str, calls,
     say("main", f"path: that launch {report['path']['us_per_position']:.3f} "
         f"us/position, bound {report['path']['bound_ms']:.6f} ms "
         f"({report['path']['bound_by']})")
-    if positions is not None:
+    if not walk:
         return
 
     # the walk of those survivors, as the scheduler launches it
@@ -1135,16 +1190,18 @@ class Scans:
     """Scans of one database on the card: walls, products and the launch
     counts of each main-path run."""
 
-    def __init__(self, torch, profiles, seqs, phase: str, scorer=None):
+    def __init__(self, torch, profiles, seqs, phase: str, scorer=None,
+                 confirmer=None):
         from deciphon_tpu_torch.scan.pipeline import ScanConfig, Scanner
 
         self.torch, self.seqs, self.phase = torch, seqs, phase
         self.scanner = Scanner(profiles, ScanConfig(device="cuda"),
-                               scorer=scorer)
+                               confirmer=confirmer, scorer=scorer)
         self.peaks: list[float] = []  # GiB, per counted scan
         self.counts: dict = {}  # launches of the last counted scan
         self.uploads: dict = {}  # table uploads of the last counted scan
         self.htod_s = 0.0  # host-to-device copy seconds, profiled scan
+        self.dev_s: dict = {}  # device seconds by kernel, profiled scan
 
     def scan(self, scanner=None):
         sc = scanner or self.scanner
@@ -1193,7 +1250,8 @@ class Scans:
             launches[k] = launches.get(k, 0) + v
         check(rewalks == 0, "a walk overflowed its first max_steps")
         check(m.survivors > 0, "no LRT survivors")
-        check(m.products > 0 and len(lines) == m.products + 1,
+        check(len(lines) == m.products + 1, "products.tsv lacks lines")
+        check(m.products > 0 or self.scanner.confirmer is not None,
               "no products written")
         for ln in lines[1:]:
             cols = ln.split("\t")
@@ -1255,6 +1313,7 @@ class Scans:
                          getattr(evt, "self_cuda_time_total", 0.0))
             if us > 0:
                 dev_s[evt.key[:64]] = dev_s.get(evt.key[:64], 0.0) + us / 1e6
+        self.dev_s = dev_s
         busy = sum(dev_s.values())
         top = dict(sorted(dev_s.items(), key=lambda kv: -kv[1])[:8])
         self.htod_s = sum(v for k, v in dev_s.items() if "HtoD" in k)
@@ -1508,6 +1567,298 @@ def largek_subset_check(big_prof) -> None:
     check(outs["cuda"].count("\n") > 1, "large-K subset: no products")
 
 
+def amino_bound(report, key: str, a: dict, ks: list) -> None:
+    """The amino kernels' bound on the call `a` (hits of true sizes `ks`):
+    AMINO_OPS[key] operations a (position, true node) cell, and the bytes
+    of the inputs (odds tables, vectors, residues, offsets, specials) and
+    of the outputs, each once (the posterior's scratch rows are its own
+    traffic, not the function's)."""
+    lens = (a["off"][1:] - a["off"][:-1]).tolist()
+    cells = sum(n * k for n, k in zip(lens, ks))
+    H, _, Kpad = a["em"].shape
+    out = H * 4 * (1 if key == "amino_forward" else 3 + Kpad)
+    bound(report, key, cells * AMINO_OPS[key],
+          nbytes(*(a[k] for k in ("em", "tv", "res", "off", "xv"))) + out)
+
+
+def amino_err(torch, got, want, LN2: float):
+    """(max |got - want| with scores in bits, within rtol 1e-4 and atol
+    1e-3): the reference's own tolerance against brute force.  Column 0 of
+    a posterior row, and a Forward output, are nats."""
+    scale = torch.ones_like(want)
+    if want.dim() == 1:
+        scale /= LN2
+    else:
+        scale[:, 0] = 1 / LN2
+    g, w = got * scale, want * scale
+    ok = bool(torch.isfinite(g).all()) and bool(
+        ((g - w).abs() <= 1e-3 + 1e-4 * w.abs()).all())
+    return float((g - w).abs().max()), ok
+
+
+def amino_vs_plain(torch, report, args: dict, ks: list, what: str,
+                   reps: int = 3) -> None:
+    """Both amino kernels against their plain versions on the same card
+    tensors (a batch of hits of one Kpad); their errors, times and bounds
+    go into the kernels line (a position's time: kernel ms over the
+    longest hit's positions)."""
+    from deciphon_tpu_torch.hmmer import forward as hf
+
+    lens = (args["off"][1:] - args["off"][:-1]).tolist()
+    Kpad = args["em"].shape[2]
+    for key, kern, plain in (
+            ("amino_forward", hf.amino_forward, hf.amino_forward_plain),
+            ("amino_posterior", hf.amino_posterior,
+             hf.amino_posterior_plain)):
+        out, want, k_ms, p_ms = kernel_vs_plain(torch, kern, plain, args,
+                                                reps=reps)
+        err, ok = amino_err(torch, out, want, hf.LN2)
+        extra = ""
+        if key == "amino_posterior":
+            tot = out[:, 1:].double().sum(1).tolist()
+            extra = f", usages sum to {[round(t, 4) for t in tot]}"
+        say("confirm", f"{key}: {what}, Kpad {Kpad}, {len(lens)} hits of L "
+            f"{lens} (K {ks}): max error {err:.3e} (scores in bits), within "
+            f"rtol 1e-4 atol 1e-3 {ok}{extra}; kernel {k_ms:.3f} ms, plain "
+            f"{p_ms:.1f} ms")
+        check(ok, f"{key} differs from plain ({what}, Kpad {Kpad})")
+        record(report, key, err, k_ms, p_ms, max(lens))
+        amino_bound(report, key, args, ks)
+        say("confirm", f"{key}: {report[key]['us_per_position']:.3f} us a "
+            f"position, bound {report[key]['bound_ms']:.6f} ms "
+            f"({report[key]['bound_by']})")
+
+
+def check_amino(torch, report) -> None:
+    """Both amino kernels against their plain versions at AMINO_KPADS:
+    hits of L 1 (and 37, 300; at Kpad 16384 one of 40) with 'X' residues,
+    a batch of hits a launch."""
+    from deciphon_tpu_torch.workload import amino_hits
+
+    for Kpad in AMINO_KPADS:
+        lens = [1, 37, 300] if Kpad <= 2048 else [1, 40]
+        c = amino_hits(Kpad, lens, Kpad + 17, "cuda")
+        check(any("X" in q for q in c["seqs"]), "no degenerate residue")
+        args = {k: c[k] for k in ("em", "tv", "res", "off", "xv")}
+        amino_vs_plain(torch, report, args, c["ks"], "synthetic hits",
+                       reps=2)
+
+
+class Recorder:
+    """A confirmer that records (p_idx, amino string, logevalue) and each
+    call's (Forward nats, null2 bias nats) (None for an empty string)."""
+
+    def __init__(self, conf):
+        self.conf, self.calls, self.parts = conf, [], []
+        self._part = None
+        bias = conf.scorer.null2_bias_nats
+
+        def spy(p_idx, amino_seq, usages=None):
+            b = bias(p_idx, amino_seq, usages)
+            self._part = (usages[0], b)
+            return b
+        conf.scorer.null2_bias_nats = spy
+
+    def __call__(self, p_idx, amino_seq):
+        self._part = None
+        out = self.conf.confirm(p_idx, amino_seq)
+        self.calls.append((p_idx, amino_seq, out[0]))
+        self.parts.append(self._part)
+        return out
+
+
+def strip_evalue(line: str) -> str:
+    cols = line.split("\t")
+    return "\t".join(cols[:10] + cols[11:])
+
+
+def product_dir(root: str) -> dict:
+    """{relative path: bytes} of a product directory."""
+    out = {}
+    for d, _, files in os.walk(root):
+        for f in files:
+            path = os.path.join(d, f)
+            with open(path, "rb") as fp:
+                out[os.path.relpath(path, root)] = fp.read()
+    return out
+
+
+def confirmed_close(hmms, a: Recorder, b: Recorder) -> float:
+    """Two recorders of the same scan on two devices: the same calls and
+    keep decisions, Forward and null2 nats within rtol 1e-4 and atol 1e-3,
+    log-E within the tolerance they carry (atol 1e-3 + rtol 1e-4 (|fwd| +
+    |bias|) lambda / ln 2).  Returns that tolerance's largest value over
+    the kept hits, in bits."""
+    from deciphon_tpu_torch.hmmer.forward import LN2
+
+    check([c[:2] for c in a.calls] == [c[:2] for c in b.calls],
+          "the confirmer saw other hits")
+    check([c[2] < 0 for c in a.calls] == [c[2] < 0 for c in b.calls],
+          "the confirmer kept other hits")
+    widest = 1e-3
+    for x, y, px, py in zip(a.calls, b.calls, a.parts, b.parts):
+        if px is None or py is None:
+            check(px is None and py is None and x[2] == y[2] == 0.0,
+                  "an empty hit was confirmed")
+            continue
+        check(all(abs(u - v) <= 1e-3 + 1e-4 * abs(v)
+                  for u, v in zip(px, py)), "Forward or null2 nats differ")
+        bits = 1e-3 + 1e-4 * (abs(py[0]) + abs(py[1])) / LN2
+        lam = hmms[x[0]].stats["FORWARD"][1]
+        check(abs(x[2] - y[2]) <= lam * bits, f"log-E {x[2]} against {y[2]}")
+        if x[2] < 0:
+            widest = max(widest, bits, lam * bits)
+    return widest
+
+
+def blobs_close(a: bytes, b: bytes, atol: float) -> bool:
+    from deciphon_tpu_torch.hmmer.h3result import H3Result
+
+    ha, hb = H3Result.from_blob(a), H3Result.from_blob(b)
+    if vars(ha.stats) != vars(hb.stats) or len(ha.hits) != len(hb.hits):
+        return False
+    for x, y in zip(ha.hits, hb.hits):
+        for k, u in vars(x).items():
+            v = getattr(y, k)
+            if isinstance(u, float):
+                if abs(u - v) > atol + 1e-4 * abs(v):
+                    return False
+            elif k != "domains" and u != v:
+                return False
+    return True
+
+
+def confirm_subsets(torch, sub_prof, sub_seqs, hmms) -> None:
+    """The confirmed scan on the card and on the CPU (NativeConfirmer on
+    each): the Pfam subset (12 profiles, two reads of 1.2 knt) and
+    `confirm_case` (peaked profiles whose hits are kept and dropped).  The
+    same hits confirmed, kept and dropped; every products.tsv column but
+    the e-value byte-identical, log-E within tolerance (confirmed_close);
+    the same h3r files with close fields; on confirm_case the confirmed
+    lines are the unconfirmed scan's lines that were kept."""
+    from deciphon_tpu_torch.hmmer.forward import NativeConfirmer
+    from deciphon_tpu_torch.ops import viterbi as vk
+    from deciphon_tpu_torch.scan.pipeline import ScanConfig, Scanner
+    from deciphon_tpu_torch.workload import confirm_case
+
+    by_acc = {h.accession: h for h in hmms}
+    c_hmms, c_prof, c_seqs = confirm_case()
+    for label, prof, seqs, hm in (
+            ("Pfam subset", sub_prof, sub_seqs,
+             [by_acc[p.accession] for p in sub_prof]),
+            ("confirm_case", c_prof, c_seqs, c_hmms)):
+        outs, recs = {}, {}
+        for dev in ("cuda", "cpu"):
+            t0 = time.perf_counter()
+            rec = Recorder(NativeConfirmer(hm, device=dev))
+            vk.reset_launches()
+            with tempfile.TemporaryDirectory() as tmp:
+                sc = Scanner(prof, ScanConfig(device=dev), confirmer=rec)
+                sc.run(seqs, os.path.join(tmp, "p"))
+                outs[dev] = product_dir(os.path.join(tmp, "p"))
+            recs[dev] = rec
+            kept = sum(c[2] < 0 for c in rec.calls)
+            say("subset", f"confirmed, {label}, {dev}: {len(prof)} "
+                f"profiles x {len(seqs)} reads of {seqs[0].size} nt, "
+                f"{len(rec.calls)} hits confirmed, {kept} kept, "
+                f"{len(rec.calls) - kept} dropped, {sc.metrics.products} "
+                f"products, {time.perf_counter() - t0:.3f} s; launches "
+                f"{dict(vk.LAUNCHES)}")
+            if dev == "cuda":
+                check(vk.LAUNCHES["amino_posterior"] == len(rec.calls) > 0,
+                      f"{label}: a confirmation did not launch the kernel")
+        widest = confirmed_close(hm, recs["cuda"], recs["cpu"])
+        g, w = outs["cuda"], outs["cpu"]
+        check(g.keys() == w.keys(), f"{label}: other product files")
+        tg, tw = (o["products.tsv"].decode().splitlines() for o in (g, w))
+        check([strip_evalue(x) for x in tg] == [strip_evalue(x) for x in tw],
+              f"{label}: card and CPU products differ")
+        check(all(blobs_close(g[k], w[k], widest) for k in g
+                  if k.endswith(".h3r")), f"{label}: h3r fields differ")
+        kept = sum(c[2] < 0 for c in recs["cuda"].calls)
+        check(len(tg) - 1 == kept, f"{label}: a kept hit was not written")
+        if label == "confirm_case":
+            check(0 < kept < len(recs["cuda"].calls),
+                  "confirm_case: no hit kept, or none dropped")
+            with tempfile.TemporaryDirectory() as tmp:
+                sc = Scanner(prof, ScanConfig(device="cuda"))
+                with open(sc.run(seqs, os.path.join(tmp, "p"))) as fp:
+                    unconf = {strip_evalue(x)
+                              for x in fp.read().splitlines()[1:]}
+            check(all(strip_evalue(x) in unconf for x in tg[1:]),
+                  "confirm_case: a confirmed line is not an unconfirmed one")
+        say("subset", f"confirmed, {label}: card and CPU agree ({kept} "
+            f"lines, {sum(k.endswith('.h3r') for k in g)} h3r files; every "
+            f"column but the e-value byte-identical, score tolerance "
+            f"{widest:.3e} bits)")
+
+
+def confirm_phase(torch, report, launches, profiles, seqs, lines,
+                  unconfirmed_med: float, sub_prof, sub_seqs) -> None:
+    """Phase 8, confirmation: both amino kernels against their plain
+    versions at AMINO_KPADS; the Pfam scan with
+    NativeConfirmer(pfam_scan_hmms(), device="cuda") (null2, the posterior
+    kernel): first scan counted, three warm, one profiled (the kernels'
+    device seconds), its lines the unconfirmed scan's kept lines; one
+    counted scan with null2=False (the Forward kernel); the recorded calls
+    with the widest Kpad and the longest L against the plain versions on
+    the card; then the card against the CPU (confirm_subsets)."""
+    from deciphon_tpu_torch.hmmer.forward import NativeConfirmer, _pad_pow2
+    from deciphon_tpu_torch.workload import pfam_scan_hmms
+
+    t0 = time.perf_counter()
+    check_amino(torch, report)
+    hmms = pfam_scan_hmms()
+    check([h.accession for h in hmms] == [p.accession for p in profiles],
+          "pfam_scan_hmms is not pfam_scan's database")
+    rec = Recorder(NativeConfirmer(hmms, device="cuda"))
+    sc = Scans(torch, profiles, seqs, "confirm", confirmer=rec)
+    first, clines = sc.counted(
+        launches, ("pchain", "chain", "path", "walk", "amino_posterior"))
+    calls = list(rec.calls)
+    kept = [c for c in calls if c[2] < 0]
+    lens = sorted(len(c[1]) for c in calls)
+    say("confirm", f"first confirmed scan {first:.6f} s: {len(calls)} hits "
+        f"confirmed (amino lengths {lens[0]}..{lens[-1]}, median "
+        f"{lens[len(lens) // 2]}), {len(kept)} kept, "
+        f"{len(calls) - len(kept)} dropped; log-E of the kept "
+        f"{[round(c[2], 3) for c in kept]}; posterior launches "
+        f"{sc.counts['amino_posterior']}")
+    check(sc.counts["amino_posterior"] == len(calls) > 0,
+          "a confirmation did not launch the posterior kernel")
+    unconf = {strip_evalue(x) for x in lines[1:]}
+    check(len(clines) - 1 == len(kept) and all(
+        strip_evalue(x) in unconf for x in clines[1:]),
+        "the confirmed lines are not the unconfirmed scan's kept lines")
+    med = sc.warm_and_profile(clines)
+    dev = {k: v for k, v in sc.dev_s.items() if "amino_kernel" in k}
+    say("confirm", f"profiled confirmed scan: amino kernels' device s "
+        + json.dumps(dev) + f"; warm median confirmed {med:.6f} s, "
+        f"unconfirmed (phase 4) {unconfirmed_med:.6f} s, ratio "
+        f"{med / unconfirmed_med:.6f}")
+    rec.conf.null2 = False
+    _, flines = sc.counted(launches, ("path", "walk", "amino_forward"))
+    rec.conf.null2 = True
+    check(sc.counts["amino_forward"] > 0 and
+          sc.counts["amino_posterior"] == 0, "null2=False ran the posterior")
+    check(all(strip_evalue(x) in unconf for x in flines[1:]),
+          "null2=False wrote a line the unconfirmed scan did not")
+    say("confirm", f"null2=False: {sc.counts['amino_forward']} Forward "
+        f"launches, {len(flines) - 1} lines kept")
+    del sc
+    scorer = rec.conf.scorer
+    wide = max(calls, key=lambda c: (_pad_pow2(hmms[c[0]].length),
+                                     len(c[1])))
+    long = max(calls, key=lambda c: len(c[1]))
+    for what, (p, q, _) in (("the scan's widest-Kpad call", wide),
+                            ("the scan's longest call", long)):
+        amino_vs_plain(torch, report, scorer.launch_args(p, q),
+                       [hmms[p].length], f"{what} (profile {p})")
+    confirm_subsets(torch, sub_prof, sub_seqs, hmms)
+    say("confirm", f"phase {time.perf_counter() - t0:.1f} s")
+
+
+T0 = time.perf_counter()
 T0 = time.perf_counter()
 
 
@@ -1754,6 +2105,11 @@ def main() -> None:
     largek_subset_check(big_prof)
     say("subset", "products.tsv byte-identical on card and CPU")
     elapsed("7")
+
+    # ---- 8. confirmation: the amino Forward and posterior kernels -------
+    confirm_phase(torch, report, launches, profiles, seqs, lines,
+                  packed_med, sub_prof, sub_seqs)
+    elapsed("8")
     check(not [m for m in sys.modules
                if m.split(".")[0] in ("jax", "deciphon_tpu")],
           "jax or deciphon_tpu was imported")

@@ -62,6 +62,10 @@ SIGNATURES = {
     "dtt_score_grid": [_P] * 8 + [_I] * 9 + [_IP, _P],
     "dtt_walk": [_P, _P, _P, _P, _P, _P, _P, _P,
                  _I, _I, _I, _I, _P],
+    # the amino Forward and posterior: inputs, outputs (and the posterior's
+    # scratch), the hit count and Kpad, the stream
+    "dtt_amino_forward": [_P] * 6 + [_I, _I, _P],
+    "dtt_amino_posterior": [_P] * 9 + [_I, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -17,6 +17,7 @@ from __future__ import annotations
 import numpy as np
 
 from .frame import TABLE_SIZE
+from .hmmfile import NUM_AMINO, NUM_TRANS, HMMProfile
 from .ops.costs import NUM_TRANS_VECS, ViterbiCosts
 from .ops.engine import ProfilePack
 from .profile import FrameProfile
@@ -62,6 +63,34 @@ def frame_profile_from_arrays(*, accession: str, name: str, core_size: int,
         bg_codon_lprobs=_array(bg_codon_lprobs,
                                np.asarray(bg_codon_lprobs).dtype,
                                (4, 4, 4), "bg_codon_lprobs"))
+
+
+def hmm_profile_from_arrays(*, name: str, accession: str, description: str,
+                            length: int, alphabet: str, consensus: str,
+                            match_lprobs, trans, ga, compo, insert_lprobs,
+                            stats) -> HMMProfile:
+    """An HMMProfile (a parsed HMMER3 profile) from its fields; GA, the
+    STATS lines and the optional arrays carried as they are."""
+    K = int(length)
+
+    def optional(a, shape, name):
+        return None if a is None else _array(a, np.asarray(a).dtype, shape,
+                                             name)
+
+    return HMMProfile(
+        name=str(name), accession=str(accession),
+        description=str(description), length=K, alphabet=str(alphabet),
+        consensus=str(consensus),
+        match_lprobs=_array(match_lprobs, np.asarray(match_lprobs).dtype,
+                            (K, NUM_AMINO), "match_lprobs"),
+        trans=_array(trans, np.asarray(trans).dtype, (K + 1, NUM_TRANS),
+                     "trans"),
+        ga=None if ga is None else tuple(float(v) for v in ga),
+        compo=optional(compo, (NUM_AMINO,), "compo"),
+        insert_lprobs=optional(insert_lprobs, (K + 1, NUM_AMINO),
+                               "insert_lprobs"),
+        stats={str(k): tuple(float(v) for v in vals)
+               for k, vals in stats.items()})
 
 
 def costs_from_arrays(*, K: int, core, match, null, background, xt

@@ -43,7 +43,8 @@ ops/tables.py; per pair `pidx` (N,) int32; per (pair, slot) `xts`
 
 Each wrapper picks by the device of its tensors: CPU tensors run the plain
 version, CUDA tensors launch the kernel (built from csrc/ on first use) or
-raise.  `LAUNCHES` counts kernel launches per wrapper, and only those.
+raise.  `LAUNCHES` counts kernel launches per wrapper, and only those (the
+amino Forward and posterior of hmmer/forward.py count here too).
 B4, B4m, B9 and B2 take their launch shape from `cluster_shape` (one CTA
 per window up to Kp 2048, a cluster of CTAs past it), B6 and B7 from
 `packed_shape`; `SHAPES` keeps each launched shape with its resident
@@ -90,7 +91,7 @@ PACK_SEG_QUANTUM = 64
 
 LAUNCHES = {"score": 0, "chain": 0, "gang": 0, "carry": 0, "large": 0,
             "gang_large": 0, "packed": 0, "pchain": 0, "path": 0, "grid": 0,
-            "walk": 0}
+            "walk": 0, "amino_forward": 0, "amino_posterior": 0}
 
 
 def reset_launches() -> None:
@@ -123,6 +124,7 @@ MAX_THREADS = 512
 MAX_CLUSTER = 16
 CLUSTER_TARGET_W = ((6144, 768), (MAX_LARGE_KP, 1280))  # (up to Kp, lanes)
 SHAPES: dict = {}  # (LAUNCHES key, Kp) -> the launched shape's _asdict()
+GRID_MAX_P = 65535  # B9's profiles a launch: the card's gridDim.y limit
 
 
 class ClusterShape(NamedTuple):
@@ -1286,10 +1288,25 @@ def scores_grid(tables, tvecs, xts, lengths, starts, codes_all):
                                  codes_all)
     alt = torch.empty((P, B), dtype=torch.float32, device=tables.device)
     nul = torch.empty_like(alt)
-    _launch_shaped("dtt_score_grid", "grid", Kp, cluster_shape(Kp), tables,
-                   tvecs, xts, lengths, starts, codes_all, alt, nul, P, B,
-                   Kp, codes_all.shape[0])
+    # the profile is the grid's y index: one launch per GRID_MAX_P profiles
+    for lo, hi in grid_chunks(P, GRID_MAX_P):
+        _launch_shaped("dtt_score_grid", "grid", Kp, cluster_shape(Kp),
+                       *(_rows(t, lo, hi) for t in (tables, tvecs)), xts,
+                       lengths, starts, codes_all,
+                       *(_rows(t, lo, hi) for t in (alt, nul)), hi - lo, B,
+                       Kp, codes_all.shape[0])
     return alt, nul
+
+
+def grid_chunks(P: int, max_p: int) -> list[tuple[int, int]]:
+    """[lo, hi) profile ranges of B9's launches, in order: P profiles in
+    chunks of at most max_p (gridDim.y, 65535 on the card)."""
+    return [(lo, min(lo + max_p, P)) for lo in range(0, P, max_p)]
+
+
+def _rows(t: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
+    """Rows [lo, hi) of t (contiguous), t itself when that is all of it."""
+    return t if (lo, hi) == (0, t.shape[0]) else t[lo:hi]
 
 
 class GridScanEngine:

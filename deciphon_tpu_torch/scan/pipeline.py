@@ -1,9 +1,9 @@
 """The scan pipeline on PyTorch: batched two-phase Viterbi over
 (profile, window) pairs.
 
-Counterpart of deciphon_tpu/scan/pipeline.py (Scanner.run, one device,
-no confirmer; with `warmup`, checkpoint/resume, `should_stop`, `progress`
-and `release`), with two engines (ScanConfig.engine):
+Counterpart of deciphon_tpu/scan/pipeline.py (Scanner.run, one device;
+with the `confirmer` hook, `warmup`, checkpoint/resume, `should_stop`,
+`progress` and `release`), with two engines (ScanConfig.engine):
 
   "kernels" (the default; the reference's "pallas"):
     phase 1 (device, batched, pipelined): null + alt costs of every
@@ -12,8 +12,9 @@ and `release`), with two engines (ScanConfig.engine):
       classic B1, large-K B4) through the bucketed scheduler — then the
       LRT filter;
     phase 2 (device + host): the B2 path kernel and the device walk for
-      every survivor, hit segmentation, ML codon/amino decode, product
-      line;
+      every survivor, hit segmentation, ML codon/amino decode, the
+      confirmer's e-value (e.g. hmmer/forward.py NativeConfirmer, the
+      amino Forward and posterior kernels), product line;
   "torch" (the reference's "jax"): TorchPairScorer, the lax.scan
     engine's counterpart in plain PyTorch, scores each wave when it is
     dispatched; its phase 2 runs viterbi_path_batch per (profile, padded
@@ -50,6 +51,8 @@ from ..ops.traceback import assemble_path_entries, fetch_steps
 from .scheduler import (BucketedPairScorer, DeviceSeqCodes, PairItem,
                         TorchPairScorer)
 
+HMMER_MAX_AMINO = 100000  # c-core/thread.c:184
+
 _state_name_cached = functools.lru_cache(maxsize=1 << 16)(st.state_name)
 
 
@@ -78,12 +81,18 @@ class ScanConfig:
 
 
 class Scanner:
-    """Scans sequence batches against a list of pressed profiles; every
-    LRT hit is kept and reported with evalue 1 (log 0)."""
+    """Scans sequence batches against a list of pressed profiles.
+
+    `confirmer`, if given, is called as confirmer(protein_idx, amino_seq)
+    and must return (logevalue, h3r_blob|None) — the hmmpgmd confirmation
+    stage (c-core/hmmer.c; hmmer/forward.py NativeConfirmer.confirm or
+    hmmer/client.py HMMERClient.confirm).  Without it, every LRT hit is
+    kept and reported with evalue 1 (log 0).
+    """
 
     def __init__(self, profiles: list[FrameProfile],
-                 config: ScanConfig | None = None, abc_name: str = "dna",
-                 scorer=None):
+                 config: ScanConfig | None = None, confirmer=None,
+                 abc_name: str = "dna", scorer=None):
         """`scorer` replaces the default BucketedPairScorer (which packs
         small-K profiles): a scorer, or a callable taking the per-profile
         costs and returning one, e.g. a BucketedPairScorer built with a
@@ -91,6 +100,7 @@ class Scanner:
         buckets."""
         self.profiles = profiles
         self.config = config or ScanConfig()
+        self.confirmer = confirmer
         self.device = torch.device(self.config.device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -436,14 +446,28 @@ class Scanner:
                                      fcs)):
             steps[i] = f"{frags[i]},{names[i]},{codon},{amino}"
             aminos.append(amino)
-        if not "".join(aminos):
-            return
+        amino_seq = "".join(aminos)
+        if self.confirmer is None and not amino_seq:
+            return  # with a confirmer, an empty hit goes to it
 
         line = ProductLine(
             sequence=seq.id, window=win.idx, window_start=win.start,
             window_stop=win.stop, hit=0, hit_start=hit_start,
             hit_stop=hit_stop, profile=profile.accession, abc=self.abc_name,
             lrt=line_lrt, logevalue=0.0, steps=steps)
+        # HMMER3 can't confirm >100k aminos: past HMMER_MAX_AMINO only the
+        # confirmation is skipped and the line is still written
+        # (thread.c:182-207 — add_match is outside the guard)
+        if (self.confirmer is not None
+                and len(amino_seq) + 1 <= HMMER_MAX_AMINO):
+            logevalue, blob = self.confirmer(p_idx, amino_seq)
+            if logevalue > 0:
+                logevalue = 0.0
+            if logevalue == 0:
+                return
+            line.logevalue = logevalue
+            if blob is not None:
+                writer.add_h3r(line, blob)
         order = (p_idx, seq.id, win.idx)
         writer.add(line, order=order)
         if self._checkpoint:

@@ -15,7 +15,11 @@
   alone by B1.
 * `pfam_scan` / `pfam_subset` / `pfam_longread` / `pfam_largek` /
   `largek_subset` — chip_smoke.py's scans and its card-against-CPU
-  subsets.
+  subsets; `sample_hmm` / `pfam_scan_hmms` — the amino profiles (HMMER3
+  form, with a FORWARD calibration) that those frame profiles were pressed
+  from, for the confirmer; `peaked_hmm` / `confirm_case` — profiles and
+  reads whose hits the confirmer both keeps and drops; `amino_hits` — a
+  batch of hits for the amino Forward and posterior kernels.
 * `walk_cases` — trellises planted with the traceback walk's edge cases.
 """
 
@@ -514,6 +518,145 @@ def pfam_scan(n_profiles: int = 200, n_reads: int = 8,
               for _ in range(n_reads - len(reads))]
     return profiles, [Sequence.make(i, f"read{i}", r)
                       for i, r in enumerate(reads)]
+
+
+# The STATS LOCAL FORWARD line `sample_hmm` gives every profile: (tau,
+# lambda), synthetic (lambda = ln 2, HMMER3's usual for Forward tails).
+SAMPLE_FORWARD_STATS = (-4.0, 0.69315)
+
+
+def sample_hmm(seed: int, core_size: int):
+    """The amino profile that `profile.sample_profile(seed, core_size)`
+    presses, with the null amino lprobs it presses it against: (HMMProfile,
+    null_lprobs (20,) f64).  It replays sample_profile's numpy draws in
+    their order, so `press_profile(hmm, 1, 0.1, null_amino_lprobs=null)`
+    gives sample_profile's FrameProfile.  The profile carries a synthetic
+    STATS LOCAL FORWARD line, SAMPLE_FORWARD_STATS (not a calibration of
+    this profile), so that the confirmer can give e-values; it has no
+    GA."""
+    from .hmmfile import NUM_AMINO, T_DD, T_MD, HMMProfile
+
+    rng = np.random.default_rng(seed)
+
+    def sample_lprobs(n):
+        p = rng.random(n)
+        return np.log(p / p.sum())
+
+    null_lprobs = sample_lprobs(NUM_AMINO)
+    match_lprobs = np.stack([sample_lprobs(NUM_AMINO)
+                             for _ in range(core_size)])
+    trans = np.empty((core_size + 1, 7), dtype=np.float64)
+    for i in range(core_size + 1):
+        t = rng.random(7)
+        logt = np.log(t)
+        if i == 0:
+            logt[T_DD] = -np.inf
+        if i == core_size:
+            logt[T_MD] = -np.inf
+            logt[T_DD] = -np.inf
+        m = np.max(logt)
+        logt = logt - (np.log(np.sum(np.exp(logt - m))) + m)
+        trans[i] = logt
+    hmm = HMMProfile(
+        name=f"sample{seed}", accession=f"SAMPLE{seed}", length=core_size,
+        consensus="-" * core_size,
+        match_lprobs=match_lprobs.astype(np.float32),
+        trans=trans.astype(np.float32),
+        stats={"FORWARD": SAMPLE_FORWARD_STATS})
+    return hmm, null_lprobs
+
+
+def peaked_hmm(seed: int, core_size: int):
+    """An amino profile shaped like a curated one, whose planted domains
+    confirm: each node's match emissions put 0.6 on one residue and spread
+    0.4 over the rest at random, transitions M->M 0.9, M->I 0.05, M->D 0.05,
+    I->M 0.6, I->I 0.4, D->M 0.7, D->D 0.3 (none out of the last node's D),
+    the synthetic SAMPLE_FORWARD_STATS line.  (sample_hmm's profiles give
+    M->M about 1/7, so their domains score far below the null model in the
+    Forward and never confirm.)"""
+    from .hmmfile import NUM_AMINO, T_DD, T_DM, T_II, T_IM, T_MD, T_MI, \
+        T_MM, HMMProfile
+
+    rng = np.random.default_rng(seed)
+    match = rng.random((core_size, NUM_AMINO))
+    match *= 0.4 / match.sum(1, keepdims=True)
+    match[np.arange(core_size), rng.integers(0, NUM_AMINO, core_size)] += 0.6
+    trans = np.full((core_size + 1, 7), -np.inf)
+    for col, p in ((T_MM, 0.9), (T_MI, 0.05), (T_MD, 0.05), (T_IM, 0.6),
+                   (T_II, 0.4), (T_DM, 0.7), (T_DD, 0.3)):
+        trans[:, col] = np.log(p)
+    trans[0, T_DD] = trans[core_size, T_DD] = -np.inf
+    trans[0, T_DM] = trans[core_size, T_DM] = 0.0
+    trans[core_size, T_MD] = -np.inf
+    trans[core_size, T_MM] = np.log(0.95)
+    return HMMProfile(
+        name=f"peaked{seed}", accession=f"PEAKED{seed}", length=core_size,
+        consensus="-" * core_size, match_lprobs=np.log(match).astype(
+            np.float32),
+        trans=trans.astype(np.float32),
+        stats={"FORWARD": SAMPLE_FORWARD_STATS})
+
+
+CONFIRM_KS = (9, 95, 70, 50, 200)
+
+
+def confirm_case(ks=CONFIRM_KS, read_len: int = 700, seed: int = 3):
+    """A scan whose LRT hits the confirmer both keeps and drops: the
+    profiles peaked_hmm(40 + i, ks[i]) pressed as the reference presses
+    them (K = 9 takes two windows a read), and reads of `read_len` nt: the
+    first two carry the whole domain of profiles 1 and 4 (1% noise), the
+    third a 12-node stretch of profile 2, the fourth is random.  Returns
+    (hmms, profiles, sequences)."""
+    from .profile import press_profile
+    from .scan.sequence import Sequence
+
+    hmms = [peaked_hmm(40 + i, k) for i, k in enumerate(ks)]
+    profiles = [press_profile(h, 1, 0.1) for h in hmms]
+    rng = np.random.default_rng(seed)
+    reads = [planted_read(rng, profiles[1], read_len, noise=0.01),
+             planted_read(rng, profiles[4], read_len, noise=0.01),
+             planted_read(rng, profiles[2], read_len, noise=0.01,
+                          nodes=(0, 12)),
+             random_bases(rng, read_len)]
+    return hmms, profiles, [Sequence.make(i, f"c{i}", r)
+                            for i, r in enumerate(reads)]
+
+
+def pfam_scan_hmms(n_profiles: int = 200) -> list:
+    """The HMMProfiles of `pfam_scan`'s database (sample_hmm(200 + i,
+    K_i)), for NativeConfirmer."""
+    return [sample_hmm(200 + i, k)[0]
+            for i, k in enumerate(pfam_ks(n_profiles))]
+
+
+def amino_hits(Kpad: int, lengths, seed: int, device="cpu",
+               degenerate: float = 0.05) -> dict:
+    """A batch of hits of one Kpad for the amino Forward and posterior
+    kernels: hit h an amino string of lengths[h] residues (a share
+    `degenerate` of them 'X') against sample_hmm(seed + h, K_h), K_h drawn
+    from (Kpad / 2, Kpad] (at least 2).  Returns the kernels' arguments
+    (em, tv, res, off, xv) with the strings `seqs` and the sizes `ks`."""
+    import torch
+
+    from .alphabet import AMINO
+    from .hmmer.forward import AminoForwardScorer
+
+    rng = np.random.default_rng(seed)
+    ks = [max(2, int(rng.integers(Kpad // 2 + 1, Kpad + 1)))
+          for _ in lengths]
+    scorer = AminoForwardScorer([sample_hmm(seed + h, k)[0]
+                                 for h, k in enumerate(ks)], device=device)
+    seqs = ["".join("X" if rng.random() < degenerate
+                    else AMINO[int(rng.integers(0, 20))] for _ in range(n))
+            for n in lengths]
+    hits = [scorer.launch_args(h, q) for h, q in enumerate(seqs)]
+    assert all(a["em"].shape[2] == Kpad for a in hits), (Kpad, ks)
+    res = torch.cat([a["res"] for a in hits])
+    off = torch.tensor(np.concatenate([[0], np.cumsum(lengths)]),
+                       dtype=torch.int32, device=device)
+    return dict(em=torch.cat([a["em"] for a in hits]),
+                tv=torch.cat([a["tv"] for a in hits]), res=res, off=off,
+                xv=torch.cat([a["xv"] for a in hits]), seqs=seqs, ks=ks)
 
 
 # Domains of the long-read scan.  Profile 140 (K = 670) sat on read 0

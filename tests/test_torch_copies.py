@@ -7,6 +7,7 @@ one parametrised test per module.
 import dataclasses
 import io
 import logging
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -14,6 +15,10 @@ import pytest
 import deciphon_tpu.alphabet as r_alphabet
 import deciphon_tpu.frame as r_frame
 import deciphon_tpu.gencode as r_gencode
+import deciphon_tpu.hmmer.client as r_client
+import deciphon_tpu.hmmer.daemon as r_daemon
+import deciphon_tpu.hmmer.h3result as r_h3result
+import deciphon_tpu.hmmer.wire as r_wire
 import deciphon_tpu.hmmfile as r_hmmfile
 import deciphon_tpu.logging as r_logging
 import deciphon_tpu.ops.costs as r_costs
@@ -28,6 +33,10 @@ import deciphon_tpu.xtrans as r_xtrans
 import deciphon_tpu_torch.alphabet as p_alphabet
 import deciphon_tpu_torch.frame as p_frame
 import deciphon_tpu_torch.gencode as p_gencode
+import deciphon_tpu_torch.hmmer.client as p_client
+import deciphon_tpu_torch.hmmer.daemon as p_daemon
+import deciphon_tpu_torch.hmmer.h3result as p_h3result
+import deciphon_tpu_torch.hmmer.wire as p_wire
 import deciphon_tpu_torch.hmmfile as p_hmmfile
 import deciphon_tpu_torch.logging as p_logging
 import deciphon_tpu_torch.ops.costs as p_costs
@@ -464,3 +473,64 @@ def test_bucket_arrays_and_pad_len_copy(seed):
                         list(r_sched.bucket_arrays(b, kappa, mode=mode)))
     with pytest.raises(ValueError, match="static"):
         p_sched.bucket_arrays(pb[0], 40, mode="static")
+
+
+def h3_result(mod, n_domains: int):
+    """An H3Result of `mod` with a hit of n_domains domains, each with an
+    alignment display."""
+    doms = [mod.H3Domain(
+        ienv=1 + d, jenv=40 + d, iali=2 + d, jali=38 + d, envsc=1.5,
+        domcorrection=0.25, dombias=0.125, oasc=3.0, bitscore=20.0 + d,
+        lnP=-12.5 - d, is_reported=True, is_included=d % 2 == 0,
+        scale_per_pos=[0.5, 0.25],
+        ad=mod.H3AliDisplay(presence=mod.PRESENCE_RFLINE, rfline="xx",
+                            model="AC", mline="A+", aseq="AD", N=2,
+                            hmmname="prof", hmmacc="PF1", hmmfrom=1,
+                            hmmto=2, M=40, sqname="s", sqfrom=3, sqto=4,
+                            L=50))
+        for d in range(n_domains)]
+    return mod.H3Result.single_hit(
+        name="prof", acc="PF00001.2", score=42.5, lnP=-30.25, Z=7.0,
+        qlen=40, seqlen=50, domains=doms)
+
+
+@pytest.mark.parametrize("name", ["h3result", "wire", "client", "daemon"])
+def test_hmmer_module_copy(name):
+    """The hmmer host modules are the reference's, byte for byte (they
+    import no jax), and each behaves as its original: blobs, wire replies,
+    and the client against the other package's fake daemon."""
+    root = Path(__file__).resolve().parent.parent
+    assert ((root / "deciphon_tpu_torch" / "hmmer" / f"{name}.py").read_bytes()
+            == (root / "deciphon_tpu" / "hmmer" / f"{name}.py").read_bytes())
+    if name == "h3result":
+        for n in (0, 1, 3):
+            blob = h3_result(p_h3result, n).to_blob()
+            assert blob == h3_result(r_h3result, n).to_blob()
+            back = p_h3result.H3Result.from_blob(blob)
+            assert back.to_blob() == blob
+            assert back.targets_table() == r_h3result.H3Result.from_blob(
+                blob).targets_table()
+            assert back.hit_logevalue(0) == r_h3result.H3Result.from_blob(
+                blob).hit_logevalue(0)
+    elif name == "wire":
+        for n in (0, 2):
+            msg = p_wire.serialize_reply(h3_result(p_h3result, n))
+            assert msg == r_wire.serialize_reply(h3_result(r_h3result, n))
+            assert (p_wire.parse_reply(msg).to_blob()
+                    == r_wire.parse_reply(msg).to_blob())
+        with pytest.raises(p_wire.WireError):
+            p_wire.parse_reply(b"\x00\x01")
+    else:  # the port's client or daemon in place of the reference's
+        def respond(hmmidx, seq):
+            assert seq == "MAGIC" or seq == ""
+            return h3_result(r_h3result, 1 if seq else 0)
+
+        def confirm(client, daemon):
+            with daemon.FakeHMMERDaemon(respond) as d, client.HMMERClient(
+                    "127.0.0.1", d.port, num_proteins=7, has_ga=False) as c:
+                return c.confirm(2, "MAGIC")
+
+        want = confirm(r_client, r_daemon)
+        got = (confirm(p_client, r_daemon) if name == "client"
+               else confirm(r_client, p_daemon))
+        assert got == want and want[0] == -30.25 + np.log(7.0)

@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from deciphon_tpu_torch.hmmer import forward as hf
 from deciphon_tpu_torch.ops import traceback as tb
 from deciphon_tpu_torch.ops import viterbi as vk
 from deciphon_tpu_torch.ops.costs import (CT_BM, CT_DD, CT_DDCUM,
@@ -23,7 +24,8 @@ from deciphon_tpu_torch.profile import sample_profile
 from deciphon_tpu_torch.scan import pipeline as tp
 from deciphon_tpu_torch.scan import scheduler as ts
 from deciphon_tpu_torch.scan.sequence import Sequence
-from deciphon_tpu_torch.workload import (assemble_walk_cases, carry_case,
+from deciphon_tpu_torch.workload import (amino_hits, assemble_walk_cases,
+                                         carry_case,
                                          chain_case, mixed_case,
                                          packed_case, packed_chain_case,
                                          planted_read, random_bases,
@@ -278,6 +280,117 @@ def test_grid_kernel_bit_equal_to_b1(cuda, Kp):
     a1, n1 = push(**pairs)
     torch.cuda.synchronize()
     assert torch.equal(alt, a1) and torch.equal(nul, n1)
+
+
+@pytest.mark.parametrize("Kp", [128, 2176])
+def test_grid_chunks_bit_equal_to_one_launch(cuda, monkeypatch, Kp):
+    """B9 over 8 profiles in launches of at most 3 (the card takes at most
+    65535 on gridDim.y): bit-equal to one launch."""
+    Ks = [Kp - 2, 17, 90, 64, 33, 100, 120, 7]
+    inp = grid_inputs(cuda, Ks, Kp, [300, 1, 0, 45, 97], Kp + 11)
+    alt, nul = vk.scores_grid(**inp)
+    before = vk.LAUNCHES["grid"]
+    monkeypatch.setattr(vk, "GRID_MAX_P", 3)
+    a3, n3 = vk.scores_grid(**inp)
+    assert vk.LAUNCHES["grid"] == before + 3
+    torch.cuda.synchronize()
+    assert alt.shape == (8, 5)
+    assert torch.equal(a3, alt) and torch.equal(n3, nul)
+
+
+# The amino kernels by Kpad band: 4 lanes a thread up to Kpad 2048 (one
+# warp with idle threads below 128), 8 up to 8192 and 16 at 16384, the
+# transition vectors in shared memory up to 4096 and read through L2 past
+# it.  Each is
+# held against its plain version within the reference's own tolerance
+# against brute force (tests/test_hmmer.py): rtol 1e-4, atol 1e-3, scores
+# in bits; log-add in f32 is not associative and the kernel sums in
+# another order.
+AMINO_KPADS = [16, 32, 128, 1024, 2048, 4096, 8192, 16384]
+
+
+def amino_args(Kpad, seed, device):
+    lens = [1, 37, 300] if Kpad <= 4096 else [1, 40]
+    c = amino_hits(Kpad, lens, seed, device)
+    return {k: c[k] for k in ("em", "tv", "res", "off", "xv")}, lens
+
+
+@pytest.mark.parametrize("Kpad", AMINO_KPADS)
+def test_amino_forward_kernel_close_to_plain(cuda, Kpad):
+    args, lens = amino_args(Kpad, Kpad + 5, cuda)
+    before = vk.LAUNCHES["amino_forward"]
+    got = hf.amino_forward(**args)
+    assert vk.LAUNCHES["amino_forward"] == before + 1  # a batch, one launch
+    want = hf.amino_forward_plain(**args)
+    torch.cuda.synchronize()
+    assert got.shape == (len(lens),) and torch.isfinite(got).all()
+    torch.testing.assert_close(got / hf.LN2, want / hf.LN2, rtol=1e-4,
+                               atol=1e-3)
+
+
+@pytest.mark.parametrize("Kpad", AMINO_KPADS)
+def test_amino_posterior_kernel_close_to_plain(cuda, Kpad):
+    args, lens = amino_args(Kpad, Kpad + 6, cuda)
+    before = vk.LAUNCHES["amino_posterior"]
+    got = hf.amino_posterior(**args)
+    assert vk.LAUNCHES["amino_posterior"] == before + 1
+    want = hf.amino_posterior_plain(**args)
+    torch.cuda.synchronize()
+    assert got.shape == (len(lens), 3 + Kpad) and torch.isfinite(got).all()
+    torch.testing.assert_close(got[:, 0] / hf.LN2, want[:, 0] / hf.LN2,
+                               rtol=1e-4, atol=1e-3)
+    torch.testing.assert_close(got[:, 1:], want[:, 1:], rtol=1e-4, atol=1e-3)
+    # every residue is emitted by exactly one emitting state
+    torch.testing.assert_close(got[:, 1:].sum(1).double(),
+                               torch.tensor(lens, dtype=torch.float64,
+                                            device=cuda), rtol=1e-4, atol=0)
+    # the same Forward as the Forward kernel
+    fwd = hf.amino_forward(**args)
+    torch.testing.assert_close(got[:, 0] / hf.LN2, fwd / hf.LN2, rtol=1e-4,
+                               atol=1e-3)
+
+
+def test_amino_kernels_raise_on_bad_launch(cuda):
+    args, _ = amino_args(128, 9, cuda)
+    before = dict(vk.LAUNCHES)
+    with pytest.raises(ValueError):  # mixed devices never fall back
+        hf.amino_forward(**dict(args, res=args["res"].cpu()))
+    with pytest.raises(NotImplementedError):  # Kpad not a power of two
+        hf.amino_posterior(**dict(args, em=args["em"][:, :, :96].contiguous(),
+                                  tv=args["tv"][:, :, :96].contiguous()))
+    assert vk.LAUNCHES == before
+
+
+def test_native_confirmer_on_card_matches_cpu(cuda):
+    """NativeConfirmer on the card (the posterior kernel, null2) against
+    the same confirmer on the CPU: the same keep decision, log-E and bit
+    score within the stated tolerance, the same blob fields."""
+    from deciphon_tpu_torch.hmmer.h3result import H3Result
+    from deciphon_tpu_torch.workload import peaked_hmm
+
+    hmms = [peaked_hmm(300 + i, k) for i, k in enumerate((40, 130, 700))]
+    rng = np.random.default_rng(4)
+    seqs = []
+    for h in hmms:  # each profile's argmax residues, then a random string
+        seqs.append("".join("ACDEFGHIKLMNPQRSTVWY"[i]
+                            for i in h.match_lprobs.argmax(1)))
+        seqs.append("".join("ACDEFGHIKLMNPQRSTVWYX"[i]
+                            for i in rng.integers(0, 21, size=60)))
+    card = hf.NativeConfirmer(hmms, device=cuda)
+    cpu = hf.NativeConfirmer(hmms, device="cpu")
+    kept = 0
+    for p in range(len(hmms)):
+        for q in seqs[2 * p: 2 * p + 2]:
+            (lg, bg), (lc, bc) = card.confirm(p, q), cpu.confirm(p, q)
+            assert (bg is None) == (bc is None) and (lg == 0) == (lc == 0)
+            assert lg == pytest.approx(lc, rel=1e-4, abs=1e-3)
+            if bg is not None:
+                kept += 1
+                hg, hc = H3Result.from_blob(bg), H3Result.from_blob(bc)
+                assert hg.hits[0].acc == hc.hits[0].acc
+                assert hg.hits[0].score == pytest.approx(hc.hits[0].score,
+                                                         rel=1e-4, abs=1e-3)
+    assert kept >= 3  # the argmax strings confirm
 
 
 # The redesigned B1/B3/B5/B8 body and B2 choose lanes a thread by Kp band:

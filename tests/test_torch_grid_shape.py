@@ -81,6 +81,42 @@ def test_grid_launch_arguments(launched):
     assert len(_build.SIGNATURES["dtt_score_grid"]) == 8 + 4 + 5 + 2
 
 
+@pytest.mark.parametrize("P,max_p", [(0, 3), (1, 3), (3, 3), (8, 3),
+                                     (65535, 65535), (65536, 65535),
+                                     (200_000, 65535)])
+def test_grid_chunks_cover_the_profiles_in_order(P, max_p):
+    chunks = vk.grid_chunks(P, max_p)
+    assert [lo for lo, _ in chunks] == list(range(0, P, max_p))
+    assert all(0 < hi - lo <= max_p for lo, hi in chunks)
+    assert all(a[1] == b[0] for a, b in zip(chunks, chunks[1:]))
+    assert (chunks[-1][1] if chunks else 0) == P
+    assert len(chunks) == -(-P // max_p)
+
+
+def test_grid_launches_in_chunks_of_profiles(launched, monkeypatch):
+    """Past GRID_MAX_P profiles (the card's gridDim.y limit, lowered here
+    to 3) B9 launches once per chunk, each on its contiguous rows of the
+    tables and of the (P, B) outputs."""
+    assert vk.GRID_MAX_P == 65535
+    monkeypatch.setattr(vk, "GRID_MAX_P", 3)
+    a = grid_args(128, P=8, B=5, T=7)
+    alt, nul = vk.scores_grid(**a)
+    assert [c[4][8] for c in launched] == [3, 3, 2]  # P of each launch
+    for (fn, key, Kp, shape, args), lo in zip(launched, (0, 3, 6)):
+        hi = min(lo + 3, 8)
+        assert (fn, key, Kp) == ("dtt_score_grid", "grid", 128)
+        assert shape == vk.cluster_shape(128, "score")
+        assert args[0].shape == (hi - lo, *a["tables"].shape[1:])
+        assert args[0].data_ptr() == a["tables"][lo].data_ptr()
+        assert args[1].data_ptr() == a["tvecs"][lo].data_ptr()
+        assert all(x is a[n] for x, n in zip(args[2:6], (
+            "xts", "lengths", "starts", "codes_all")))
+        assert args[6].data_ptr() == alt[lo].data_ptr()
+        assert args[7].data_ptr() == nul[lo].data_ptr()
+        assert args[6].is_contiguous() and args[6].shape == (hi - lo, 5)
+        assert args[9:] == (5, 128, 7)
+
+
 def test_grid_scratch_constants_are_gone():
     assert not hasattr(vk, "GRID_SMEM_BYTES")
     assert not hasattr(vk, "GRID_PLANES")
