@@ -91,18 +91,22 @@ Phases, each reported on its own lines; any failure exits non-zero:
      bytes, no score or path kernel launched, and the walk on its largest
      recorded call bit-equal to the plain walk;
   8. confirmation ("confirm"): the amino Forward and posterior kernels
-     against their plain versions at AMINO_KPADS (16 to 16384; L 1,
-     degenerate residues, a batch of hits a launch) within the
-     reference's tolerance (rtol 1e-4, atol 1e-3, scores in bits); the
-     Pfam scan with NativeConfirmer(pfam_scan_hmms(), device="cuda"):
-     first scan counted, three warm, one profiled (the kernels' device
-     seconds, the warm median beside phase 4's unconfirmed one), its lines
-     the unconfirmed scan's kept lines (every column but the e-value), one
-     counted scan with null2=False (the Forward kernel); the recorded call
-     with the widest Kpad and the one with the longest L against the
-     plain versions on the card; and the confirmed scan on the card
-     against the CPU on the Pfam subset and on `confirm_case` (hits kept
-     and dropped, h3r files).
+     against their plain versions evaluated in f64 at AMINO_KPADS (16 to
+     16384; L 1, degenerate residues, a batch of hits a launch) within the
+     reference's tolerance (rtol 1e-4, atol 1e-3, scores in bits), each
+     batch bit-equal to its hits launched one at a time; the Pfam scan
+     with NativeConfirmer(pfam_scan_hmms(), device="cuda") on the batched
+     route (a wave's hits to confirm_many, one launch a (wave, Kpad)
+     group): first scan counted, three warm, one profiled (the kernels'
+     device seconds, the warm median beside phase 4's unconfirmed one),
+     its lines the unconfirmed scan's kept lines; the hit-by-hit route
+     (one launch a hit) counted, the same hits and the same bytes; one
+     counted scan with null2=False (the Forward kernel); the largest
+     batched launch timed with its bound; the recorded call with the
+     widest Kpad and the one with the longest L against the plain
+     versions on the card; and the confirmed scan on the card against
+     the CPU (the plain versions in f32 and in f64) on the Pfam subset
+     and on `confirm_case` (hits kept and dropped, h3r files).
 
 Every scan path is run with the launch counts set to 0 just before and
 read just after; each kernel must have launched on its path.  The line
@@ -180,15 +184,17 @@ PEAK_BYTES = 3.35e12
 # special states are O(1) per window and left out.
 CELL_OPS = {"score": 34, "path": 98, "grid": 34}
 # The amino Forward and posterior, f32 operations per (position, true
-# node) cell, a logaddexp counted as 5 (max, subtract, exp, log1p, add) and
-# an exp as 1, from csrc/amino_forward.cu: Forward, the inner lse (3 adds,
-# 2 lae), Mrow (2 adds, 1 lae), Irow (2, 1), the D chain (2 adds, 1 lae in
-# the scan, 1 add), E's two sums (4 each): 43; Backward, mb and bB (1 + 5),
-# R (1 add, 1 lae, 1 select), the suffix scan (1 sub, 1 lae, 1 add), bM (3
-# adds, 3 lae), bI (2, 1), the usages gM and gI (4 each): 53.  The
-# transcendentals run on the SFU at 16 a clock an SM, slower than the FMA
-# pipes; counting them at the f32 peak makes the bound the generous one.
-AMINO_OPS = {"amino_forward": 43, "amino_posterior": 43 + 53}
+# node) cell of the function in the scaled odds space the kernels compute
+# it in, an FMA counted as 2 and an exp as 1.  Forward: the emission's
+# odds (1 exp), inner = M tmm + I tim + D tdm (1 mul, 2 FMA: 5), M' = e
+# (inner r + B r tbm) (2 mul, 1 FMA: 4), I' = (M tmi + I tii) r (4), the
+# D chain D'[k + 1] = M'[k] tmd + tdd D'[k] (3), E's two sums (2): 19.
+# Backward: mb = e bM r (1 exp, 2 mul), bB's term (2), the alpha chain
+# (3), bD = alpha + beta bE (2), bI r (1), bM (3 FMA: 6), bI (3), the
+# usages gM and gI (3 each): 26.  The affine scans' composition of the
+# chains' factors and the per-warp linear forms are the kernels' excess
+# over this, not part of it; the specials are O(1) a position.
+AMINO_OPS = {"amino_forward": 19, "amino_posterior": 19 + 26}
 # Kpad at which the confirm phase holds both amino kernels against their
 # plain versions (16384: the bucket of the largest profile, on a short
 # string so that the plain version stays cheap)
@@ -1567,18 +1573,25 @@ def largek_subset_check(big_prof) -> None:
     check(outs["cuda"].count("\n") > 1, "large-K subset: no products")
 
 
-def amino_bound(report, key: str, a: dict, ks: list) -> None:
-    """The amino kernels' bound on the call `a` (hits of true sizes `ks`):
-    AMINO_OPS[key] operations a (position, true node) cell, and the bytes
-    of the inputs (odds tables, vectors, residues, offsets, specials) and
-    of the outputs, each once (the posterior's scratch rows are its own
-    traffic, not the function's)."""
+def amino_bound_ms(key: str, a: dict, ks: list) -> tuple[float, str]:
+    """(bound ms, what bounds it) of the amino kernel `key` on the call `a`
+    (hits of true sizes `ks`): AMINO_OPS[key] operations a (position, true
+    node) cell of every hit, and the bytes of the inputs (odds tables,
+    vectors, residues, offsets, specials) and of the outputs, each once
+    (the kernel's scratch is its own traffic, not the function's)."""
     lens = (a["off"][1:] - a["off"][:-1]).tolist()
     cells = sum(n * k for n, k in zip(lens, ks))
     H, _, Kpad = a["em"].shape
     out = H * 4 * (1 if key == "amino_forward" else 3 + Kpad)
-    bound(report, key, cells * AMINO_OPS[key],
-          nbytes(*(a[k] for k in ("em", "tv", "res", "off", "xv"))) + out)
+    byts = nbytes(*(a[k] for k in ("em", "tv", "res", "off", "xv"))) + out
+    t_ops, t_bytes = cells * AMINO_OPS[key] / PEAK_F32_OPS, byts / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def amino_bound(report, key: str, a: dict, ks: list) -> None:
+    b, by = amino_bound_ms(key, a, ks)
+    report[key].update(bound_ms=b, bound_by=by, library_ms=None)
 
 
 def amino_err(torch, got, want, LN2: float):
@@ -1596,12 +1609,22 @@ def amino_err(torch, got, want, LN2: float):
     return float((g - w).abs().max()), ok
 
 
+def exact(plain, args: dict):
+    """A plain version on the f64 copy of the kernel's arguments: the same
+    function without the f32 rounding that log space accumulates over a
+    long hit (the yardstick the odds-space kernels are held to)."""
+    return plain(**{k: v.double() if v.is_floating_point() else v
+                    for k, v in args.items()}).float()
+
+
 def amino_vs_plain(torch, report, args: dict, ks: list, what: str,
                    reps: int = 3) -> None:
     """Both amino kernels against their plain versions on the same card
-    tensors (a batch of hits of one Kpad); their errors, times and bounds
-    go into the kernels line (a position's time: kernel ms over the
-    longest hit's positions)."""
+    tensors (a batch of hits of one Kpad): the error against the plain
+    version evaluated in f64 (beside the f32 plain version's own), the
+    kernel's and the f32 plain version's times and the bound go into the
+    kernels line (a position's time: kernel ms over the longest hit's
+    positions)."""
     from deciphon_tpu_torch.hmmer import forward as hf
 
     lens = (args["off"][1:] - args["off"][:-1]).tolist()
@@ -1610,17 +1633,20 @@ def amino_vs_plain(torch, report, args: dict, ks: list, what: str,
             ("amino_forward", hf.amino_forward, hf.amino_forward_plain),
             ("amino_posterior", hf.amino_posterior,
              hf.amino_posterior_plain)):
-        out, want, k_ms, p_ms = kernel_vs_plain(torch, kern, plain, args,
-                                                reps=reps)
+        out, p32, k_ms, p_ms = kernel_vs_plain(torch, kern, plain, args,
+                                               reps=reps)
+        want = exact(plain, args)
         err, ok = amino_err(torch, out, want, hf.LN2)
+        drift, _ = amino_err(torch, p32, want, hf.LN2)
         extra = ""
         if key == "amino_posterior":
             tot = out[:, 1:].double().sum(1).tolist()
             extra = f", usages sum to {[round(t, 4) for t in tot]}"
         say("confirm", f"{key}: {what}, Kpad {Kpad}, {len(lens)} hits of L "
-            f"{lens} (K {ks}): max error {err:.3e} (scores in bits), within "
-            f"rtol 1e-4 atol 1e-3 {ok}{extra}; kernel {k_ms:.3f} ms, plain "
-            f"{p_ms:.1f} ms")
+            f"{lens} (K {ks}): max error {err:.3e} against the plain "
+            f"version in f64 (scores in bits), within rtol 1e-4 atol 1e-3 "
+            f"{ok} (the f32 plain version's own {drift:.3e}){extra}; kernel "
+            f"{k_ms:.3f} ms, plain {p_ms:.1f} ms")
         check(ok, f"{key} differs from plain ({what}, Kpad {Kpad})")
         record(report, key, err, k_ms, p_ms, max(lens))
         amino_bound(report, key, args, ks)
@@ -1632,7 +1658,9 @@ def amino_vs_plain(torch, report, args: dict, ks: list, what: str,
 def check_amino(torch, report) -> None:
     """Both amino kernels against their plain versions at AMINO_KPADS:
     hits of L 1 (and 37, 300; at Kpad 16384 one of 40) with 'X' residues,
-    a batch of hits a launch."""
+    a batch of hits a launch; and each batch's rows bit-equal to its hits
+    launched one at a time."""
+    from deciphon_tpu_torch.hmmer import forward as hf
     from deciphon_tpu_torch.workload import amino_hits
 
     for Kpad in AMINO_KPADS:
@@ -1642,29 +1670,67 @@ def check_amino(torch, report) -> None:
         args = {k: c[k] for k in ("em", "tv", "res", "off", "xv")}
         amino_vs_plain(torch, report, args, c["ks"], "synthetic hits",
                        reps=2)
+        off = args["off"].tolist()
+        for fn in (hf.amino_forward, hf.amino_posterior):
+            batch = fn(**args)
+            for h in range(len(lens)):
+                one = fn(em=args["em"][h:h + 1], tv=args["tv"][h:h + 1],
+                         res=args["res"][off[h]:off[h + 1]].contiguous(),
+                         off=torch.tensor([0, lens[h]], dtype=torch.int32,
+                                          device="cuda"),
+                         xv=args["xv"][h:h + 1])
+                check(torch.equal(batch[h:h + 1], one),
+                      f"{fn.__name__}: Kpad {Kpad} hit {h} of a batch is "
+                      "not its launch alone")
+        say("confirm", f"Kpad {Kpad}: a batch of {len(lens)} hits of L "
+            f"{lens} bit-equal to each launched alone (both kernels)")
 
 
 class Recorder:
     """A confirmer that records (p_idx, amino string, logevalue) and each
-    call's (Forward nats, null2 bias nats) (None for an empty string)."""
+    hit's (Forward nats, null2 bias nats) (None for an empty string or
+    without null2); a wave's hits go to `confirm_many` at once (`waves`
+    keeps each call's hits), or, with `single`, through `__call__` one at
+    a time (the pipeline's hit-by-hit route)."""
 
-    def __init__(self, conf):
-        self.conf, self.calls, self.parts = conf, [], []
-        self._part = None
+    def __init__(self, conf, single: bool = False):
+        self.conf, self.calls, self.parts, self.waves = conf, [], [], []
+        self._pending = []
         bias = conf.scorer.null2_bias_nats
 
         def spy(p_idx, amino_seq, usages=None):
             b = bias(p_idx, amino_seq, usages)
-            self._part = (usages[0], b)
+            self._pending.append((usages[0], b))
             return b
         conf.scorer.null2_bias_nats = spy
+        if not single:
+            self.confirm_many = self._many
+
+    def _many(self, hits):
+        self._pending = []
+        out = self.conf.confirm_many(hits)
+        self.waves.append(list(hits))
+        for (p, q), o in zip(hits, out):
+            self.calls.append((p, q, o[0]))
+            self.parts.append(self._pending.pop(0)
+                              if q and self._pending else None)
+        return out
 
     def __call__(self, p_idx, amino_seq):
-        self._part = None
+        self._pending = []
         out = self.conf.confirm(p_idx, amino_seq)
         self.calls.append((p_idx, amino_seq, out[0]))
-        self.parts.append(self._part)
+        self.parts.append(self._pending[0] if self._pending else None)
         return out
+
+    def groups(self, posterior: bool = True) -> int:
+        """The launches of the batched route, summed over the waves: a
+        launch a Kpad group of the wave's non-empty hits (a posterior
+        group past the scratch budget in more, which no scan here
+        reaches)."""
+        plan = self.conf.scorer.launch_plan
+        return sum(len(plan([h for h in w if h[1]], posterior))
+                   for w in self.waves)
 
 
 def strip_evalue(line: str) -> str:
@@ -1684,11 +1750,11 @@ def product_dir(root: str) -> dict:
 
 
 def confirmed_close(hmms, a: Recorder, b: Recorder) -> float:
-    """Two recorders of the same scan on two devices: the same calls and
-    keep decisions, Forward and null2 nats within rtol 1e-4 and atol 1e-3,
-    log-E within the tolerance they carry (atol 1e-3 + rtol 1e-4 (|fwd| +
-    |bias|) lambda / ln 2).  Returns that tolerance's largest value over
-    the kept hits, in bits."""
+    """Two recorders of the same scan, `b` the plain versions in f64: the
+    same calls and keep decisions, Forward and null2 nats within rtol 1e-4
+    and atol 1e-3, log-E within the tolerance they carry (atol 1e-3 + rtol
+    1e-4 (|fwd| + |bias|) lambda / ln 2).  Returns that tolerance's
+    largest value over the kept hits, in bits."""
     from deciphon_tpu_torch.hmmer.forward import LN2
 
     check([c[:2] for c in a.calls] == [c[:2] for c in b.calls],
@@ -1711,6 +1777,18 @@ def confirmed_close(hmms, a: Recorder, b: Recorder) -> float:
     return widest
 
 
+def drift(a: Recorder, b: Recorder) -> str:
+    """The largest differences of Forward nats, null2 bias nats and log-E
+    between two recorders of the same scan."""
+    d = [0.0, 0.0, 0.0]
+    for x, y, px, py in zip(a.calls, b.calls, a.parts, b.parts):
+        d[2] = max(d[2], abs(x[2] - y[2]))
+        if px is not None and py is not None:
+            d[0] = max(d[0], abs(px[0] - py[0]))
+            d[1] = max(d[1], abs(px[1] - py[1]))
+    return f"Forward {d[0]:.3e}, null2 bias {d[1]:.3e}, log-E {d[2]:.3e}"
+
+
 def blobs_close(a: bytes, b: bytes, atol: float) -> bool:
     from deciphon_tpu_torch.hmmer.h3result import H3Result
 
@@ -1730,16 +1808,20 @@ def blobs_close(a: bytes, b: bytes, atol: float) -> bool:
 
 def confirm_subsets(torch, sub_prof, sub_seqs, hmms) -> None:
     """The confirmed scan on the card and on the CPU (NativeConfirmer on
-    each): the Pfam subset (12 profiles, two reads of 1.2 knt) and
-    `confirm_case` (peaked profiles whose hits are kept and dropped).  The
-    same hits confirmed, kept and dropped; every products.tsv column but
-    the e-value byte-identical, log-E within tolerance (confirmed_close);
-    the same h3r files with close fields; on confirm_case the confirmed
-    lines are the unconfirmed scan's lines that were kept."""
+    each; on the CPU the plain versions in f32, and in f64): the Pfam
+    subset (12 profiles, two reads of 1.2 knt) and `confirm_case` (peaked
+    profiles whose hits are kept and dropped).  The same hits confirmed,
+    kept and dropped; every products.tsv column but the e-value
+    byte-identical; Forward and null2 nats and log-E of the card within
+    tolerance of the f64 run (confirmed_close), and the same h3r files
+    with close fields; the f32 run's own distance from the f64 run
+    printed; on the card one posterior launch a (wave, Kpad) group; on
+    confirm_case the confirmed lines are the unconfirmed scan's lines
+    that were kept."""
     from deciphon_tpu_torch.hmmer.forward import NativeConfirmer
     from deciphon_tpu_torch.ops import viterbi as vk
     from deciphon_tpu_torch.scan.pipeline import ScanConfig, Scanner
-    from deciphon_tpu_torch.workload import confirm_case
+    from deciphon_tpu_torch.workload import confirm_case, exact_confirmer
 
     by_acc = {h.accession: h for h in hmms}
     c_hmms, c_prof, c_seqs = confirm_case()
@@ -1748,37 +1830,49 @@ def confirm_subsets(torch, sub_prof, sub_seqs, hmms) -> None:
              [by_acc[p.accession] for p in sub_prof]),
             ("confirm_case", c_prof, c_seqs, c_hmms)):
         outs, recs = {}, {}
-        for dev in ("cuda", "cpu"):
+        for run, make in (("card", lambda: NativeConfirmer(hm,
+                                                          device="cuda")),
+                          ("cpu", lambda: NativeConfirmer(hm, device="cpu")),
+                          ("cpu f64", lambda: exact_confirmer(hm))):
+            dev = "cuda" if run == "card" else "cpu"
             t0 = time.perf_counter()
-            rec = Recorder(NativeConfirmer(hm, device=dev))
+            rec = Recorder(make())
             vk.reset_launches()
             with tempfile.TemporaryDirectory() as tmp:
                 sc = Scanner(prof, ScanConfig(device=dev), confirmer=rec)
                 sc.run(seqs, os.path.join(tmp, "p"))
-                outs[dev] = product_dir(os.path.join(tmp, "p"))
-            recs[dev] = rec
+                outs[run] = product_dir(os.path.join(tmp, "p"))
+            recs[run] = rec
             kept = sum(c[2] < 0 for c in rec.calls)
-            say("subset", f"confirmed, {label}, {dev}: {len(prof)} "
+            say("subset", f"confirmed, {label}, {run}: {len(prof)} "
                 f"profiles x {len(seqs)} reads of {seqs[0].size} nt, "
-                f"{len(rec.calls)} hits confirmed, {kept} kept, "
-                f"{len(rec.calls) - kept} dropped, {sc.metrics.products} "
-                f"products, {time.perf_counter() - t0:.3f} s; launches "
+                f"{len(rec.calls)} hits confirmed in {len(rec.waves)} "
+                f"calls, {kept} kept, {len(rec.calls) - kept} dropped, "
+                f"{sc.metrics.products} products, "
+                f"{time.perf_counter() - t0:.3f} s; launches "
                 f"{dict(vk.LAUNCHES)}")
-            if dev == "cuda":
-                check(vk.LAUNCHES["amino_posterior"] == len(rec.calls) > 0,
-                      f"{label}: a confirmation did not launch the kernel")
-        widest = confirmed_close(hm, recs["cuda"], recs["cpu"])
-        g, w = outs["cuda"], outs["cpu"]
-        check(g.keys() == w.keys(), f"{label}: other product files")
-        tg, tw = (o["products.tsv"].decode().splitlines() for o in (g, w))
-        check([strip_evalue(x) for x in tg] == [strip_evalue(x) for x in tw],
-              f"{label}: card and CPU products differ")
-        check(all(blobs_close(g[k], w[k], widest) for k in g
+            if run == "card":
+                check(vk.LAUNCHES["amino_posterior"] == rec.groups() > 0,
+                      f"{label}: not one launch a (wave, Kpad) group")
+        widest = confirmed_close(hm, recs["card"], recs["cpu f64"])
+        check([c[2] < 0 for c in recs["cpu"].calls]
+              == [c[2] < 0 for c in recs["card"].calls],
+              f"{label}: card and CPU kept other hits")
+        g = outs["card"]
+        tg = g["products.tsv"].decode().splitlines()
+        for run in ("cpu", "cpu f64"):
+            w = outs[run]
+            check(g.keys() == w.keys(), f"{label}: other product files")
+            tw = w["products.tsv"].decode().splitlines()
+            check([strip_evalue(x) for x in tg]
+                  == [strip_evalue(x) for x in tw],
+                  f"{label}: card and {run} products differ")
+        check(all(blobs_close(g[k], outs["cpu f64"][k], widest) for k in g
                   if k.endswith(".h3r")), f"{label}: h3r fields differ")
-        kept = sum(c[2] < 0 for c in recs["cuda"].calls)
+        kept = sum(c[2] < 0 for c in recs["card"].calls)
         check(len(tg) - 1 == kept, f"{label}: a kept hit was not written")
         if label == "confirm_case":
-            check(0 < kept < len(recs["cuda"].calls),
+            check(0 < kept < len(recs["card"].calls),
                   "confirm_case: no hit kept, or none dropped")
             with tempfile.TemporaryDirectory() as tmp:
                 sc = Scanner(prof, ScanConfig(device="cuda"))
@@ -1790,19 +1884,55 @@ def confirm_subsets(torch, sub_prof, sub_seqs, hmms) -> None:
         say("subset", f"confirmed, {label}: card and CPU agree ({kept} "
             f"lines, {sum(k.endswith('.h3r') for k in g)} h3r files; every "
             f"column but the e-value byte-identical, score tolerance "
-            f"{widest:.3e} bits)")
+            f"{widest:.3e} bits); largest differences from the f64 run: "
+            f"card {drift(recs['card'], recs['cpu f64'])}; CPU f32 "
+            f"{drift(recs['cpu'], recs['cpu f64'])}")
+
+
+def batched_launch(torch, report, scorer, waves) -> None:
+    """The confirmed scan's largest batched posterior launch (the most
+    hits of one Kpad in one wave) timed again, with the bound of its work
+    (all its hits' cells), into the kernels line under "batched"."""
+    from deciphon_tpu_torch.hmmer.forward import amino_posterior
+
+    hmms = scorer.hmms
+    best = []
+    for w in waves:
+        hits = [(p, q) for p, q in w if q]
+        for ids in scorer.launch_plan(hits, posterior=True):
+            if len(ids) > len(best):
+                best = [hits[i] for i in ids]
+    args, host = scorer._staged(best)
+    ms = cuda_ms(torch, lambda: amino_posterior(**args), 3)
+    ks = [hmms[p].length for p, _ in best]
+    b, by = amino_bound_ms("amino_posterior", args, ks)
+    lens = [len(q) for _, q in best]
+    Kpad = args["em"].shape[2]
+    report["amino_posterior"]["batched"] = dict(
+        hits=len(best), Kpad=Kpad, longest=max(lens), positions=sum(lens),
+        ms=ms, us_per_position=ms * 1e3 / max(lens), bound_ms=b, bound_by=by)
+    say("confirm", f"largest batched posterior launch of the scan: "
+        f"{len(best)} hits at Kpad {Kpad} (L {min(lens)}..{max(lens)}, "
+        f"{sum(lens)} positions), {ms:.3f} ms, "
+        f"{ms * 1e3 / max(lens):.3f} us a position of the longest; bound "
+        f"{b:.6f} ms ({by})")
+    del host
 
 
 def confirm_phase(torch, report, launches, profiles, seqs, lines,
                   unconfirmed_med: float, sub_prof, sub_seqs) -> None:
     """Phase 8, confirmation: both amino kernels against their plain
-    versions at AMINO_KPADS; the Pfam scan with
-    NativeConfirmer(pfam_scan_hmms(), device="cuda") (null2, the posterior
-    kernel): first scan counted, three warm, one profiled (the kernels'
-    device seconds), its lines the unconfirmed scan's kept lines; one
-    counted scan with null2=False (the Forward kernel); the recorded calls
-    with the widest Kpad and the longest L against the plain versions on
-    the card; then the card against the CPU (confirm_subsets)."""
+    versions at AMINO_KPADS, and batches bit-equal to their hits launched
+    alone; the Pfam scan with NativeConfirmer(pfam_scan_hmms(),
+    device="cuda") on the batched route (null2, the posterior kernel):
+    first scan counted (one posterior launch a (wave, Kpad) group), three
+    warm, one profiled (the kernels' device seconds), its lines the
+    unconfirmed scan's kept lines; the hit-by-hit route's scan, counted
+    (one launch a hit), the same hits and the same bytes; one counted
+    scan with null2=False (the Forward kernel); the largest batched
+    launch with its bound; the recorded calls with the widest Kpad and
+    the longest L against the plain versions on the card; then the card
+    against the CPU (confirm_subsets)."""
     from deciphon_tpu_torch.hmmer.forward import NativeConfirmer, _pad_pow2
     from deciphon_tpu_torch.workload import pfam_scan_hmms
 
@@ -1811,42 +1941,67 @@ def confirm_phase(torch, report, launches, profiles, seqs, lines,
     hmms = pfam_scan_hmms()
     check([h.accession for h in hmms] == [p.accession for p in profiles],
           "pfam_scan_hmms is not pfam_scan's database")
-    rec = Recorder(NativeConfirmer(hmms, device="cuda"))
+    native = NativeConfirmer(hmms, device="cuda")
+    rec = Recorder(native)
     sc = Scans(torch, profiles, seqs, "confirm", confirmer=rec)
     first, clines = sc.counted(
         launches, ("pchain", "chain", "path", "walk", "amino_posterior"))
-    calls = list(rec.calls)
+    calls, waves = list(rec.calls), list(rec.waves)
     kept = [c for c in calls if c[2] < 0]
     lens = sorted(len(c[1]) for c in calls)
+    groups = rec.groups()
     say("confirm", f"first confirmed scan {first:.6f} s: {len(calls)} hits "
-        f"confirmed (amino lengths {lens[0]}..{lens[-1]}, median "
-        f"{lens[len(lens) // 2]}), {len(kept)} kept, "
-        f"{len(calls) - len(kept)} dropped; log-E of the kept "
-        f"{[round(c[2], 3) for c in kept]}; posterior launches "
-        f"{sc.counts['amino_posterior']}")
-    check(sc.counts["amino_posterior"] == len(calls) > 0,
-          "a confirmation did not launch the posterior kernel")
+        f"confirmed in {len(rec.waves)} waves (amino lengths "
+        f"{lens[0]}..{lens[-1]}, median {lens[len(lens) // 2]}), "
+        f"{len(kept)} kept, {len(calls) - len(kept)} dropped; log-E of the "
+        f"kept {[round(c[2], 3) for c in kept]}; posterior launches "
+        f"{sc.counts['amino_posterior']}, (wave, Kpad) groups {groups}")
+    check(sc.counts["amino_posterior"] == groups < len(calls),
+          "the posterior did not launch once a (wave, Kpad) group")
     unconf = {strip_evalue(x) for x in lines[1:]}
     check(len(clines) - 1 == len(kept) and all(
         strip_evalue(x) in unconf for x in clines[1:]),
         "the confirmed lines are not the unconfirmed scan's kept lines")
+    with tempfile.TemporaryDirectory() as tmp:
+        sc.scanner.run(seqs, os.path.join(tmp, "p"))
+        batched_dir = product_dir(os.path.join(tmp, "p"))
     med = sc.warm_and_profile(clines)
     dev = {k: v for k, v in sc.dev_s.items() if "amino_kernel" in k}
     say("confirm", f"profiled confirmed scan: amino kernels' device s "
         + json.dumps(dev) + f"; warm median confirmed {med:.6f} s, "
         f"unconfirmed (phase 4) {unconfirmed_med:.6f} s, ratio "
         f"{med / unconfirmed_med:.6f}")
-    rec.conf.null2 = False
+    # the hit-by-hit route: a confirmer without confirm_many
+    single = Recorder(NativeConfirmer(hmms, device="cuda"), single=True)
+    ss = Scans(torch, profiles, seqs, "confirm, hit by hit",
+               confirmer=single)
+    _, slines = ss.counted(launches, ("amino_posterior",))
+    check([c[:2] for c in single.calls] == [c[:2] for c in calls],
+          "the two routes confirmed other hits")
+    check(ss.counts["amino_posterior"] == sum(1 for c in calls if c[1]),
+          "the hit-by-hit route did not launch once a hit")
+    with tempfile.TemporaryDirectory() as tmp:
+        ss.scanner.run(seqs, os.path.join(tmp, "p"))
+        check(product_dir(os.path.join(tmp, "p")) == batched_dir
+              and slines == clines,
+              "the batched and the hit-by-hit route wrote other bytes")
+    say("confirm", f"hit by hit: {ss.counts['amino_posterior']} posterior "
+        f"launches; products and h3r files byte-identical to the batched "
+        f"route's ({len(batched_dir)} files)")
+    del ss, single
+    native.null2 = False
+    rec.waves = []
     _, flines = sc.counted(launches, ("path", "walk", "amino_forward"))
-    rec.conf.null2 = True
-    check(sc.counts["amino_forward"] > 0 and
+    native.null2 = True
+    check(sc.counts["amino_forward"] == rec.groups(False) > 0 and
           sc.counts["amino_posterior"] == 0, "null2=False ran the posterior")
     check(all(strip_evalue(x) in unconf for x in flines[1:]),
           "null2=False wrote a line the unconfirmed scan did not")
     say("confirm", f"null2=False: {sc.counts['amino_forward']} Forward "
         f"launches, {len(flines) - 1} lines kept")
     del sc
-    scorer = rec.conf.scorer
+    scorer = native.scorer
+    batched_launch(torch, report, scorer, waves)
     wide = max(calls, key=lambda c: (_pad_pow2(hmms[c[0]].length),
                                      len(c[1])))
     long = max(calls, key=lambda c: len(c[1]))

@@ -62,10 +62,11 @@ SIGNATURES = {
     "dtt_score_grid": [_P] * 8 + [_I] * 9 + [_IP, _P],
     "dtt_walk": [_P, _P, _P, _P, _P, _P, _P, _P,
                  _I, _I, _I, _I, _P],
-    # the amino Forward and posterior: inputs, outputs (and the posterior's
-    # scratch), the hit count and Kpad, the stream
-    "dtt_amino_forward": [_P] * 6 + [_I, _I, _P],
-    "dtt_amino_posterior": [_P] * 9 + [_I, _I, _P],
+    # the amino Forward and posterior: inputs, the staged-odds scratch (null
+    # up to Kpad 4096), outputs (and the posterior's scratch), the hit count
+    # and Kpad, the stream
+    "dtt_amino_forward": [_P] * 7 + [_I, _I, _P],
+    "dtt_amino_posterior": [_P] * 10 + [_I, _I, _P],
 }
 
 _lock = threading.Lock()

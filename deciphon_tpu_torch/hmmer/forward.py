@@ -29,7 +29,12 @@ and the loops run over the true L (the reference's padded steps only
 carry the state through).  CPU tensors run the plain version, CUDA
 tensors the kernel (built from csrc/ on first use) or raise; the kernel
 launches count in ops/viterbi.py LAUNCHES ("amino_forward",
-"amino_posterior").
+"amino_posterior").  The kernels run in scaled odds space (see
+csrc/amino_forward.cu); the plain versions follow the reference op for op
+in log space, and the two agree within the reference's tolerance.
+
+`NativeConfirmer.confirm_many` confirms a wave's hits at once: the hits
+are grouped by Kpad (`kpad_groups`) and each group is one launch.
 """
 
 from __future__ import annotations
@@ -213,6 +218,19 @@ def _check_hits(em, tv, res, off, xv) -> tuple[int, int]:
     return H, Kpad
 
 
+# the kernels stage the odds of the transition vectors in shared memory up
+# to this Kpad, and past it in a scratch of (H, ODDS_ROWS, Kpad) f32
+ODDS_SMEM_MAX_KPAD = 4096
+ODDS_ROWS = 9
+
+
+def _odds_scratch(H: int, Kpad: int, device):
+    if Kpad <= ODDS_SMEM_MAX_KPAD:
+        return 0  # a null pointer: the kernel stages in shared memory
+    return torch.empty((H, ODDS_ROWS, Kpad), dtype=torch.float32,
+                       device=device)
+
+
 def _launch(fn: str, key: str, *args) -> None:
     from .. import _build
 
@@ -230,15 +248,16 @@ def amino_forward(em, tv, res, off, xv):
     if not vk.on_cuda(em, tv, res, off, xv):
         return amino_forward_plain(em, tv, res, off, xv)
     out = torch.empty((H,), dtype=torch.float32, device=em.device)
-    _launch("dtt_amino_forward", "amino_forward", em, tv, res, off, xv, out,
-            H, Kpad)
+    _launch("dtt_amino_forward", "amino_forward", em, tv, res, off, xv,
+            _odds_scratch(H, Kpad, em.device), out, H, Kpad)
     return out
 
 
 def amino_posterior(em, tv, res, off, xv):
     """(H, 3 + Kpad) f32, each row (fwd, gI, gNCJ, gM...): the Forward
     nats and the posterior usages of a batch of hits.  On the card the
-    Forward's M and I rows go to a scratch of 8 N Kpad bytes."""
+    Forward's M and I rows, and its specials and scales, go to a scratch
+    of (8 Kpad + 16) N bytes."""
     H, Kpad = _check_hits(em, tv, res, off, xv)
     if not vk.on_cuda(em, tv, res, off, xv):
         return amino_posterior_plain(em, tv, res, off, xv)
@@ -246,10 +265,45 @@ def amino_posterior(em, tv, res, off, xv):
     out = torch.empty((H, 3 + Kpad), dtype=torch.float32, device=em.device)
     Mf = torch.empty((n, Kpad), dtype=torch.float32, device=em.device)
     If = torch.empty_like(Mf)
-    Xf = torch.empty((n, 3), dtype=torch.float32, device=em.device)
+    Xf = torch.empty((n, 4), dtype=torch.float32, device=em.device)
     _launch("dtt_amino_posterior", "amino_posterior", em, tv, res, off, xv,
-            out, Mf, If, Xf, H, Kpad)
+            _odds_scratch(H, Kpad, em.device), out, Mf, If, Xf, H, Kpad)
     return out
+
+
+def kpad_groups(kpads) -> list[tuple[int, list[int]]]:
+    """[(Kpad, indices)] of a list of Kpads: one group a distinct Kpad in
+    the order of its first hit, each group's indices ascending."""
+    groups: dict[int, list[int]] = {}
+    for i, k in enumerate(kpads):
+        groups.setdefault(k, []).append(i)
+    return list(groups.items())
+
+
+# a posterior launch's Forward scratch, (8 Kpad + 16) bytes a position of
+# its hits, stays within this; a Kpad group past it takes more launches
+POSTERIOR_SCRATCH_BYTES = 1 << 31
+
+
+def posterior_scratch_bytes(n: int, Kpad: int) -> int:
+    """Bytes of amino_posterior's scratch for n positions at Kpad."""
+    return (8 * Kpad + 16) * n
+
+
+def budget_chunks(ids, lens, Kpad: int, budget: int) -> list[list[int]]:
+    """`ids` cut, in order, into the fewest runs whose posterior scratch
+    (their `lens` summed) stays within `budget`: one run when it fits, and
+    a hit past the budget alone."""
+    runs: list[list[int]] = []
+    n = 0
+    for i, ln in zip(ids, lens):
+        if runs and posterior_scratch_bytes(n + ln, Kpad) <= budget:
+            runs[-1].append(i)
+            n += ln
+        else:
+            runs.append([i])
+            n = ln
+    return runs
 
 
 # ---------------------------------------------------------------------------
@@ -344,23 +398,79 @@ class AminoForwardScorer:
     def launch_args(self, p_idx: int, amino_seq: str) -> dict:
         """The device arguments of one hit for amino_forward and
         amino_posterior (a batch of one)."""
-        idx, xvals, Kpad = self._inputs(p_idx, amino_seq)
-        em, tv = self._device_arrays(p_idx, Kpad)
+        return self._staged([(p_idx, amino_seq)])[0]
+
+    def _staged(self, hits) -> tuple[dict, torch.Tensor]:
+        """(device arguments, host buffer) of a batch of non-empty hits
+        [(p_idx, amino_seq)] of one Kpad: each hit's cached device tables
+        stacked on the device, and its residues, offsets and specials
+        staged in one host buffer (pinned for a card) and copied without
+        blocking.  The caller holds the buffer until it has fetched the
+        launch's output (PyTorch's pinned allocator also keeps the block
+        until the copy's event)."""
+        inputs = [self._inputs(p, q) for p, q in hits]
+        Kpad = inputs[0][2]
+        if any(k != Kpad for _, _, k in inputs):
+            raise ValueError("a launch takes hits of one Kpad")
+        tables = [self._device_arrays(p, Kpad) for p, _ in hits]
+        H = len(hits)
+        lens = [len(idx) for idx, _, _ in inputs]
+        n = sum(lens)
+        cuda = self.device.type == "cuda"
+        host = torch.empty((n + H + 1 + 10 * H,), dtype=torch.int32,
+                           pin_memory=cuda)
+        words = host.numpy()
+        words[:n] = np.concatenate([idx for idx, _, _ in inputs])
+        words[n:n + H + 1] = np.concatenate([[0], np.cumsum(lens)])
+        words[n + H + 1:].view(np.float32)[:] = np.asarray(
+            [x for _, x, _ in inputs], np.float32).ravel()
+        dev = host.to(self.device, non_blocking=True) if cuda else host
         return dict(
-            em=em[None], tv=tv[None],
-            res=torch.from_numpy(idx).to(self.device),
-            off=torch.tensor([0, len(idx)], dtype=torch.int32,
-                             device=self.device),
-            xv=torch.tensor([xvals], dtype=torch.float32,
-                            device=self.device))
+            em=torch.stack([em for em, _ in tables]),
+            tv=torch.stack([tv for _, tv in tables]), res=dev[:n],
+            off=dev[n:n + H + 1],
+            xv=dev[n + H + 1:].view(torch.float32).reshape(H, 10)), host
+
+    def launch_plan(self, hits, posterior: bool = False) -> list[list[int]]:
+        """The indices of the non-empty `hits` that each launch takes: one
+        launch a Kpad group (`kpad_groups`), a posterior group in as many
+        as POSTERIOR_SCRATCH_BYTES asks (`budget_chunks`)."""
+        plan = []
+        for Kpad, ids in kpad_groups([_pad_pow2(self.hmms[p].length)
+                                      for p, _ in hits]):
+            plan += (budget_chunks(ids, [len(hits[i][1]) for i in ids], Kpad,
+                                   POSTERIOR_SCRATCH_BYTES)
+                     if posterior else [ids])
+        return plan
+
+    def _launch_groups(self, hits, fn, posterior: bool = False):
+        """Run `fn` (amino_forward, or amino_posterior with `posterior`) on
+        the non-empty `hits` as `launch_plan` says; every launch is made
+        before any output is fetched.  Returns each hit's output row
+        (numpy), in order."""
+        launched = []
+        for run in self.launch_plan(hits, posterior):
+            args, host = self._staged([hits[i] for i in run])
+            launched.append((run, fn(**args), host))
+        rows = [None] * len(hits)
+        for ids, out, _ in launched:
+            for i, row in zip(ids, out.cpu().numpy()):
+                rows[i] = row
+        return rows
 
     def posterior_usages(self, p_idx: int, amino_seq: str):
         """(fwd_nats, gM (Kpad,), gI_total, gNCJ_total) posterior residue
         usages; gM.sum() + gI + gNCJ == len(seq) (each residue is emitted
         by exactly one emitting state)."""
-        out = amino_posterior(**self.launch_args(p_idx, amino_seq))
-        out = out[0].cpu().numpy()
-        return float(out[0]), out[3:], float(out[1]), float(out[2])
+        return self.posterior_usages_many([(p_idx, amino_seq)])[0]
+
+    def posterior_usages_many(self, hits) -> list[tuple]:
+        """posterior_usages of each non-empty hit [(p_idx, amino_seq)],
+        one posterior launch a Kpad group (more past the scratch
+        budget)."""
+        return [(float(o[0]), o[3:], float(o[1]), float(o[2]))
+                for o in self._launch_groups(hits, amino_posterior,
+                                             posterior=True)]
 
     def null2_bias_nats(self, p_idx: int, amino_seq: str,
                         fwd_and_usages=None) -> float:
@@ -388,34 +498,53 @@ class AminoForwardScorer:
 
     def bit_score(self, p_idx: int, amino_seq: str,
                   null2: bool = False) -> float:
-        L = len(amino_seq)
-        if L == 0:
-            return -math.inf
+        return self.bit_scores([(p_idx, amino_seq)], null2=null2)[0]
+
+    def bit_scores(self, hits, null2: bool = False) -> list[float]:
+        """bit_score of each hit [(p_idx, amino_seq)]: the non-empty ones
+        in one launch a Kpad group (the posterior with null2, else the
+        Forward); an empty string scores -inf without a launch."""
+        live = [i for i, (_, q) in enumerate(hits) if q]
+        scores = [-math.inf] * len(hits)
+        if not live:
+            return scores
+        sub = [hits[i] for i in live]
         if null2:
-            usages = self.posterior_usages(p_idx, amino_seq)
-            fwd_nats = usages[0]
-            bias = self.null2_bias_nats(p_idx, amino_seq, usages)
+            usages = self.posterior_usages_many(sub)
+            parts = [(u[0], self.null2_bias_nats(p, q, u))
+                     for (p, q), u in zip(sub, usages)]
         else:
-            fwd = amino_forward(**self.launch_args(p_idx, amino_seq))
-            fwd_nats = float(fwd[0])
-            bias = 0.0
+            fwd = self._launch_groups(sub, amino_forward)
+            parts = [(float(f), 0.0) for f in fwd]
+        for i, (_, q), (fwd_nats, bias) in zip(live, sub, parts):
+            scores[i] = self.score_bits(len(q), fwd_nats, bias)
+        return scores
+
+    @staticmethod
+    def score_bits(L: int, fwd_nats: float, bias: float) -> float:
+        """The bit score of a hit of L > 0 residues from its Forward and
+        null2 bias nats."""
         null_len = L * math.log(L / (L + 1.0)) + math.log(1.0 / (L + 1.0))
         # hmmpgmd score-convention correction (the reference's bit_score):
         # this model's forward exceeds hmmpgmd's reported full-sequence bit
         # score by ln(L) nats, fitted on real hmmpgmd stats
         return (fwd_nats - math.log(L) - null_len - bias) / LN2
 
-    def evalue(self, p_idx: int, amino_seq: str, Z: float = 1.0,
-               null2: bool = False):
-        """(bit_score, log_evalue) from the FORWARD calibration line."""
-        s = self.bit_score(p_idx, amino_seq, null2=null2)
+    def log_evalue(self, p_idx: int, score: float, Z: float = 1.0) -> float:
+        """log E of a bit score from the FORWARD calibration line."""
         stats = self.hmms[p_idx].stats.get("FORWARD")
         if stats is None:
             raise ValueError("profile lacks STATS LOCAL FORWARD calibration")
         tau, lam = stats
         # exponential tail in bits: P = exp(-lambda * (S - tau))
-        ln_p = min(-lam * (s - tau), 0.0)
-        return s, ln_p + math.log(Z)
+        ln_p = min(-lam * (score - tau), 0.0)
+        return ln_p + math.log(Z)
+
+    def evalue(self, p_idx: int, amino_seq: str, Z: float = 1.0,
+               null2: bool = False):
+        """(bit_score, log_evalue) from the FORWARD calibration line."""
+        s = self.bit_score(p_idx, amino_seq, null2=null2)
+        return s, self.log_evalue(p_idx, s, Z)
 
 
 class NativeConfirmer:
@@ -438,27 +567,28 @@ class NativeConfirmer:
         self.null2 = null2
 
     def confirm(self, p_idx: int, amino_seq: str):
+        return self.confirm_many([(p_idx, amino_seq)])[0]
+
+    def confirm_many(self, hits) -> list[tuple]:
+        """confirm of each hit [(p_idx, amino_seq)], in order: the scores
+        of all of them first (one launch a Kpad group), then the keep
+        policy hit by hit."""
         from .h3result import H3Result
 
-        hmm = self.hmms[p_idx]
-        if hmm.has_ga:
-            Z = 1.0
-        else:
-            Z = float(self.num_proteins)
-        score, logevalue = self.scorer.evalue(p_idx, amino_seq, Z=Z,
-                                              null2=self.null2)
-
-        if hmm.has_ga:
-            if score < hmm.ga[0]:
-                return 0.0, None
-        else:
-            if logevalue > math.log(self.evalue_cutoff):
-                return 0.0, None
-        if logevalue >= 0.0:
-            return 0.0, None
-
-        h3r = H3Result.single_hit(
-            name=hmm.name, acc=hmm.accession, score=score,
-            lnP=logevalue - math.log(Z), Z=Z, qlen=hmm.length,
-            seqlen=len(amino_seq))
-        return logevalue, h3r.to_blob()
+        out = []
+        for (p_idx, amino_seq), score in zip(
+                hits, self.scorer.bit_scores(hits, null2=self.null2)):
+            hmm = self.hmms[p_idx]
+            Z = 1.0 if hmm.has_ga else float(self.num_proteins)
+            logevalue = self.scorer.log_evalue(p_idx, score, Z)
+            drop = (score < hmm.ga[0] if hmm.has_ga
+                    else logevalue > math.log(self.evalue_cutoff))
+            if drop or logevalue >= 0.0:
+                out.append((0.0, None))
+                continue
+            h3r = H3Result.single_hit(
+                name=hmm.name, acc=hmm.accession, score=score,
+                lnP=logevalue - math.log(Z), Z=Z, qlen=hmm.length,
+                seqlen=len(amino_seq))
+            out.append((logevalue, h3r.to_blob()))
+        return out

@@ -12,9 +12,10 @@ with the `confirmer` hook, `warmup`, checkpoint/resume, `should_stop`,
       classic B1, large-K B4) through the bucketed scheduler — then the
       LRT filter;
     phase 2 (device + host): the B2 path kernel and the device walk for
-      every survivor, hit segmentation, ML codon/amino decode, the
-      confirmer's e-value (e.g. hmmer/forward.py NativeConfirmer, the
-      amino Forward and posterior kernels), product line;
+      every survivor, hit segmentation, ML codon/amino decode, product
+      line; then the confirmer's e-values of the wave's hits (e.g.
+      hmmer/forward.py NativeConfirmer, the amino Forward and posterior
+      kernels, one launch a Kpad group), and the confirmed lines;
   "torch" (the reference's "jax"): TorchPairScorer, the lax.scan
     engine's counterpart in plain PyTorch, scores each wave when it is
     dispatched; its phase 2 runs viterbi_path_batch per (profile, padded
@@ -86,8 +87,12 @@ class Scanner:
     `confirmer`, if given, is called as confirmer(protein_idx, amino_seq)
     and must return (logevalue, h3r_blob|None) — the hmmpgmd confirmation
     stage (c-core/hmmer.c; hmmer/forward.py NativeConfirmer.confirm or
-    hmmer/client.py HMMERClient.confirm).  Without it, every LRT hit is
-    kept and reported with evalue 1 (log 0).
+    hmmer/client.py HMMERClient.confirm).  A wave's hits are confirmed
+    together after its decode: a confirmer offering
+    `confirm_many([(protein_idx, amino_seq)]) -> [(logevalue, blob)]`
+    (itself, or the object of a bound `confirm`, as NativeConfirmer's)
+    gets them in one call, any other callable one call a hit, in order.
+    Without it, every LRT hit is kept and reported with evalue 1 (log 0).
     """
 
     def __init__(self, profiles: list[FrameProfile],
@@ -296,6 +301,7 @@ class Scanner:
 
         def process(survivors, paths) -> None:
             rewound: dict = {}  # key -> rewind cutoff window idx
+            queue: list = []  # the wave's lines awaiting confirmation
             with self.metrics.timed("phase2_decode"):
                 for it, line_lrt in survivors:
                     key = (it.p_idx, it.s_idx)
@@ -321,7 +327,10 @@ class Scanner:
                         rewound[key] = it.win.idx
 
                     self._phase2(it, sequences[it.s_idx], line_lrt,
-                                 on_hit_pos, writer, paths[id(it)])
+                                 on_hit_pos, writer, paths[id(it)], queue)
+                # before finish_ready journals a pair done: its confirmed
+                # lines are journaled first
+                self._confirm_wave(queue, writer)
             with self.metrics.timed("windowing"):
                 for key in chains:
                     if key not in rewound and depth[key] < max_depth:
@@ -401,7 +410,8 @@ class Scanner:
         return out
 
     def _phase2(self, it: PairItem, seq: Sequence, line_lrt: float,
-                on_hit_pos, writer: ProductWriter, path: tuple) -> None:
+                on_hit_pos, writer: ProductWriter, path: tuple,
+                queue: list) -> None:
         p_idx, win = it.p_idx, it.win
         profile = self.profiles[p_idx]
         sids_all, sizes_all = path  # (n,) int64 arrays, S..T order
@@ -455,23 +465,55 @@ class Scanner:
             window_stop=win.stop, hit=0, hit_start=hit_start,
             hit_stop=hit_stop, profile=profile.accession, abc=self.abc_name,
             lrt=line_lrt, logevalue=0.0, steps=steps)
+        order = (p_idx, seq.id, win.idx)
         # HMMER3 can't confirm >100k aminos: past HMMER_MAX_AMINO only the
         # confirmation is skipped and the line is still written
         # (thread.c:182-207 — add_match is outside the guard)
         if (self.confirmer is not None
                 and len(amino_seq) + 1 <= HMMER_MAX_AMINO):
-            logevalue, blob = self.confirmer(p_idx, amino_seq)
+            queue.append((line, order, (p_idx, it.s_idx), amino_seq))
+            return
+        self._add_line(writer, line, order, (p_idx, it.s_idx))
+
+    def _add_line(self, writer: ProductWriter, line: ProductLine,
+                  order: tuple, pair: tuple) -> None:
+        writer.add(line, order=order)
+        if self._checkpoint:
+            writer.journal_line(line, order, pair)
+
+    def _confirm_wave(self, queue: list, writer: ProductWriter) -> None:
+        """Confirm the wave's queued lines (thread.c:182-207): in one
+        confirm_many call where the confirmer offers it, else one call a
+        hit; then, in queue order, drop a line whose log-E is 0 (after
+        clamping a positive one) and write the rest with their h3r."""
+        if not queue:
+            return
+        hits = [(order[0], amino_seq) for _, order, _, amino_seq in queue]
+        many = confirm_many_of(self.confirmer)
+        answers = (many(hits) if many is not None
+                   else [self.confirmer(p, q) for p, q in hits])
+        if len(answers) != len(queue):
+            raise ValueError(f"the confirmer answered {len(answers)} of "
+                             f"{len(queue)} hits")
+        for (line, order, pair, _), (logevalue, blob) in zip(queue, answers):
             if logevalue > 0:
                 logevalue = 0.0
             if logevalue == 0:
-                return
+                continue
             line.logevalue = logevalue
             if blob is not None:
                 writer.add_h3r(line, blob)
-        order = (p_idx, seq.id, win.idx)
-        writer.add(line, order=order)
-        if self._checkpoint:
-            writer.journal_line(line, order, (p_idx, it.s_idx))
+            self._add_line(writer, line, order, pair)
+
+
+def confirm_many_of(confirmer):
+    """The batched hook of a confirmer: its own `confirm_many`, or that of
+    the object whose bound `confirm` it is; None for any other callable."""
+    many = getattr(confirmer, "confirm_many", None)
+    if many is None and getattr(confirmer, "__name__", None) == "confirm":
+        many = getattr(getattr(confirmer, "__self__", None), "confirm_many",
+                       None)
+    return many
 
 
 def segment_hits(sids: np.ndarray, sizes: np.ndarray):

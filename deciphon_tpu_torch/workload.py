@@ -18,8 +18,9 @@
   subsets; `sample_hmm` / `pfam_scan_hmms` — the amino profiles (HMMER3
   form, with a FORWARD calibration) that those frame profiles were pressed
   from, for the confirmer; `peaked_hmm` / `confirm_case` — profiles and
-  reads whose hits the confirmer both keeps and drops; `amino_hits` — a
-  batch of hits for the amino Forward and posterior kernels.
+  reads whose hits the confirmer both keeps and drops; `exact_confirmer`
+  — the confirmer on the plain versions in f64; `amino_hits` — a batch
+  of hits for the amino Forward and posterior kernels.
 * `walk_cases` — trellises planted with the traceback walk's edge cases.
 """
 
@@ -622,6 +623,28 @@ def confirm_case(ks=CONFIRM_KS, read_len: int = 700, seed: int = 3):
                             for i, r in enumerate(reads)]
 
 
+def exact_confirmer(hmms, **kw):
+    """NativeConfirmer(hmms, device="cpu", **kw) whose scorer evaluates
+    the plain versions in f64: the kernels' function without the f32
+    rounding that log space accumulates over a long hit, the yardstick
+    the kernels are held to on long hits."""
+    from .hmmer import forward as hf
+
+    plain = {hf.amino_forward: hf.amino_forward_plain,
+             hf.amino_posterior: hf.amino_posterior_plain}
+
+    class ExactScorer(hf.AminoForwardScorer):
+        def _launch_groups(self, hits, fn, posterior=False):
+            def f64(**a):
+                return plain[fn](**{k: v.double() if v.is_floating_point()
+                                    else v for k, v in a.items()})
+            return super()._launch_groups(hits, f64, posterior)
+
+    conf = hf.NativeConfirmer(hmms, device="cpu", **kw)
+    conf.scorer = ExactScorer(hmms, device="cpu")
+    return conf
+
+
 def pfam_scan_hmms(n_profiles: int = 200) -> list:
     """The HMMProfiles of `pfam_scan`'s database (sample_hmm(200 + i,
     K_i)), for NativeConfirmer."""
@@ -636,8 +659,6 @@ def amino_hits(Kpad: int, lengths, seed: int, device="cpu",
     `degenerate` of them 'X') against sample_hmm(seed + h, K_h), K_h drawn
     from (Kpad / 2, Kpad] (at least 2).  Returns the kernels' arguments
     (em, tv, res, off, xv) with the strings `seqs` and the sizes `ks`."""
-    import torch
-
     from .alphabet import AMINO
     from .hmmer.forward import AminoForwardScorer
 
@@ -649,14 +670,9 @@ def amino_hits(Kpad: int, lengths, seed: int, device="cpu",
     seqs = ["".join("X" if rng.random() < degenerate
                     else AMINO[int(rng.integers(0, 20))] for _ in range(n))
             for n in lengths]
-    hits = [scorer.launch_args(h, q) for h, q in enumerate(seqs)]
-    assert all(a["em"].shape[2] == Kpad for a in hits), (Kpad, ks)
-    res = torch.cat([a["res"] for a in hits])
-    off = torch.tensor(np.concatenate([[0], np.cumsum(lengths)]),
-                       dtype=torch.int32, device=device)
-    return dict(em=torch.cat([a["em"] for a in hits]),
-                tv=torch.cat([a["tv"] for a in hits]), res=res, off=off,
-                xv=torch.cat([a["xv"] for a in hits]), seqs=seqs, ks=ks)
+    args, _ = scorer._staged(list(enumerate(seqs)))
+    assert args["em"].shape[2] == Kpad, (Kpad, ks)
+    return dict(args, seqs=seqs, ks=ks)
 
 
 # Domains of the long-read scan.  Profile 140 (K = 670) sat on read 0

@@ -300,19 +300,26 @@ def test_grid_chunks_bit_equal_to_one_launch(cuda, monkeypatch, Kp):
 
 # The amino kernels by Kpad band: 4 lanes a thread up to Kpad 2048 (one
 # warp with idle threads below 128), 8 up to 8192 and 16 at 16384, the
-# transition vectors in shared memory up to 4096 and read through L2 past
-# it.  Each is
-# held against its plain version within the reference's own tolerance
-# against brute force (tests/test_hmmer.py): rtol 1e-4, atol 1e-3, scores
-# in bits; log-add in f32 is not associative and the kernel sums in
-# another order.
+# odds of the transition vectors in shared memory up to 4096 and in the
+# launch's scratch past it.  They run in scaled odds space, the plain
+# versions in log space as the reference; each kernel is held to its plain
+# version evaluated in f64 (`exact`: the same function without the f32
+# rounding that log space accumulates over a long hit) within the
+# reference's own tolerance against brute force (tests/test_hmmer.py):
+# rtol 1e-4, atol 1e-3, scores in bits.
 AMINO_KPADS = [16, 32, 128, 1024, 2048, 4096, 8192, 16384]
 
 
-def amino_args(Kpad, seed, device):
-    lens = [1, 37, 300] if Kpad <= 4096 else [1, 40]
+def amino_args(Kpad, seed, device, lens=None):
+    lens = lens or ([1, 37, 300] if Kpad <= 4096 else [1, 40])
     c = amino_hits(Kpad, lens, seed, device)
     return {k: c[k] for k in ("em", "tv", "res", "off", "xv")}, lens
+
+
+def exact(plain, args):
+    """A plain version on the f64 copy of the kernel's arguments."""
+    return plain(**{k: v.double() if v.is_floating_point() else v
+                    for k, v in args.items()}).float()
 
 
 @pytest.mark.parametrize("Kpad", AMINO_KPADS)
@@ -321,7 +328,7 @@ def test_amino_forward_kernel_close_to_plain(cuda, Kpad):
     before = vk.LAUNCHES["amino_forward"]
     got = hf.amino_forward(**args)
     assert vk.LAUNCHES["amino_forward"] == before + 1  # a batch, one launch
-    want = hf.amino_forward_plain(**args)
+    want = exact(hf.amino_forward_plain, args)
     torch.cuda.synchronize()
     assert got.shape == (len(lens),) and torch.isfinite(got).all()
     torch.testing.assert_close(got / hf.LN2, want / hf.LN2, rtol=1e-4,
@@ -334,7 +341,7 @@ def test_amino_posterior_kernel_close_to_plain(cuda, Kpad):
     before = vk.LAUNCHES["amino_posterior"]
     got = hf.amino_posterior(**args)
     assert vk.LAUNCHES["amino_posterior"] == before + 1
-    want = hf.amino_posterior_plain(**args)
+    want = exact(hf.amino_posterior_plain, args)
     torch.cuda.synchronize()
     assert got.shape == (len(lens), 3 + Kpad) and torch.isfinite(got).all()
     torch.testing.assert_close(got[:, 0] / hf.LN2, want[:, 0] / hf.LN2,
@@ -350,6 +357,50 @@ def test_amino_posterior_kernel_close_to_plain(cuda, Kpad):
                                atol=1e-3)
 
 
+@pytest.mark.parametrize("Kpad", [16, 128, 2048, 8192])
+def test_amino_batch_bit_equal_to_single_launches(cuda, Kpad):
+    """A CTA's result depends on its own hit alone: a batch of hits of
+    mixed L gives, row for row, the bits of each hit launched alone."""
+    lens = [300, 1, 120, 37] if Kpad <= 2048 else [40, 1, 17]
+    args, _ = amino_args(Kpad, Kpad + 7, cuda, lens)
+    off = args["off"].tolist()
+    for fn in (hf.amino_forward, hf.amino_posterior):
+        batch = fn(**args)
+        for h in range(len(lens)):
+            one = fn(em=args["em"][h:h + 1], tv=args["tv"][h:h + 1],
+                     res=args["res"][off[h]:off[h + 1]].contiguous(),
+                     off=torch.tensor([0, lens[h]], dtype=torch.int32,
+                                      device=cuda),
+                     xv=args["xv"][h:h + 1])
+            assert torch.equal(batch[h:h + 1], one), (fn.__name__, h)
+
+
+def test_posterior_scratch_budget_split_bit_equal_on_card(cuda, monkeypatch):
+    """A posterior Kpad group past a lowered POSTERIOR_SCRATCH_BYTES runs
+    one launch a budget chunk, and its rows are bit-equal to the group in
+    one launch."""
+    from deciphon_tpu_torch.workload import peaked_hmm
+
+    hmms = [peaked_hmm(500 + i, k) for i, k in enumerate((100, 30, 120, 90))]
+    rng = np.random.default_rng(9)
+    hits = [(p, "".join("ACDEFGHIKLMNPQRSTVWYX"[i]
+                        for i in rng.integers(0, 21, size=n)))
+            for p, n in ((0, 50), (1, 20), (2, 80), (3, 70), (0, 60))]
+    sc = hf.AminoForwardScorer(hmms, device=cuda)
+    before = vk.LAUNCHES["amino_posterior"]
+    whole = sc.posterior_usages_many(hits)
+    assert vk.LAUNCHES["amino_posterior"] == before + 2  # Kpad 128, 32
+    monkeypatch.setattr(hf, "POSTERIOR_SCRATCH_BYTES",
+                        hf.posterior_scratch_bytes(130, 128))
+    assert sc.launch_plan(hits, posterior=True) == [[0, 2], [3, 4], [1]]
+    before = vk.LAUNCHES["amino_posterior"]
+    split = sc.posterior_usages_many(hits)
+    assert vk.LAUNCHES["amino_posterior"] == before + 3
+    for a, b in zip(whole, split):
+        assert (a[0], a[2], a[3]) == (b[0], b[2], b[3])
+        assert np.array_equal(a[1], b[1])
+
+
 def test_amino_kernels_raise_on_bad_launch(cuda):
     args, _ = amino_args(128, 9, cuda)
     before = dict(vk.LAUNCHES)
@@ -363,10 +414,14 @@ def test_amino_kernels_raise_on_bad_launch(cuda):
 
 def test_native_confirmer_on_card_matches_cpu(cuda):
     """NativeConfirmer on the card (the posterior kernel, null2) against
-    the same confirmer on the CPU: the same keep decision, log-E and bit
-    score within the stated tolerance, the same blob fields."""
+    the same confirmer on the CPU: the same keep decision as the plain
+    versions in f32, log-E and bit score within the stated tolerance of
+    the plain versions evaluated in f64 (on the 700-residue hit the f32
+    log-space plain versions stray 0.48 nats of null2 bias from it), the
+    same blob fields; one confirm_many call gives the answers of the
+    calls hit by hit."""
     from deciphon_tpu_torch.hmmer.h3result import H3Result
-    from deciphon_tpu_torch.workload import peaked_hmm
+    from deciphon_tpu_torch.workload import exact_confirmer, peaked_hmm
 
     hmms = [peaked_hmm(300 + i, k) for i, k in enumerate((40, 130, 700))]
     rng = np.random.default_rng(4)
@@ -378,19 +433,63 @@ def test_native_confirmer_on_card_matches_cpu(cuda):
                             for i in rng.integers(0, 21, size=60)))
     card = hf.NativeConfirmer(hmms, device=cuda)
     cpu = hf.NativeConfirmer(hmms, device="cpu")
+    f64 = exact_confirmer(hmms)
+    hits = [(p, q) for p in range(len(hmms)) for q in seqs[2 * p: 2 * p + 2]]
+    before = vk.LAUNCHES["amino_posterior"]
+    many = card.confirm_many(hits)
+    assert vk.LAUNCHES["amino_posterior"] == before + 3  # Kpad 64, 256, 1024
     kept = 0
-    for p in range(len(hmms)):
-        for q in seqs[2 * p: 2 * p + 2]:
-            (lg, bg), (lc, bc) = card.confirm(p, q), cpu.confirm(p, q)
-            assert (bg is None) == (bc is None) and (lg == 0) == (lc == 0)
-            assert lg == pytest.approx(lc, rel=1e-4, abs=1e-3)
-            if bg is not None:
-                kept += 1
-                hg, hc = H3Result.from_blob(bg), H3Result.from_blob(bc)
-                assert hg.hits[0].acc == hc.hits[0].acc
-                assert hg.hits[0].score == pytest.approx(hc.hits[0].score,
-                                                         rel=1e-4, abs=1e-3)
+    for (p, q), (lg, bg) in zip(hits, many):
+        assert (lg, bg) == card.confirm(p, q)
+        (lc, bc), (le, be) = cpu.confirm(p, q), f64.confirm(p, q)
+        assert (bg is None) == (bc is None) == (be is None)
+        assert (lg == 0) == (lc == 0)
+        assert lg == pytest.approx(le, rel=1e-4, abs=1e-3)
+        if bg is not None:
+            kept += 1
+            hg, he = H3Result.from_blob(bg), H3Result.from_blob(be)
+            assert hg.hits[0].acc == he.hits[0].acc
+            assert hg.hits[0].score == pytest.approx(he.hits[0].score,
+                                                     rel=1e-4, abs=1e-3)
     assert kept >= 3  # the argmax strings confirm
+
+
+def test_confirmed_scan_batched_on_card(cuda, tmp_path):
+    """confirm_case on the card: the batched route (NativeConfirmer's
+    bound confirm) and the hit-by-hit route write the same bytes; the
+    batched route launches the posterior once per (wave, Kpad) group, the
+    hit-by-hit route once per non-empty hit."""
+    from deciphon_tpu_torch.workload import confirm_case
+
+    hmms, profiles, seqs = confirm_case()
+    conf = hf.NativeConfirmer(hmms, device=cuda)
+    waves = []
+
+    class Batched:
+        def confirm_many(self, hits):
+            waves.append(list(hits))
+            return conf.confirm_many(hits)
+
+        def __call__(self, p_idx, amino_seq):
+            raise AssertionError("the batched route called hit by hit")
+
+    out, launches = {}, {}
+    for name, confirmer in (("batched", Batched()),
+                            ("single", lambda p, q: conf.confirm(p, q))):
+        vk.reset_launches()
+        sc = tp.Scanner(profiles, tp.ScanConfig(device="cuda"),
+                        confirmer=confirmer)
+        root = tmp_path / name
+        sc.run(seqs, str(root))
+        out[name] = {str(f.relative_to(root)): f.read_bytes()
+                     for f in sorted(root.rglob("*")) if f.is_file()}
+        launches[name] = vk.LAUNCHES["amino_posterior"]
+    assert out["batched"] == out["single"]
+    assert any(k.endswith(".h3r") for k in out["batched"])
+    groups = sum(len(conf.scorer.launch_plan([h for h in w if h[1]], True))
+                 for w in waves)
+    assert launches["batched"] == groups < launches["single"]
+    assert launches["single"] == sum(1 for w in waves for _, q in w if q)
 
 
 # The redesigned B1/B3/B5/B8 body and B2 choose lanes a thread by Kp band:

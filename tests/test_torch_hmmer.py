@@ -288,6 +288,21 @@ class Recorder:
         return out
 
 
+class BatchRecorder(Recorder):
+    """A Recorder offering confirm_many: the pipeline hands it a wave's
+    hits at once.  `waves` keeps each call's hits."""
+
+    def __init__(self, confirm_many, scorer=None):
+        super().__init__(None, scorer)
+        self.many, self.waves = confirm_many, []
+
+    def confirm_many(self, hits):
+        out = self.many(hits)
+        self.waves.append(list(hits))
+        self.calls.extend((p, q, o[0]) for (p, q), o in zip(hits, out))
+        return out
+
+
 def scan_dir(root: Path) -> dict:
     """{relative path: bytes} of a product directory."""
     return {str(p.relative_to(root)): p.read_bytes()
@@ -404,15 +419,20 @@ def test_hmmer_max_amino_guard(case, tmp_path, monkeypatch, limit):
     assert rows and all(r[10] == b"1" for r in rows)  # unconfirmed: E = 1
 
 
-def test_confirmed_scan_resumes_from_checkpoint(case, tmp_path):
+@pytest.mark.parametrize("route", ["batched", "hit_by_hit"])
+def test_confirmed_scan_resumes_from_checkpoint(case, tmp_path, route):
     """With a confirmer, a scan stopped by should_stop leaves a journal of
     its confirmed lines; a fresh scanner resumes from it to the same
-    products and h3r files, confirming fewer hits than a full scan."""
+    products and h3r files, confirming fewer hits than a full scan.  On
+    both routes: a wave's hits to confirm_many at once, or one call a
+    hit."""
     (hmms, profiles, seqs), _ = case
     kw = dict(device="cpu", max_pairs=1, spec_depth=1)
 
     def scanner():
-        conf = Recorder(p_forward.NativeConfirmer(hmms, device="cpu").confirm)
+        native = p_forward.NativeConfirmer(hmms, device="cpu")
+        conf = (BatchRecorder(native.confirm_many) if route == "batched"
+                else Recorder(native.confirm))
         return p_pipeline.Scanner(profiles, p_pipeline.ScanConfig(**kw),
                                   confirmer=conf), conf
 
