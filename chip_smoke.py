@@ -106,7 +106,21 @@ Phases, each reported on its own lines; any failure exits non-zero:
      widest Kpad and the one with the longest L against the plain
      versions on the card; and the confirmed scan on the card against
      the CPU (the plain versions in f32 and in f64) on the Pfam subset
-     and on `confirm_case` (hits kept and dropped, h3r files).
+     and on `confirm_case` (hits kept and dropped, h3r files);
+  9. the user's entry points ("cli"): the Pfam-shaped database written as
+     HMMER3 text (`workload.hmm_text`), pressed by `press X.hmm 1`
+     through the port's CLI (run in process: deciphon_tpu_torch.cli.main)
+     and read back (`read_dcp_profiles`; press and read walls, .dcp
+     bytes); 8 reads of 10 knt planted from the pressed profiles, as
+     FASTA; `scan X.dcp reads.fna` on the card (first and two warm
+     walls; B7, B3, B2 and the walk must launch), its products.tsv
+     byte-identical to Scanner.run's and core.Scan's (snap members, not
+     zip bytes); `see` showing the planted hits; `scan --confirm native`
+     (posterior launched) byte-identical to the in-process Scanner with
+     NativeConfirmer(read_hmm(X.hmm)); on a 12-profile subset pressed
+     alone and two reads of 1.2 knt, the card's CLI scan byte-identical
+     to `--device cpu`, `--engine torch` and `--engine native` (the
+     walk launched on the card), and `warmup`.
 
 Every scan path is run with the launch counts set to 0 just before and
 read just after; each kernel must have launched on its path.  The line
@@ -2013,7 +2027,253 @@ def confirm_phase(torch, report, launches, profiles, seqs, lines,
     say("confirm", f"phase {time.perf_counter() - t0:.1f} s")
 
 
-T0 = time.perf_counter()
+def cli_run(args: list) -> str:
+    """One command of the port's CLI, run in process (so that the launch
+    counts can be read); returns what it printed."""
+    import io
+
+    from deciphon_tpu_torch import cli
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        cli.main([str(a) for a in args], standalone_mode=False)
+    return out.getvalue()
+
+
+def snap_members(path: str) -> dict:
+    """{member path below the archive's root: bytes} of a .dcs (zip
+    members, not zip bytes: the timestamps differ)."""
+    import zipfile
+
+    with zipfile.ZipFile(path) as z:
+        return {n.split("/", 1)[1]: z.read(n) for n in z.namelist()
+                if not n.endswith("/")}
+
+
+def cli_scan(torch, launches: dict, args: list, need: tuple,
+             phase: str = "cli") -> tuple[float, dict]:
+    """`scan` through the CLI with the launch counts set to 0 just before
+    and read just after; every kernel in `need` must have launched, and
+    the counts go into `launches`.  Returns (wall, snap members)."""
+    from deciphon_tpu_torch.ops import traceback as tb
+    from deciphon_tpu_torch.ops import viterbi as vk
+
+    snap = args[args.index("--snap") + 1]
+    torch.cuda.synchronize()
+    vk.reset_launches()
+    tb.REWALKS["survivors"] = 0
+    t0 = time.perf_counter()
+    out = cli_run(["scan", *args, "--no-progress"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(vk.LAUNCHES)
+    check(out.strip() == f"wrote {snap}", f"scan printed {out[:200]!r}")
+    mem = snap_members(snap)
+    rows = mem["products.tsv"].decode().splitlines()[1:]
+    say(phase, f"CLI scan {' '.join(map(str, args[2:]))}: wall {wall:.6f} "
+        f"s, {len(rows)} products, {sum(k.endswith('.h3r') for k in mem)} "
+        f"h3r files; launches {counts}, walks re-walked "
+        f"{tb.REWALKS['survivors']}")
+    for k in need:
+        check(counts[k] > 0, f"kernel {k} never launched on the CLI scan "
+              f"({' '.join(map(str, args[2:]))})")
+    check(tb.REWALKS["survivors"] == 0, "a walk overflowed its max_steps")
+    for k, v in counts.items():
+        launches[k] = launches.get(k, 0) + v
+    return wall, mem
+
+
+def cli_phase(torch, launches: dict) -> None:
+    """Phase 9, the user's entry points: the Pfam-shaped database as
+    HMMER3 text (`workload.hmm_text(pfam_scan_hmms())`), pressed by
+    `press X.hmm 1` through the port's CLI; reads planted from the pressed
+    profiles (`read_dcp_profiles`) as pfam_scan plants them, as FASTA;
+    `scan` through the CLI on the card (first, two warm), its
+    products.tsv byte-identical to Scanner.run's and to core.Scan's
+    (make_archive) on the same profiles; `see`; `scan --confirm native`
+    against the in-process Scanner with NativeConfirmer; and on a subset
+    (12 profiles pressed alone, two reads of 1.2 knt) the card's CLI scan
+    against `--device cpu`, `--engine torch` and `--engine native`, and
+    `warmup`."""
+    import shutil
+
+    import numpy as np
+
+    from deciphon_tpu_torch.core import Batch, Scan, Sequence as CoreSeq
+    from deciphon_tpu_torch.hmmer.forward import NativeConfirmer
+    from deciphon_tpu_torch.hmmfile import read_hmm
+    from deciphon_tpu_torch.io.dcp import read_dcp_profiles
+    from deciphon_tpu_torch.ops import viterbi as vk
+    from deciphon_tpu_torch.scan.pipeline import ScanConfig, Scanner
+    from deciphon_tpu_torch.scan.sequence import Sequence
+    from deciphon_tpu_torch.schema import DBFile, NewSnapFile
+    from deciphon_tpu_torch.workload import (PFAM_PLANTED, hmm_text,
+                                             pfam_scan_hmms, pfam_subset,
+                                             planted_read, random_bases)
+
+    t00 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    try:
+        d = lambda name: os.path.join(tmp, name)  # noqa: E731
+        # 1. the database as HMMER3 text
+        t0 = time.perf_counter()
+        hmms = pfam_scan_hmms()
+        with open(d("pfam.hmm"), "w") as fp:
+            fp.write(hmm_text(hmms))
+        say("cli", f"{len(hmms)} profiles ({sum(h.length for h in hmms)} "
+            f"nodes) as HMMER3/f text: {os.path.getsize(d('pfam.hmm'))} "
+            f"bytes in {time.perf_counter() - t0:.3f} s")
+        # 2. press through the CLI, then the reader
+        t0 = time.perf_counter()
+        out = cli_run(["press", d("pfam.hmm"), 1, "--no-progress"])
+        press_s = time.perf_counter() - t0
+        check(out.startswith(f"wrote {d('pfam.dcp')}"),
+              f"press printed {out[:200]!r}")
+        t0 = time.perf_counter()
+        _, profiles = read_dcp_profiles(d("pfam.dcp"))
+        read_s = time.perf_counter() - t0
+        check([p.accession for p in profiles]
+              == [h.accession for h in hmms], "the .dcp lost a profile")
+        say("cli", f"press wall {press_s:.6f} s, .dcp "
+            f"{os.path.getsize(d('pfam.dcp'))} bytes; read_dcp_profiles "
+            f"wall {read_s:.6f} s")
+        # 3. reads planted from the pressed profiles, as pfam_scan plants
+        rng = np.random.default_rng(2024)
+        reads = [planted_read(rng, profiles[i], 10_000, noise=0.01)
+                 for i in PFAM_PLANTED]
+        reads += [random_bases(rng, 10_000) for _ in range(8 - len(reads))]
+        with open(d("reads.fna"), "w") as fp:
+            fp.writelines(f">read{i}\n{r}\n" for i, r in enumerate(reads))
+        seqs = [Sequence.make(i + 1, f"read{i}", r)
+                for i, r in enumerate(reads)]
+        # 4. scan through the CLI: first, then two warm
+        need = ("pchain", "chain", "path", "walk")
+        first, mem = cli_scan(torch, launches, [
+            d("pfam.dcp"), d("reads.fna"), "--snap", d("cli.dcs")], need)
+        warm = []
+        for i in range(2):
+            w, again = cli_scan(torch, launches, [
+                d("pfam.dcp"), d("reads.fna"), "--snap", d(f"w{i}.dcs")],
+                need)
+            check(again == mem, "a warm CLI scan wrote another snap")
+            warm.append(w)
+        tsv = mem["products.tsv"]
+        rows = [r.split("\t") for r in tsv.decode().splitlines()[1:]]
+        check(rows, "the CLI scan wrote no products")
+        say("cli", f"CLI scan walls: first {first:.6f} s, warm {warm}, "
+            f"median {statistics.median(warm):.6f} s (each reads the "
+            f".dcp: {read_s:.6f} s)")
+        # 5. the same bytes by Scanner.run and by core.Scan
+        sc = Scanner(profiles, ScanConfig(device="cuda"))
+        walls = []
+        for i in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            path = sc.run(seqs, d(f"inproc{i}"))
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            with open(path, "rb") as fp:
+                check(fp.read() == tsv, "Scanner.run wrote other products "
+                      "than the CLI")
+        m = sc.metrics
+        say("cli", f"Scanner.run on the pressed profiles: walls {walls} s "
+            f"(first, warm), survivors {m.survivors}, products "
+            f"{m.products}: products.tsv byte-identical to the CLI's")
+        del sc
+        batch = Batch()
+        for q in seqs:
+            batch.add(CoreSeq(q.id, q.name, q.data))
+        t0 = time.perf_counter()
+        core = Scan(DBFile(path=d("pfam.dcp")))
+        snap = NewSnapFile(path=d("core.dcs"))
+        core.run(snap, batch)
+        snap.make_archive()
+        check(core.progress() == 100, "core.Scan did not finish")
+        check(snap_members(d("core.dcs")) == mem,
+              "core.Scan wrote another snap than the CLI")
+        say("cli", f"core.Scan: {time.perf_counter() - t0:.6f} s, snap "
+            f"members byte-identical to the CLI's ({sorted(mem)[:3]}...)")
+        del core
+        # 6. see
+        t0 = time.perf_counter()
+        seen = cli_run(["see", d("cli.dcs")])
+        planted = {profiles[i].accession: n + 1
+                   for n, i in enumerate(PFAM_PLANTED)}
+        hits = sorted({(r[7], int(r[0])) for r in rows
+                       if planted.get(r[7]) == int(r[0])})
+        check(hits and all(f"{acc} hit 0 query" in seen
+                           for acc, _ in hits),
+              "see did not show the planted hits")
+        check(seen.startswith(f"shape: ({len(rows)}, "),
+              "see's table lacks rows")
+        say("cli", f"see: {len(seen)} characters in "
+            f"{time.perf_counter() - t0:.3f} s; planted hits shown "
+            f"(profile, read) {hits}")
+        # 7. the confirmed scan: CLI against the in-process Scanner
+        _, cmem = cli_scan(torch, launches, [
+            d("pfam.dcp"), d("reads.fna"), "--snap", d("conf.dcs"),
+            "--confirm", "native"], need + ("amino_posterior",))
+        sc = Scanner(profiles, ScanConfig(device="cuda"), confirmer=(
+            NativeConfirmer(read_hmm(d("pfam.hmm")), device="cuda").confirm))
+        sc.run(seqs, d("conf"))
+        check(product_dir(d("conf")) == cmem, "the confirmed CLI scan "
+              "wrote other bytes than the in-process confirmed Scanner")
+        say("cli", f"confirmed: {len(cmem)} files byte-identical to the "
+            f"in-process Scanner with NativeConfirmer "
+            f"({sc.metrics.products} lines kept of {sc.metrics.survivors} "
+            "survivors)")
+        del sc
+        # 8. the subset: card against CPU, torch and native engines
+        sub_prof, sub_seqs = pfam_subset(profiles)
+        idx = [next(i for i, q in enumerate(profiles) if q is p)
+               for p in sub_prof]
+        with open(d("sub.hmm"), "w") as fp:
+            fp.write(hmm_text([hmms[i] for i in idx]))
+        cli_run(["press", d("sub.hmm"), 1, "--no-progress"])
+        _, back = read_dcp_profiles(d("sub.dcp"))
+        check([p.accession for p in back] == [p.accession for p in sub_prof],
+              "the subset's .dcp lost a profile")
+        with open(d("sub.fna"), "w") as fp:
+            fp.writelines(f">{q.name}\n{q.data}\n" for q in sub_seqs)
+        subs = {}
+        for label, extra, need_sub in (
+                ("kernels, cuda", [], ("path", "walk")),
+                ("kernels, cpu", ["--device", "cpu"], ()),
+                ("torch, cuda", ["--engine", "torch"], ("walk",)),
+                ("native, cuda", ["--engine", "native"], ("walk",))):
+            snap_path = d(label.replace(", ", "_") + ".dcs")
+            t0 = time.perf_counter()
+            if label == "kernels, cpu":
+                vk.reset_launches()
+                cli_run(["scan", d("sub.dcp"), d("sub.fna"), "--snap",
+                         snap_path, "--no-progress", *extra])
+                subs[label] = snap_members(snap_path)
+                say("cli", f"subset, {label}: {time.perf_counter() - t0:.3f}"
+                    f" s; launches {dict(vk.LAUNCHES)}")
+                check(sum(vk.LAUNCHES.values()) == 0,
+                      "--device cpu launched a kernel")
+            else:
+                _, subs[label] = cli_scan(
+                    torch, launches, [d("sub.dcp"), d("sub.fna"), "--snap",
+                                      snap_path, *extra], need_sub,
+                    "cli subset")
+        want = subs["kernels, cuda"]
+        check(want["products.tsv"].count(b"\n") > 1,
+              "the subset's CLI scan wrote no products")
+        for label, got in subs.items():
+            check(got == want, f"subset: {label} wrote another snap than "
+                  "kernels on the card")
+        out = cli_run(["warmup", d("sub.dcp"), "--read-length", 1200,
+                       "--reads-per-length", 2])
+        check(out.startswith("warmup done in"), f"warmup printed {out!r}")
+        say("cli", f"subset ({len(sub_prof)} profiles, 2 reads of 1.2 knt): "
+            f"the card's CLI scan byte-identical to --device cpu, --engine "
+            f"torch and --engine native; {out.strip()}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    say("cli", f"phase {time.perf_counter() - t00:.1f} s")
+
+
 T0 = time.perf_counter()
 
 
@@ -2265,6 +2525,10 @@ def main() -> None:
     confirm_phase(torch, report, launches, profiles, seqs, lines,
                   packed_med, sub_prof, sub_seqs)
     elapsed("8")
+
+    # ---- 9. the command line: press, .dcp, scan, see, core.Scan --------
+    cli_phase(torch, launches)
+    elapsed("9")
     check(not [m for m in sys.modules
                if m.split(".")[0] in ("jax", "deciphon_tpu")],
           "jax or deciphon_tpu was imported")

@@ -15,7 +15,9 @@ Entry point (one device, default flags, no confirmer):
 
 which writes `outdir/products.tsv`.  On a CUDA device the hot loops run
 hand-written kernels from `csrc/` (built on first use by `_build.py`); on
-the CPU every kernel wrapper runs its plain PyTorch version.
+the CPU every kernel wrapper runs its plain PyTorch version.  From files:
+`python -m deciphon_tpu_torch.cli press|warmup|scan|see` (cli.py), or
+`core.Scan` (the python-core API).
 """
 
 __version__ = "0.1.0"

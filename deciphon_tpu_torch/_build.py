@@ -16,6 +16,12 @@ f32 adds bit for bit (see the notes at the head of each .cu file).
 
 Every exported function returns `cudaGetLastError()` after its launch;
 `check()` turns a non-zero code into an exception.
+
+`build_native()` compiles the native CPU engine, `native/deciphon_native.cc`
+at the repo root, with g++ and the flags of `native/Makefile` into the same
+directory (never into `native/`), as `libdeciphon_native_<hash>.so`; the
+hash also covers what g++ makes of `-march=native` on this host, so a
+library built for another CPU is never loaded.
 """
 
 from __future__ import annotations
@@ -141,6 +147,43 @@ def build() -> Path:
     if any(codes):
         raise RuntimeError(f"nvcc failed ({codes}):\n{build_log}")
     report.write_text(build_log)
+    os.replace(tmp, out)
+    return out
+
+
+NATIVE_SRC = Path(__file__).resolve().parent.parent / "native" / "deciphon_native.cc"
+# native/Makefile's CXXFLAGS and LDFLAGS
+NATIVE_FLAGS = ["-O3", "-march=native", "-Wall", "-Wextra", "-fPIC",
+                "-std=c++17", "-shared", "-pthread"]
+
+
+def build_native() -> Path:
+    """Compile the native CPU engine unless the library for this source,
+    these flags and this host's CPU exists; raises when g++ is missing or
+    fails."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        raise RuntimeError("g++ not found: it builds the native CPU engine "
+                           f"({NATIVE_SRC.name})")
+    # the compiler's version and the target options -march=native resolves
+    # to on this host
+    probe = [subprocess.run(cmd, capture_output=True, text=True,
+                            check=True).stdout
+             for cmd in ([gxx, "--version"],
+                         [gxx, "-march=native", "-Q", "--help=target"])]
+    h = hashlib.sha256(NATIVE_SRC.read_bytes())
+    for part in (" ".join(NATIVE_FLAGS), gxx, *probe):
+        h.update(part.encode())
+    out = BUILD_DIR / f"libdeciphon_native_{h.hexdigest()[:16]}.so"
+    if out.is_file():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    res = subprocess.run([gxx, *NATIVE_FLAGS, "-o", str(tmp), str(NATIVE_SRC)],
+                         capture_output=True, text=True)
+    if res.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"g++ failed ({res.returncode}):\n{res.stderr}")
     os.replace(tmp, out)
     return out
 

@@ -3,7 +3,7 @@
 
 Counterpart of deciphon_tpu/scan/pipeline.py (Scanner.run, one device;
 with the `confirmer` hook, `warmup`, checkpoint/resume, `should_stop`,
-`progress` and `release`), with two engines (ScanConfig.engine):
+`progress` and `release`), with three engines (ScanConfig.engine):
 
   "kernels" (the default; the reference's "pallas"):
     phase 1 (device, batched, pipelined): null + alt costs of every
@@ -19,7 +19,10 @@ with the `confirmer` hook, `warmup`, checkpoint/resume, `should_stop`,
   "torch" (the reference's "jax"): TorchPairScorer, the lax.scan
     engine's counterpart in plain PyTorch, scores each wave when it is
     dispatched; its phase 2 runs viterbi_path_batch per (profile, padded
-    length) group, then the device walk.
+    length) group, then the device walk;
+  "native": NativePairScorer (native/), the striped C++ CPU engine over
+    host threads, scores each wave; its phase 2 is the torch engine's on
+    ScanConfig.device.
 
 Windows of one (profile, sequence) pair advance serially with last-hit
 feedback (speculated ahead and rewound on a hit, exactly as the
@@ -62,7 +65,7 @@ def lrt(null_cost: float, alt_cost: float) -> float:
     return 2.0 * (float(null_cost) - float(alt_cost))
 
 
-ENGINES = ("kernels", "torch")
+ENGINES = ("kernels", "torch", "native")
 
 
 @dataclass
@@ -77,8 +80,12 @@ class ScanConfig:
     device: str = "cuda"
     # "kernels": BucketedPairScorer (the hand-written kernels on the card,
     # their plain versions on the CPU); "torch": TorchPairScorer, the
-    # lax.scan engine's counterpart
+    # lax.scan engine's counterpart; "native": NativePairScorer, the
+    # multithreaded C++ CPU engine, its phase 2 on `device`
     engine: str = "kernels"
+    # Thread count for the native engine only; 0 = all cores (the
+    # reference's NUM_THREADS OpenMP fan-out, c-core/scan.c:137-160).
+    num_threads: int = 0
 
 
 class Scanner:
@@ -134,6 +141,12 @@ class Scanner:
             return scorer(self.costs) if callable(scorer) else scorer
         if self.config.engine == "torch":
             return TorchPairScorer(self.costs, self.device)
+        if self.config.engine == "native":
+            from ..native import NativePairScorer
+
+            return NativePairScorer(
+                self.costs, self.device,
+                nthreads=self.config.num_threads or None)
         return BucketedPairScorer(self.costs, self.device)
 
     def release(self) -> None:

@@ -20,7 +20,8 @@
   from, for the confirmer; `peaked_hmm` / `confirm_case` — profiles and
   reads whose hits the confirmer both keeps and drops; `exact_confirmer`
   — the confirmer on the plain versions in f64; `amino_hits` — a batch
-  of hits for the amino Forward and posterior kernels.
+  of hits for the amino Forward and posterior kernels; `hmm_text` — the
+  HMMER3/f text of amino profiles, for `press` and the CLI.
 * `walk_cases` — trellises planted with the traceback walk's edge cases.
 """
 
@@ -650,6 +651,56 @@ def pfam_scan_hmms(n_profiles: int = 200) -> list:
     K_i)), for NativeConfirmer."""
     return [sample_hmm(200 + i, k)[0]
             for i, k in enumerate(pfam_ks(n_profiles))]
+
+
+def _hmm_scores(row) -> str:
+    """HMMER3 score columns: negated natural logs, '*' for -inf."""
+    neg = (0.0 - np.asarray(row, np.float64)).tolist()
+    return " ".join(map("{:.5f}".format, neg)).replace("inf", "*")
+
+
+def hmm_text(hmms) -> str:
+    """The HMMER3/f text of amino HMMProfiles (what `hmmfile.read_hmm`
+    parses back, within the 5 decimals of the score columns): name,
+    accession, description, GA and STATS LOCAL lines where the profile has
+    them; node 0's COMPO line where it has one; insert emissions from
+    `insert_lprobs`, else the null amino lprobs; node k's consensus
+    residue in its CONS column."""
+    from .hmmfile import NUM_AMINO
+    from .profile import NULL_AMINO_LPROBS
+
+    head = ("HMM     " + "".join(f"{a:>9}" for a in "ACDEFGHIKLMNPQRSTVWY")
+            + "\n            m->m     m->i     m->d     i->m     i->i     "
+            "d->m     d->d\n")
+    out = []
+    for h in hmms:
+        K = h.length
+        ins = (h.insert_lprobs if h.insert_lprobs is not None
+               else np.tile(NULL_AMINO_LPROBS[:NUM_AMINO], (K + 1, 1)))
+        lines = ["HMMER3/f [3.3 | Nov 2019]", f"NAME  {h.name}"]
+        if h.accession:
+            lines.append(f"ACC   {h.accession}")
+        if h.description:
+            lines.append(f"DESC  {h.description}")
+        lines += [f"LENG  {K}", f"ALPH  {h.alphabet}"]
+        if h.ga is not None:
+            lines.append(f"GA    {h.ga[0]:.2f} {h.ga[1]:.2f};")
+        lines += [f"STATS LOCAL {k:<8} {a:9.5f} {b:9.5f}"
+                  for k, (a, b) in h.stats.items()]
+        lines.append(head.rstrip("\n"))
+        if h.compo is not None:
+            lines.append("  COMPO   " + _hmm_scores(h.compo))
+        lines.append("          " + _hmm_scores(ins[0]))
+        lines.append("          " + _hmm_scores(h.trans[0]))
+        cons = h.consensus or "-" * K
+        for k in range(1, K + 1):
+            lines.append(f"{k:>7}   " + _hmm_scores(h.match_lprobs[k - 1])
+                         + f" {k:>6} {cons[k - 1]} - - -")
+            lines.append("          " + _hmm_scores(ins[k]))
+            lines.append("          " + _hmm_scores(h.trans[k]))
+        lines.append("//")
+        out.append("\n".join(lines) + "\n")
+    return "".join(out)
 
 
 def amino_hits(Kpad: int, lengths, seed: int, device="cpu",

@@ -534,3 +534,68 @@ def test_hmmer_module_copy(name):
         got = (confirm(p_client, r_daemon) if name == "client"
                else confirm(r_client, p_daemon))
         assert got == want and want[0] == -30.25 + np.log(7.0)
+
+
+# The library modules the port copies file for file.  One line of the
+# original names an absolute path on the machine it was written on; the
+# port's copy words that line without it (the only difference allowed):
+# {file: [(a text only that line of the original holds, the port's line)]}.
+LIBRARY_COPIES = ["intervals.py", "schema.py", "press.py", "scan/fasta_io.py",
+                  "io/__init__.py", "io/dcp.py"] + [
+    f"snap/{n}.py" for n in ("__init__", "match", "fasta", "gff", "hit",
+                             "prod", "snap_file", "view")]
+REWORDED = {"io/dcp.py": [(
+    "reference/control/tests/files/minifam.dcp and validated",
+    "(control/tests/files/minifam.dcp) and validated by the exact\n")]}
+
+
+@pytest.mark.parametrize("rel", LIBRARY_COPIES)
+def test_library_module_copy(rel):
+    """press, the .dcp container, FASTA input, schema, intervals and the
+    snap modules are the reference's file bytes (they import no jax, and
+    their relative imports resolve inside the port)."""
+    root = Path(__file__).resolve().parent.parent
+    lines = (root / "deciphon_tpu" / rel).read_bytes().decode().splitlines(
+        keepends=True)
+    for marker, new in REWORDED.get(rel, []):
+        at = [i for i, ln in enumerate(lines) if marker in ln]
+        assert len(at) == 1
+        lines[at[0]] = new
+    assert (root / "deciphon_tpu_torch" / rel).read_bytes().decode() == \
+        "".join(lines)
+
+
+@pytest.mark.parametrize("which", ["sample", "peaked", "inline"])
+def test_hmm_text_round_trip(which):
+    """read_hmm(hmm_text(h)) gives h back within 1e-5 (the 5 decimals of
+    HMMER3's score columns), and the reference's parser reads the same."""
+    from deciphon_tpu_torch.workload import hmm_text, peaked_hmm, sample_hmm
+
+    if which == "sample":
+        hmms = [sample_hmm(200 + i, k)[0] for i, k in enumerate((9, 50))]
+    elif which == "peaked":
+        hmms = [peaked_hmm(40, 9), peaked_hmm(42, 95)]
+    else:
+        hmms = p_hmmfile.read_hmm(io.StringIO(HMM_TEXT)) * 2
+    text = hmm_text(hmms)
+    back = p_hmmfile.read_hmm(io.StringIO(text))
+    assert len(back) == len(hmms)
+    for h, b in zip(hmms, back):
+        for f in ("name", "accession", "description", "length", "alphabet",
+                  "consensus", "ga", "stats"):
+            assert getattr(b, f) == getattr(h, f), f
+        arrays = ["match_lprobs", "trans"]
+        if h.insert_lprobs is not None:
+            arrays.append("insert_lprobs")
+        assert (b.compo is None) == (h.compo is None)
+        if h.compo is not None:
+            arrays.append("compo")
+        for f in arrays:
+            x, y = getattr(b, f), getattr(h, f)
+            assert x.shape == y.shape
+            assert np.array_equal(np.isinf(x), np.isinf(y)), f
+            fin = np.isfinite(y)
+            np.testing.assert_allclose(x[fin], y[fin], rtol=0, atol=1e-5)
+    ref = r_hmmfile.read_hmm(io.StringIO(text))
+    for r, b in zip(ref, back):
+        assert same_fields(p_hmmfile.HMMProfile(**vars(r)), b)

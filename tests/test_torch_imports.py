@@ -20,15 +20,26 @@ def port_modules() -> list[str]:
         deciphon_tpu_torch.__path__, "deciphon_tpu_torch."))
 
 
+def foreign(*packages) -> str:
+    """Code asserting that no module of `packages` is loaded."""
+    return ("import sys\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            f"{packages!r})\n"
+            "assert not bad, bad\n")
+
+
 # no module of these packages may be loaded by the port (msgpack may: the
-# h3r blobs of hmmer/h3result.py are msgpack)
-FOREIGN = ("import sys\n"
-           "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-           "('jax', 'jaxlib', 'click', 'deciphon_tpu'))\n"
-           "assert not bad, bad\n")
+# h3r blobs of hmmer/h3result.py are msgpack; pydantic may: schema.py and
+# intervals.py are pydantic models); click only by the CLI
+FOREIGN = foreign("jax", "jaxlib", "deciphon_tpu")
+CLI = "deciphon_tpu_torch.cli"
 
 
-def test_port_imports_no_jax():
+@pytest.mark.parametrize("cli", [False, True], ids=["library", "cli"])
+def test_port_imports_no_jax(cli):
+    """Importing every module of the port but the CLI loads neither jax,
+    nor deciphon_tpu, nor click; importing the CLI loads no jax and no
+    deciphon_tpu."""
     mods = port_modules()
     assert {"deciphon_tpu_torch.ops.viterbi", "deciphon_tpu_torch.scan.pipeline",
             "deciphon_tpu_torch.ops.traceback", "deciphon_tpu_torch._build",
@@ -39,10 +50,24 @@ def test_port_imports_no_jax():
             "deciphon_tpu_torch.ops.engine", "deciphon_tpu_torch.hmmer.forward",
             "deciphon_tpu_torch.hmmer.h3result", "deciphon_tpu_torch.hmmer.wire",
             "deciphon_tpu_torch.hmmer.client",
-            "deciphon_tpu_torch.hmmer.daemon"} <= set(mods)
+            "deciphon_tpu_torch.hmmer.daemon", "deciphon_tpu_torch.intervals",
+            "deciphon_tpu_torch.schema", "deciphon_tpu_torch.press",
+            "deciphon_tpu_torch.io", "deciphon_tpu_torch.io.dcp",
+            "deciphon_tpu_torch.scan.fasta_io", "deciphon_tpu_torch.core",
+            "deciphon_tpu_torch.native", "deciphon_tpu_torch.snap",
+            "deciphon_tpu_torch.snap.match", "deciphon_tpu_torch.snap.fasta",
+            "deciphon_tpu_torch.snap.gff", "deciphon_tpu_torch.snap.hit",
+            "deciphon_tpu_torch.snap.prod",
+            "deciphon_tpu_torch.snap.snap_file",
+            "deciphon_tpu_torch.snap.view", CLI} <= set(mods)
+    if cli:
+        mods, check = [CLI], FOREIGN
+    else:
+        mods = [m for m in mods if m != CLI]
+        check = foreign("jax", "jaxlib", "deciphon_tpu", "click")
     code = ("import importlib\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
-            + FOREIGN + "print('ok')\n")
+            + check + "print('ok')\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
@@ -70,11 +95,14 @@ def port_sources() -> list[Path]:
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_source_names_no_foreign_module(path):
     """No import statement of the port, at any depth of any file, names
-    jax or deciphon_tpu (nor click, which only the reference's CLI needs;
-    msgpack, which its h3r blobs need, is allowed)."""
+    jax or deciphon_tpu, and only the CLI's (cli.py) names click (msgpack,
+    which the h3r blobs need, and pydantic, which schema.py needs, are
+    allowed)."""
+    forbidden = ("jax", "jaxlib", "deciphon_tpu")
+    if path.name != "cli.py" or path.parent.name != "deciphon_tpu_torch":
+        forbidden += ("click",)
     bad = sorted(n for n in imported_names(path)
-                 if n.split(".")[0] in ("jax", "jaxlib", "click",
-                                        "deciphon_tpu"))
+                 if n.split(".")[0] in forbidden)
     assert not bad, bad
 
 
