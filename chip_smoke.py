@@ -119,8 +119,21 @@ Phases, each reported on its own lines; any failure exits non-zero:
      (posterior launched) byte-identical to the in-process Scanner with
      NativeConfirmer(read_hmm(X.hmm)); on a 12-profile subset pressed
      alone and two reads of 1.2 knt, the card's CLI scan byte-identical
-     to `--device cpu`, `--engine torch` and `--engine native` (the
-     walk launched on the card), and `warmup`.
+     to `--device cpu`, and on the planted read alone to `--engine torch`
+     and `--engine native` (the walk launched on the card), and `warmup`;
+ 10. the device-parallel scan ("multi", parallel/): two shards on cuda:0
+     (every card where there are more): the Pfam scan through
+     BucketedPairScorer(devices=...) (first, median of 3 warm, one
+     profiled, its device busy the union of its device intervals;
+     launches per kernel key per shard), the long-read scan under
+     DECIPHON_CHAIN_SEG=1 (carry rows routed across shards), the large-K
+     scan (B4 and phase 2 on the first device), and
+     ScanConfig(engine="kernels-multi"), each byte-identical to its
+     one-device phase's products; then two multihost_worker processes
+     (gloo on localhost, --device cuda, the pfam workload, 100 + 100
+     profiles): merged products byte-identical to phase 4's, their
+     all-reduced counters equal to phase 4's metrics, each worker's wall
+     and the merge's.
 
 Every scan path is run with the launch counts set to 0 just before and
 read just after; each kernel must have launched on its path.  The line
@@ -1211,11 +1224,12 @@ class Scans:
     counts of each main-path run."""
 
     def __init__(self, torch, profiles, seqs, phase: str, scorer=None,
-                 confirmer=None):
+                 confirmer=None, engine: str = "kernels"):
         from deciphon_tpu_torch.scan.pipeline import ScanConfig, Scanner
 
         self.torch, self.seqs, self.phase = torch, seqs, phase
-        self.scanner = Scanner(profiles, ScanConfig(device="cuda"),
+        self.scanner = Scanner(profiles, ScanConfig(device="cuda",
+                                                    engine=engine),
                                confirmer=confirmer, scorer=scorer)
         self.peaks: list[float] = []  # GiB, per counted scan
         self.counts: dict = {}  # launches of the last counted scan
@@ -2093,8 +2107,8 @@ def cli_phase(torch, launches: dict) -> None:
     (make_archive) on the same profiles; `see`; `scan --confirm native`
     against the in-process Scanner with NativeConfirmer; and on a subset
     (12 profiles pressed alone, two reads of 1.2 knt) the card's CLI scan
-    against `--device cpu`, `--engine torch` and `--engine native`, and
-    `warmup`."""
+    against `--device cpu`, on the planted read alone against `--engine
+    torch` and `--engine native`, and `warmup`."""
     import shutil
 
     import numpy as np
@@ -2235,17 +2249,24 @@ def cli_phase(torch, launches: dict) -> None:
               "the subset's .dcp lost a profile")
         with open(d("sub.fna"), "w") as fp:
             fp.writelines(f">{q.name}\n{q.data}\n" for q in sub_seqs)
+        # the plain-PyTorch torch and native engines scan the planted read
+        # alone (their speed is not what they check), against the kernels
+        # on the same read
+        with open(d("sub1.fna"), "w") as fp:
+            fp.write(f">{sub_seqs[0].name}\n{sub_seqs[0].data}\n")
         subs = {}
-        for label, extra, need_sub in (
-                ("kernels, cuda", [], ("path", "walk")),
-                ("kernels, cpu", ["--device", "cpu"], ()),
-                ("torch, cuda", ["--engine", "torch"], ("walk",)),
-                ("native, cuda", ["--engine", "native"], ("walk",))):
-            snap_path = d(label.replace(", ", "_") + ".dcs")
+        for label, extra, need_sub, fna in (
+                ("kernels, cuda", [], ("path", "walk"), "sub.fna"),
+                ("kernels, cpu", ["--device", "cpu"], (), "sub.fna"),
+                ("kernels, cuda, 1 read", [], ("path", "walk"), "sub1.fna"),
+                ("torch, cuda", ["--engine", "torch"], ("walk",), "sub1.fna"),
+                ("native, cuda", ["--engine", "native"], ("walk",),
+                 "sub1.fna")):
+            snap_path = d(label.replace(", ", "_").replace(" ", "") + ".dcs")
             t0 = time.perf_counter()
             if label == "kernels, cpu":
                 vk.reset_launches()
-                cli_run(["scan", d("sub.dcp"), d("sub.fna"), "--snap",
+                cli_run(["scan", d("sub.dcp"), d(fna), "--snap",
                          snap_path, "--no-progress", *extra])
                 subs[label] = snap_members(snap_path)
                 say("cli", f"subset, {label}: {time.perf_counter() - t0:.3f}"
@@ -2254,24 +2275,191 @@ def cli_phase(torch, launches: dict) -> None:
                       "--device cpu launched a kernel")
             else:
                 _, subs[label] = cli_scan(
-                    torch, launches, [d("sub.dcp"), d("sub.fna"), "--snap",
+                    torch, launches, [d("sub.dcp"), d(fna), "--snap",
                                       snap_path, *extra], need_sub,
                     "cli subset")
-        want = subs["kernels, cuda"]
-        check(want["products.tsv"].count(b"\n") > 1,
-              "the subset's CLI scan wrote no products")
         for label, got in subs.items():
+            want = subs["kernels, cuda" if label in (
+                "kernels, cuda", "kernels, cpu") else "kernels, cuda, 1 read"]
+            check(want["products.tsv"].count(b"\n") > 1,
+                  f"the subset's CLI scan ({label}) wrote no products")
             check(got == want, f"subset: {label} wrote another snap than "
                   "kernels on the card")
         out = cli_run(["warmup", d("sub.dcp"), "--read-length", 1200,
                        "--reads-per-length", 2])
         check(out.startswith("warmup done in"), f"warmup printed {out!r}")
         say("cli", f"subset ({len(sub_prof)} profiles, 2 reads of 1.2 knt): "
-            f"the card's CLI scan byte-identical to --device cpu, --engine "
-            f"torch and --engine native; {out.strip()}")
+            f"the card's CLI scan byte-identical to --device cpu; on the "
+            f"planted read alone to --engine torch and --engine native; "
+            f"{out.strip()}")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     say("cli", f"phase {time.perf_counter() - t00:.1f} s")
+
+
+def device_busy(torch, prof) -> float | None:
+    """Seconds in which the card ran at least one kernel or copy in a
+    profiled run: the union of the device events' intervals (kernels of
+    two streams overlap, so their sum would count shared time twice);
+    None when the trace holds no device interval."""
+    from torch.autograd import DeviceType
+
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    if not spans:
+        return None
+    busy, lo, hi = 0.0, spans[0][0], spans[0][1]
+    for a, b in spans[1:]:
+        if a > hi:
+            busy += hi - lo
+            lo, hi = a, b
+        else:
+            hi = max(hi, b)
+    return (busy + hi - lo) / 1e6
+
+
+def multi_phase(torch, launches: dict, cells: dict) -> None:
+    """Phase 10 ("multi"): the device-parallel scan.  With one card, two
+    shards on cuda:0 (each on its own stream); with more, every card.
+    The Pfam cell through BucketedPairScorer(devices=...) (first, median
+    of 3 warm, one profiled: device busy as the union of its device
+    intervals), launches per kernel key per shard; the long read under
+    DECIPHON_CHAIN_SEG=1 (carry rows routed across shards); the large-K
+    scan (B4 and phase 2 on the first device); engine="kernels-multi";
+    two multihost_worker processes (gloo on localhost, --device cuda, the
+    pfam workload, 100 + 100 profiles).  Every product byte-identical to
+    its one-device phase's; the two processes' all-reduced counters equal
+    phase 4's metrics."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from deciphon_tpu_torch.parallel import multidevice as md
+    from deciphon_tpu_torch.parallel import multihost_dryrun as dry
+    from deciphon_tpu_torch.scan.scheduler import BucketedPairScorer
+
+    t00 = time.perf_counter()
+    ncard = torch.cuda.device_count()
+    devices = (["cuda:0"] * 2 if ncard == 1
+               else [f"cuda:{i}" for i in range(ncard)])
+    say("multi", f"{ncard} card(s): shards on {devices}")
+
+    def sharded(costs):
+        return BucketedPairScorer(costs, "cuda", devices=devices)
+
+    def run(name, profiles, seqs, want, need, env=None, **kw):
+        sc = Scans(torch, profiles, seqs, f"multi {name}", **kw)
+        md.reset_shard_launches()
+        first, lines = sc.counted(launches, need, env)
+        check(lines == want, f"multi {name}: products differ from the "
+              "one-device scan's")
+        say("multi", f"{name}: first scan {first:.6f} s, products "
+            f"byte-identical to the one-device scan's; launches by shard "
+            f"{json.dumps(md.SHARD_LAUNCHES)}; carry rows routed "
+            f"{dict(md.ROUTED)}")
+        return sc, first
+
+    # 1. the Pfam cell, two shards
+    pfam, first = run("pfam", cells["profiles"], cells["seqs"],
+                      cells["lines"], ("pchain", "chain", "path", "walk"),
+                      scorer=sharded)
+    scorers = pfam.scanner.scorer.scorers
+    check(all(isinstance(s, (md.MultiDevicePairScorer,
+                             md.MultiDevicePackedScorer)) for s in scorers),
+          "a Pfam scorer is not sharded")
+    check(all(set(s._replicas) in (set(), set(s.distinct))
+              for s in scorers) and any(s._replicas for s in scorers),
+          "a scorer holds its tables elsewhere than once a distinct device")
+    for k in ("pchain", "chain"):
+        check(all(md.SHARD_LAUNCHES.get(i, {}).get(k, 0) > 0
+                  for i in range(len(devices))),
+              f"a shard launched no {k}")
+    warm = []
+    for _ in range(3):
+        w, again = pfam.scan()
+        check(again == cells["lines"], "a warm sharded scan wrote other "
+              "products")
+        warm.append(w)
+    med = statistics.median(warm)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        wall, again = pfam.scan()
+    check(again == cells["lines"], "the profiled sharded scan wrote other "
+          "products")
+    busy = device_busy(torch, prof)
+    ksum = sum(getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+               for e in prof.key_averages()) / 1e6
+    say("multi", f"pfam, {len(devices)} shards: first {first:.6f} s, warm "
+        f"{warm} s, median {med:.6f} s ({len(cells['seqs']) / med:.6f} "
+        f"reads/s); one shard (phase 4): first {cells['first']:.6f} s, "
+        f"median {cells['med']:.6f} s; ratio {med / cells['med']:.6f}; "
+        f"profiled scan: wall {wall:.6f} s, device busy (union) "
+        + (f"{busy:.6f} s, idle share {max(0.0, 1 - busy / wall):.6f}"
+           if busy is not None else "not measured")
+        + f", kernel time summed {ksum:.6f} s")
+    del pfam, prof
+
+    # 2. the long read, carry segments routed across shards
+    long, _ = run("long read, DECIPHON_CHAIN_SEG=1", cells["profiles"],
+                  cells["long_seqs"], cells["long_lines"],
+                  ("carry", "path", "walk"), {"DECIPHON_CHAIN_SEG": "1"},
+                  scorer=sharded)
+    check(md.ROUTED["rows"] > 0, "no carry row was routed")
+    del long
+
+    # 3. the large-K scan: B4 and phase 2 on the first device
+    big, _ = run("large K", cells["big_prof"], cells["big_seqs"],
+                 cells["big_lines"], ("large", "path", "walk"),
+                 scorer=sharded)
+    check(all(s.hbm_table and list(s._replicas) == [s.mesh[0]]
+              for s in big.scanner.scorer.scorers),
+          "a large-K scorer left the first device")
+    check(set(md.SHARD_LAUNCHES) <= {0}, "B4 ran past the first shard")
+    del big
+
+    # 4. ScanConfig(engine="kernels-multi") on the Pfam cell
+    km, _ = run("engine=kernels-multi", cells["profiles"], cells["seqs"],
+                cells["lines"], ("pchain", "chain", "path", "walk"),
+                engine="kernels-multi")
+    multi = any(isinstance(s, (md.MultiDevicePairScorer,
+                               md.MultiDevicePackedScorer))
+                for s in km.scanner.scorer.scorers)
+    check(multi == (ncard > 1), "kernels-multi did not follow the card "
+          "count")
+    say("multi", f"engine=kernels-multi over {ncard} card(s): "
+        + ("sharded" if multi else "the one-device path, as the "
+           "reference's pallas-multi on one device"))
+    del km
+    torch.cuda.empty_cache()
+
+    # 5. two processes, gloo on localhost, 100 + 100 profiles
+    with tempfile.TemporaryDirectory() as shared:
+        wall, walls = dry.run_procs(
+            2, shared, f"127.0.0.1:{dry.free_port()}",
+            ["--workload", "pfam", "--device", "cuda"], timeout=300)
+        with open(os.path.join(shared, "products.tsv")) as fp:
+            merged = fp.read().splitlines()
+        metas = []
+        for pid in range(2):
+            with open(os.path.join(shared, f"shard.{pid}.meta")) as fp:
+                metas.append(json.load(fp))
+        with open(os.path.join(shared, "merge.json")) as fp:
+            merge = json.load(fp)
+    check(merged == cells["lines"], "the two processes' merged products "
+          "differ from phase 4's")
+    check([m["stop"] - m["start"] for m in metas] == [100, 100],
+          "the processes did not split the profiles 100 + 100")
+    check(all(m["counters"] == cells["counters"] for m in metas),
+          f"all-reduced counters {metas[0]['counters']} differ from phase "
+          f"4's metrics {cells['counters']}")
+    say("multi", f"2 processes (gloo, --device cuda, pfam workload): wall "
+        f"{wall:.6f} s; each worker to its exit {walls} s, its scan "
+        f"(Scanner set-up and run) {[m['scan_s'] for m in metas]} s; "
+        f"process 0 waited {merge['wait_s']:.6f} s and merged in "
+        f"{merge['merge_s']:.6f} s; merged products byte-identical to "
+        f"phase 4's; all-reduced counters {metas[0]['counters']} equal "
+        "phase 4's metrics")
+    say("multi", f"phase {time.perf_counter() - t00:.1f} s")
 
 
 T0 = time.perf_counter()
@@ -2365,6 +2553,9 @@ def main() -> None:
     check(classes, "the default scorer formed no packed class")
     first, lines = pfam.counted(launches, ("pchain", "chain", "path", "walk"))
     say("scan", f"first scan of the process (cold): {first:.6f} s")
+    m = pfam.scanner.metrics
+    counters = {"windows": m.windows_scored, "cells": m.cells,
+                "survivors": m.survivors, "products": m.products}
     packed_med = pfam.warm_and_profile(lines)
     no_chain = {"DECIPHON_NO_CHAIN": "1"}
     classic, classic_lines = pfam.counted(
@@ -2444,7 +2635,7 @@ def main() -> None:
     long_calls = lr.captured(long_lines)
     seg_calls = lr.captured(long_lines, {"DECIPHON_CHAIN_SEG": "1"})
     big_calls = big.captured(big_lines)
-    big_prof = big.scanner.profiles
+    big_prof, big_seqs = big.scanner.profiles, big.seqs
     del lr, pfam, big
     check_main_shapes(torch, report, pfam_calls, nochain_calls, long_calls,
                       seg_calls, big_calls)
@@ -2529,6 +2720,14 @@ def main() -> None:
     # ---- 9. the command line: press, .dcp, scan, see, core.Scan --------
     cli_phase(torch, launches)
     elapsed("9")
+
+    # ---- 10. the device-parallel scan: shards and processes --------------
+    multi_phase(torch, launches, dict(
+        profiles=profiles, seqs=seqs, lines=lines, first=first,
+        med=packed_med, counters=counters, long_seqs=long_seqs,
+        long_lines=long_lines, big_prof=big_prof, big_seqs=big_seqs,
+        big_lines=big_lines))
+    elapsed("10")
     check(not [m for m in sys.modules
                if m.split(".")[0] in ("jax", "deciphon_tpu")],
           "jax or deciphon_tpu was imported")

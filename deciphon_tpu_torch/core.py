@@ -67,9 +67,9 @@ class Scan:
     run and rebuilds on the next — the reference's workload cache trade
     (c-core/workload.c:21-64), with device memory as the resource here.
 
-    `engine` is ScanConfig's ("kernels", "torch" or "native") and `device`
-    the torch device of the scan ("cuda" by default; "cpu" runs the
-    kernels' plain versions).  `num_threads` drives the native engine's
+    `engine` is ScanConfig's ("kernels", "kernels-multi", "torch" or
+    "native"), passed through as it is, and `device` the torch device of
+    the scan ("cuda" by default; "cpu" runs the kernels' plain versions).  `num_threads` drives the native engine's
     thread fan-out only (0: every core).
     """
 

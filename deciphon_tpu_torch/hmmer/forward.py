@@ -235,9 +235,11 @@ def _launch(fn: str, key: str, *args) -> None:
     from .. import _build
 
     dev = args[0].device
-    err = getattr(_build.lib(), fn)(
-        *[a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args],
-        torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):
+        err = getattr(_build.lib(), fn)(
+            *[a.data_ptr() if isinstance(a, torch.Tensor) else a
+              for a in args],
+            torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, fn)
     vk.LAUNCHES[key] += 1
 

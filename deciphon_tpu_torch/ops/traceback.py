@@ -238,11 +238,12 @@ def walk(xn, nd, rows, lengths, max_steps: int):
     szs = torch.zeros((B, max_steps), dtype=torch.int8, device=dev)
     ns = torch.empty((B,), dtype=torch.int32, device=dev)
     oks = torch.empty((B,), dtype=torch.uint8, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _build.lib().dtt_walk(
-        xn.data_ptr(), nd.data_ptr(), rows.data_ptr(), lengths.data_ptr(),
-        sts.data_ptr(), szs.data_ptr(), ns.data_ptr(), oks.data_ptr(),
-        B, Lk, Kp, max_steps, stream)
+    with torch.cuda.device(dev):
+        err = _build.lib().dtt_walk(
+            xn.data_ptr(), nd.data_ptr(), rows.data_ptr(),
+            lengths.data_ptr(), sts.data_ptr(), szs.data_ptr(),
+            ns.data_ptr(), oks.data_ptr(), B, Lk, Kp, max_steps,
+            torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "dtt_walk")
     LAUNCHES["walk"] += 1
     return sts, szs, ns, oks

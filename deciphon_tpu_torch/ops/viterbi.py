@@ -424,12 +424,13 @@ def _launch_pairs(fn: str, key: str, pidx, tables, tvecs, xts, lengths,
     N, W = starts.shape
     alt = torch.empty((N, W), dtype=torch.float32, device=tables.device)
     nul = torch.empty_like(alt)
-    stream = torch.cuda.current_stream(tables.device).cuda_stream
-    err = getattr(_build.lib(), fn)(
-        pidx.data_ptr(), tables.data_ptr(), tvecs.data_ptr(), xts.data_ptr(),
-        lengths.data_ptr(), starts.data_ptr(), codes_all.data_ptr(),
-        alt.data_ptr(), nul.data_ptr(), N, W, tables.shape[2],
-        codes_all.shape[0], stream)
+    with torch.cuda.device(tables.device):
+        err = getattr(_build.lib(), fn)(
+            pidx.data_ptr(), tables.data_ptr(), tvecs.data_ptr(),
+            xts.data_ptr(), lengths.data_ptr(), starts.data_ptr(),
+            codes_all.data_ptr(), alt.data_ptr(), nul.data_ptr(), N, W,
+            tables.shape[2], codes_all.shape[0],
+            torch.cuda.current_stream(tables.device).cuda_stream)
     _build.check(err, fn)
     LAUNCHES[key] += 1
     return alt, nul
@@ -457,10 +458,12 @@ def _launch_shaped(fn: str, key: str, Kp: int, shape, *args) -> None:
 
     active = ctypes.c_int(0)
     dev = args[1].device
-    err = getattr(_build.lib(), fn)(
-        *[a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args],
-        *shape, ctypes.byref(active),
-        torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):
+        err = getattr(_build.lib(), fn)(
+            *[a.data_ptr() if isinstance(a, torch.Tensor) else a
+              for a in args],
+            *shape, ctypes.byref(active),
+            torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, f"{fn} (shape {tuple(shape)})")
     LAUNCHES[key] += 1
     SHAPES[(key, Kp)] = dict(shape._asdict(), active=active.value)
@@ -654,12 +657,13 @@ def scores_pairs_chained(pidx, tables, tvecs, win_sblk, win_len,
 
     alt = torch.empty((N, W, C), dtype=torch.float32, device=tables.device)
     nul = torch.empty_like(alt)
-    stream = torch.cuda.current_stream(tables.device).cuda_stream
-    err = _build.lib().dtt_score_chained(
-        pidx.data_ptr(), tables.data_ptr(), tvecs.data_ptr(),
-        win_len.data_ptr(), win_gstart.data_ptr(), win_xti.data_ptr(),
-        xt_lut.data_ptr(), codes_all.data_ptr(), alt.data_ptr(),
-        nul.data_ptr(), N, W, C, Kp, codes_all.shape[0], stream)
+    with torch.cuda.device(tables.device):
+        err = _build.lib().dtt_score_chained(
+            pidx.data_ptr(), tables.data_ptr(), tvecs.data_ptr(),
+            win_len.data_ptr(), win_gstart.data_ptr(), win_xti.data_ptr(),
+            xt_lut.data_ptr(), codes_all.data_ptr(), alt.data_ptr(),
+            nul.data_ptr(), N, W, C, Kp, codes_all.shape[0],
+            torch.cuda.current_stream(tables.device).cuda_stream)
     _build.check(err, "dtt_score_chained")
     LAUNCHES["chain"] += 1
     return alt, nul
@@ -729,14 +733,14 @@ def scores_pairs_chained_carry(pidx, tables, tvecs, win_sblk, win_len,
     nul = torch.empty_like(alt)
     cbig = torch.empty_like(cbig_in)
     csml = torch.empty_like(csml_in)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _build.lib().dtt_score_chained_carry(
-        pidx.data_ptr(), tables.data_ptr(), tvecs.data_ptr(),
-        win_len.data_ptr(), win_gstart.data_ptr(), win_xti.data_ptr(),
-        xt_lut.data_ptr(), codes_all.data_ptr(), conts.data_ptr(),
-        cbig_in.data_ptr(), csml_in.data_ptr(), cbig.data_ptr(),
-        csml.data_ptr(), alt.data_ptr(), nul.data_ptr(), N, W, C, Kp,
-        codes_all.shape[0], stream)
+    with torch.cuda.device(dev):
+        err = _build.lib().dtt_score_chained_carry(
+            pidx.data_ptr(), tables.data_ptr(), tvecs.data_ptr(),
+            win_len.data_ptr(), win_gstart.data_ptr(), win_xti.data_ptr(),
+            xt_lut.data_ptr(), codes_all.data_ptr(), conts.data_ptr(),
+            cbig_in.data_ptr(), csml_in.data_ptr(), cbig.data_ptr(),
+            csml.data_ptr(), alt.data_ptr(), nul.data_ptr(), N, W, C, Kp,
+            codes_all.shape[0], torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "dtt_score_chained_carry")
     LAUNCHES["carry"] += 1
     return alt, nul, cbig, csml

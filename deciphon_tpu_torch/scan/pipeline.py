@@ -3,7 +3,7 @@
 
 Counterpart of deciphon_tpu/scan/pipeline.py (Scanner.run, one device;
 with the `confirmer` hook, `warmup`, checkpoint/resume, `should_stop`,
-`progress` and `release`), with three engines (ScanConfig.engine):
+`progress` and `release`), with four engines (ScanConfig.engine):
 
   "kernels" (the default; the reference's "pallas"):
     phase 1 (device, batched, pipelined): null + alt costs of every
@@ -16,6 +16,10 @@ with the `confirmer` hook, `warmup`, checkpoint/resume, `should_stop`,
       line; then the confirmer's e-values of the wave's hits (e.g.
       hmmer/forward.py NativeConfirmer, the amino Forward and posterior
       kernels, one launch a Kpad group), and the confirmed lines;
+  "kernels-multi" (the reference's "pallas-multi"): "kernels" with every
+    phase-1 wave split over all visible cards (BucketedPairScorer's
+    `devices`, parallel/multidevice.py); on one card, or with
+    ScanConfig.device "cpu", it is "kernels";
   "torch" (the reference's "jax"): TorchPairScorer, the lax.scan
     engine's counterpart in plain PyTorch, scores each wave when it is
     dispatched; its phase 2 runs viterbi_path_batch per (profile, padded
@@ -65,7 +69,7 @@ def lrt(null_cost: float, alt_cost: float) -> float:
     return 2.0 * (float(null_cost) - float(alt_cost))
 
 
-ENGINES = ("kernels", "torch", "native")
+ENGINES = ("kernels", "kernels-multi", "torch", "native")
 
 
 @dataclass
@@ -79,9 +83,11 @@ class ScanConfig:
     # plain PyTorch versions)
     device: str = "cuda"
     # "kernels": BucketedPairScorer (the hand-written kernels on the card,
-    # their plain versions on the CPU); "torch": TorchPairScorer, the
-    # lax.scan engine's counterpart; "native": NativePairScorer, the
-    # multithreaded C++ CPU engine, its phase 2 on `device`
+    # their plain versions on the CPU); "kernels-multi": the same over
+    # every visible card (parallel/multidevice.py); "torch":
+    # TorchPairScorer, the lax.scan engine's counterpart; "native":
+    # NativePairScorer, the multithreaded C++ CPU engine, its phase 2 on
+    # `device`
     engine: str = "kernels"
     # Thread count for the native engine only; 0 = all cores (the
     # reference's NUM_THREADS OpenMP fan-out, c-core/scan.c:137-160).
@@ -147,6 +153,14 @@ class Scanner:
             return NativePairScorer(
                 self.costs, self.device,
                 nthreads=self.config.num_threads or None)
+        if (self.config.engine == "kernels-multi"
+                and self.device.type == "cuda"):
+            # the device-parallel path: the same scheduler, phase-1 waves
+            # split over every visible card (one card: the one-device path)
+            return BucketedPairScorer(
+                self.costs, self.device,
+                devices=[torch.device("cuda", i)
+                         for i in range(torch.cuda.device_count())])
         return BucketedPairScorer(self.costs, self.device)
 
     def release(self) -> None:

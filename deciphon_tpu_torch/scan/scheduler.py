@@ -203,6 +203,14 @@ class PairItem:
 
 
 
+def canonical_device(device: torch.device | str) -> torch.device:
+    """`device` with its index: a bare "cuda" names the current card."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
 def start_codes_compute(b8: torch.Tensor) -> torch.Tensor:
     """(T,) int8 bases in [0, 4) -> (T, 5) int32 START-indexed codes: row
     p, column t-1 is FRAG_OFFSETS[t-1] + sum_i bases[p+i] * 4^(t-1-i).
@@ -249,9 +257,22 @@ class DeviceSeqCodes:
         self.dev = start_codes_compute(torch.from_numpy(host).to(device))
         # pad slots point past every real row (their length is 0)
         self.pad_start = tpad - 1
+        self._copies: dict[torch.device, torch.Tensor] = {}
 
     def gstart(self, s_idx: int, win_start: int) -> int:
         return self.offsets[s_idx] + win_start
+
+    def on(self, device: torch.device | str) -> torch.Tensor:
+        """The code table on `device`: `dev` itself on its own device, else
+        one copy a device, made at first use and shared by every scorer
+        of the scan that holds this object."""
+        device = canonical_device(device)
+        if device == self.dev.device:
+            return self.dev
+        copy = self._copies.get(device)
+        if copy is None:
+            copy = self._copies[device] = self.dev.to(device)
+        return copy
 
 
 @dataclass
@@ -427,6 +448,54 @@ def _tensors(device, *arrays):
     return [torch.from_numpy(a).to(device) for a in arrays]
 
 
+class ShardedPlane:
+    """A phase-1 output split along its leading dim into contiguous parts,
+    each on the device of its shard (parallel/multidevice.py), with the
+    event its shard's stream recorded after the launch (None on the CPU).
+    Rows past the wave's own (the shards' pad rows) come last."""
+
+    __slots__ = ("parts", "events")
+
+    def __init__(self, parts: list, events: list):
+        self.parts, self.events = parts, events
+
+    @property
+    def shape(self) -> tuple:
+        return (sum(p.shape[0] for p in self.parts),
+                *self.parts[0].shape[1:])
+
+
+def fetch_planes(planes: list) -> list[np.ndarray]:
+    """Host copies of device planes (tensors or ShardedPlanes): one
+    transfer a device, every part on it concatenated there.  A shard's
+    part is read after its stream's event."""
+    parts: list[tuple[torch.Tensor, object]] = []  # every plane's parts
+    spans = []  # [first, stop) of each plane's parts
+    for a in planes:
+        first = len(parts)
+        if isinstance(a, ShardedPlane):
+            parts.extend(zip(a.parts, a.events))
+        else:
+            parts.append((a, None))
+        spans.append((first, len(parts)))
+    by_dev: dict[torch.device, list[int]] = {}
+    for i, (t, _) in enumerate(parts):
+        by_dev.setdefault(t.device, []).append(i)
+    host: list = [None] * len(parts)
+    for dev, idx in by_dev.items():
+        for i in idx:
+            if parts[i][1] is not None:
+                torch.cuda.current_stream(dev).wait_event(parts[i][1])
+        flat = torch.cat([parts[i][0].reshape(-1) for i in idx]).cpu().numpy()
+        pos = 0
+        for i in idx:
+            t = parts[i][0]
+            host[i] = flat[pos:pos + t.numel()].reshape(t.shape)
+            pos += t.numel()
+    return [host[a] if b == a + 1 else np.concatenate(host[a:b])
+            for a, b in spans]
+
+
 def _lpt_pack(wins: list[tuple[PairItem, int]], nslots: int,
               cap: float, cmax: float) -> list[list]:
     """Least-loaded (LPT) bin packing of (item, blocks) into slots.
@@ -472,14 +541,19 @@ class _HostTables:
         return (self._tables_host.numel() + self._tvecs_host.numel()) * 4
 
     def _place_tables(self) -> tuple:
+        return self._place_on(self.device)
+
+    def _place_on(self, device: torch.device) -> tuple:
+        """(tables, tvecs) on `device`: a resident copy, or a streamed
+        upload (counted in UPLOADS)."""
         host = (self._tables_host, self._tvecs_host)
         if not self.stream_tables:
-            return tuple(t.to(self.device) for t in host)
+            return tuple(t.to(device) for t in host)
         UPLOADS["uploads"] += 1
         UPLOADS["bytes"] += sum(t.numel() * 4 for t in host)
-        if self.device.type != "cuda":
+        if device.type != "cuda":
             return host
-        return _upload(host, self.device)
+        return _upload(host, device)
 
     @property
     def tables(self) -> torch.Tensor:
@@ -590,6 +664,11 @@ class PairScorer(_HostTables):
         self._xt_lut_idx: dict = {}
         self._xt_lut_dev: torch.Tensor | None = None
 
+    @property
+    def codes_all(self) -> torch.Tensor:
+        """The scan's code table on this scorer's device."""
+        return self.dev_codes.on(self.device)
+
     def set_device_codes(self, dev_codes: DeviceSeqCodes | None) -> None:
         self.dev_codes = dev_codes
         self._chain_pin = None  # new scan: pin the chain shape again
@@ -608,7 +687,7 @@ class PairScorer(_HostTables):
                                            starts)
         fn = vk.scores_pairs_large if self.hbm_table else vk.scores_pairs
         return fn(pidx, self.tables, self.tvecs, xts, lens, starts,
-                  self.dev_codes.dev)
+                  self.codes_all)
 
     def dispatch(self, items: list[PairItem]) -> list:
         """Enqueue every launch of one wave without blocking.  The chain
@@ -866,7 +945,7 @@ class PairScorer(_HostTables):
                                               gst, xti)
         return vk.scores_pairs_chained(pidx, self.tables, self.tvecs, sblk,
                                        wlen, gst, xti, self._xt_lut_dev,
-                                       self.dev_codes.dev)
+                                       self.codes_all)
 
     def _invoke_scores_chained_carry(self, pidx, sblk, wlen, gst, xti,
                                      conts, route, carry_prev):
@@ -884,7 +963,7 @@ class PairScorer(_HostTables):
                                           torch.from_numpy(route))
         return vk.scores_pairs_chained_carry(
             pidx, self.tables, self.tvecs, sblk, wlen, gst, xti, conts,
-            cbig, csml, self._xt_lut_dev, self.dev_codes.dev)
+            cbig, csml, self._xt_lut_dev, self.codes_all)
 
     def _dispatch_gang(self, items: list[PairItem]) -> list:
         """Mixed-profile groups for over-cap windows (B5, or B4m for
@@ -947,14 +1026,14 @@ class PairScorer(_HostTables):
         fn = (vk.scores_pairs_mixed if self._gang_resident()
               else vk.scores_pairs_mixed_large)
         return fn(pidx, self.tables, self.tvecs, xts, lens, starts,
-                  self.dev_codes.dev)
+                  self.codes_all)
 
     def _gang_bucket_wall(self, alt, pidx, lens, nlb: int, wg: int) -> None:
         """DECIPHON_SYNC_DEBUG: wait for one gang launch and record its
         wall and cells under the reference's bucket name
         (bkt_gang[v]_kp.._nlb.._n.._w.., v for the resident kernel)."""
         t0 = time.perf_counter()
-        alt.sum().item()
+        fetch_planes([alt])
         N = pidx.shape[0]
         name = (f"bkt_gang{'v' if self._gang_resident() else ''}"
                 f"_kp{self.Kp}_nlb{nlb}_n{N}_w{wg}")
@@ -986,9 +1065,9 @@ class PairScorer(_HostTables):
         a whole wave at once)."""
         results: dict[int, tuple[float, float]] = {}
         for bucket, alt, nul in inflight:
-            if isinstance(alt, torch.Tensor):
+            if not isinstance(alt, np.ndarray):
                 t0 = time.perf_counter()
-                alt, nul = alt.cpu().numpy(), nul.cpu().numpy()
+                alt, nul = fetch_planes([alt, nul])
                 if self.metrics is not None:
                     self.metrics.add_wall("collect",
                                           time.perf_counter() - t0)
@@ -1029,7 +1108,7 @@ class PairScorer(_HostTables):
             meta = [a[:len(bucket.groups)] for a in meta]
         pidx, xts, lens, starts = _tensors(self.device, *meta)
         xn, nd = vk.paths_pairs(pidx, self.tables, self.tvecs, xts, lens,
-                                starts, self.dev_codes.dev, nlb=bucket.nlb)
+                                starts, self.codes_all, nlb=bucket.nlb)
         # the walk reads the real (pair, slot) rows in place
         rows, flat_items, lengths = [], [], []
         for gi, g in enumerate(bucket.groups):
@@ -1105,7 +1184,7 @@ class PackedPairScorer(_HostTables):
 
     def __init__(self, costs_list: list[ViterbiCosts], nseg: int,
                  device: torch.device | str, inner_w: int | None = None,
-                 seg: int | None = None):
+                 seg: int | None = None, inner_factory=None):
         self.nseg = nseg
         self.seg = seg if seg is not None else max(
             round_up(c.K + 2, 64) for c in costs_list)
@@ -1123,7 +1202,11 @@ class PackedPairScorer(_HostTables):
         super().__init__(device, *stack_tables_packed(costs_list, self.seg,
                                                       nseg))
         self.w = self.PACKED_W.get(self.Kp, 64)
-        self.inner = PairScorer(costs_list, self.device,
+        # `inner_factory(costs, device, w=)` builds the inner scorer (the
+        # multi-device tier passes its own, scheduler.py:1286 of the
+        # reference)
+        make_inner = inner_factory or PairScorer
+        self.inner = make_inner(costs_list, self.device,
                                 w=inner_w if inner_w is not None else W)
         self.dev_codes: DeviceSeqCodes | None = None
         self._metrics = None
@@ -1163,6 +1246,7 @@ class PackedPairScorer(_HostTables):
 
     _xt_index = PairScorer._xt_index
     _walls = PairScorer._walls
+    codes_all = PairScorer.codes_all
 
     def set_device_codes(self, dev_codes: DeviceSeqCodes | None) -> None:
         self.dev_codes = dev_codes
@@ -1329,7 +1413,7 @@ class PackedPairScorer(_HostTables):
         return vk.scores_pairs_packed_chained(
             pidx, self.tables, self.tvecs, sblk, wlen, gst, per_seg(sblk),
             per_seg(wlen), per_seg(xti), self._xt_lut_dev,
-            self.dev_codes.dev, nseg=self.nseg)
+            self.codes_all, nseg=self.nseg)
 
     def _w_eff(self, rows_per_pack: int) -> int:
         if self._w_pinned is None:
@@ -1382,7 +1466,7 @@ class PackedPairScorer(_HostTables):
         pidx, xts, lens, starts = _tensors(self.device, pidx, xts, lens,
                                            starts)
         return vk.scores_pairs_packed(pidx, self.tables, self.tvecs, xts,
-                                      lens, starts, self.dev_codes.dev,
+                                      lens, starts, self.codes_all,
                                       nseg=self.nseg)
 
     @staticmethod
@@ -1412,9 +1496,9 @@ class PackedPairScorer(_HostTables):
         entries may already hold numpy arrays."""
         results: dict[int, tuple[float, float]] = {}
         for head, alt, nul in inflight:
-            if isinstance(alt, torch.Tensor):
+            if not isinstance(alt, np.ndarray):
                 t0 = time.perf_counter()
-                alt, nul = alt.cpu().numpy(), nul.cpu().numpy()
+                alt, nul = fetch_planes([alt, nul])
                 if self._metrics is not None:
                     self._metrics.add_wall("collect",
                                            time.perf_counter() - t0)
@@ -1516,6 +1600,15 @@ class BucketedPairScorer:
     of the device's working reserve), collecting the oldest launches early
     past it.
 
+    `devices` (more than one; a device may repeat) selects the
+    device-parallel tier of parallel/multidevice.py, as the reference's
+    `devices=` does (scheduler.py:1782-1800, 1886-1900): every plain,
+    packed and large-K scorer is a MultiDevicePairScorer or
+    MultiDevicePackedScorer over `make_mesh(devices)`, phase-1 waves split
+    over the shards, tables replicated on every distinct device; phase 2
+    and the large-K tier run on the first.  The ledger's budget is then
+    the smallest device's, and `path_inflight_bytes` the first's.
+
     PACK_MAX_SEG, PACK_KP_MAX, W_LANE_BUDGET, w_cap, HBM_STATE_BUDGET and
     vk.HBM_STATE_BYTES_PER_LANE are inherited from the reference, where
     they were tuned for another accelerator; they are not derived on this
@@ -1569,12 +1662,25 @@ class BucketedPairScorer:
 
     def __init__(self, costs_list: list[ViterbiCosts],
                  device: torch.device | str, scorer_factory=None,
-                 hbm_budget: int | None = None):
+                 hbm_budget: int | None = None, devices=None):
         self.device = torch.device(device)
+        mesh = None
+        if devices is not None and len(devices) > 1:
+            from ..parallel.multidevice import (MultiDevicePackedScorer,
+                                                MultiDevicePairScorer,
+                                                make_mesh)
+
+            mesh = make_mesh(devices)
+            self.device = mesh[0]
+
+        def make(costs, w, hbm_table=False):
+            if mesh is not None:
+                return MultiDevicePairScorer(costs, mesh=mesh, w=w,
+                                             hbm_table=hbm_table)
+            return PairScorer(costs, self.device, w=w, hbm_table=hbm_table)
 
         def default_factory(costs):
-            return PairScorer(costs, self.device,
-                              w=self.plain_w(common_kp(costs)))
+            return make(costs, self.plain_w(common_kp(costs)))
 
         factory = scorer_factory or default_factory
 
@@ -1640,8 +1746,12 @@ class BucketedPairScorer:
             inner_kp = common_kp(costs)
             inner_w = max(8, min(self.w_cap(inner_kp),
                                  self.W_LANE_BUDGET // inner_kp))
-            self.scorers.append(PackedPairScorer(
-                costs, nseg, self.device, inner_w=inner_w, seg=segn))
+            if mesh is not None:
+                self.scorers.append(MultiDevicePackedScorer(
+                    costs, nseg, mesh=mesh, inner_w=inner_w, seg=segn))
+            else:
+                self.scorers.append(PackedPairScorer(
+                    costs, nseg, self.device, inner_w=inner_w, seg=segn))
 
         buckets: dict[int, list[int]] = {}
         for i in plain:
@@ -1662,16 +1772,17 @@ class BucketedPairScorer:
             # oversized buckets take the large-K tier even under a custom
             # factory (the reference's scheduler.py:1921-1925)
             if b > self.MAX_KP:
-                self.scorers.append(PairScorer(
-                    costs, self.device, w=self.hbm_w(common_kp(costs)),
-                    hbm_table=True))
+                self.scorers.append(make(costs, self.hbm_w(common_kp(costs)),
+                                         hbm_table=True))
             else:
                 self.scorers.append(factory(costs))
 
         # capacity ledger: resident against streamed tables per scorer,
-        # planned from the host tables before anything is placed
+        # planned from the host tables before anything is placed; tables
+        # are replicated over a mesh, so its smallest device bounds them
         self.ledger = HBMLedger(hbm_budget if hbm_budget is not None
-                                else device_table_budget(self.device))
+                                else min(device_table_budget(d)
+                                         for d in (mesh or [self.device])))
         plan = self.ledger.plan([s.table_bytes() for s in self.scorers])
         for scorer, stream in zip(self.scorers, plan):
             if stream:
@@ -1730,28 +1841,21 @@ class BucketedPairScorer:
             self._restore(items, remap)
 
     def collect_all(self, pending) -> dict[int, tuple[float, float]]:
-        """Fetch every scorer's outputs of one wave in ONE host transfer
-        (all alt/null planes, (N, W), chained (N, W, C), packed (N, W, S)
-        and packed chained (N, W, S, C), concatenated on the device; carry
-        planes never leave it)."""
+        """Fetch every scorer's outputs of one wave in ONE host transfer a
+        device (all alt/null planes, (N, W), chained (N, W, C), packed
+        (N, W, S) and packed chained (N, W, S, C), concatenated on their
+        device, `fetch_planes`; carry planes never leave it)."""
         flat = [a for _, inflight in pending for e in inflight
                 for a in (e[1], e[2])]
         t0 = time.perf_counter()
-        host = (torch.cat([a.reshape(-1) for a in flat]).cpu().numpy()
-                if flat else np.zeros(0, np.float32))
+        host = iter(fetch_planes(flat))
         if self.metrics is not None:
             self.metrics.add_wall("collect", time.perf_counter() - t0)
-        pos = 0
         results: dict[int, tuple[float, float]] = {}
         for scorer, inflight in pending:
-            rebuilt = []
-            for bucket, alt, nul in inflight:
-                n = alt.numel()
-                a = host[pos:pos + n].reshape(alt.shape)
-                u = host[pos + n:pos + 2 * n].reshape(nul.shape)
-                pos += 2 * n
-                rebuilt.append((bucket, a, u))
-            results.update(scorer.collect(rebuilt))
+            results.update(scorer.collect(
+                [(bucket, next(host), next(host))
+                 for bucket, _, _ in inflight]))
         return results
 
     def score(self, items: list[PairItem]) -> dict[int, tuple[float, float]]:

@@ -5,6 +5,8 @@ one parametrised test per module.
 """
 
 import dataclasses
+import inspect
+import json
 import io
 import logging
 from pathlib import Path
@@ -22,6 +24,7 @@ import deciphon_tpu.hmmer.wire as r_wire
 import deciphon_tpu.hmmfile as r_hmmfile
 import deciphon_tpu.logging as r_logging
 import deciphon_tpu.ops.costs as r_costs
+import deciphon_tpu.parallel.multihost as r_multihost
 import deciphon_tpu.profile as r_profile
 import deciphon_tpu.scan.decoder as r_decoder
 import deciphon_tpu.scan.product as r_product
@@ -40,6 +43,7 @@ import deciphon_tpu_torch.hmmer.wire as p_wire
 import deciphon_tpu_torch.hmmfile as p_hmmfile
 import deciphon_tpu_torch.logging as p_logging
 import deciphon_tpu_torch.ops.costs as p_costs
+import deciphon_tpu_torch.parallel.multihost as p_multihost
 import deciphon_tpu_torch.profile as p_profile
 import deciphon_tpu_torch.scan.decoder as p_decoder
 import deciphon_tpu_torch.scan.product as p_product
@@ -599,3 +603,52 @@ def test_hmm_text_round_trip(which):
     ref = r_hmmfile.read_hmm(io.StringIO(text))
     for r, b in zip(ref, back):
         assert same_fields(p_hmmfile.HMMProfile(**vars(r)), b)
+
+
+MULTIHOST_COPIES = ["partition_sizes", "process_slice", "wait_for_shards",
+                    "_write_failure_report", "supervise_shards",
+                    "merge_product_shards"]
+
+
+@pytest.mark.parametrize("name", MULTIHOST_COPIES)
+def test_multihost_copy(name, tmp_path):
+    """The multi-process scan's host functions are the reference's, line
+    for line (their relative imports resolve inside the port), and give
+    the same results on the same inputs."""
+    got, want = getattr(p_multihost, name), getattr(r_multihost, name)
+    assert inspect.getsource(got) == inspect.getsource(want)
+    if name == "partition_sizes":
+        for n, k in ((0, 3), (10, 3), (7, 8), (1000, 7)):
+            assert got(n, k) == want(n, k)
+    elif name == "process_slice":
+        for n, k in ((11, 3), (2, 4), (200, 2)):
+            assert [got(n, k, i) for i in range(k)] == \
+                [want(n, k, i) for i in range(k)]
+    elif name == "wait_for_shards":
+        (tmp_path / "shard.1.done").write_text("")
+        assert got(str(tmp_path), 3, 0.05) == want(str(tmp_path), 3, 0.05)
+    elif name == "_write_failure_report":
+        for fn in (got, want):
+            path = fn(str(tmp_path), [2], 3)
+            rep = json.loads(Path(path).read_text())
+            assert rep["failed_shards"] == [2] and rep["num_processes"] == 3
+    elif name == "supervise_shards":
+        class Done:
+            def __init__(self, pid):
+                (tmp_path / f"shard.{pid}.done").write_text("")
+
+            def poll(self):
+                return 0
+
+        assert got(str(tmp_path), 2, Done, poll_s=0) == \
+            want(str(tmp_path), 2, Done, poll_s=0)
+    else:
+        row = "{s}\t0\t0\t10\t0\t0\t10\t{p}\tdna\t5.0\t1\t,B,,;,E,,\n"
+        for i, prof in enumerate(("PB", "PA")):
+            (tmp_path / f"s{i}").mkdir()
+            (tmp_path / f"s{i}" / "products.tsv").write_text(
+                p_product.HEADER + row.format(s=i, p=prof))
+        shards = [str(tmp_path / "s0"), str(tmp_path / "s1")]
+        a = Path(got(str(tmp_path / "a"), shards, ["PA", "PB"])).read_text()
+        b = Path(want(str(tmp_path / "b"), shards, ["PA", "PB"])).read_text()
+        assert a == b and a.splitlines()[1].split("\t")[7] == "PA"

@@ -824,3 +824,105 @@ def test_walk_kernel_on_walk_cases(cuda, Kp, Lk):
         tb.rewalk(c["xn"], c["nd"], [int(c["rows"][b])], [2],
                   c["max_steps"])
 
+
+
+# Shards (parallel/multidevice.py): two shards on one card, and a shard on
+# a second card, against one device on the same items.  Each profile has a
+# 150-nt read (it pins a chain cap of 4 blocks under the shrunk caps) and
+# one longer read of its own length, so that under DECIPHON_CHAIN_SEG=1 the
+# profiles' windows split into different numbers of carry segments and
+# later segment chunks route rows from one shard to another.
+
+SHARD_READS = (1000, 250, 900, 800, 1200, 1100)
+
+
+def shard_case(dev, tier, monkeypatch):
+    """(make, items, codes) of a tier: "score" (B1 under
+    DECIPHON_NO_CHAIN=1), "chain" (B3), "pchain" (B7, a packed class) or
+    "carry" (B8, caps shrunk to 4 blocks); make(mesh) builds its scorer,
+    on `dev` alone for mesh None."""
+    from deciphon_tpu_torch.parallel import multidevice as md
+    from deciphon_tpu_torch.scan.window import Window
+
+    if tier == "score":
+        monkeypatch.setenv("DECIPHON_NO_CHAIN", "1")
+    if tier == "carry":
+        monkeypatch.setattr(ts.PairScorer, "CHAIN_MAX_BLK", 4)
+        monkeypatch.setattr(ts.PairScorer, "NLB_FLOOR", 4)
+        monkeypatch.setenv("DECIPHON_CHAIN_SEG", "1")
+    ks = (9, 11, 14, 17, 20, 24)
+    costs = [build_costs(sample_profile(300 + i, k))
+             for i, k in enumerate(ks)]
+    rng = np.random.default_rng(5)
+    lens = [150] + list(SHARD_READS)
+    seqs = [Sequence.make(i, f"s{i}", random_bases(rng, n))
+            for i, n in enumerate(lens)]
+    codes = ts.DeviceSeqCodes(seqs, dev)
+    items = [ts.PairItem(p, i, Window(0, 0, seqs[i].size), True, False,
+                         seq=seqs[i], gstart=codes.gstart(i, 0))
+             for p in range(len(ks)) for i in (0, p + 1)]
+
+    def make(mesh):
+        if tier == "pchain":
+            if mesh is None:
+                return ts.PackedPairScorer(costs, 2, dev, seg=64)
+            return md.MultiDevicePackedScorer(costs, 2, mesh=mesh, seg=64)
+        if mesh is None:
+            return ts.PairScorer(costs, dev, w=8)
+        return md.MultiDevicePairScorer(costs, mesh=mesh, w=8)
+
+    return make, items, codes
+
+
+def shard_scores(scorer, items, codes):
+    """(scores {id: (null, alt)}, launches by key) of one dispatch."""
+    scorer.set_device_codes(codes)
+    before = dict(vk.LAUNCHES)
+    got = scorer.score(items)
+    return got, {k: v - before[k] for k, v in vk.LAUNCHES.items()
+                 if v != before[k]}
+
+
+def check_shards(make, items, codes, mesh, tier):
+    """The sharded scorer's planes equal the one-device scorer's bit for
+    bit, each launch becomes one launch a shard, and (carry) rows cross
+    shards."""
+    from deciphon_tpu_torch.parallel import multidevice as md
+
+    want, n1 = shard_scores(make(None), items, codes)
+    md.reset_shard_launches()
+    got, n2 = shard_scores(make(mesh), items, codes)
+    assert got == want  # float equality of every (null, alt) pair
+    key = {"score": "score", "chain": "chain", "pchain": "pchain",
+           "carry": "carry"}[tier]
+    assert n1[key] > 0 and n2[key] == len(mesh) * n1[key]
+    if tier == "carry":
+        assert md.ROUTED["cross"] > 0, "no carry row crossed shards"
+
+
+@pytest.mark.parametrize("tier", ["score", "chain", "pchain", "carry"])
+def test_two_shards_on_one_card_bit_equal_to_one(cuda, monkeypatch, tier):
+    """B1, B3, B7 and B8 (rows routed across shards) split over two
+    shards on cuda:0, each on its own stream: the same planes as one
+    device."""
+    make, items, codes = shard_case(cuda, tier, monkeypatch)
+    check_shards(make, items, codes, ["cuda:0", "cuda:0"], tier)
+
+
+@pytest.mark.skipif(torch.cuda.device_count() < 2,
+                    reason="needs two CUDA devices")
+@pytest.mark.parametrize("tier", ["score", "carry"])
+def test_shard_on_second_card(cuda, monkeypatch, tier):
+    """A launch on cuda:1 tensors runs on cuda:1 (each launcher enters its
+    tensors' device) and equals cuda:0's; a scorer over (cuda:0, cuda:1)
+    equals one device, B8's carry rows crossing between the cards."""
+    inp = inputs(torch.device("cuda:0"), [40, 17], 128,
+                 [[300, 1, 0, 45], [81, 0, 0, 0]], seed=3)
+    a0 = vk.scores_pairs(**inp)
+    a1 = vk.scores_pairs(**{k: v.to("cuda:1") for k, v in inp.items()})
+    assert torch.cuda.current_device() == 0
+    assert a1[0].device == torch.device("cuda:1")
+    assert all(torch.equal(x, y.to("cuda:0")) for x, y in zip(a0, a1))
+    make, items, codes = shard_case(torch.device("cuda:0"), tier,
+                                    monkeypatch)
+    check_shards(make, items, codes, ["cuda:0", "cuda:1"], tier)

@@ -59,7 +59,11 @@ def test_port_imports_no_jax(cli):
             "deciphon_tpu_torch.snap.gff", "deciphon_tpu_torch.snap.hit",
             "deciphon_tpu_torch.snap.prod",
             "deciphon_tpu_torch.snap.snap_file",
-            "deciphon_tpu_torch.snap.view", CLI} <= set(mods)
+            "deciphon_tpu_torch.snap.view", "deciphon_tpu_torch.parallel",
+            "deciphon_tpu_torch.parallel.multidevice",
+            "deciphon_tpu_torch.parallel.multihost",
+            "deciphon_tpu_torch.parallel.multihost_worker",
+            "deciphon_tpu_torch.parallel.multihost_dryrun", CLI} <= set(mods)
     if cli:
         mods, check = [CLI], FOREIGN
     else:
