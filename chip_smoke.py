@@ -112,15 +112,16 @@ Phases, each reported on its own lines; any failure exits non-zero:
      through the port's CLI (run in process: deciphon_tpu_torch.cli.main)
      and read back (`read_dcp_profiles`; press and read walls, .dcp
      bytes); 8 reads of 10 knt planted from the pressed profiles, as
-     FASTA; `scan X.dcp reads.fna` on the card (first and two warm
-     walls; B7, B3, B2 and the walk must launch), its products.tsv
+     FASTA; `scan X.dcp reads.fna` on the card (first and one warm
+     wall; B7, B3, B2 and the walk must launch), its products.tsv
      byte-identical to Scanner.run's and core.Scan's (snap members, not
      zip bytes); `see` showing the planted hits; `scan --confirm native`
      (posterior launched) byte-identical to the in-process Scanner with
      NativeConfirmer(read_hmm(X.hmm)); on a 12-profile subset pressed
      alone and two reads of 1.2 knt, the card's CLI scan byte-identical
-     to `--device cpu`, and on the planted read alone to `--engine torch`
-     and `--engine native` (the walk launched on the card), and `warmup`;
+     to `--device cpu`, on the planted read alone to `--engine native`
+     and, against the planted profile pressed alone, to `--engine torch`
+     (the walk launched on the card), and `warmup`;
  10. the device-parallel scan ("multi", parallel/): two shards on cuda:0
      (every card where there are more): the Pfam scan through
      BucketedPairScorer(devices=...) (first, median of 3 warm, one
@@ -133,7 +134,34 @@ Phases, each reported on its own lines; any failure exits non-zero:
      (gloo on localhost, --device cuda, the pfam workload, 100 + 100
      profiles): merged products byte-identical to phase 4's, their
      all-reduced counters equal to phase 4's metrics, each worker's wall
-     and the merge's.
+     and the merge's;
+ 11. the services ("services"), on phase 9's inputs: a scheduler in
+     process (SchedServer on port 0) and an in-process worker on the card
+     (WorkerLoop(Poster(url), engine="kernels", device="cuda")), driven
+     through deciphonctl (deciphon_tpu_torch.control, in process): `hmm
+     add pfam.hmm` (a press job: the .dcp pressed on the host, uploaded,
+     byte-identical to phase 9's, listed by `db ls`); `scan post` of
+     phase 9's reads, cold and warm on the worker's cached Scanner (B7,
+     B3, B2 and the walk must launch; the snap's members phase 9's CLI
+     scan's; the scheduler's seven snap views equal to the snap's own);
+     a job on a second worker with confirm="native" (the first worker's
+     Scanners released; it downloads the .dcp and the text; the
+     posterior must launch; the snap's members those of phase 9's `scan
+     --confirm native`); on phase 9's 12-profile subset, a job run by
+     `python -m deciphon_tpu_torch.cli worker --device cuda` in a process
+     of its own (it downloads the db; terminated afterwards, it must not
+     have exited on its own), then the same job by the in-process card
+     worker and by one on the CPU, all snaps phase 9's subset scan's;
+     GuiController(device="cuda") pressing the subset (progress to 100)
+     and naming the planted profile in the view of the planted read; a
+     ScannerDaemon scan of the Pfam reads repeated DAEMON_READ_COPIES
+     times, interrupted once its progress is above 0 (the port's
+     Interrupted, no snap), then a request of the 8 reads served on the
+     daemon's thread with phase 9's snap.  Every job must end `done` (a
+     failed job's error is printed in full); walls of the press job, of
+     each scan job (queue to done, and of it Scanner.run), of each .dcp
+     upload and download, of the worker process's start to its first
+     claimed job, and of the phase.
 
 Every scan path is run with the launch counts set to 0 just before and
 read just after; each kernel must have launched on its path.  The line
@@ -243,6 +271,9 @@ WIDEST_PATH_POSITIONS = 2048
 # (10 to 24 knt), so that their host-bound plain versions fit the run's
 # time; the chain forms (B3, B7, B8) run whole
 PREFIX_POSITIONS = 6000
+# the profile of a pfam_scan database whose domain pfam_subset plants in
+# its first read
+SUBSET_PLANTED = 100
 
 
 # the kernels-line key each kernel instance serves, by its name and its
@@ -2097,20 +2128,23 @@ def cli_scan(torch, launches: dict, args: list, need: tuple,
     return wall, mem
 
 
-def cli_phase(torch, launches: dict) -> None:
-    """Phase 9, the user's entry points: the Pfam-shaped database as
+def cli_phase(torch, launches: dict, tmp: str) -> dict:
+    """Phase 9, the user's entry points, in the directory `tmp`: the
+    Pfam-shaped database as
     HMMER3 text (`workload.hmm_text(pfam_scan_hmms())`), pressed by
     `press X.hmm 1` through the port's CLI; reads planted from the pressed
     profiles (`read_dcp_profiles`) as pfam_scan plants them, as FASTA;
-    `scan` through the CLI on the card (first, two warm), its
+    `scan` through the CLI on the card (first, one warm), its
     products.tsv byte-identical to Scanner.run's and to core.Scan's
     (make_archive) on the same profiles; `see`; `scan --confirm native`
     against the in-process Scanner with NativeConfirmer; and on a subset
     (12 profiles pressed alone, two reads of 1.2 knt) the card's CLI scan
     against `--device cpu`, on the planted read alone against `--engine
-    torch` and `--engine native`, and `warmup`."""
-    import shutil
-
+    native` (and against the planted profile pressed alone, `--engine
+    torch`), and `warmup`.  Returns what phase 11
+    reuses: a function naming the files in `tmp` (the texts, the reads and
+    the databases), the reads, the subset's reads, the snaps' members and
+    the subset's planted profile."""
     import numpy as np
 
     from deciphon_tpu_torch.core import Batch, Scan, Sequence as CoreSeq
@@ -2126,175 +2160,186 @@ def cli_phase(torch, launches: dict) -> None:
                                              planted_read, random_bases)
 
     t00 = time.perf_counter()
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_")
-    try:
-        d = lambda name: os.path.join(tmp, name)  # noqa: E731
-        # 1. the database as HMMER3 text
+    d = lambda name: os.path.join(tmp, name)  # noqa: E731
+    # 1. the database as HMMER3 text
+    t0 = time.perf_counter()
+    hmms = pfam_scan_hmms()
+    with open(d("pfam.hmm"), "w") as fp:
+        fp.write(hmm_text(hmms))
+    say("cli", f"{len(hmms)} profiles ({sum(h.length for h in hmms)} "
+        f"nodes) as HMMER3/f text: {os.path.getsize(d('pfam.hmm'))} "
+        f"bytes in {time.perf_counter() - t0:.3f} s")
+    # 2. press through the CLI, then the reader
+    t0 = time.perf_counter()
+    out = cli_run(["press", d("pfam.hmm"), 1, "--no-progress"])
+    press_s = time.perf_counter() - t0
+    check(out.startswith(f"wrote {d('pfam.dcp')}"),
+          f"press printed {out[:200]!r}")
+    t0 = time.perf_counter()
+    _, profiles = read_dcp_profiles(d("pfam.dcp"))
+    read_s = time.perf_counter() - t0
+    check([p.accession for p in profiles]
+          == [h.accession for h in hmms], "the .dcp lost a profile")
+    say("cli", f"press wall {press_s:.6f} s, .dcp "
+        f"{os.path.getsize(d('pfam.dcp'))} bytes; read_dcp_profiles "
+        f"wall {read_s:.6f} s")
+    # 3. reads planted from the pressed profiles, as pfam_scan plants
+    rng = np.random.default_rng(2024)
+    reads = [planted_read(rng, profiles[i], 10_000, noise=0.01)
+             for i in PFAM_PLANTED]
+    reads += [random_bases(rng, 10_000) for _ in range(8 - len(reads))]
+    with open(d("reads.fna"), "w") as fp:
+        fp.writelines(f">read{i}\n{r}\n" for i, r in enumerate(reads))
+    seqs = [Sequence.make(i + 1, f"read{i}", r)
+            for i, r in enumerate(reads)]
+    # 4. scan through the CLI: first, then one warm
+    need = ("pchain", "chain", "path", "walk")
+    first, mem = cli_scan(torch, launches, [
+        d("pfam.dcp"), d("reads.fna"), "--snap", d("cli.dcs")], need)
+    warm = []
+    for i in range(1):
+        w, again = cli_scan(torch, launches, [
+            d("pfam.dcp"), d("reads.fna"), "--snap", d(f"w{i}.dcs")],
+            need)
+        check(again == mem, "a warm CLI scan wrote another snap")
+        warm.append(w)
+    tsv = mem["products.tsv"]
+    rows = [r.split("\t") for r in tsv.decode().splitlines()[1:]]
+    check(rows, "the CLI scan wrote no products")
+    say("cli", f"CLI scan walls: first {first:.6f} s, warm {warm}, "
+        f"median {statistics.median(warm):.6f} s (each reads the "
+        f".dcp: {read_s:.6f} s)")
+    # 5. the same bytes by Scanner.run and by core.Scan
+    sc = Scanner(profiles, ScanConfig(device="cuda"))
+    walls = []
+    for i in range(2):
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
-        hmms = pfam_scan_hmms()
-        with open(d("pfam.hmm"), "w") as fp:
-            fp.write(hmm_text(hmms))
-        say("cli", f"{len(hmms)} profiles ({sum(h.length for h in hmms)} "
-            f"nodes) as HMMER3/f text: {os.path.getsize(d('pfam.hmm'))} "
-            f"bytes in {time.perf_counter() - t0:.3f} s")
-        # 2. press through the CLI, then the reader
+        path = sc.run(seqs, d(f"inproc{i}"))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        with open(path, "rb") as fp:
+            check(fp.read() == tsv, "Scanner.run wrote other products "
+                  "than the CLI")
+    m = sc.metrics
+    say("cli", f"Scanner.run on the pressed profiles: walls {walls} s "
+        f"(first, warm), survivors {m.survivors}, products "
+        f"{m.products}: products.tsv byte-identical to the CLI's")
+    del sc
+    batch = Batch()
+    for q in seqs:
+        batch.add(CoreSeq(q.id, q.name, q.data))
+    t0 = time.perf_counter()
+    core = Scan(DBFile(path=d("pfam.dcp")))
+    snap = NewSnapFile(path=d("core.dcs"))
+    core.run(snap, batch)
+    snap.make_archive()
+    check(core.progress() == 100, "core.Scan did not finish")
+    check(snap_members(d("core.dcs")) == mem,
+          "core.Scan wrote another snap than the CLI")
+    say("cli", f"core.Scan: {time.perf_counter() - t0:.6f} s, snap "
+        f"members byte-identical to the CLI's ({sorted(mem)[:3]}...)")
+    del core
+    # 6. see
+    t0 = time.perf_counter()
+    seen = cli_run(["see", d("cli.dcs")])
+    planted = {profiles[i].accession: n + 1
+               for n, i in enumerate(PFAM_PLANTED)}
+    hits = sorted({(r[7], int(r[0])) for r in rows
+                   if planted.get(r[7]) == int(r[0])})
+    check(hits and all(f"{acc} hit 0 query" in seen
+                       for acc, _ in hits),
+          "see did not show the planted hits")
+    check(seen.startswith(f"shape: ({len(rows)}, "),
+          "see's table lacks rows")
+    say("cli", f"see: {len(seen)} characters in "
+        f"{time.perf_counter() - t0:.3f} s; planted hits shown "
+        f"(profile, read) {hits}")
+    # 7. the confirmed scan: CLI against the in-process Scanner
+    _, cmem = cli_scan(torch, launches, [
+        d("pfam.dcp"), d("reads.fna"), "--snap", d("conf.dcs"),
+        "--confirm", "native"], need + ("amino_posterior",))
+    sc = Scanner(profiles, ScanConfig(device="cuda"), confirmer=(
+        NativeConfirmer(read_hmm(d("pfam.hmm")), device="cuda").confirm))
+    sc.run(seqs, d("conf"))
+    check(product_dir(d("conf")) == cmem, "the confirmed CLI scan "
+          "wrote other bytes than the in-process confirmed Scanner")
+    say("cli", f"confirmed: {len(cmem)} files byte-identical to the "
+        f"in-process Scanner with NativeConfirmer "
+        f"({sc.metrics.products} lines kept of {sc.metrics.survivors} "
+        "survivors)")
+    del sc
+    # 8. the subset: card against CPU, torch and native engines
+    sub_prof, sub_seqs = pfam_subset(profiles)
+    idx = [next(i for i, q in enumerate(profiles) if q is p)
+           for p in sub_prof]
+    with open(d("sub.hmm"), "w") as fp:
+        fp.write(hmm_text([hmms[i] for i in idx]))
+    cli_run(["press", d("sub.hmm"), 1, "--no-progress"])
+    _, back = read_dcp_profiles(d("sub.dcp"))
+    check([p.accession for p in back] == [p.accession for p in sub_prof],
+          "the subset's .dcp lost a profile")
+    with open(d("sub.fna"), "w") as fp:
+        fp.writelines(f">{q.name}\n{q.data}\n" for q in sub_seqs)
+    # the plain-PyTorch torch and native engines scan the planted read
+    # alone (their speed is not what they check), against the kernels
+    # on the same read; the torch engine, launch-bound (60-72 s on the
+    # 12 profiles), against the planted profile pressed alone, so that
+    # the script stays within its time (phase 7 holds that engine to the
+    # kernels' bytes on the whole subset)
+    with open(d("sub1.fna"), "w") as fp:
+        fp.write(f">{sub_seqs[0].name}\n{sub_seqs[0].data}\n")
+    with open(d("one.hmm"), "w") as fp:
+        fp.write(hmm_text([hmms[SUBSET_PLANTED]]))
+    cli_run(["press", d("one.hmm"), 1, "--no-progress"])
+    subs = {}
+    for label, extra, need_sub, db, fna in (
+            ("kernels, cuda", [], ("path", "walk"), "sub.dcp", "sub.fna"),
+            ("kernels, cpu", ["--device", "cpu"], (), "sub.dcp", "sub.fna"),
+            ("kernels, cuda, 1 read", [], ("path", "walk"), "sub.dcp",
+             "sub1.fna"),
+            ("native, cuda", ["--engine", "native"], ("walk",), "sub.dcp",
+             "sub1.fna"),
+            ("kernels, cuda, 1 profile", [], ("path", "walk"), "one.dcp",
+             "sub1.fna"),
+            ("torch, cuda", ["--engine", "torch"], ("walk",), "one.dcp",
+             "sub1.fna")):
+        snap_path = d(label.replace(", ", "_").replace(" ", "") + ".dcs")
         t0 = time.perf_counter()
-        out = cli_run(["press", d("pfam.hmm"), 1, "--no-progress"])
-        press_s = time.perf_counter() - t0
-        check(out.startswith(f"wrote {d('pfam.dcp')}"),
-              f"press printed {out[:200]!r}")
-        t0 = time.perf_counter()
-        _, profiles = read_dcp_profiles(d("pfam.dcp"))
-        read_s = time.perf_counter() - t0
-        check([p.accession for p in profiles]
-              == [h.accession for h in hmms], "the .dcp lost a profile")
-        say("cli", f"press wall {press_s:.6f} s, .dcp "
-            f"{os.path.getsize(d('pfam.dcp'))} bytes; read_dcp_profiles "
-            f"wall {read_s:.6f} s")
-        # 3. reads planted from the pressed profiles, as pfam_scan plants
-        rng = np.random.default_rng(2024)
-        reads = [planted_read(rng, profiles[i], 10_000, noise=0.01)
-                 for i in PFAM_PLANTED]
-        reads += [random_bases(rng, 10_000) for _ in range(8 - len(reads))]
-        with open(d("reads.fna"), "w") as fp:
-            fp.writelines(f">read{i}\n{r}\n" for i, r in enumerate(reads))
-        seqs = [Sequence.make(i + 1, f"read{i}", r)
-                for i, r in enumerate(reads)]
-        # 4. scan through the CLI: first, then two warm
-        need = ("pchain", "chain", "path", "walk")
-        first, mem = cli_scan(torch, launches, [
-            d("pfam.dcp"), d("reads.fna"), "--snap", d("cli.dcs")], need)
-        warm = []
-        for i in range(2):
-            w, again = cli_scan(torch, launches, [
-                d("pfam.dcp"), d("reads.fna"), "--snap", d(f"w{i}.dcs")],
-                need)
-            check(again == mem, "a warm CLI scan wrote another snap")
-            warm.append(w)
-        tsv = mem["products.tsv"]
-        rows = [r.split("\t") for r in tsv.decode().splitlines()[1:]]
-        check(rows, "the CLI scan wrote no products")
-        say("cli", f"CLI scan walls: first {first:.6f} s, warm {warm}, "
-            f"median {statistics.median(warm):.6f} s (each reads the "
-            f".dcp: {read_s:.6f} s)")
-        # 5. the same bytes by Scanner.run and by core.Scan
-        sc = Scanner(profiles, ScanConfig(device="cuda"))
-        walls = []
-        for i in range(2):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            path = sc.run(seqs, d(f"inproc{i}"))
-            torch.cuda.synchronize()
-            walls.append(time.perf_counter() - t0)
-            with open(path, "rb") as fp:
-                check(fp.read() == tsv, "Scanner.run wrote other products "
-                      "than the CLI")
-        m = sc.metrics
-        say("cli", f"Scanner.run on the pressed profiles: walls {walls} s "
-            f"(first, warm), survivors {m.survivors}, products "
-            f"{m.products}: products.tsv byte-identical to the CLI's")
-        del sc
-        batch = Batch()
-        for q in seqs:
-            batch.add(CoreSeq(q.id, q.name, q.data))
-        t0 = time.perf_counter()
-        core = Scan(DBFile(path=d("pfam.dcp")))
-        snap = NewSnapFile(path=d("core.dcs"))
-        core.run(snap, batch)
-        snap.make_archive()
-        check(core.progress() == 100, "core.Scan did not finish")
-        check(snap_members(d("core.dcs")) == mem,
-              "core.Scan wrote another snap than the CLI")
-        say("cli", f"core.Scan: {time.perf_counter() - t0:.6f} s, snap "
-            f"members byte-identical to the CLI's ({sorted(mem)[:3]}...)")
-        del core
-        # 6. see
-        t0 = time.perf_counter()
-        seen = cli_run(["see", d("cli.dcs")])
-        planted = {profiles[i].accession: n + 1
-                   for n, i in enumerate(PFAM_PLANTED)}
-        hits = sorted({(r[7], int(r[0])) for r in rows
-                       if planted.get(r[7]) == int(r[0])})
-        check(hits and all(f"{acc} hit 0 query" in seen
-                           for acc, _ in hits),
-              "see did not show the planted hits")
-        check(seen.startswith(f"shape: ({len(rows)}, "),
-              "see's table lacks rows")
-        say("cli", f"see: {len(seen)} characters in "
-            f"{time.perf_counter() - t0:.3f} s; planted hits shown "
-            f"(profile, read) {hits}")
-        # 7. the confirmed scan: CLI against the in-process Scanner
-        _, cmem = cli_scan(torch, launches, [
-            d("pfam.dcp"), d("reads.fna"), "--snap", d("conf.dcs"),
-            "--confirm", "native"], need + ("amino_posterior",))
-        sc = Scanner(profiles, ScanConfig(device="cuda"), confirmer=(
-            NativeConfirmer(read_hmm(d("pfam.hmm")), device="cuda").confirm))
-        sc.run(seqs, d("conf"))
-        check(product_dir(d("conf")) == cmem, "the confirmed CLI scan "
-              "wrote other bytes than the in-process confirmed Scanner")
-        say("cli", f"confirmed: {len(cmem)} files byte-identical to the "
-            f"in-process Scanner with NativeConfirmer "
-            f"({sc.metrics.products} lines kept of {sc.metrics.survivors} "
-            "survivors)")
-        del sc
-        # 8. the subset: card against CPU, torch and native engines
-        sub_prof, sub_seqs = pfam_subset(profiles)
-        idx = [next(i for i, q in enumerate(profiles) if q is p)
-               for p in sub_prof]
-        with open(d("sub.hmm"), "w") as fp:
-            fp.write(hmm_text([hmms[i] for i in idx]))
-        cli_run(["press", d("sub.hmm"), 1, "--no-progress"])
-        _, back = read_dcp_profiles(d("sub.dcp"))
-        check([p.accession for p in back] == [p.accession for p in sub_prof],
-              "the subset's .dcp lost a profile")
-        with open(d("sub.fna"), "w") as fp:
-            fp.writelines(f">{q.name}\n{q.data}\n" for q in sub_seqs)
-        # the plain-PyTorch torch and native engines scan the planted read
-        # alone (their speed is not what they check), against the kernels
-        # on the same read
-        with open(d("sub1.fna"), "w") as fp:
-            fp.write(f">{sub_seqs[0].name}\n{sub_seqs[0].data}\n")
-        subs = {}
-        for label, extra, need_sub, fna in (
-                ("kernels, cuda", [], ("path", "walk"), "sub.fna"),
-                ("kernels, cpu", ["--device", "cpu"], (), "sub.fna"),
-                ("kernels, cuda, 1 read", [], ("path", "walk"), "sub1.fna"),
-                ("torch, cuda", ["--engine", "torch"], ("walk",), "sub1.fna"),
-                ("native, cuda", ["--engine", "native"], ("walk",),
-                 "sub1.fna")):
-            snap_path = d(label.replace(", ", "_").replace(" ", "") + ".dcs")
-            t0 = time.perf_counter()
-            if label == "kernels, cpu":
-                vk.reset_launches()
-                cli_run(["scan", d("sub.dcp"), d(fna), "--snap",
-                         snap_path, "--no-progress", *extra])
-                subs[label] = snap_members(snap_path)
-                say("cli", f"subset, {label}: {time.perf_counter() - t0:.3f}"
-                    f" s; launches {dict(vk.LAUNCHES)}")
-                check(sum(vk.LAUNCHES.values()) == 0,
-                      "--device cpu launched a kernel")
-            else:
-                _, subs[label] = cli_scan(
-                    torch, launches, [d("sub.dcp"), d(fna), "--snap",
-                                      snap_path, *extra], need_sub,
-                    "cli subset")
-        for label, got in subs.items():
-            want = subs["kernels, cuda" if label in (
-                "kernels, cuda", "kernels, cpu") else "kernels, cuda, 1 read"]
-            check(want["products.tsv"].count(b"\n") > 1,
-                  f"the subset's CLI scan ({label}) wrote no products")
-            check(got == want, f"subset: {label} wrote another snap than "
-                  "kernels on the card")
-        out = cli_run(["warmup", d("sub.dcp"), "--read-length", 1200,
-                       "--reads-per-length", 2])
-        check(out.startswith("warmup done in"), f"warmup printed {out!r}")
-        say("cli", f"subset ({len(sub_prof)} profiles, 2 reads of 1.2 knt): "
-            f"the card's CLI scan byte-identical to --device cpu; on the "
-            f"planted read alone to --engine torch and --engine native; "
-            f"{out.strip()}")
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+        if label == "kernels, cpu":
+            vk.reset_launches()
+            cli_run(["scan", d(db), d(fna), "--snap",
+                     snap_path, "--no-progress", *extra])
+            subs[label] = snap_members(snap_path)
+            say("cli", f"subset, {label}: {time.perf_counter() - t0:.3f}"
+                f" s; launches {dict(vk.LAUNCHES)}")
+            check(sum(vk.LAUNCHES.values()) == 0,
+                  "--device cpu launched a kernel")
+        else:
+            _, subs[label] = cli_scan(
+                torch, launches, [d(db), d(fna), "--snap",
+                                  snap_path, *extra], need_sub,
+                "cli subset")
+    want_of = {"kernels, cpu": "kernels, cuda",
+               "native, cuda": "kernels, cuda, 1 read",
+               "torch, cuda": "kernels, cuda, 1 profile"}
+    for label, got in subs.items():
+        want = subs[want_of.get(label, label)]
+        check(want["products.tsv"].count(b"\n") > 1,
+              f"the subset's CLI scan ({label}) wrote no products")
+        check(got == want, f"subset: {label} wrote another snap than "
+              "kernels on the card")
+    out = cli_run(["warmup", d("sub.dcp"), "--read-length", 1200,
+                   "--reads-per-length", 2])
+    check(out.startswith("warmup done in"), f"warmup printed {out!r}")
+    say("cli", f"subset ({len(sub_prof)} profiles, 2 reads of 1.2 knt): "
+        f"the card's CLI scan byte-identical to --device cpu; on the "
+        f"planted read alone to --engine native, and against the planted "
+        f"profile alone to --engine torch; {out.strip()}")
     say("cli", f"phase {time.perf_counter() - t00:.1f} s")
+    return dict(d=d, seqs=seqs, sub_seqs=sub_seqs, mem=mem, cmem=cmem,
+                sub_mem=subs["kernels, cuda"],
+                planted=profiles[SUBSET_PLANTED].accession)
 
 
 def device_busy(torch, prof) -> float | None:
@@ -2460,6 +2505,394 @@ def multi_phase(torch, launches: dict, cells: dict) -> None:
         f"phase 4's; all-reduced counters {metas[0]['counters']} equal "
         "phase 4's metrics")
     say("multi", f"phase {time.perf_counter() - t00:.1f} s")
+
+
+SERVICE_NEED = ("pchain", "chain", "path", "walk")  # B7, B3, B2, the walk
+SERVICE_VIEWS = ("prods", "gff", "queries", "states", "codons", "aminos",
+                 "view")
+JOB_DEADLINE = 600.0  # seconds the subprocess worker may take for its job
+DAEMON_READ_COPIES = 24  # the Pfam reads repeated: a scan of several waves
+POLL_S = 5.0  # the long-poll of `cli worker` (WorkerLoop.run_forever)
+
+
+def ctl_run(url: str, args: list) -> str:
+    """One deciphonctl command of the port, run in process; returns what
+    it printed."""
+    import io
+
+    from deciphon_tpu_torch import control
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        control.cli.main(["--sched", url, *map(str, args)],
+                         prog_name="deciphonctl", standalone_mode=False)
+    return out.getvalue()
+
+
+def job_done(poster, job_id: int, what: str) -> dict:
+    """The job, which must have ended `done` at progress 100; a failed
+    job's error is printed in full before the phase fails."""
+    job = poster.job_get(job_id)
+    if job["state"] != "done":
+        say("services", f"{what}: job {job_id} ended {job['state']!r}, "
+            f"error:\n{job['error']}")
+        fail(f"{what}: job {job_id} ended {job['state']}, not done")
+    check(job["progress"] == 100, f"{what}: job at progress "
+          f"{job['progress']}")
+    return job
+
+
+def snap_views(products) -> dict:
+    """The views the scheduler serves, computed from a snap's own
+    Products."""
+    from deciphon_tpu_torch.snap.view import view_alignments
+
+    views = {"prods": [{"seq_id": p.seq_id, "profile": p.profile,
+                        "abc": p.abc, "lrt": p.lrt, "evalue": p.evalue}
+                       for p in products],
+             "gff": products.gff_list().format(),
+             "view": view_alignments(products)}
+    for kind, elem in (("queries", "query"), ("states", "state"),
+                       ("codons", "codon"), ("aminos", "amino")):
+        views[kind] = products.fasta_list(elem).format()
+    return views
+
+
+def services_phase(torch, launches: dict, cli: dict) -> None:
+    """Phase 11 ("services"): the scheduler, its workers, deciphonctl, the
+    worker daemons and the GUI controller, on phase 9's inputs (`cli`).
+    A scheduler in process (port 0) and an in-process card worker
+    (WorkerLoop(Poster(url), engine="kernels", device="cuda"), so that
+    the launch counts can be read): `hmm add pfam.hmm` through deciphonctl
+    (a press job: host press, the .dcp uploaded, the db posted; the .dcp
+    byte-identical to phase 9's); `scan post` of phase 9's reads, cold and
+    warm (B7, B3, B2 and the walk must launch; products.tsv byte-identical
+    to phase 9's CLI scan; the scheduler's views equal to the snap's own);
+    a confirmed job on a second worker (confirm="native": it downloads the
+    .dcp and the text; the posterior must launch; the snap's members
+    those of phase 9's `scan --confirm native`), the first worker's
+    Scanners released before it; on phase 9's 12-profile subset, a job run
+    by `python -m deciphon_tpu_torch.cli worker --device cuda` in a process
+    of its own (it downloads the db), then the same job by the in-process
+    card worker and by one on the CPU, all three snaps equal to phase 9's
+    subset scan; GuiController(device="cuda") pressing and scanning the
+    planted read; a ScannerDaemon scan of the Pfam reads interrupted once
+    its progress is above 0, then a request served whole with phase 9's
+    products.  Every job must end `done`; a failed job's error is printed
+    in full."""
+    import filecmp
+    import shutil
+    import threading
+    from datetime import datetime
+
+    from deciphon_tpu_torch.gui import GuiController
+    from deciphon_tpu_torch.ops import traceback as tb
+    from deciphon_tpu_torch.ops import viterbi as vk
+    from deciphon_tpu_torch.poster import Poster
+    from deciphon_tpu_torch.scan.pipeline import Scanner
+    from deciphon_tpu_torch.scan.sequence import Sequence
+    from deciphon_tpu_torch.sched import SchedServer, SchedSettings
+    from deciphon_tpu_torch.snap.snap_file import read_snap
+    from deciphon_tpu_torch.worker import launch_scanner
+    from deciphon_tpu_torch.worker.progressor import Interrupted
+    from deciphon_tpu_torch.worker_daemon import WorkerLoop
+
+    t00 = time.perf_counter()
+    d = cli["d"]
+    walls = {}
+    moves = []  # (kind, what, bytes, seconds) of each .dcp/.hmm transfer
+
+    class TimedPoster(Poster):
+        """Poster whose uploads and downloads are timed."""
+
+        def upload(self, kind, path, progress=None):
+            t0 = time.perf_counter()
+            super().upload(kind, path, progress)
+            moves.append(("upload", os.path.basename(path),
+                          os.path.getsize(path), time.perf_counter() - t0))
+
+        def download(self, kind, name, dest):
+            t0 = time.perf_counter()
+            out = super().download(kind, name, dest)
+            moves.append(("download", name, os.path.getsize(dest),
+                          time.perf_counter() - t0))
+            return out
+
+    runs = []  # (thread name, seconds) of each Scanner.run in this phase
+    real_run = Scanner.run
+
+    def timed_run(self, *a, **kw):
+        t0 = time.perf_counter()
+        try:
+            return real_run(self, *a, **kw)
+        finally:
+            torch.cuda.synchronize()
+            runs.append((threading.current_thread().name,
+                         time.perf_counter() - t0))
+
+    def counted_job(loop, what: str, need: tuple) -> tuple[float, dict]:
+        """Run the next queued job on `loop` with the launch counts set to
+        0 just before and read just after; each kernel of `need` must have
+        launched.  Returns (seconds of the job, counts)."""
+        torch.cuda.synchronize()
+        vk.reset_launches()
+        tb.REWALKS["survivors"] = 0
+        t0 = time.perf_counter()
+        check(loop.poll_once(timeout=0), f"{what}: no job was claimed")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(vk.LAUNCHES)
+        for k in need:
+            check(counts.get(k, 0) > 0, f"kernel {k} never launched on the "
+                  f"services path ({what})")
+        check(tb.REWALKS["survivors"] == 0, "a walk overflowed its "
+              "max_steps")
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        return wall, counts
+
+    def scan_job(url, poster, loop, db_id, fna, what, need):
+        """`scan post` through deciphonctl, the job on `loop`, `snap get`;
+        returns (scan id, snap members, queue-to-done seconds, the job's
+        Scanner.run seconds, counts)."""
+        n_runs = len(runs)
+        t0 = time.perf_counter()
+        scan = json.loads(ctl_run(url, ["scan", "post", db_id, fna]))
+        job_s, counts = counted_job(loop, what, need)
+        job_done(poster, scan["job"]["id"], what)
+        wall = time.perf_counter() - t0
+        dest = d(f"{what.replace(' ', '_')}.dcs")
+        out = ctl_run(url, ["snap", "get", scan["id"], dest])
+        check(out.strip() == f"wrote {dest}", f"snap get printed {out!r}")
+        run_s = sum(s for _, s in runs[n_runs:])
+        say("services", f"{what}: scan job {scan['id']} queue to done "
+            f"{wall:.6f} s (the worker's poll {job_s:.6f} s, of it "
+            f"Scanner.run {run_s:.6f} s); launches {counts}")
+        walls[what] = (wall, run_s)
+        return scan["id"], snap_members(dest), dest
+
+    def drop_scan(url, poster, scan_id):
+        """`scan rm`: its sequences go with it, so that the next scan's
+        sequence ids start at 1 again, as in phase 9's files."""
+        ctl_run(url, ["scan", "rm", scan_id])
+        check(poster.seq_list() == [], "scan rm left sequences behind")
+
+    sched_dir = d("sched")
+    proc = None
+    Scanner.run = timed_run
+    try:
+        with SchedServer(SchedSettings(host="127.0.0.1", port=0,
+                                       data_dir=sched_dir)) as server:
+            url = server.url
+            poster = TimedPoster(url)
+            check(poster.handshake() == {"status": "ok"}, "no health")
+            loop = WorkerLoop(TimedPoster(url), workdir=d("w1"),
+                              engine="kernels", device="cuda")
+            # 1. the press job
+            t0 = time.perf_counter()
+            hmm = json.loads(ctl_run(url, ["hmm", "add", d("pfam.hmm")]))
+            check(hmm["job"]["state"] == "pend", f"hmm add gave {hmm}")
+            check(loop.poll_once(timeout=0), "the press job was not claimed")
+            job = job_done(poster, hmm["job"]["id"], "press")
+            walls["press"] = time.perf_counter() - t0
+            stored = os.path.join(sched_dir, "files", "pfam.dcp")
+            check(filecmp.cmp(stored, d("pfam.dcp"), shallow=False),
+                  "the uploaded .dcp is not phase 9's pfam.dcp")
+            dbs = json.loads(ctl_run(url, ["db", "ls"]))
+            check([x["file"]["name"] for x in dbs] == ["pfam.dcp"],
+                  f"db ls gave {dbs}")
+            db_id = dbs[0]["id"]
+            say("services", f"press job {hmm['job']['id']}: queue to done "
+                f"{walls['press']:.6f} s (sched clock {job['exec_started']} "
+                f"-> {job['exec_ended']}), .dcp "
+                f"{os.path.getsize(stored)} bytes byte-identical to phase "
+                f"9's; transfers {moves}")
+            # 2. scan jobs on the card worker: cold, then warm
+            sid, mem, dest = scan_job(url, poster, loop, db_id,
+                                      d("reads.fna"), "pfam cold",
+                                      SERVICE_NEED)
+            check(mem["products.tsv"] == cli["mem"]["products.tsv"],
+                  "the scan job wrote other products than phase 9's CLI "
+                  "scan")
+            check(mem == cli["mem"], "the scan job's snap members differ "
+                  "from phase 9's CLI scan")
+            own = snap_views(read_snap(dest).products)
+            for kind in SERVICE_VIEWS:
+                out = ctl_run(url, ["snap", kind, sid])
+                got = json.loads(out) if kind == "prods" else out[:-1]
+                want = (json.loads(json.dumps(own[kind])) if kind == "prods"
+                        else own[kind])
+                check(got == want, f"the scheduler's {kind} view differs "
+                      "from the snap's own")
+            say("services", f"scheduler views {SERVICE_VIEWS} equal to the "
+                f"snap's own Products ({len(own['prods'])} products)")
+            drop_scan(url, poster, sid)
+            sid, warm, _ = scan_job(url, poster, loop, db_id, d("reads.fna"),
+                                    "pfam warm", SERVICE_NEED)
+            check(warm == mem, "the warm scan job wrote another snap")
+            drop_scan(url, poster, sid)
+            # 3. the confirmed job on a second worker, the first released
+            loop.release()
+            conf = WorkerLoop(TimedPoster(url), workdir=d("w2"),
+                              engine="kernels", confirm="native",
+                              device="cuda")
+            n_moves = len(moves)
+            sid, cmem, _ = scan_job(url, poster, conf, db_id, d("reads.fna"),
+                                    "pfam confirmed",
+                                    SERVICE_NEED + ("amino_posterior",))
+            check(cmem == cli["cmem"], "the confirmed scan job's snap differs "
+                  "from phase 9's scan --confirm native")
+            check({m[1] for m in moves[n_moves:]} >= {"pfam.dcp", "pfam.hmm"}
+                  and all(m[0] == "download" for m in moves[n_moves:]),
+                  f"the confirmed worker did not download: {moves[n_moves:]}")
+            say("services", f"confirmed job: snap members "
+                f"({len(cmem)} files) byte-identical to phase 9's; the "
+                f"worker's downloads {moves[n_moves:]}")
+            drop_scan(url, poster, sid)
+            conf.release()
+            del conf
+            # 4. the real entry point on the subset, in a process of its own
+            hmm = json.loads(ctl_run(url, ["hmm", "add", d("sub.hmm")]))
+            check(loop.poll_once(timeout=0), "the subset's press job")
+            job_done(poster, hmm["job"]["id"], "subset press")
+            (sub_db,) = [x["id"] for x in poster.db_list()
+                         if x["file"]["name"] == "sub.dcp"]
+            scan = json.loads(ctl_run(url, ["scan", "post", sub_db,
+                                             d("sub.fna")]))
+            log_path = d("worker.log")
+            env = dict(os.environ, PYTHONPATH=HERE, PYTHONUNBUFFERED="1")
+            start = time.time()
+            with open(log_path, "w") as log:
+                proc = subprocess.Popen(
+                    [sys.executable, "-m", "deciphon_tpu_torch.cli", "worker",
+                     "--sched", url, "--device", "cuda", "--workdir",
+                     d("w3")], cwd=HERE, env=env, stdout=log,
+                    stderr=subprocess.STDOUT)
+            deadline = time.monotonic() + JOB_DEADLINE
+            while (poster.job_get(scan["job"]["id"])["state"]
+                   in ("pend", "run")):
+                if proc.poll() is not None or time.monotonic() > deadline:
+                    with open(log_path) as fp:
+                        say("services", "worker process log:\n" + fp.read())
+                    fail("the worker process exited or passed its deadline "
+                         "before its job ended")
+                time.sleep(0.2)
+            job = job_done(poster, scan["job"]["id"], "worker process")
+            alive = proc.poll() is None
+            proc.terminate()
+            try:
+                proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait(timeout=30)
+            ended = time.monotonic()
+            check(alive, "the worker process exited on its own")
+            claimed = datetime.fromisoformat(
+                job["exec_started"].replace("Z", "+00:00")).timestamp()
+            walls["process start to claim"] = claimed - start
+            with open(log_path) as fp:
+                log_text = fp.read()
+            check(f"worker consuming from {url}" in log_text,
+                  f"the worker process printed {log_text[-2000:]!r}")
+            check(os.path.exists(d("w3/sub.dcp")), "the worker process did "
+                  "not download the subset's .dcp")
+            dest = d("process.dcs")
+            ctl_run(url, ["snap", "get", scan["id"], dest])
+            sub_mems = {"worker process, cuda": snap_members(dest)}
+            drop_scan(url, poster, scan["id"])
+            say("services", f"worker process: start to its first claimed "
+                f"job {walls['process start to claim']:.6f} s, job done, "
+                "terminated while polling")
+            cpu = WorkerLoop(Poster(url), workdir=d("w4"), device="cpu")
+            for label, worker, need in (
+                    ("in process, cuda", loop, ("path", "walk")),
+                    ("in process, cpu", cpu, ())):
+                sid, sub_mems[label], _ = scan_job(
+                    url, poster, worker, sub_db, d("sub.fna"),
+                    f"subset {label.split(', ')[1]}", need)
+                drop_scan(url, poster, sid)
+            for label, got in sub_mems.items():
+                check(got == cli["sub_mem"], f"subset, {label}: another "
+                      "snap than phase 9's subset scan on the card")
+            say("services", f"subset: {sorted(sub_mems)} snaps equal to "
+                "phase 9's subset scan")
+            loop.release()
+            del loop, cpu
+            # the scheduler answers the ended worker's last long-poll
+            # before it closes its database
+            time.sleep(max(0.0, POLL_S + 0.5 - (time.monotonic() - ended)))
+        # 5. the GUI controller and the scanner daemon
+        os.makedirs(d("gui"))
+        gui = GuiController(workdir=d("gui"), device="cuda")
+        seen = []
+        try:
+            gui.press(d("sub.hmm"), progress=seen.append)
+            check(seen and seen[-1] == 100 and seen == sorted(seen),
+                  f"the GUI's press progress {seen}")
+            planted = cli["sub_seqs"][0]
+            torch.cuda.synchronize()
+            vk.reset_launches()
+            t0 = time.perf_counter()
+            view = gui.scan_text(f">{planted.name}\n{planted.data}\n")
+            gui_s = time.perf_counter() - t0
+            counts = dict(vk.LAUNCHES)
+        finally:
+            gui.close()
+        check(cli["planted"] in view, "the GUI's view does not name the "
+              "planted profile")
+        for k in ("path", "walk"):
+            check(counts.get(k, 0) > 0, f"kernel {k} never launched on the "
+                  "GUI's scan")
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        say("services", f"GUI: press progress {seen[:3]}..{seen[-1]}, scan "
+            f"of the planted read {gui_s:.6f} s names "
+            f"{cli['planted']}; launches {counts}")
+        reads = [Sequence.make(i + 1, f"copy{i}", q.data) for i, q in
+                 enumerate(cli["seqs"] * DAEMON_READ_COPIES)]
+        with launch_scanner(d("pfam.dcp"), device="cuda") as daemon:
+            prog = daemon.put(d("stopped.dcs"), reads)
+            deadline = time.monotonic() + JOB_DEADLINE
+            while prog.progress == 0 and not prog.done():
+                check(time.monotonic() < deadline, "the daemon's scan made "
+                      "no progress before its deadline")
+                time.sleep(0.01)
+            at = prog.progress
+            prog.interrupt()
+            exc = prog.exception(timeout=JOB_DEADLINE)
+            # between two waves the Scanner stops; after its last one the
+            # daemon does
+            check(isinstance(exc, (Scanner.Interrupted, Interrupted)),
+                  f"the interrupted scan ended with {exc!r} (progress {at})")
+            check(not os.path.exists(d("stopped.dcs")),
+                  "the interrupted scan wrote a snap")
+            torch.cuda.synchronize()
+            vk.reset_launches()
+            t0 = time.perf_counter()
+            prog = daemon.put(d("daemon.dcs"), cli["seqs"])
+            prog.result(timeout=JOB_DEADLINE)
+            torch.cuda.synchronize()
+            daemon_s = time.perf_counter() - t0
+            counts = dict(vk.LAUNCHES)
+        for k in SERVICE_NEED:
+            check(counts.get(k, 0) > 0, f"kernel {k} never launched on the "
+                  "daemon's scan")
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        check(snap_members(d("daemon.dcs")) == cli["mem"], "the daemon's "
+              "scan on its own thread wrote another snap than phase 9's")
+        say("services", f"daemon: {len(reads)} reads interrupted at progress "
+            f"{at} with {type(exc).__name__}; the next request (8 reads) "
+            f"{daemon_s:.6f} s, its snap phase 9's; launches {counts}")
+    finally:
+        Scanner.run = real_run
+        if proc is not None and proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+        shutil.rmtree(sched_dir, ignore_errors=True)
+    say("services", f"walls (s): {json.dumps(walls)}; transfers (kind, "
+        f"file, bytes, s): {moves}")
+    say("services", f"phase {time.perf_counter() - t00:.1f} s")
 
 
 T0 = time.perf_counter()
@@ -2718,16 +3151,26 @@ def main() -> None:
     elapsed("8")
 
     # ---- 9. the command line: press, .dcp, scan, see, core.Scan --------
-    cli_phase(torch, launches)
-    elapsed("9")
+    import shutil
 
-    # ---- 10. the device-parallel scan: shards and processes --------------
-    multi_phase(torch, launches, dict(
-        profiles=profiles, seqs=seqs, lines=lines, first=first,
-        med=packed_med, counters=counters, long_seqs=long_seqs,
-        long_lines=long_lines, big_prof=big_prof, big_seqs=big_seqs,
-        big_lines=big_lines))
-    elapsed("10")
+    cli_tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    try:
+        cli = cli_phase(torch, launches, cli_tmp)
+        elapsed("9")
+
+        # ---- 10. the device-parallel scan: shards and processes ----------
+        multi_phase(torch, launches, dict(
+            profiles=profiles, seqs=seqs, lines=lines, first=first,
+            med=packed_med, counters=counters, long_seqs=long_seqs,
+            long_lines=long_lines, big_prof=big_prof, big_seqs=big_seqs,
+            big_lines=big_lines))
+        elapsed("10")
+
+        # ---- 11. the services: scheduler, workers, deciphonctl, GUI ------
+        services_phase(torch, launches, cli)
+        elapsed("11")
+    finally:
+        shutil.rmtree(cli_tmp, ignore_errors=True)
     check(not [m for m in sys.modules
                if m.split(".")[0] in ("jax", "deciphon_tpu")],
           "jax or deciphon_tpu was imported")

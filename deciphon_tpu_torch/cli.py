@@ -1,17 +1,20 @@
-"""Command-line interface: press / warmup / scan / see (parity:
+"""Command-line interface: press / warmup / scan / see / worker (parity:
 cli/deciphon/cli.py), on the port's engines.
 
     python -m deciphon_tpu_torch.cli press FILE.hmm GENCODE   -> FILE.dcp
     python -m deciphon_tpu_torch.cli warmup FILE.dcp
     python -m deciphon_tpu_torch.cli scan FILE.dcp SEQS.fna   -> SEQS.dcs
     python -m deciphon_tpu_torch.cli see SNAP.dcs             (alignments)
+    python -m deciphon_tpu_torch.cli worker --sched URL       (press and
+                                    scan jobs of a scheduler, worker_daemon)
 
-`scan` and `warmup` run on the card (`--device cuda`, the default) or, when
-asked, on the CPU (`--device cpu`, the kernels' plain versions); without a
-card, `--device cuda` stops with an error and never falls back to the CPU.
-`--engine` picks the scorer: `kernels` (the hand-written kernels), `torch`
-(plain PyTorch) or `native` (the C++ CPU engine, its phase 2 on the
-device).  The reference's `worker` command is not part of the port yet.
+`scan`, `warmup` and `worker` run on the card (`--device cuda`, the
+default) or, when asked, on the CPU (`--device cpu`, the kernels' plain
+versions); without a card, `--device cuda` stops with an error and never
+falls back to the CPU.  `--engine` picks the scorer: `kernels` (the
+hand-written kernels), `kernels-multi` (the same over every visible card),
+`torch` (plain PyTorch) or `native` (the C++ CPU engine, its phase 2 on
+the device).
 """
 
 from __future__ import annotations
@@ -25,7 +28,7 @@ import click
 
 from .gencode import GENCODE_IDS
 
-ENGINE = click.Choice(["kernels", "torch", "native"])
+ENGINE = click.Choice(["kernels", "kernels-multi", "torch", "native"])
 DEVICE = click.Choice(["cuda", "cpu"])
 
 
@@ -214,6 +217,30 @@ def see(snapfile):
     click.echo(str(snap))
     click.echo()
     click.echo(view_alignments(snap.products))
+
+
+@cli.command()
+@click.option("--sched", "sched_url", required=True,
+              help="Scheduler base URL, e.g. http://127.0.0.1:49329")
+@click.option("--engine", type=ENGINE, default="kernels", show_default=True)
+@click.option("--device", type=DEVICE, default="cuda", show_default=True,
+              help="Where scans run; without a card, cuda stops with an "
+                   "error before any job is claimed.")
+@click.option("--confirm", type=click.Choice(["none", "native"]),
+              default="none", show_default=True)
+@click.option("--workdir", default=None)
+def worker(sched_url, engine, device, confirm, workdir):
+    """Consume press/scan jobs from a scheduler until interrupted."""
+    _require_device(device)
+    from .poster import Poster
+    from .worker_daemon import WorkerLoop
+
+    poster = Poster(sched_url)
+    poster.handshake()
+    loop = WorkerLoop(poster, workdir=workdir, engine=engine,
+                      confirm=confirm, device=device)
+    click.echo(f"worker consuming from {sched_url}")
+    loop.run_forever()
 
 
 def main(args=None, standalone_mode: bool = True):

@@ -374,11 +374,11 @@ def test_cli_refusals(db, tmp_path, monkeypatch, what):
     elif what == "help":
         r = runner.invoke(p_cli.cli, ["--help"])
         assert r.exit_code == 0
-        for cmd in ("press", "warmup", "scan", "see"):
+        for cmd in ("press", "warmup", "scan", "see", "worker"):
             assert cmd in r.output
         r = runner.invoke(p_cli.cli, ["scan", "--help"])
         assert r.exit_code == 0
-        assert "[kernels|torch|native]" in r.output
+        assert "[kernels|kernels-multi|torch|native]" in r.output
         assert "[cuda|cpu]" in r.output
     elif what == "device":
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -540,24 +540,42 @@ def test_hmmer_module_copy(name):
         assert got == want and want[0] == -30.25 + np.log(7.0)
 
 
-# The library modules the port copies file for file.  One line of the
-# original names an absolute path on the machine it was written on; the
-# port's copy words that line without it (the only difference allowed):
+# The library modules the port copies file for file.  Three lines differ,
+# the only differences allowed: one line of io/dcp.py names an absolute
+# path on the machine it was written on, and the port's copy words it
+# without it; the scheduler's data directory and deciphonctl's
+# configuration are the port's own, so that the two packages never share
+# a sqlite file or a configuration.
 # {file: [(a text only that line of the original holds, the port's line)]}.
 LIBRARY_COPIES = ["intervals.py", "schema.py", "press.py", "scan/fasta_io.py",
                   "io/__init__.py", "io/dcp.py"] + [
     f"snap/{n}.py" for n in ("__init__", "match", "fasta", "gff", "hit",
-                             "prod", "snap_file", "view")]
-REWORDED = {"io/dcp.py": [(
-    "reference/control/tests/files/minifam.dcp and validated",
-    "(control/tests/files/minifam.dcp) and validated by the exact\n")]}
+                             "prod", "snap_file", "view")] + [
+    "worker/__init__.py", "worker/progressor.py", "poster.py", "errors.py",
+    "control.py", "ops/bruteforce.py"] + [
+    f"sched/{n}.py" for n in ("__init__", "settings", "storage", "database",
+                              "server")]
+REWORDED = {
+    "io/dcp.py": [(
+        "reference/control/tests/files/minifam.dcp and validated",
+        "(control/tests/files/minifam.dcp) and validated by the exact\n")],
+    "sched/settings.py": [(
+        "~/.local/share/deciphon_tpu/sched",
+        '        "data_dir", os.path.expanduser('
+        '"~/.local/share/deciphon_tpu_torch/sched")))\n')],
+    "control.py": [(
+        "~/.config/deciphon_tpu/deciphonctl.json",
+        'CONFIG_PATH = os.path.expanduser('
+        '"~/.config/deciphon_tpu_torch/deciphonctl.json")\n')]}
 
 
 @pytest.mark.parametrize("rel", LIBRARY_COPIES)
 def test_library_module_copy(rel):
-    """press, the .dcp container, FASTA input, schema, intervals and the
-    snap modules are the reference's file bytes (they import no jax, and
-    their relative imports resolve inside the port)."""
+    """press, the .dcp container, FASTA input, schema, intervals, the snap
+    modules and the services' modules (scheduler, client, deciphonctl,
+    errors, the progressor) and the bruteforce oracle are the reference's
+    file bytes (they import no jax, and their relative imports resolve
+    inside the port)."""
     root = Path(__file__).resolve().parent.parent
     lines = (root / "deciphon_tpu" / rel).read_bytes().decode().splitlines(
         keepends=True)

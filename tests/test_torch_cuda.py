@@ -9,6 +9,7 @@ them without the repo's conftest:
 """
 
 import dataclasses
+import io
 
 import numpy as np
 import pytest
@@ -926,3 +927,52 @@ def test_shard_on_second_card(cuda, monkeypatch, tier):
     make, items, codes = shard_case(torch.device("cuda:0"), tier,
                                     monkeypatch)
     check_shards(make, items, codes, ["cuda:0", "cuda:1"], tier)
+
+
+def test_card_worker_job_equals_cpu_worker(cuda, tmp_path):
+    """A scan job run by a worker on the card gives the snap a worker on
+    the CPU gives for the same job (press on the host; the scheduler, the
+    client and both workers in process)."""
+    import zipfile
+
+    from deciphon_tpu_torch.io.dcp import read_dcp_profiles
+    from deciphon_tpu_torch.poster import Poster
+    from deciphon_tpu_torch.sched import SchedServer, SchedSettings
+    from deciphon_tpu_torch.worker_daemon import WorkerLoop
+    from deciphon_tpu_torch.workload import (hmm_text, peaked_hmm,
+                                             planted_read, random_bases,
+                                             sample_hmm)
+
+    (tmp_path / "db.hmm").write_text(hmm_text(
+        [peaked_hmm(40, 9), sample_hmm(41, 50)[0], peaked_hmm(42, 95)]))
+    settings = SchedSettings(host="127.0.0.1", port=0,
+                             data_dir=str(tmp_path / "sched"))
+    snaps = {}
+    with SchedServer(settings) as server:
+        poster = Poster(server.url)
+        poster.upload("hmms", str(tmp_path / "db.hmm"))
+        poster.hmm_post("db.hmm", gencode=1)
+        loops = {dev: WorkerLoop(Poster(server.url),
+                                 workdir=str(tmp_path / dev), device=dev)
+                 for dev in ("cuda", "cpu")}
+        assert loops["cpu"].poll_once(timeout=0)
+        _, profiles = read_dcp_profiles(str(tmp_path / "cpu" / "db.dcp"))
+        rng = np.random.default_rng(5)
+        seqs = [{"name": f"r{i}", "data": r} for i, r in enumerate((
+            planted_read(rng, profiles[2], 400, noise=0.01),
+            planted_read(rng, profiles[0], 200, noise=0.01),
+            random_bases(rng, 300)))]
+        db_id = poster.db_list()[0]["id"]
+        for dev, loop in loops.items():
+            vk.reset_launches()
+            scan = poster.scan_post(db_id, seqs)
+            assert loop.poll_once(timeout=0)
+            assert poster.job_get(scan["job"]["id"])["state"] == "done"
+            if dev == "cuda":
+                assert vk.LAUNCHES["path"] > 0 and vk.LAUNCHES["walk"] > 0
+            with zipfile.ZipFile(io.BytesIO(poster.snap_get(scan["id"]))) as z:
+                snaps[dev] = {n.split("/", 1)[1]: z.read(n)
+                              for n in z.namelist() if not n.endswith("/")}
+            poster.scan_delete(scan["id"])  # the next scan's ids start at 1
+    assert snaps["cuda"] == snaps["cpu"]
+    assert snaps["cuda"]["products.tsv"].count(b"\n") > 1

@@ -30,16 +30,19 @@ def foreign(*packages) -> str:
 
 # no module of these packages may be loaded by the port (msgpack may: the
 # h3r blobs of hmmer/h3result.py are msgpack; pydantic may: schema.py and
-# intervals.py are pydantic models); click only by the CLI
-FOREIGN = foreign("jax", "jaxlib", "deciphon_tpu")
-CLI = "deciphon_tpu_torch.cli"
+# intervals.py are pydantic models; requests may: poster.py is the
+# scheduler's HTTP client); click only by the command-line modules; no
+# module loads tkinter when it is imported (gui.py imports it in run_app)
+FOREIGN = foreign("jax", "jaxlib", "deciphon_tpu", "tkinter")
+COMMAND_LINE = ["deciphon_tpu_torch.cli", "deciphon_tpu_torch.control"]
 
 
 @pytest.mark.parametrize("cli", [False, True], ids=["library", "cli"])
 def test_port_imports_no_jax(cli):
-    """Importing every module of the port but the CLI loads neither jax,
-    nor deciphon_tpu, nor click; importing the CLI loads no jax and no
-    deciphon_tpu."""
+    """Importing every module of the port but the command-line ones (cli,
+    control) loads neither jax, nor deciphon_tpu, nor click,
+    nor tkinter; importing those loads no jax, no deciphon_tpu and no
+    tkinter."""
     mods = port_modules()
     assert {"deciphon_tpu_torch.ops.viterbi", "deciphon_tpu_torch.scan.pipeline",
             "deciphon_tpu_torch.ops.traceback", "deciphon_tpu_torch._build",
@@ -63,12 +66,21 @@ def test_port_imports_no_jax(cli):
             "deciphon_tpu_torch.parallel.multidevice",
             "deciphon_tpu_torch.parallel.multihost",
             "deciphon_tpu_torch.parallel.multihost_worker",
-            "deciphon_tpu_torch.parallel.multihost_dryrun", CLI} <= set(mods)
+            "deciphon_tpu_torch.parallel.multihost_dryrun",
+            "deciphon_tpu_torch.sched", "deciphon_tpu_torch.sched.settings",
+            "deciphon_tpu_torch.sched.storage",
+            "deciphon_tpu_torch.sched.database",
+            "deciphon_tpu_torch.sched.server", "deciphon_tpu_torch.poster",
+            "deciphon_tpu_torch.errors", "deciphon_tpu_torch.worker",
+            "deciphon_tpu_torch.worker.progressor",
+            "deciphon_tpu_torch.worker.daemons", "deciphon_tpu_torch.gui",
+            "deciphon_tpu_torch.ops.bruteforce",
+            "deciphon_tpu_torch.worker_daemon", *COMMAND_LINE} <= set(mods)
     if cli:
-        mods, check = [CLI], FOREIGN
+        mods, check = COMMAND_LINE, FOREIGN
     else:
-        mods = [m for m in mods if m != CLI]
-        check = foreign("jax", "jaxlib", "deciphon_tpu", "click")
+        mods = [m for m in mods if m not in COMMAND_LINE]
+        check = foreign("jax", "jaxlib", "deciphon_tpu", "click", "tkinter")
     code = ("import importlib\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             + check + "print('ok')\n")
@@ -78,11 +90,15 @@ def test_port_imports_no_jax(cli):
     assert res.stdout.strip() == "ok"
 
 
-def imported_names(path: Path) -> set[str]:
+def imported_names(path: Path, skip: str | None = None) -> set[str]:
     """Every module an `import` or `from` statement of the file names
-    (relative imports as ".name")."""
+    (relative imports as ".name"), but those inside its top-level function
+    `skip`."""
+    tree = ast.parse(path.read_text())
+    tree.body = [n for n in tree.body if not (
+        isinstance(n, ast.FunctionDef) and n.name == skip)]
     names = set()
-    for node in ast.walk(ast.parse(path.read_text())):
+    for node in ast.walk(tree):
         if isinstance(node, ast.Import):
             names.update(a.name for a in node.names)
         elif isinstance(node, ast.ImportFrom):
@@ -99,14 +115,21 @@ def port_sources() -> list[Path]:
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_source_names_no_foreign_module(path):
     """No import statement of the port, at any depth of any file, names
-    jax or deciphon_tpu, and only the CLI's (cli.py) names click (msgpack,
-    which the h3r blobs need, and pydantic, which schema.py needs, are
-    allowed)."""
+    jax or deciphon_tpu; only the command-line modules (cli.py, control.py,
+    and sched/server.py inside its main()) name click
+    (msgpack, which the h3r blobs need, pydantic, which schema.py needs,
+    and requests, which poster.py needs, are allowed)."""
     forbidden = ("jax", "jaxlib", "deciphon_tpu")
-    if path.name != "cli.py" or path.parent.name != "deciphon_tpu_torch":
+    rel = path.relative_to(ROOT).as_posix()
+    if rel not in {f"deciphon_tpu_torch/{n}" for n in ("cli.py", "control.py")}:
         forbidden += ("click",)
-    bad = sorted(n for n in imported_names(path)
-                 if n.split(".")[0] in forbidden)
+    names = imported_names(path)
+    if rel == "deciphon_tpu_torch/sched/server.py":
+        # the scheduler's main() is its command line: only there may it
+        # import click
+        names = {n for n in names if n.split(".")[0] != "click"}
+        names |= imported_names(path, skip="main")
+    bad = sorted(n for n in names if n.split(".")[0] in forbidden)
     assert not bad, bad
 
 
