@@ -2,13 +2,47 @@
 """Smoke run of deciphon_tpu_torch on one CUDA card.
 
     python3 chip_smoke.py            # from the root of a checkout
+    python3 chip_smoke.py --phases 1-6,12    # these phases and their needs
 
-Phases, each reported on its own lines; any failure exits non-zero:
+Phases, each reported on its own lines; any failure exits non-zero.
+Without arguments every phase runs; `--phases` names single phases and
+ranges in the order below, and the phases they need run with them (5c
+needs 4 and 5; 6 and 10 need 4, 5 and 5b; 8 needs 4; 11 needs 9; 1 and 2
+always run).  The ledger scans of phases 4, 5, 5b, 5c and 10 run one
+more scan of a cell on its warm Scanner with DECIPHON_SYNC_DEBUG=1
+DECIPHON_FILL_DEBUG=1 (the bucket ledgers of scan/scheduler.py), outside
+every counted run and warm median: its products must be the phase's own,
+its launches and table uploads those of the counted scan, its ledger one
+entry a phase-1 dispatch (a kernel launch; a launch a shard on two
+shards) with a wall each, one FILL line a chain or carry launch; each
+bucket's wall, true and padded cells, fill and count are printed, with
+the share of the scan's wall in the bkt_ walls.
+
+Work beside this process goes to pools of spawned processes (`Side`),
+read where a phase needs it.  The card pool (CARD_WORKERS processes on
+the card) runs, once the kernels are built, the plain versions of phase
+3's B1, B3, B5, B6, B7 and B2 cases (their inputs built there from the
+same seeds, held to these by digest; this process runs phase 3's other
+plain versions after them) and, once phase 6 has run and timed every
+kernel alone, the plain versions of phase 6's score kernels and carry
+calls (on copies of the recorded arguments) while this process runs
+B2's and the walk's.  The side pool (SIDE_WORKERS processes that never
+see the card) builds the profiles of phase 3b and the Pfam and large-K
+data once the kernels are built, and from phase 6 on (the scans that
+time the host behind) runs the CPU halves of phases 7 and 8 and phase
+9's press.  Phase 10's two worker processes start with phase 9, and
+phase 7's torch engine, a minute of launch-bound plain PyTorch, runs in
+a process of its own on the card beside phase 11 where both run.  Every
+helper process runs at a lower CPU priority (nice HELPER_NICE) than this
+one, whose work is the critical path.  The checks are the ones this
+process would make; times printed with "(side pool)" or "(card pool)"
+were taken there.
 
   1. environment: torch/CUDA versions, the card's name and power limit;
   2. build: the kernels of deciphon_tpu_torch/csrc, compiled with nvcc;
-  3. each kernel against its plain PyTorch version on the card, bit for
-     bit, with both times, on small cases: B1 score, B3 chain (4 windows
+  3. each kernel against its plain PyTorch version on the card (for B1,
+     B3, B5, B6, B7 and B2 in the card pool), bit for bit, with both
+     times, on small cases: B1 score, B3 chain (4 windows
      per slot and an all-pad pair, timed beside B1 on the same windows),
      B5 gang (three profiles interleaved per slot), B8 carry (a 13-block
      window over 4 calls, equal to B1 on the whole window, a normal window
@@ -41,7 +75,8 @@ Phases, each reported on its own lines; any failure exits non-zero:
      through the default route, on which profiles up to K 1022 form packed
      classes and their whole-read windows ride B7: first scan, three warm
      scans (median wall), one under torch.profiler; then three scans with
-     DECIPHON_NO_CHAIN=1 (B6 and the classic B1 buckets); then the
+     DECIPHON_NO_CHAIN=1 (B6 and the classic B1 buckets); the ledger
+     scans of both routes; then the
      unpacked scorer (plain buckets only, built through `scorer=`): first
      scan, three warm scans, one under torch.profiler; all with the same
      products; and a fresh Scanner's first scan after Scanner.warmup;
@@ -52,7 +87,9 @@ Phases, each reported on its own lines; any failure exits non-zero:
      then the large-K scan: six profiles of K 5200..16384 (three buckets
      past Kp 5120, on B4's clusters, survivors on B2's) and six reads of
      20 knt, three carrying planted stretches: first scan, three warm
-     scans, one profiled;
+     scans, one profiled; ledger scans of the long read, of its
+     DECIPHON_CHAIN_SEG=1 scan (bkt_gangv, bkt_chainseg) and of the
+     large-K scan (the `_hbm` buckets);
   5c. streamed tables: the Pfam scan with the table budget at half its
      table bytes (the largest scorers stream host->device per wave, the
      small buckets stay resident): first scan, three warm scans, one
@@ -61,8 +98,9 @@ Phases, each reported on its own lines; any failure exits non-zero:
      scorer streams, its gang runs B4m and never B5): first scan, one warm
      scan, one profiled, products byte-identical to phase 5's; B4m against
      B5 on every gang launch that scan made and against its plain version
-     on the widest of them, bit for bit; the peak allocation of the
-     resident and streamed scans side by side;
+     on the widest of them, bit for bit; the ledger scan of the streamed
+     long read (bkt_gang: B4m); the peak allocation of the resident and
+     streamed scans side by side;
   6. every kernel against its plain version again, on arguments the scans
      themselves gave it (more scans record each wrapper's calls): B7 and
      B2 with its walk from the Pfam scan and from the long-read scan, B6
@@ -126,7 +164,8 @@ Phases, each reported on its own lines; any failure exits non-zero:
      (every card where there are more): the Pfam scan through
      BucketedPairScorer(devices=...) (first, median of 3 warm, one
      profiled, its device busy the union of its device intervals;
-     launches per kernel key per shard), the long-read scan under
+     launches per kernel key per shard; its ledger scan, with phase 4's
+     bucket names and cells), the long-read scan under
      DECIPHON_CHAIN_SEG=1 (carry rows routed across shards), the large-K
      scan (B4 and phase 2 on the first device), and
      ScanConfig(engine="kernels-multi"), each byte-identical to its
@@ -161,11 +200,22 @@ Phases, each reported on its own lines; any failure exits non-zero:
      failed job's error is printed in full); walls of the press job, of
      each scan job (queue to done, and of it Scanner.run), of each .dcp
      upload and download, of the worker process's start to its first
-     claimed job, and of the phase.
+     claimed job, and of the phase;
+ 12. the graft entry points ("entry", deciphon_tpu_torch/graft_entry.py):
+     entry("cuda")'s scan step (ops/engine.scan_scores: plain PyTorch, no
+     kernel) bit-equal to entry("cpu")'s, and B9 (GridScanEngine.scores)
+     on the same profiles and windows within rtol 2e-6, atol 2e-5, bit
+     for bit where the plain versions of the two are; dryrun_multichip(2,
+     "cuda"): the production scan over two shards of the card against one
+     device, byte-identical, with survivors, counted as a main path (its
+     wall and survivors), its products phase 7's subset scan's.
 
 Every scan path is run with the launch counts set to 0 just before and
-read just after; each kernel must have launched on its path.  The line
-before the last is a JSON object of per-kernel launches (summed over those
+read just after; each kernel must have launched on its path, and each
+phase's paths must have launched its row of PHASE_KERNELS.  Under a
+selection the closing checks (every kernel launched, every kernel timed
+per DP position) cover only the selected phases' kernels, and a line
+before the last says so.  The line before the last is a JSON object of per-kernel launches (summed over those
 runs), errors, times, times per DP position (of the longest slot), bounds,
 the ptxas registers and spills of each compiled instance (from the
 build's -Xptxas -v report) and, for B4, B4m, B2, B9, B6 and B7, the launch
@@ -182,6 +232,7 @@ from __future__ import annotations
 
 import contextlib
 import inspect
+import io
 import json
 import os
 import statistics
@@ -271,6 +322,27 @@ WIDEST_PATH_POSITIONS = 2048
 # (10 to 24 knt), so that their host-bound plain versions fit the run's
 # time; the chain forms (B3, B7, B8) run whole
 PREFIX_POSITIONS = 6000
+# the bucket ledgers' switches (scan/scheduler.py), set for a ledger scan
+LEDGER_SWITCHES = {"DECIPHON_SYNC_DEBUG": "1", "DECIPHON_FILL_DEBUG": "1"}
+# the LAUNCHES keys of the phase-1 kernels, each with the bucket-name
+# prefix of its ledger entries (B1's and B4's classic buckets share
+# bkt_kp; B4's end in _hbm)
+BUCKET_PREFIXES = {"carry": "bkt_chainseg_", "chain": "bkt_chain_",
+                   "gang": "bkt_gangv_", "gang_large": "bkt_gang_",
+                   "pchain": "bkt_pchain_", "packed": "bkt_packed_",
+                   "score": "bkt_kp", "large": "bkt_kp"}
+
+
+def bucket_kernel(name: str) -> str:
+    """The LAUNCHES key of a ledger entry's kernel."""
+    if name.startswith("bkt_kp"):
+        return "large" if name.endswith("_hbm") else "score"
+    for k, pre in BUCKET_PREFIXES.items():
+        if name.startswith(pre):
+            return k
+    fail(f"ledger name {name!r} names no kernel")
+
+
 # the profile of a pfam_scan database whose domain pfam_subset plants in
 # its first read
 SUBSET_PLANTED = 100
@@ -387,6 +459,238 @@ def kernel_vs_plain(torch, kernel, plain, args, reps=5):
     return out, got["r"], k_ms, p_ms
 
 
+# ---------------------------------------------------------------------------
+# Pools of processes beside the card's: CPU work, and plain versions
+# ---------------------------------------------------------------------------
+
+SIDE_WORKERS = 2  # processes of the side pool (CPU only)
+SIDE_THREADS = 2  # torch threads in each
+CARD_WORKERS = 3  # processes of the card pool (plain versions on the card)
+HELPER_NICE = 10  # the pools' and phase 10's workers' CPU priority below ours
+
+
+def _side_init(here: str, card: bool) -> None:
+    """A pool process: the checkout importable, SIDE_THREADS torch
+    threads, no card in sight unless it is a card pool's, and a lower
+    CPU priority (HELPER_NICE) than the card's process, whose work is the
+    script's critical path."""
+    os.nice(HELPER_NICE)
+    if not card:
+        os.environ["CUDA_VISIBLE_DEVICES"] = ""
+    if here not in sys.path:
+        sys.path.insert(0, here)
+    import torch
+
+    torch.set_num_threads(SIDE_THREADS)
+
+
+class Side:
+    """A pool of spawned processes beside the card's: the side pool's
+    never see the card (CPU work: the CPU side of the card-against-CPU
+    scans, the host data of the scans, the press), a card pool's
+    (`card`) run plain versions on the card.  A job is submitted as soon
+    as its inputs exist and read where a phase needs it.  The card's process only waits for a result it needs now
+    (`get` prints the wait when there is one); a job that raises fails
+    the phase that reads it."""
+
+    def __init__(self, workers: int = SIDE_WORKERS, card: bool = False):
+        import multiprocessing
+        from concurrent.futures import ProcessPoolExecutor
+
+        self.pool = ProcessPoolExecutor(
+            workers, mp_context=multiprocessing.get_context("spawn"),
+            initializer=_side_init, initargs=(HERE, card))
+        self.jobs: dict = {}
+        self.waited = 0.0
+
+    def submit(self, key, fn, *args) -> None:
+        self.jobs[key] = self.pool.submit(fn, *args)
+
+    def get(self, key):
+        t0 = time.perf_counter()
+        out = self.jobs.pop(key).result()
+        dt = time.perf_counter() - t0
+        self.waited += dt
+        if dt >= 0.5:
+            say("side", f"waited {dt:.1f} s for {key}")
+        return out
+
+    def close(self) -> None:
+        """Stop every side process (at once where jobs are left: a phase
+        failed)."""
+        if self.jobs:
+            for f in self.jobs.values():
+                f.cancel()
+            for p in list((self.pool._processes or {}).values()):
+                p.terminate()
+        self.pool.shutdown(wait=True, cancel_futures=True)
+
+
+def side_job(fn, *args) -> dict:
+    """Run fn(*args) in a side process with its printed lines captured;
+    returns {"out": its result, "lines": what it printed, "failed": the
+    message of a failed check or None}, so that the card's process prints
+    the lines and fails where the job did."""
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            out = fn(*args)
+    except SystemExit:
+        return {"out": None, "lines": buf.getvalue(), "failed": True}
+    return {"out": out, "lines": buf.getvalue(), "failed": False}
+
+
+def side_result(side: Side, key):
+    """The result of the side job `key` (submitted through side_job): its
+    lines printed here, its failed check failing here."""
+    res = side.get(key)
+    sys.stdout.write(res["lines"])
+    sys.stdout.flush()
+    check(not res["failed"], f"the side job {key} failed")
+    return res["out"]
+
+
+def digest(obj) -> str:
+    """sha256 over the tensors (dtype, shape, bytes), arrays and values of
+    a nest of dicts, lists and tuples: the same inputs on the card and in
+    a side process give the same digest."""
+    import hashlib
+
+    import numpy as np
+
+    h = hashlib.sha256()
+
+    def walk(o):
+        if hasattr(o, "numel"):
+            o = o.detach().cpu().contiguous().numpy()
+        if isinstance(o, np.ndarray):
+            h.update(f"{o.dtype}{o.shape}".encode())
+            h.update(np.ascontiguousarray(o).tobytes())
+        elif isinstance(o, dict):
+            for k in sorted(o):
+                h.update(str(k).encode())
+                walk(o[k])
+        elif isinstance(o, (list, tuple)):
+            for x in o:
+                walk(x)
+        else:
+            h.update(repr(o).encode())
+
+    walk(obj)
+    return h.hexdigest()
+
+
+def to_np(o):
+    """Tensors of a nest of dicts, lists and tuples as numpy arrays (what
+    a side job hands back)."""
+    if hasattr(o, "numel"):
+        return o.detach().cpu().numpy()
+    if isinstance(o, dict):
+        return {k: to_np(v) for k, v in o.items()}
+    if isinstance(o, (list, tuple)):
+        return type(o)(to_np(x) for x in o)
+    return o
+
+
+def to_torch(o, device: str):
+    """The arrays of a nest of dicts, lists and tuples as tensors on
+    `device`."""
+    import numpy as np
+    import torch
+
+    if isinstance(o, np.ndarray):
+        return torch.from_numpy(o).to(device)
+    if isinstance(o, dict):
+        return {k: to_torch(v, device) for k, v in o.items()}
+    if isinstance(o, (list, tuple)):
+        return type(o)(to_torch(x, device) for x in o)
+    return o
+
+
+# phase 3's small cases whose plain versions run in the card pool: (kind,
+# parameters); the inputs are built from each case's seed on either side
+PLAIN3 = {"B1": "scores_pairs_plain", "B3": "scores_pairs_chained_plain",
+          "B5": "scores_pairs_mixed_plain", "B6": "scores_pairs_packed_plain",
+          "B7": "scores_pairs_packed_chained_plain",
+          "B2": "paths_pairs_plain"}
+
+
+def cases3() -> list:
+    """Phase 3's card-pool cases, in the order check_kernels reads them."""
+    out = [("B1", Kp) for Kp in (256, 1024)]
+    out += [("B3", Kp) for Kp in (256, 1024)]
+    out += [("B5", Kp) for Kp in (256, 1024)]
+    for seg, nseg in PACKED_PLANES:
+        out += [("B6", seg, nseg), ("B7", seg, nseg, True),
+                ("B7", seg, nseg, False)]
+    out += [("B2", 256, 200, 2000, 8)]
+    out += [("B2", Kp, 40, 300, 3) for Kp in CLUSTER_KPS]
+    return out
+
+
+def case3_inputs(case: tuple, device: str) -> tuple[dict, dict]:
+    """(inputs, extra) of a phase-3 case on `device`: extra holds the
+    longest window (`maxlen`) and B2's `nlb`."""
+    from deciphon_tpu_torch import workload as wl
+    from deciphon_tpu_torch.ops import viterbi as vk
+
+    kind, *p = case
+    if kind == "B1":
+        inp, maxlen = wl.score_inputs(p[0], 32, 2, 400, 4000, seed=10 + p[0],
+                                      device=device)
+        return inp, {"maxlen": maxlen}
+    if kind == "B3":
+        return wl.chain_case(p[0], seed=40 + p[0], device=device, cmax=4,
+                             lo=100, hi=1000), {}
+    if kind == "B5":
+        return wl.mixed_case(p[0], seed=50 + p[0], device=device, w=16,
+                             hi=2000), {}
+    if kind == "B6":
+        return wl.packed_case(p[0], p[1], seed=70 + p[0], device=device,
+                              hi=2000), {}
+    if kind == "B7":
+        return wl.packed_chain_case(p[0], p[1], seed=80 + p[0],
+                                    device=device, cmax=4, lo=100, hi=1000,
+                                    per_segment=p[2]), {}
+    Kp, lo, hi, w = p
+    inp, maxlen = wl.score_inputs(Kp, w, 1, lo, hi, seed=30 + Kp,
+                                  device=device)
+    if Kp > 2048:
+        inp["lengths"][:, -1] = 0  # a pad among the clustered windows
+        maxlen = int(inp["lengths"].max())
+    return inp, {"maxlen": maxlen, "nlb": -(-maxlen // vk.PATH_KAPPA)}
+
+
+def card_plain3(case: tuple) -> dict:
+    """A card-pool job: the plain version of a phase-3 case on the card,
+    on the inputs built from the case's seed; its output (numpy), its
+    time (CUDA events, ms) and the inputs' digest."""
+    import torch
+
+    from deciphon_tpu_torch.ops import viterbi as vk
+
+    inp, extra = case3_inputs(case, "cuda")
+    kw = {"nlb": extra["nlb"]} if "nlb" in extra else {}
+    res: dict = {}
+    ms = cuda_ms(torch, lambda: res.update(
+        r=getattr(vk, PLAIN3[case[0]])(**inp, **kw)))
+    return {"digest": digest(inp), "out": to_np(res["r"]), "ms": ms}
+
+
+def kernel_vs_card(torch, card: Side, case: tuple, kernel, args: dict,
+                   reps: int = 5, **kw):
+    """kernel_vs_plain with the plain version run in the card pool, on
+    the case's inputs built there from the same seed (held to these by
+    their digest): (kernel out, plain out, kernel ms, plain ms)."""
+    out = kernel(**args, **kw)
+    torch.cuda.synchronize()
+    k_ms = cuda_ms(torch, lambda: kernel(**args, **kw), reps)
+    res = card.get(("plain", case))
+    check(res["digest"] == digest(args),
+          f"{case}: the card pool built other inputs")
+    return out, to_torch(res["out"], "cuda"), k_ms, res["ms"]
+
+
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
@@ -486,41 +790,38 @@ def walk_bound(report, ns) -> None:
     bound(report, "walk", steps, steps * 7)
 
 
-def check_kernels(torch, report) -> None:
+def check_kernels(torch, report, card: Side) -> None:
     """Phase 3: every kernel against its plain version at the scan's
-    shapes; kernel launches made here are not counted toward any path."""
+    shapes; kernel launches made here are not counted toward any path.
+    The plain versions of B1, B3, B5, B6, B7 and B2 run in the card
+    pool's processes (their inputs built there from the same seeds, held
+    to these by digest) beside this one, the others here."""
     import numpy as np
 
     from deciphon_tpu_torch.ops import traceback as tb
     from deciphon_tpu_torch.ops import viterbi as vk
-    from deciphon_tpu_torch.workload import (carry_case, chain_case,
-                                             mixed_case, packed_case,
-                                             packed_chain_case,
-                                             run_carry_calls, score_inputs,
+    from deciphon_tpu_torch.workload import (carry_case, run_carry_calls,
                                              window_scores)
 
     for Kp in (256, 1024):
-        inp, maxlen = score_inputs(Kp, 32, 2, 400, 4000, seed=10 + Kp,
-                                   device="cuda")
-        (ka, kn), (pa, pn), k_ms, p_ms = kernel_vs_plain(
-            torch, vk.scores_pairs, vk.scores_pairs_plain, inp)
+        inp, ex = case3_inputs(("B1", Kp), "cuda")
+        maxlen = ex["maxlen"]
+        (ka, kn), (pa, pn), k_ms, p_ms = kernel_vs_card(
+            torch, card, ("B1", Kp), vk.scores_pairs, inp)
         exact = torch.equal(ka, pa) and torch.equal(kn, pn)
         fin = torch.isfinite(ka).all().item() and torch.isfinite(kn).all()
-        report["score"].update(max_abs_err=max_err(torch, ka, pa), ms=k_ms,
-                               plain_ms=p_ms)
+        report["score"].update(max_abs_err=max_err(torch, ka, pa), ms=k_ms)
         score_bound(torch, report, "score", inp, (ka, kn))
         say("B1", f"Kp={Kp} w=32 64 windows <= {maxlen} nt: bit-equal "
             f"{exact}, kernel {k_ms:.3f} ms ({k_ms * 1e3 / maxlen:.3f} "
-            f"us/position), plain {p_ms:.1f} ms; bound "
+            f"us/position), plain {p_ms:.1f} ms (card pool); bound "
             f"{report['score']['bound_ms']:.6f} ms")
         check(exact and bool(fin), f"B1 Kp={Kp} differs from plain")
 
     for Kp in (256, 1024):
-        inp = chain_case(Kp, seed=40 + Kp, device="cuda", cmax=4,
-                         lo=100, hi=1000)
-        (ka, kn), (pa, pn), k_ms, p_ms = kernel_vs_plain(
-            torch, vk.scores_pairs_chained,
-            vk.scores_pairs_chained_plain, inp)
+        inp, _ = case3_inputs(("B3", Kp), "cuda")
+        (ka, kn), (pa, pn), k_ms, p_ms = kernel_vs_card(
+            torch, card, ("B3", Kp), vk.scores_pairs_chained, inp)
         real = inp["win_len"] > 0
         exact = (torch.equal(ka[real], pa[real])
                  and torch.equal(kn[real], pn[real]))
@@ -542,74 +843,31 @@ def check_kernels(torch, report) -> None:
             f"{int(inp['win_len'].max())} nt in {N - 1}x{W} slots of <= {C} "
             f"(+1 all-pad pair): bit-equal {exact}, pads +inf {pads}, equal "
             f"to B1 per window {same_b1}; kernel {k_ms:.3f} ms, plain "
-            f"{p_ms:.1f} ms, B1 on the same windows {b1_ms:.3f} ms")
+            f"{p_ms:.1f} ms (card pool), B1 on the same windows {b1_ms:.3f} "
+            "ms")
         check(exact and pads and same_b1, f"B3 Kp={Kp} differs")
-        report["chain"].update(max_abs_err=max_err(torch, ka, pa), ms=k_ms,
-                               plain_ms=p_ms)
+        report["chain"].update(max_abs_err=max_err(torch, ka, pa), ms=k_ms)
         score_bound(torch, report, "chain", inp, (ka, kn))
 
     for Kp in (256, 1024):
-        inp = mixed_case(Kp, seed=50 + Kp, device="cuda", w=16, hi=2000)
-        (ka, kn), (pa, pn), k_ms, p_ms = kernel_vs_plain(
-            torch, vk.scores_pairs_mixed, vk.scores_pairs_mixed_plain,
-            inp)
+        inp, _ = case3_inputs(("B5", Kp), "cuda")
+        (ka, kn), (pa, pn), k_ms, p_ms = kernel_vs_card(
+            torch, card, ("B5", Kp), vk.scores_pairs_mixed, inp)
         exact = torch.equal(ka, pa) and torch.equal(kn, pn)
         say("B5", f"Kp={Kp} 2x16 slots over 3 profiles, windows <= "
             f"{int(inp['lengths'].max())} nt: bit-equal {exact}, kernel "
-            f"{k_ms:.3f} ms, plain {p_ms:.1f} ms")
+            f"{k_ms:.3f} ms, plain {p_ms:.1f} ms (card pool)")
         check(exact, f"B5 Kp={Kp} differs from plain")
-        report["gang"].update(max_abs_err=max_err(torch, ka, pa), ms=k_ms,
-                              plain_ms=p_ms)
+        report["gang"].update(max_abs_err=max_err(torch, ka, pa), ms=k_ms)
         score_bound(torch, report, "gang", inp, (ka, kn))
-    check_mixed_large(torch, report)
-
-    for Kp in (256, 1024):
-        case = carry_case(Kp, seed=60 + Kp, device="cuda")
-        got = run_carry_calls(vk.scores_pairs_chained_carry, case)
-        torch.cuda.synchronize()
-        res = {}
-        p_ms = cuda_ms(torch, lambda: res.update(r=run_carry_calls(
-            vk.scores_pairs_chained_carry_plain, case)))
-        want = res["r"]
-        k_ms = cuda_ms(torch, lambda: run_carry_calls(
-            vk.scores_pairs_chained_carry, case), 5)
-        wa, wn = window_scores(case["tables"], case["tvecs"],
-                               case["codes_all"], 0,
-                               [case["whole"]] + case["rides"])
-        last = len(got) - 1
-        exact, err = True, 0.0
-        for t, (g, w) in enumerate(zip(got, want)):
-            slots = [0, 1] if t == last else [1]
-            for s in slots:
-                exact &= (torch.equal(g[0][0, s, 0], w[0][0, s, 0])
-                          and torch.equal(g[1][0, s, 0], w[1][0, s, 0]))
-                err = max(err, max_err(torch, g[0][0, s, 0], w[0][0, s, 0]))
-            if t < last:
-                exact &= (torch.equal(g[2][:, :, 0], w[2][:, :, 0])
-                          and torch.equal(g[3][:, :, 0], w[3][:, :, 0]))
-            exact &= bool(g[0][0, 1, 0] == wa[1 + t]
-                          and g[1][0, 1, 0] == wn[1 + t])
-        whole = bool(got[last][0][0, 0, 0] == wa[0]
-                     and got[last][1][0, 0, 0] == wn[0])
-        L = case["whole"][1] - case["whole"][0]
-        say("B8", f"Kp={Kp} {L}-nt window over {len(got)} carry calls with "
-            f"carry_permute + a riding window per call: bit-equal to plain "
-            f"(scores and continuing carry planes) {exact}, equal to B1 on "
-            f"the whole window {whole}; kernel {k_ms:.3f} ms, plain "
-            f"{p_ms:.1f} ms for the {len(got)} calls")
-        check(exact and whole, f"B8 Kp={Kp} differs")
-        report["carry"].update(max_abs_err=err, ms=k_ms, plain_ms=p_ms)
-        carry_bound(torch, report, case, case["calls"], got)
-
     # B6 and B7 on planes of 2 and 4 lanes a thread: segments of 32, 64
     # and 128 threads, the Pfam scan's classes (448, 2) and (192, 6) (112
     # and 48 threads: a segment boundary inside a warp), 32 segments of 16
     # threads
     for seg, nseg in PACKED_PLANES:
-        inp = packed_case(seg, nseg, seed=70 + seg, device="cuda", hi=2000)
-        (ka, kn), (pa, pn), k_ms, p_ms = kernel_vs_plain(
-            torch, vk.scores_pairs_packed, vk.scores_pairs_packed_plain,
-            inp)
+        inp, _ = case3_inputs(("B6", seg, nseg), "cuda")
+        (ka, kn), (pa, pn), k_ms, p_ms = kernel_vs_card(
+            torch, card, ("B6", seg, nseg), vk.scores_pairs_packed, inp)
         exact = torch.equal(ka, pa) and torch.equal(kn, pn)
         shape = bool(torch.isfinite(ka[0, 0]).all()
                      and torch.isinf(ka[1, :, -1]).all()
@@ -619,20 +877,17 @@ def check_kernels(torch, report) -> None:
             f"{tuple(inp['lengths'].shape[:2])} slots over 2 packs, windows "
             f"<= {L} nt: bit-equal {exact}, full pack finite and the missing "
             f"segment +inf {shape}; kernel {k_ms:.3f} ms "
-            f"({k_ms * 1e3 / L:.3f} us/position), plain {p_ms:.1f} ms; "
-            f"{packed_note(vk, report, 'packed', seg * nseg)}")
+            f"({k_ms * 1e3 / L:.3f} us/position), plain {p_ms:.1f} ms on "
+            f"the CPU; {packed_note(vk, report, 'packed', seg * nseg)}")
         check(exact and shape, f"B6 seg={seg} nseg={nseg} differs")
-        report["packed"].update(max_abs_err=max_err(torch, ka, pa), ms=k_ms,
-                                plain_ms=p_ms)
+        report["packed"].update(max_abs_err=max_err(torch, ka, pa), ms=k_ms)
         score_bound(torch, report, "packed", inp, (ka, kn))
 
         for per_segment in (True, False):
-            inp = packed_chain_case(seg, nseg, seed=80 + seg, device="cuda",
-                                    cmax=4, lo=100, hi=1000,
-                                    per_segment=per_segment)
-            (ka, kn), (pa, pn), k_ms, p_ms = kernel_vs_plain(
-                torch, vk.scores_pairs_packed_chained,
-                vk.scores_pairs_packed_chained_plain, inp)
+            case = ("B7", seg, nseg, per_segment)
+            inp, _ = case3_inputs(case, "cuda")
+            (ka, kn), (pa, pn), k_ms, p_ms = kernel_vs_card(
+                torch, card, case, vk.scores_pairs_packed_chained, inp)
             real = inp["win_len"] > 0
             exact = torch.equal(ka, pa) and torch.equal(kn, pn)
             pads = bool(torch.isinf(ka[~real]).all()
@@ -643,29 +898,21 @@ def check_kernels(torch, report) -> None:
                 f"bit-equal {exact}, pads +inf and a full pack finite "
                 f"{pads}; kernel {k_ms:.3f} ms "
                 f"({k_ms * 1e3 / int(inp['win_len'].max()):.3f} us/position"
-                f" of the longest entry), plain {p_ms:.1f} ms; "
+                f" of the longest entry), plain {p_ms:.1f} ms (card pool); "
                 f"{packed_note(vk, report, 'pchain', seg * nseg)}")
             check(exact and pads, f"B7 seg={seg} nseg={nseg} differs")
             report["pchain"].update(max_abs_err=max_err(torch, ka, pa),
-                                    ms=k_ms, plain_ms=p_ms)
+                                    ms=k_ms)
             score_bound(torch, report, "pchain", inp, (ka, kn))
 
     trellis = None
     for Kp, lo, hi, w in ((256, 200, 2000, 8),
                           *((Kp, 40, 300, 3) for Kp in CLUSTER_KPS)):
-        inp, maxlen = score_inputs(Kp, w, 1, lo, hi, seed=30 + Kp,
-                                   device="cuda")
-        if Kp > 2048:
-            inp["lengths"][:, -1] = 0  # a pad among the clustered windows
-            maxlen = int(inp["lengths"].max())
-        nlb = -(-maxlen // vk.PATH_KAPPA)
-        kx, kd = vk.paths_pairs(**inp, nlb=nlb)
-        torch.cuda.synchronize()
-        plain = {}
-        p_ms = cuda_ms(torch, lambda: plain.update(
-            r=vk.paths_pairs_plain(**inp, nlb=nlb)))
-        px, pd = plain["r"]
-        k_ms = cuda_ms(torch, lambda: vk.paths_pairs(**inp, nlb=nlb), 3)
+        inp, ex = case3_inputs(("B2", Kp, lo, hi, w), "cuda")
+        maxlen, nlb = ex["maxlen"], ex["nlb"]
+        (kx, kd), (px, pd), k_ms, p_ms = kernel_vs_card(
+            torch, card, ("B2", Kp, lo, hi, w), vk.paths_pairs, inp, 3,
+            nlb=nlb)
         lens = inp["lengths"].reshape(-1).tolist()
         exact, err = True, 0
         for i, n in enumerate(lens):
@@ -679,11 +926,10 @@ def check_kernels(torch, report) -> None:
         say("B2", f"Kp={Kp} {w} windows <= {maxlen} nt{pad}: bit-equal "
             f"{exact}, "
             f"kernel {k_ms:.3f} ms ({k_ms * 1e3 / maxlen:.3f} us/position), "
-            f"plain {p_ms:.1f} ms; {shape_note(vk, 'path', Kp)}")
+            f"plain {p_ms:.1f} ms (card pool); {shape_note(vk, 'path', Kp)}")
         check(exact, f"B2 Kp={Kp} differs from plain")
         if trellis is None:
-            report["path"].update(max_abs_err=float(err), ms=k_ms,
-                                  plain_ms=p_ms)
+            report["path"].update(max_abs_err=float(err), ms=k_ms)
             path_bound(torch, report, inp, kx)
             trellis = (kx, kd, lens, Kp)
 
@@ -728,6 +974,46 @@ def check_kernels(torch, report) -> None:
           and oracle[16] == (W, True), "walk differs from plain or unzip")
     report["walk"].update(max_abs_err=0.0, ms=k_ms, plain_ms=p_ms)
     walk_bound(report, ks[2])
+    # the plain versions that run here, once the card pool's are done
+    check_mixed_large(torch, report)
+
+    for Kp in (256, 1024):
+        case = carry_case(Kp, seed=60 + Kp, device="cuda")
+        got = run_carry_calls(vk.scores_pairs_chained_carry, case)
+        torch.cuda.synchronize()
+        res = {}
+        p_ms = cuda_ms(torch, lambda: res.update(r=run_carry_calls(
+            vk.scores_pairs_chained_carry_plain, case)))
+        want = res["r"]
+        k_ms = cuda_ms(torch, lambda: run_carry_calls(
+            vk.scores_pairs_chained_carry, case), 5)
+        wa, wn = window_scores(case["tables"], case["tvecs"],
+                               case["codes_all"], 0,
+                               [case["whole"]] + case["rides"])
+        last = len(got) - 1
+        exact, err = True, 0.0
+        for t, (g, w) in enumerate(zip(got, want)):
+            slots = [0, 1] if t == last else [1]
+            for s in slots:
+                exact &= (torch.equal(g[0][0, s, 0], w[0][0, s, 0])
+                          and torch.equal(g[1][0, s, 0], w[1][0, s, 0]))
+                err = max(err, max_err(torch, g[0][0, s, 0], w[0][0, s, 0]))
+            if t < last:
+                exact &= (torch.equal(g[2][:, :, 0], w[2][:, :, 0])
+                          and torch.equal(g[3][:, :, 0], w[3][:, :, 0]))
+            exact &= bool(g[0][0, 1, 0] == wa[1 + t]
+                          and g[1][0, 1, 0] == wn[1 + t])
+        whole = bool(got[last][0][0, 0, 0] == wa[0]
+                     and got[last][1][0, 0, 0] == wn[0])
+        L = case["whole"][1] - case["whole"][0]
+        say("B8", f"Kp={Kp} {L}-nt window over {len(got)} carry calls with "
+            f"carry_permute + a riding window per call: bit-equal to plain "
+            f"(scores and continuing carry planes) {exact}, equal to B1 on "
+            f"the whole window {whole}; kernel {k_ms:.3f} ms, plain "
+            f"{p_ms:.1f} ms for the {len(got)} calls")
+        check(exact and whole, f"B8 Kp={Kp} differs")
+        report["carry"].update(max_abs_err=err, ms=k_ms, plain_ms=p_ms)
+        carry_bound(torch, report, case, case["calls"], got)
     check_walk_cases(torch)
     check_large(torch, report)
 
@@ -948,7 +1234,23 @@ def check_grid(torch) -> None:
         check(exact and pads and same, f"B9 Kp={Kp} differs")
 
 
-def grid_full_width(torch, report, launches: dict) -> None:
+GRID_SHAPES = ((400, 128), (1000, 128), (16382, 8))  # (K, windows)
+
+
+def grid_costs(K: int, P: int = 8):
+    """Phase 3b's profiles at core size K, sample_profile(100 + i, K), as
+    costs (built in the side pool where the script asked it to):
+    (costs, seconds)."""
+    from deciphon_tpu_torch.ops.costs import build_costs
+    from deciphon_tpu_torch.profile import sample_profile
+
+    t0 = time.perf_counter()
+    costs = [build_costs(sample_profile(seed=100 + i, core_size=K))
+             for i in range(P)]
+    return costs, time.perf_counter() - t0
+
+
+def grid_full_width(torch, report, launches: dict, side: Side) -> None:
     """Phase 3b: the dense grid at `bench.py`'s kernel shapes (8 profiles
     sample_profile(100 + i, K), windows of 4096 nt from
     default_rng(3); 128 windows at K 400 and 1000, 8 at K 16382), through
@@ -960,16 +1262,19 @@ def grid_full_width(torch, report, launches: dict) -> None:
     import numpy as np
 
     from deciphon_tpu_torch.ops import viterbi as vk
-    from deciphon_tpu_torch.ops.costs import build_costs
-    from deciphon_tpu_torch.profile import sample_profile
     from deciphon_tpu_torch.scan.sequence import frag_codes_ending
     from deciphon_tpu_torch.xtrans import xtrans_cost_vector
 
     P, L = 8, 4096
-    for K, B in ((400, 128), (1000, 128), (16382, 8)):
+    for K, B in GRID_SHAPES:
+        key = ("grid costs", K)
+        if key in side.jobs:
+            costs, c_s = side_result(side, key)
+            made = f"profiles {c_s:.1f} s (side pool)"
+        else:
+            costs, c_s = grid_costs(K, P)
+            made = f"profiles {c_s:.1f} s"
         t0 = time.perf_counter()
-        costs = [build_costs(sample_profile(seed=100 + i, core_size=K))
-                 for i in range(P)]
         rng = np.random.default_rng(3)
         codes = np.zeros((B, L, 5), np.int32)
         xt = np.zeros((B, 13), np.float32)
@@ -980,7 +1285,7 @@ def grid_full_width(torch, report, launches: dict) -> None:
         lengths = np.full((B,), L, np.int32)
         eng = vk.GridScanEngine(costs, device="cuda")
         Kp = eng.tables.shape[2]
-        setup = time.perf_counter() - t0
+        setup = time.perf_counter() - t0  # reads, tables on the card
 
         torch.cuda.synchronize()
         vk.reset_launches()
@@ -1017,8 +1322,8 @@ def grid_full_width(torch, report, launches: dict) -> None:
         exact = torch.equal(pa, ka) and torch.equal(pn, kn)
         cells = P * B * L * 5 * K
         say("grid", f"K={K} (Kp {Kp}) {P} profiles x {B} windows of {L} nt, "
-            f"{eng.tables.numel() * 4 / 1e9:.3f} GB of tables; host set-up "
-            f"{setup:.1f} s; GridScanEngine.scores {wall:.3f} s (launches "
+            f"{eng.tables.numel() * 4 / 1e9:.3f} GB of tables; host set-up: "
+            f"{made}, reads and engine {setup:.1f} s; GridScanEngine.scores {wall:.3f} s (launches "
             f"{counts['grid']}); B9 {k_ms:.3f} ms ({k_ms * 1e3 / L:.3f} "
             f"us/position, {cells / (k_ms / 1e3) / 1e9:.3f} GCUPS); "
             f"{name} on the same pairs {b1_ms:.3f} ms "
@@ -1074,8 +1379,22 @@ def record(report, key: str, err: float, k_ms: float, p_ms: float,
                        us_per_position=k_ms * 1e3 / positions)
 
 
+def card_plain_call(name: str, args: dict) -> dict:
+    """A card-pool job: the plain version `name` (of ops.viterbi) on the
+    card, on a recorded call's arguments (numpy, from the card's main
+    process): its output (numpy) and its time (CUDA events, ms)."""
+    import torch
+
+    from deciphon_tpu_torch.ops import viterbi as vk
+
+    a = to_torch(args, "cuda")
+    res: dict = {}
+    ms = cuda_ms(torch, lambda: res.update(r=getattr(vk, name)(**a)))
+    return {"out": to_np(res["r"]), "ms": ms}
+
+
 def check_main_shapes(torch, report, pfam_calls, nochain_calls, long_calls,
-                      seg_calls, big_calls) -> None:
+                      seg_calls, big_calls, card: Side) -> None:
     """Each kernel against its plain version on arguments the scans
     themselves gave it (recorded by captured scans): B7 and B2 from the
     Pfam scan and again from the long-read scan (whole-read
@@ -1087,9 +1406,14 @@ def check_main_shapes(torch, report, pfam_calls, nochain_calls, long_calls,
     longest launch), to bound the plain version's time; the walk on each
     chosen path launch's trellis, as the scheduler runs it.  Bit for bit,
     pads +inf on both sides.  The times of a kernel's last check go into
-    the kernels line."""
+    the kernels line.  Every kernel is run and timed first, alone on the
+    card; then the plain versions of the score kernels and of each carry
+    call run in the card pool's processes while this one runs B2's and
+    the walk's, one after another."""
     from deciphon_tpu_torch.ops import viterbi as vk
 
+    # 1. every kernel, alone on the card
+    entries = []
     for key, name, scan, calls, prefix in (
             ("pchain", "scores_pairs_packed_chained", "Pfam", pfam_calls,
              None),
@@ -1109,18 +1433,51 @@ def check_main_shapes(torch, report, pfam_calls, nochain_calls, long_calls,
         full = span(args)
         if prefix is not None:  # each window's first `prefix` positions
             args = dict(args, lengths=args["lengths"].clamp(max=prefix))
-        out, want, k_ms, p_ms = kernel_vs_plain(
-            torch, getattr(vk, name),
-            getattr(vk, PLAIN.get(name, name + "_plain")), args, reps=2)
+        kernel = getattr(vk, name)
+        out = kernel(**args)
+        torch.cuda.synchronize()
+        k_ms = cuda_ms(torch, lambda: kernel(**args), 2)
+        entries.append((key, name, scan, len(calls), i, args, full, out,
+                        k_ms))
+    carry = seg_calls["scores_pairs_chained_carry"]
+    check(carry, "the DECIPHON_CHAIN_SEG=1 scan made no carry launch")
+    carry_runs = []
+    for args in carry:
+        out = vk.scores_pairs_chained_carry(**args)
+        torch.cuda.synchronize()
+        carry_runs.append((args, out, cuda_ms(
+            torch, lambda: vk.scores_pairs_chained_carry(**args))))
+    paths = [path_kernel(torch, *a) for a in (
+        ("Pfam", pfam_calls, False, PREFIX_POSITIONS, True),
+        ("long-read", long_calls, False, PREFIX_POSITIONS, True),
+        ("large-K", big_calls, False, WIDEST_PATH_POSITIONS, False),
+        ("large-K", big_calls, True, PREFIX_POSITIONS, True))]
+
+    # 2. the plain versions: the score kernels' and the carry calls' in
+    # the card pool, B2's and the walk's here
+    for n, e in enumerate(entries):
+        name = e[1]
+        card.submit(("main", n), card_plain_call,
+                    PLAIN.get(name, name + "_plain"), to_np(e[5]))
+    for n, (args, _, _) in enumerate(carry_runs):
+        card.submit(("carry", n), card_plain_call,
+                    "scores_pairs_chained_carry_plain", to_np(args))
+    for st in paths:
+        path_plain(torch, report, st)
+
+    for n, (key, name, scan, ncalls, i, args, full, out, k_ms) in \
+            enumerate(entries):
+        res = card.get(("main", n))
+        want, p_ms = to_torch(res["out"], "cuda"), res["ms"]
         exact = all(torch.equal(a, b) for a, b in zip(out, want))
         lens = args["win_len"] if "win_len" in args else args["lengths"]
-        say("main", f"{key}: {scan} scan, launch {i + 1} of {len(calls)}, "
+        say("main", f"{key}: {scan} scan, launch {i + 1} of {ncalls}, "
             f"Kp={args['tvecs'].shape[2]}, slots {tuple(lens.shape)}, "
             f"{int((lens > 0).sum())} windows, longest slot {full} "
             f"positions" + (f", its first {span(args)} run"
                             if span(args) < full else "")
             + f": bit-equal {exact}, kernel {k_ms:.3f} ms, plain "
-            f"{p_ms:.1f} ms")
+            f"{p_ms:.1f} ms (card pool)")
         check(exact, f"{key} differs from plain at the {scan} scan's shapes")
         if key == "large":
             Kp = args["tables"].shape[2]
@@ -1132,13 +1489,10 @@ def check_main_shapes(torch, report, pfam_calls, nochain_calls, long_calls,
             f" us/position, bound {report[key]['bound_ms']:.6f} ms "
             f"({report[key]['bound_by']})")
 
-    calls = seg_calls["scores_pairs_chained_carry"]
-    check(calls, "the DECIPHON_CHAIN_SEG=1 scan made no carry launch")
     exact, err, k_tot, p_tot, conts, outs = True, 0.0, 0.0, 0.0, 0, []
-    for args in calls:
-        out, want, k_ms, p_ms = kernel_vs_plain(
-            torch, vk.scores_pairs_chained_carry,
-            vk.scores_pairs_chained_carry_plain, args, reps=1)
+    for n, (args, out, k_ms) in enumerate(carry_runs):
+        res = card.get(("carry", n))
+        want, p_ms = to_torch(res["out"], "cuda"), res["ms"]
         exact &= torch.equal(out[0], want[0]) and torch.equal(out[1],
                                                               want[1])
         for w in range(min(args["win_len"].shape[1], vk.CW)):
@@ -1150,38 +1504,28 @@ def check_main_shapes(torch, report, pfam_calls, nochain_calls, long_calls,
         k_tot, p_tot = k_tot + k_ms, p_tot + p_ms
         conts += int(args["conts"].sum())
         outs.append(out)
-    say("main", f"carry: all {len(calls)} carry calls of the "
+    say("main", f"carry: all {len(carry)} carry calls of the "
         f"DECIPHON_CHAIN_SEG=1 scan, each on its own carry-in ({conts} "
-        f"continuing slots, Kp {sorted({a['tables'].shape[2] for a in calls})},"
-        f" chains of <= {max(span(a) for a in calls)} positions): bit-equal "
+        f"continuing slots, Kp {sorted({a['tables'].shape[2] for a in carry})},"
+        f" chains of <= {max(span(a) for a in carry)} positions): bit-equal "
         f"(scores and carry planes) {exact}, kernel {k_tot:.3f} ms, plain "
-        f"{p_tot:.1f} ms for the calls")
+        f"{p_tot:.1f} ms for the calls (card pool)")
     check(exact, "carry differs from plain at the long-read shapes")
-    record(report, "carry", err, k_tot, p_tot, sum(span(a) for a in calls))
-    carry_bound(torch, report, {}, calls, outs)
+    record(report, "carry", err, k_tot, p_tot, sum(span(a) for a in carry))
+    carry_bound(torch, report, {}, carry, outs)
     say("main", f"carry: {report['carry']['us_per_position']:.3f} "
         f"us/position over the calls' longest slots, bound "
         f"{report['carry']['bound_ms']:.6f} ms ({report['carry']['bound_by']})")
 
-    check_path_shapes(torch, report, "Pfam", pfam_calls,
-                      positions=PREFIX_POSITIONS)
-    check_path_shapes(torch, report, "long-read", long_calls,
-                      positions=PREFIX_POSITIONS)
-    check_path_shapes(torch, report, "large-K", big_calls,
-                      positions=WIDEST_PATH_POSITIONS, walk=False)
-    check_path_shapes(torch, report, "large-K", big_calls, narrowest=True,
-                      positions=PREFIX_POSITIONS)
 
-
-def check_path_shapes(torch, report, scan: str, calls,
-                      narrowest: bool = False,
-                      positions: int | None = None,
-                      walk: bool = True) -> None:
-    """B2 against its plain version on the widest (or narrowest), longest
-    path launch a captured scan recorded, and (with `walk`) the walk of
-    that launch's survivors as the scheduler launches it.  With
-    `positions`, both run the launch's first `positions` positions only
-    (a smaller nlb; the walks start from T at the last of them)."""
+def path_kernel(torch, scan: str, calls, narrowest: bool,
+                positions: int | None, walk: bool) -> dict:
+    """B2 on the widest (or narrowest), longest path launch a captured scan
+    recorded, and (with `walk`) the walk of that launch's survivors as the
+    scheduler launches it, each run and timed on the card; `positions`
+    runs the launch's first `positions` positions only (a smaller nlb; the
+    walks start from T at the last of them).  path_plain holds them
+    against their plain versions."""
     from deciphon_tpu_torch.ops import traceback as tb
     from deciphon_tpu_torch.ops import viterbi as vk
 
@@ -1189,11 +1533,40 @@ def check_path_shapes(torch, report, scan: str, calls,
     i, args = widest(calls, "path", narrowest)
     if positions is not None:
         args = dict(args, nlb=min(args["nlb"], -(-positions // vk.PATH_KAPPA)))
-    (kx, kd), (px, pd), k_ms, p_ms = kernel_vs_plain(
-        torch, vk.paths_pairs, vk.paths_pairs_plain, args, reps=1)
+    kx, kd = vk.paths_pairs(**args)
+    torch.cuda.synchronize()
+    k_ms = cuda_ms(torch, lambda: vk.paths_pairs(**args), 1)
+    st = dict(scan=scan, i=i, ncalls=len(calls), args=args, kx=kx, kd=kd,
+              k_ms=k_ms, walk=None)
+    if walk:
+        lens = args["lengths"][..., 0].clamp(max=kx.shape[2])
+        N, W = lens.shape
+        Lk, Kp = kx.shape[2], args["tables"].shape[2]
+        real = torch.nonzero(lens.reshape(-1) > 0)[:, 0]
+        xnf, ndf = kx.reshape(N * W, Lk), kd.reshape(N * W, Lk, Kp)
+        wargs = (xnf, ndf, real.to(torch.int32),
+                 lens.reshape(-1)[real].contiguous(), Lk + 4 * Kp + 64)
+        got = tb.walk(*wargs)
+        torch.cuda.synchronize()
+        st["walk"] = (wargs, got, cuda_ms(torch, lambda: tb.walk(*wargs), 3))
+    return st
+
+
+def path_plain(torch, report, st: dict) -> None:
+    """The plain versions of a path_kernel launch and of its walks, on the
+    same card tensors: bit for bit, and into the kernels line."""
+    from deciphon_tpu_torch.ops import traceback as tb
+    from deciphon_tpu_torch.ops import viterbi as vk
+
+    scan, args, kx, kd, k_ms = (st[k] for k in ("scan", "args", "kx", "kd",
+                                                "k_ms"))
+    plain: dict = {}
+    p_ms = cuda_ms(torch, lambda: plain.update(
+        r=vk.paths_pairs_plain(**args)))
+    px, pd = plain.pop("r")
     lens = args["lengths"][..., 0].clamp(max=kx.shape[2])
     N, W = lens.shape
-    Lk, Kp = kx.shape[2], args["tables"].shape[2]
+    Kp = args["tables"].shape[2]
     real = torch.nonzero(lens.reshape(-1) > 0)[:, 0]
     exact, err = True, 0
     for r in real.tolist():
@@ -1202,9 +1575,10 @@ def check_path_shapes(torch, report, scan: str, calls,
                                                      pd[n, w, :L])):
             exact &= torch.equal(a, b)
             err = max(err, int((a - b).abs().max()))
+    del px, pd
     run = int(lens.max())
-    say("main", f"path: {scan} scan, launch {i + 1} of {len(calls)}, "
-        f"Kp={Kp}, slots {(N, W)}, {real.numel()} windows, longest "
+    say("main", f"path: {scan} scan, launch {st['i'] + 1} of {st['ncalls']}"
+        f", Kp={Kp}, slots {(N, W)}, {real.numel()} windows, longest "
         f"{span(args)} positions"
         + (f", its first {run} run" if run < span(args) else "")
         + f": bit-equal {exact}, kernel {k_ms:.3f} ms, plain {p_ms:.1f} ms; "
@@ -1215,20 +1589,14 @@ def check_path_shapes(torch, report, scan: str, calls,
     say("main", f"path: that launch {report['path']['us_per_position']:.3f} "
         f"us/position, bound {report['path']['bound_ms']:.6f} ms "
         f"({report['path']['bound_by']})")
-    if not walk:
+    if st["walk"] is None:
         return
 
     # the walk of those survivors, as the scheduler launches it
-    xnf, ndf = kx.reshape(N * W, Lk), kd.reshape(N * W, Lk, Kp)
-    rows = real.to(torch.int32)
-    lt = lens.reshape(-1)[real].contiguous()
-    steps = Lk + 4 * Kp + 64
-    got = tb.walk(xnf, ndf, rows, lt, steps)
-    torch.cuda.synchronize()
+    wargs, got, k_ms = st["walk"]
+    steps, lt = wargs[4], wargs[3]
     plain = {}
-    p_ms = cuda_ms(torch, lambda: plain.update(
-        r=tb.walk_plain(xnf, ndf, rows, lt, steps)))
-    k_ms = cuda_ms(torch, lambda: tb.walk(xnf, ndf, rows, lt, steps), 3)
+    p_ms = cuda_ms(torch, lambda: plain.update(r=tb.walk_plain(*wargs)))
     exact = all(torch.equal(a, b) for a, b in zip(got, plain["r"]))
     check(exact and bool(got[3].all()),
           f"walk differs at the {scan} scan's shapes")
@@ -1265,6 +1633,9 @@ class Scans:
         self.peaks: list[float] = []  # GiB, per counted scan
         self.counts: dict = {}  # launches of the last counted scan
         self.uploads: dict = {}  # table uploads of the last counted scan
+        # (launches, table uploads) of the counted scan under each
+        # environment, by its sorted items
+        self.by_env: dict = {}
         self.htod_s = 0.0  # host-to-device copy seconds, profiled scan
         self.dev_s: dict = {}  # device seconds by kernel, profiled scan
 
@@ -1298,6 +1669,8 @@ class Scans:
         peak = self.torch.cuda.max_memory_allocated()
         self.peaks.append(peak / 2**30)
         self.counts, self.uploads = counts, dict(ts.UPLOADS)
+        self.by_env[tuple(sorted((env or {}).items()))] = (counts,
+                                                           self.uploads)
         tag = " ".join(f"{k}={v}" for k, v in (env or {}).items()) or \
             "default tiers"
         say(self.phase, f"{tag}: wall {wall:.6f} s, "
@@ -1351,6 +1724,79 @@ class Scans:
                 setattr(vk, n, f)
         check(again == lines, "the captured scan wrote other products")
         return calls
+
+    def ledger(self, lines, env: dict | None = None, shards: int = 1,
+               one_device: dict | None = None) -> dict:
+        """One more scan, outside every counted run and warm median, with
+        the bucket ledgers on (LEDGER_SWITCHES, and `env`): it must write
+        `lines`, launch what the counted scan under `env` launched and
+        upload its table bytes; its ledger must hold one entry a phase-1
+        dispatch (`shards` launches an entry; the large-K tier's one), a
+        wall for every name, one FILL line a chain or carry entry, and,
+        given `one_device` (a one-device scan's ledger), its names and
+        cells.  Prints each bucket's wall, true and padded cells, fill and
+        count, the FILL lines, and the share of the scan's wall in the
+        bkt_ walls.  Returns {name: (true, padded, count)}."""
+        from deciphon_tpu_torch.ops import viterbi as vk
+        from deciphon_tpu_torch.scan import scheduler as ts
+
+        env = env or {}
+        tag = " ".join(f"{k}={v}" for k, v in env.items()) or \
+            "default tiers"
+        buf = io.StringIO()
+        with environ({**env, **LEDGER_SWITCHES}):
+            vk.reset_launches()
+            ts.reset_uploads()
+            with contextlib.redirect_stdout(buf):
+                wall, again = self.scan()
+            counts, uploads = dict(vk.LAUNCHES), dict(ts.UPLOADS)
+        out = buf.getvalue().splitlines()
+        for ln in out:
+            if not ln.startswith("FILL "):
+                print(ln, flush=True)
+        fills = [ln for ln in out if ln.startswith("FILL ")]
+        m = self.scanner.metrics
+        cells = dict(m.bucket_cells)
+        check(again == lines, f"{self.phase}, ledger scan ({tag}): other "
+              "products than the phase's own")
+        want, want_up = self.by_env[tuple(sorted(env.items()))]
+        check(counts == want, f"{self.phase}, ledger scan ({tag}): launches "
+              f"{counts} differ from the counted scan's {want}")
+        check(uploads == want_up, f"{self.phase}, ledger scan ({tag}): table "
+              f"uploads {uploads} differ from the counted scan's {want_up}")
+        entries: dict[str, int] = {}
+        for name, (_, _, n) in cells.items():
+            k = bucket_kernel(name)
+            entries[k] = entries.get(k, 0) + n
+        phase1 = {k: counts[k] for k in BUCKET_PREFIXES if counts[k]}
+        per = {k: (1 if k == "large" else shards) * n
+               for k, n in entries.items()}
+        check(cells and per == phase1, f"{self.phase}, ledger scan ({tag}): "
+              f"entries by kernel {entries} (x {shards} shards) are not the "
+              f"scan's phase-1 launches {phase1}")
+        check(set(cells) <= set(m.walls), f"{self.phase}, ledger scan "
+              f"({tag}): a bucket has no wall")
+        check(len(fills) == entries.get("chain", 0) + entries.get("carry", 0),
+              f"{self.phase}, ledger scan ({tag}): {len(fills)} FILL lines "
+              "for the chain and carry entries")
+        bkt = sum(m.walls[n] for n in cells)
+        say(self.phase, f"ledger scan ({tag}): wall {wall:.6f} s, bkt_ walls "
+            f"{bkt:.6f} s, {bkt / wall:.6f} of the scan's wall; "
+            f"{sum(entries.values())} entries, by kernel {entries}, "
+            f"launches {phase1} ({shards} shard(s)); products, launches and "
+            "table uploads those of the counted scan")
+        for name in sorted(cells):
+            t, pad, n = cells[name]
+            say(self.phase, f"  {name}: wall {m.walls[name]:.6f} s, true "
+                f"{t}, padded {pad}, fill {t / pad:.6f}, count {n}")
+        for ln in fills:
+            say(self.phase, f"  {ln}")
+        if one_device is not None:
+            check(cells == one_device, f"{self.phase}, ledger scan ({tag}): "
+                  "names or cells differ from the one-device scan's")
+            say(self.phase, f"ledger scan ({tag}): names and cells equal to "
+                "the one-device scan's")
+        return cells
 
     def warm_and_profile(self, lines, n_warm: int = 3) -> float:
         """`n_warm` warm scans (their median wall) and one profiled
@@ -1494,6 +1940,7 @@ def stream_scans(torch, report, launches: dict, pfam, lr, lines,
            max(max_err(torch, a, b) for a, b in zip(out, want)), k_ms, p_ms,
            span(args))
     score_bound(torch, report, "gang_large", args, out)
+    sl.ledger(s_long)
     peak_long = sl.peaks[0]
     del sl, calls
     say("stream", f"peak allocation, GiB: Pfam resident {pfam.peaks[0]:.3f}, "
@@ -1501,19 +1948,12 @@ def stream_scans(torch, report, launches: dict, pfam, lr, lines,
         f"streamed {peak_long:.3f}")
 
 
-def largek_scan(torch, launches: dict):
-    """The large-K scan (`workload.pfam_largek`): every bucket past Kp 5120
-    on B4, survivors on B2 and the walk; first scan (counted), three warm
-    scans and one profiled.  Returns (its Scans, its product lines)."""
-    from deciphon_tpu_torch.workload import (LARGEK_KS, LARGEK_PLANTED,
-                                             pfam_largek)
-
-    t0 = time.perf_counter()
-    big_prof, big_seqs = pfam_largek()
-    say("largek", f"{len(big_prof)} profiles K {list(LARGEK_KS)}, "
-        f"{len(big_seqs)} reads of {big_seqs[0].size} nt, reads 0-2 "
-        f"carrying (profile, nodes) {list(LARGEK_PLANTED)}; host set-up "
-        f"{time.perf_counter() - t0:.1f} s")
+def largek_scan(torch, launches: dict, data):
+    """The large-K scan of `data` (`workload.pfam_largek()`'s profiles and
+    reads): every bucket past Kp 5120 on B4, survivors on B2 and the walk;
+    first scan (counted), three warm scans and one profiled.  Returns (its
+    Scans, its product lines)."""
+    big_prof, big_seqs = data
     big = Scans(torch, big_prof, big_seqs, "largek")
     bscorers = big.scanner.scorer.scorers
     check(all(getattr(s, "hbm_table", False) for s in bscorers),
@@ -1606,30 +2046,6 @@ def torch_engine_subset(torch, profiles, seqs, want: str,
         f"plain walk {exact}")
     check(exact and bool(k_out[3].all()),
           "engine='torch': the walk differs from its plain version")
-
-
-def largek_subset_check(big_prof) -> None:
-    """Phase 7, large-K: the first two large-K profiles (K 5200, 5300) on
-    two reads of 2 knt, on the card and on the CPU: the same bytes."""
-    from deciphon_tpu_torch.scan.pipeline import ScanConfig, Scanner
-    from deciphon_tpu_torch.workload import largek_subset
-
-    sub, seqs = largek_subset(big_prof)
-    outs = {}
-    for dev in ("cuda", "cpu"):
-        t0 = time.perf_counter()
-        with tempfile.TemporaryDirectory() as tmp:
-            sc = Scanner(sub, ScanConfig(device=dev))
-            check(all(s.hbm_table for s in sc.scorer.scorers),
-                  "the large-K subset left the large-K tier")
-            with open(sc.run(seqs, os.path.join(tmp, "p"))) as fp:
-                outs[dev] = fp.read()
-        say("subset", f"large-K, {dev}: K {[p.core_size for p in sub]} x "
-            f"{len(seqs)} reads of {seqs[0].size} nt, "
-            f"{sc.metrics.products} products, "
-            f"{time.perf_counter() - t0:.3f} s")
-    check(outs["cuda"] == outs["cpu"], "large-K subset: card and CPU differ")
-    check(outs["cuda"].count("\n") > 1, "large-K subset: no products")
 
 
 def amino_bound_ms(key: str, a: dict, ks: list) -> tuple[float, str]:
@@ -1865,54 +2281,94 @@ def blobs_close(a: bytes, b: bytes, atol: float) -> bool:
     return True
 
 
-def confirm_subsets(torch, sub_prof, sub_seqs, hmms) -> None:
-    """The confirmed scan on the card and on the CPU (NativeConfirmer on
-    each; on the CPU the plain versions in f32, and in f64): the Pfam
-    subset (12 profiles, two reads of 1.2 knt) and `confirm_case` (peaked
-    profiles whose hits are kept and dropped).  The same hits confirmed,
-    kept and dropped; every products.tsv column but the e-value
-    byte-identical; Forward and null2 nats and log-E of the card within
-    tolerance of the f64 run (confirmed_close), and the same h3r files
-    with close fields; the f32 run's own distance from the f64 run
-    printed; on the card one posterior launch a (wave, Kpad) group; on
-    confirm_case the confirmed lines are the unconfirmed scan's lines
-    that were kept."""
+def confirm_inputs(label: str, sub=None, hmms=None):
+    """(profiles, reads, HMMs) of a confirmed subset scan: the Pfam
+    subset (the side pool draws it and the HMMs anew: the same as the
+    card's) or `confirm_case`."""
+    from deciphon_tpu_torch.workload import (confirm_case, pfam_scan_hmms,
+                                             pfam_subset)
+
+    if label == "confirm_case":
+        c_hmms, c_prof, c_seqs = confirm_case()
+        return c_prof, c_seqs, c_hmms
+    sub_prof, sub_seqs = sub if sub is not None else pfam_subset()
+    by_acc = {h.accession: h for h in (hmms or pfam_scan_hmms())}
+    return sub_prof, sub_seqs, [by_acc[p.accession] for p in sub_prof]
+
+
+def confirm_subset_run(label: str, run: str, conf_inputs=None) -> dict:
+    """One confirmed scan of confirm_subsets: `run` "card" (NativeConfirmer
+    on the card), "cpu" (the plain versions in f32) or "cpu f64"
+    (`exact_confirmer`), the two CPU runs in the side pool.  Returns the
+    product files, the recorder's calls, parts and waves, and counts."""
+    from types import SimpleNamespace
+
     from deciphon_tpu_torch.hmmer.forward import NativeConfirmer
     from deciphon_tpu_torch.ops import viterbi as vk
     from deciphon_tpu_torch.scan.pipeline import ScanConfig, Scanner
-    from deciphon_tpu_torch.workload import confirm_case, exact_confirmer
+    from deciphon_tpu_torch.workload import exact_confirmer
 
-    by_acc = {h.accession: h for h in hmms}
-    c_hmms, c_prof, c_seqs = confirm_case()
-    for label, prof, seqs, hm in (
-            ("Pfam subset", sub_prof, sub_seqs,
-             [by_acc[p.accession] for p in sub_prof]),
-            ("confirm_case", c_prof, c_seqs, c_hmms)):
-        outs, recs = {}, {}
-        for run, make in (("card", lambda: NativeConfirmer(hm,
-                                                          device="cuda")),
-                          ("cpu", lambda: NativeConfirmer(hm, device="cpu")),
-                          ("cpu f64", lambda: exact_confirmer(hm))):
-            dev = "cuda" if run == "card" else "cpu"
-            t0 = time.perf_counter()
-            rec = Recorder(make())
-            vk.reset_launches()
-            with tempfile.TemporaryDirectory() as tmp:
-                sc = Scanner(prof, ScanConfig(device=dev), confirmer=rec)
-                sc.run(seqs, os.path.join(tmp, "p"))
-                outs[run] = product_dir(os.path.join(tmp, "p"))
-            recs[run] = rec
+    prof, seqs, hm = conf_inputs or confirm_inputs(label)
+    dev = "cuda" if run == "card" else "cpu"
+    t0 = time.perf_counter()
+    rec = Recorder(NativeConfirmer(hm, device=dev) if run != "cpu f64"
+                   else exact_confirmer(hm))
+    vk.reset_launches()
+    with tempfile.TemporaryDirectory() as tmp:
+        sc = Scanner(prof, ScanConfig(device=dev), confirmer=rec)
+        sc.run(seqs, os.path.join(tmp, "p"))
+        outs = product_dir(os.path.join(tmp, "p"))
+    out = dict(outs=outs, products=sc.metrics.products,
+               seconds=time.perf_counter() - t0, launches=dict(vk.LAUNCHES),
+               n_prof=len(prof), n_seqs=len(seqs), size=seqs[0].size,
+               rec=SimpleNamespace(
+                   calls=[(p, q, float(e)) for p, q, e in rec.calls],
+                   parts=[None if x is None else tuple(map(float, x))
+                          for x in rec.parts],
+                   waves=rec.waves))
+    if run == "card":
+        out["groups"] = rec.groups()
+    return out
+
+
+def confirm_subsets(torch, sub_prof, sub_seqs, hmms, side: Side) -> None:
+    """The confirmed scan on the card and on the CPU (NativeConfirmer on
+    each; on the CPU the plain versions in f32, and in f64, run in the
+    side pool): the Pfam subset (12 profiles, two reads of 1.2 knt) and
+    `confirm_case` (peaked profiles whose hits are kept and dropped).  The
+    same hits confirmed, kept and dropped; every products.tsv column but
+    the e-value byte-identical; Forward and null2 nats and log-E of the
+    card within tolerance of the f64 run (confirmed_close), and the same
+    h3r files with close fields; the f32 run's own distance from the f64
+    run printed; on the card one posterior launch a (wave, Kpad) group; on
+    confirm_case the confirmed lines are the unconfirmed scan's lines
+    that were kept."""
+    from deciphon_tpu_torch.scan.pipeline import ScanConfig, Scanner
+
+    for label in ("Pfam subset", "confirm_case"):
+        inputs = confirm_inputs(label, (sub_prof, sub_seqs), hmms)
+        prof, seqs, hm = inputs
+        runs = {"card": confirm_subset_run(label, "card", inputs)}
+        for run in ("cpu", "cpu f64"):
+            runs[run] = side_result(side, ("confirm", label, run))
+        outs = {run: r["outs"] for run, r in runs.items()}
+        recs = {run: r["rec"] for run, r in runs.items()}
+        for run, r in runs.items():
+            rec = r["rec"]
             kept = sum(c[2] < 0 for c in rec.calls)
-            say("subset", f"confirmed, {label}, {run}: {len(prof)} "
-                f"profiles x {len(seqs)} reads of {seqs[0].size} nt, "
+            say("subset", f"confirmed, {label}, {run}: {r['n_prof']} "
+                f"profiles x {r['n_seqs']} reads of {r['size']} nt, "
                 f"{len(rec.calls)} hits confirmed in {len(rec.waves)} "
                 f"calls, {kept} kept, {len(rec.calls) - kept} dropped, "
-                f"{sc.metrics.products} products, "
-                f"{time.perf_counter() - t0:.3f} s; launches "
-                f"{dict(vk.LAUNCHES)}")
-            if run == "card":
-                check(vk.LAUNCHES["amino_posterior"] == rec.groups() > 0,
-                      f"{label}: not one launch a (wave, Kpad) group")
+                f"{r['products']} products, {r['seconds']:.3f} s"
+                + ("" if run == "card" else " (side pool)")
+                + f"; launches {r['launches']}")
+        check(runs["card"]["launches"]["amino_posterior"]
+              == runs["card"]["groups"] > 0,
+              f"{label}: not one launch a (wave, Kpad) group")
+        check(all(sum(runs[run]["launches"].values()) == 0
+                  for run in ("cpu", "cpu f64")),
+              f"{label}: a CPU run launched a kernel")
         widest = confirmed_close(hm, recs["card"], recs["cpu f64"])
         check([c[2] < 0 for c in recs["cpu"].calls]
               == [c[2] < 0 for c in recs["card"].calls],
@@ -1979,7 +2435,8 @@ def batched_launch(torch, report, scorer, waves) -> None:
 
 
 def confirm_phase(torch, report, launches, profiles, seqs, lines,
-                  unconfirmed_med: float, sub_prof, sub_seqs) -> None:
+                  unconfirmed_med: float, sub_prof, sub_seqs,
+                  side: Side) -> None:
     """Phase 8, confirmation: both amino kernels against their plain
     versions at AMINO_KPADS, and batches bit-equal to their hits launched
     alone; the Pfam scan with NativeConfirmer(pfam_scan_hmms(),
@@ -2068,7 +2525,7 @@ def confirm_phase(torch, report, launches, profiles, seqs, lines,
                             ("the scan's longest call", long)):
         amino_vs_plain(torch, report, scorer.launch_args(p, q),
                        [hmms[p].length], f"{what} (profile {p})")
-    confirm_subsets(torch, sub_prof, sub_seqs, hmms)
+    confirm_subsets(torch, sub_prof, sub_seqs, hmms, side)
     say("confirm", f"phase {time.perf_counter() - t0:.1f} s")
 
 
@@ -2128,7 +2585,37 @@ def cli_scan(torch, launches: dict, args: list, need: tuple,
     return wall, mem
 
 
-def cli_phase(torch, launches: dict, tmp: str) -> dict:
+def cli_press(tmp: str) -> dict:
+    """Phase 9's database, on the host in the side pool: pfam_scan_hmms()
+    written as HMMER3 text to `tmp`/pfam.hmm and pressed there by the
+    CLI's `press pfam.hmm 1`."""
+    from deciphon_tpu_torch.workload import hmm_text, pfam_scan_hmms
+
+    t0 = time.perf_counter()
+    hmms = pfam_scan_hmms()
+    path = os.path.join(tmp, "pfam.hmm")
+    with open(path, "w") as fp:
+        fp.write(hmm_text(hmms))
+    text_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out = cli_run(["press", path, 1, "--no-progress"])
+    return dict(out=out, text_s=text_s, press_s=time.perf_counter() - t0,
+                profiles=len(hmms), nodes=sum(h.length for h in hmms))
+
+
+def cli_cpu_scan(args: list) -> dict:
+    """A CLI scan with --device cpu: the snap's members, the launch counts
+    and the wall."""
+    from deciphon_tpu_torch.ops import viterbi as vk
+
+    t0 = time.perf_counter()
+    vk.reset_launches()
+    cli_run(["scan", *args, "--no-progress", "--device", "cpu"])
+    return dict(members=snap_members(args[3]), launches=dict(vk.LAUNCHES),
+                seconds=time.perf_counter() - t0)
+
+
+def cli_phase(torch, launches: dict, tmp: str, side: Side) -> dict:
     """Phase 9, the user's entry points, in the directory `tmp`: the
     Pfam-shaped database as
     HMMER3 text (`workload.hmm_text(pfam_scan_hmms())`), pressed by
@@ -2151,7 +2638,6 @@ def cli_phase(torch, launches: dict, tmp: str) -> dict:
     from deciphon_tpu_torch.hmmer.forward import NativeConfirmer
     from deciphon_tpu_torch.hmmfile import read_hmm
     from deciphon_tpu_torch.io.dcp import read_dcp_profiles
-    from deciphon_tpu_torch.ops import viterbi as vk
     from deciphon_tpu_torch.scan.pipeline import ScanConfig, Scanner
     from deciphon_tpu_torch.scan.sequence import Sequence
     from deciphon_tpu_torch.schema import DBFile, NewSnapFile
@@ -2161,18 +2647,14 @@ def cli_phase(torch, launches: dict, tmp: str) -> dict:
 
     t00 = time.perf_counter()
     d = lambda name: os.path.join(tmp, name)  # noqa: E731
-    # 1. the database as HMMER3 text
-    t0 = time.perf_counter()
+    # 1-2. the database as HMMER3 text, pressed through the CLI (both in
+    # the side pool, submitted when the script started), then the reader
+    pressed = side_result(side, ("press",))
     hmms = pfam_scan_hmms()
-    with open(d("pfam.hmm"), "w") as fp:
-        fp.write(hmm_text(hmms))
-    say("cli", f"{len(hmms)} profiles ({sum(h.length for h in hmms)} "
+    say("cli", f"{pressed['profiles']} profiles ({pressed['nodes']} "
         f"nodes) as HMMER3/f text: {os.path.getsize(d('pfam.hmm'))} "
-        f"bytes in {time.perf_counter() - t0:.3f} s")
-    # 2. press through the CLI, then the reader
-    t0 = time.perf_counter()
-    out = cli_run(["press", d("pfam.hmm"), 1, "--no-progress"])
-    press_s = time.perf_counter() - t0
+        f"bytes in {pressed['text_s']:.3f} s (side pool)")
+    out, press_s = pressed["out"], pressed["press_s"]
     check(out.startswith(f"wrote {d('pfam.dcp')}"),
           f"press printed {out[:200]!r}")
     t0 = time.perf_counter()
@@ -2180,7 +2662,7 @@ def cli_phase(torch, launches: dict, tmp: str) -> dict:
     read_s = time.perf_counter() - t0
     check([p.accession for p in profiles]
           == [h.accession for h in hmms], "the .dcp lost a profile")
-    say("cli", f"press wall {press_s:.6f} s, .dcp "
+    say("cli", f"press wall {press_s:.6f} s (side pool), .dcp "
         f"{os.path.getsize(d('pfam.dcp'))} bytes; read_dcp_profiles "
         f"wall {read_s:.6f} s")
     # 3. reads planted from the pressed profiles, as pfam_scan plants
@@ -2307,13 +2789,11 @@ def cli_phase(torch, launches: dict, tmp: str) -> dict:
         snap_path = d(label.replace(", ", "_").replace(" ", "") + ".dcs")
         t0 = time.perf_counter()
         if label == "kernels, cpu":
-            vk.reset_launches()
-            cli_run(["scan", d(db), d(fna), "--snap",
-                     snap_path, "--no-progress", *extra])
-            subs[label] = snap_members(snap_path)
-            say("cli", f"subset, {label}: {time.perf_counter() - t0:.3f}"
-                f" s; launches {dict(vk.LAUNCHES)}")
-            check(sum(vk.LAUNCHES.values()) == 0,
+            r = cli_cpu_scan([d(db), d(fna), "--snap", snap_path])
+            subs[label] = r["members"]
+            say("cli", f"subset, {label}: {r['seconds']:.3f} s; launches "
+                f"{r['launches']}")
+            check(sum(r["launches"].values()) == 0,
                   "--device cpu launched a kernel")
         else:
             _, subs[label] = cli_scan(
@@ -2369,7 +2849,9 @@ def multi_phase(torch, launches: dict, cells: dict) -> None:
     shards on cuda:0 (each on its own stream); with more, every card.
     The Pfam cell through BucketedPairScorer(devices=...) (first, median
     of 3 warm, one profiled: device busy as the union of its device
-    intervals), launches per kernel key per shard; the long read under
+    intervals), launches per kernel key per shard, and a ledger scan
+    whose bucket names and cells must be phase 4's (`cells["ledger"]`),
+    one entry a sharded dispatch; the long read under
     DECIPHON_CHAIN_SEG=1 (carry rows routed across shards); the large-K
     scan (B4 and phase 2 on the first device); engine="kernels-multi";
     two multihost_worker processes (gloo on localhost, --device cuda, the
@@ -2379,7 +2861,6 @@ def multi_phase(torch, launches: dict, cells: dict) -> None:
     from torch.profiler import ProfilerActivity, profile
 
     from deciphon_tpu_torch.parallel import multidevice as md
-    from deciphon_tpu_torch.parallel import multihost_dryrun as dry
     from deciphon_tpu_torch.scan.scheduler import BucketedPairScorer
 
     t00 = time.perf_counter()
@@ -2442,6 +2923,10 @@ def multi_phase(torch, launches: dict, cells: dict) -> None:
         + (f"{busy:.6f} s, idle share {max(0.0, 1 - busy / wall):.6f}"
            if busy is not None else "not measured")
         + f", kernel time summed {ksum:.6f} s")
+    # the shards' ledger: one entry a sharded dispatch, under phase 4's
+    # names with phase 4's cells
+    pfam.ledger(cells["lines"], shards=len(devices),
+                one_device=cells["ledger"])
     del pfam, prof
 
     # 2. the long read, carry segments routed across shards
@@ -2477,19 +2962,20 @@ def multi_phase(torch, launches: dict, cells: dict) -> None:
     del km
     torch.cuda.empty_cache()
 
-    # 5. two processes, gloo on localhost, 100 + 100 profiles
-    with tempfile.TemporaryDirectory() as shared:
-        wall, walls = dry.run_procs(
-            2, shared, f"127.0.0.1:{dry.free_port()}",
-            ["--workload", "pfam", "--device", "cuda"], timeout=300)
-        with open(os.path.join(shared, "products.tsv")) as fp:
-            merged = fp.read().splitlines()
-        metas = []
-        for pid in range(2):
-            with open(os.path.join(shared, f"shard.{pid}.meta")) as fp:
-                metas.append(json.load(fp))
-        with open(os.path.join(shared, "merge.json")) as fp:
-            merge = json.load(fp)
+    # 5. two processes, gloo on localhost, 100 + 100 profiles (started with
+    # phase 9 where it ran)
+    dryrun = cells["dry"] or DryRun()
+    wall, walls = dryrun.result()
+    shared = dryrun.shared
+    with open(os.path.join(shared, "products.tsv")) as fp:
+        merged = fp.read().splitlines()
+    metas = []
+    for pid in range(2):
+        with open(os.path.join(shared, f"shard.{pid}.meta")) as fp:
+            metas.append(json.load(fp))
+    with open(os.path.join(shared, "merge.json")) as fp:
+        merge = json.load(fp)
+    dryrun.cleanup()
     check(merged == cells["lines"], "the two processes' merged products "
           "differ from phase 4's")
     check([m["stop"] - m["start"] for m in metas] == [100, 100],
@@ -2497,14 +2983,181 @@ def multi_phase(torch, launches: dict, cells: dict) -> None:
     check(all(m["counters"] == cells["counters"] for m in metas),
           f"all-reduced counters {metas[0]['counters']} differ from phase "
           f"4's metrics {cells['counters']}")
-    say("multi", f"2 processes (gloo, --device cuda, pfam workload): wall "
-        f"{wall:.6f} s; each worker to its exit {walls} s, its scan "
+    say("multi", f"2 processes (gloo, --device cuda, pfam workload, "
+        f"started {dryrun.started}): wall {wall:.6f} s; each worker to its exit {walls} s, its scan "
         f"(Scanner set-up and run) {[m['scan_s'] for m in metas]} s; "
         f"process 0 waited {merge['wait_s']:.6f} s and merged in "
         f"{merge['merge_s']:.6f} s; merged products byte-identical to "
         f"phase 4's; all-reduced counters {metas[0]['counters']} equal "
         "phase 4's metrics")
     say("multi", f"phase {time.perf_counter() - t00:.1f} s")
+
+
+class DryRun:
+    """Phase 10's two multihost_worker processes (gloo on localhost,
+    --device cuda, the pfam workload, 100 + 100 profiles), as
+    multihost_dryrun.run_procs starts them.  The script starts them with
+    phase 9, beside it (each spends most of its wall building the
+    workload on the host), and reads them in phase 10; a thread a worker
+    takes its wall to its exit."""
+
+    def __init__(self, started: str = "with phase 10"):
+        import shutil
+        import threading
+
+        from deciphon_tpu_torch.parallel import multihost_dryrun as dry
+
+        self.started = started
+        self.shared = tempfile.mkdtemp(prefix="chip_smoke_dry_")
+        env = dict(os.environ)
+        env.pop("PYTHONPATH", None)
+        extra = ["--workload", "pfam", "--device", "cuda", "--coordinator",
+                 f"127.0.0.1:{dry.free_port()}"]
+        self.t0 = time.perf_counter()
+        self.logs = [open(os.path.join(self.shared, f"worker.{pid}.log"),
+                          "wb") for pid in range(2)]
+        # at a lower CPU priority than the card's process, which runs on
+        nice = shutil.which("nice")
+        lower = [nice, "-n", str(HELPER_NICE)] if nice else []
+        self.procs = [subprocess.Popen(
+            lower + dry.worker_cmd(pid, 2, self.shared, extra),
+            cwd=dry.ROOT, env=env, stdout=log, stderr=subprocess.STDOUT)
+            for pid, log in enumerate(self.logs)]
+        self.walls: list = [None, None]
+
+        def wait(pid: int) -> None:
+            self.procs[pid].wait()
+            self.walls[pid] = time.perf_counter() - self.t0
+
+        self.threads = [threading.Thread(target=wait, args=(pid,),
+                                         daemon=True) for pid in range(2)]
+        for t in self.threads:
+            t.start()
+
+    def result(self, timeout: float = 300.0) -> tuple[float, list]:
+        """(wall of both, each worker's wall to its exit); a worker that
+        failed, or outlasted `timeout` s from the start, fails the
+        phase."""
+        for t in self.threads:
+            t.join(max(0.0, timeout - (time.perf_counter() - self.t0)))
+        if any(p.poll() is None for p in self.procs):
+            self.stop()
+            fail(f"the dry-run workers outlasted {timeout} s")
+        for log in self.logs:
+            log.close()
+        for pid, p in enumerate(self.procs):
+            if p.returncode != 0:
+                with open(self.logs[pid].name, "rb") as fp:
+                    sys.stderr.write(fp.read()[-4000:].decode(
+                        errors="replace"))
+                fail(f"dry-run worker {pid} failed rc={p.returncode}")
+        return max(self.walls), list(self.walls)
+
+    def stop(self) -> None:
+        for p in self.procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for log in self.logs:
+            log.close()
+
+    def cleanup(self) -> None:
+        import shutil
+
+        self.stop()
+        shutil.rmtree(self.shared, ignore_errors=True)
+
+
+def entry_phase(torch, launches: dict, run) -> None:
+    """Phase 12 ("entry"): the graft entry points
+    (deciphon_tpu_torch/graft_entry.py).  `entry("cuda")`'s scan step
+    (ops/engine.scan_scores, plain PyTorch: no kernel of its own) on its
+    seven example tensors, bit-equal to `entry("cpu")`'s; held against B9
+    (GridScanEngine.scores, one launch) on the same profiles and windows
+    within the cross-engine tolerance (rtol 2e-6, atol 2e-5), and bit for
+    bit wherever the plain versions of the two agree bit for bit on the
+    CPU; then `dryrun_multichip(2, "cuda")` (the production scan over two
+    shards of the card and on one device, byte-identical) as a main path,
+    its wall and survivors, its products those of phase 7's subset scan
+    at the reference's caps where phase 7 ran, and its workload
+    `pfam_subset()` that of the Pfam database where one was built."""
+    import numpy as np
+
+    from deciphon_tpu_torch import graft_entry as ge
+    from deciphon_tpu_torch.ops import viterbi as vk
+    from deciphon_tpu_torch.ops.costs import build_costs
+    from deciphon_tpu_torch.ops.engine import ProfilePack, lrt_tile
+    from deciphon_tpu_torch.profile import sample_profile
+    from deciphon_tpu_torch.workload import pfam_subset
+
+    t00 = time.perf_counter()
+    fn, args = ge.entry()
+    check(all(a.is_cuda for a in args), "entry() left a tensor off the card")
+    vk.reset_launches()
+    t0 = time.perf_counter()
+    got = [o.cpu().numpy() for o in fn(*args)]
+    ms = (time.perf_counter() - t0) * 1e3
+    check(not any(vk.LAUNCHES.values()), "entry()'s step launched a kernel")
+    cfn, cargs = ge.entry("cpu")
+    want = [o.numpy() for o in cfn(*cargs)]
+    check(all(g.dtype == w.dtype and g.shape == w.shape == (2, 2)
+              and np.array_equal(g, w) for g, w in zip(got, want)),
+          "entry('cuda') differs from entry('cpu')")
+    shapes = [tuple(a.shape) for a in args]
+    say("entry", f"entry('cuda'): scan_scores on {shapes}, {ms:.3f} ms, "
+        f"(null, alt) {[g.tolist() for g in got]} (LRT "
+        f"{lrt_tile(*got).tolist()}), bit for bit entry('cpu')'s")
+
+    # B9 on the same profiles and windows
+    costs = [build_costs(sample_profile(seed=10 + i, core_size=24))
+             for i in range(2)]
+    check(np.array_equal(ProfilePack.from_costs(costs, lane_multiple=8).core,
+                         cargs[0].numpy()), "the grid's profiles are not "
+          "entry()'s")
+    _, xt, codes, lengths = ge._tiny_workload(2, 24, 2, 48)
+    plain = vk.GridScanEngine(costs, "cpu").scores(xt, codes, lengths)
+    vk.reset_launches()
+    grid = vk.GridScanEngine(costs, "cuda").scores(xt, codes, lengths)
+    check(vk.LAUNCHES["grid"] == 1, "GridScanEngine.scores did not launch B9")
+    for what, g, b, p in zip(("null", "alt"), got, grid, plain):
+        bit = p == g  # where the plain versions agree bit for bit
+        check(np.allclose(b, g, rtol=2e-6, atol=2e-5),
+              f"B9's {what} differs from entry()'s past rtol 2e-6, atol 2e-5")
+        check(np.array_equal(b[bit], g[bit]), f"B9's {what} differs bit for "
+              "bit where the plain versions agree")
+        say("entry", f"B9 against entry('cuda'), {what}: max abs error "
+            f"{float(np.abs(b - g).max()):.3g}, {int((b == g).sum())} of "
+            f"{g.size} bit-equal ({int(bit.sum())} where the plain versions "
+            "are)")
+
+    # the dry run: two shards on the card against one device
+    vk.reset_launches()
+    t0 = time.perf_counter()
+    products, survivors = ge.dryrun_multichip(2, "cuda")
+    wall = time.perf_counter() - t0
+    counts = dict(vk.LAUNCHES)
+    for k in ("pchain", "path", "walk"):
+        check(counts[k] > 0, f"kernel {k} never launched on the dry run")
+    for k, v in counts.items():
+        launches[k] = launches.get(k, 0) + v
+    say("entry", f"dryrun_multichip(2, 'cuda'): {wall:.3f} s (two Scanners "
+        f"built and run: 2 shards of cuda:0, then one device), survivors "
+        f"{survivors}, {products.count(chr(10)) - 1} products, "
+        f"byte-identical; launches {counts}")
+    if getattr(run, "subset_bytes", None) is not None:
+        check(products == run.subset_bytes, "the dry run's products are not "
+              "phase 7's subset scan's")
+        say("entry", "dry run products: phase 7's subset scan's, byte for "
+            "byte")
+    if run._db is not None:
+        a, b = pfam_subset(), pfam_subset(run._db[0])
+        check([vars(p).keys() == vars(q).keys() and all(
+            np.array_equal(v, getattr(q, k)) if isinstance(v, np.ndarray)
+            else v == getattr(q, k) for k, v in vars(p).items())
+            for p, q in zip(a[0], b[0])] == [True] * len(b[0])
+            and [q.data for q in a[1]] == [q.data for q in b[1]],
+            "pfam_subset() differs from the Pfam database's subset")
+    say("entry", f"phase {time.perf_counter() - t00:.1f} s")
 
 
 SERVICE_NEED = ("pchain", "chain", "path", "walk")  # B7, B3, B2, the walk
@@ -2803,6 +3456,10 @@ def services_phase(torch, launches: dict, cli: dict) -> None:
             say("services", f"worker process: start to its first claimed "
                 f"job {walls['process start to claim']:.6f} s, job done, "
                 "terminated while polling")
+            # the scheduler serves the ended worker's last long-poll to its
+            # end (POLL_S), and would hand it a job posted meanwhile: post
+            # the next one after it
+            time.sleep(max(0.0, POLL_S + 0.5 - (time.monotonic() - ended)))
             cpu = WorkerLoop(Poster(url), workdir=d("w4"), device="cpu")
             for label, worker, need in (
                     ("in process, cuda", loop, ("path", "walk")),
@@ -2818,9 +3475,6 @@ def services_phase(torch, launches: dict, cli: dict) -> None:
                 "phase 9's subset scan")
             loop.release()
             del loop, cpu
-            # the scheduler answers the ended worker's last long-poll
-            # before it closes its database
-            time.sleep(max(0.0, POLL_S + 0.5 - (time.monotonic() - ended)))
         # 5. the GUI controller and the scanner daemon
         os.makedirs(d("gui"))
         gui = GuiController(workdir=d("gui"), device="cuda")
@@ -2903,15 +3557,132 @@ def elapsed(phase: str) -> None:
         f"{time.perf_counter() - T0:.1f} s")
 
 
-def main() -> None:
-    import torch
+# The phases in the order they run.  `--phases` names some of them; the
+# ones they need run too (NEEDS, transitively), and 1 and 2 always do.
+PHASES = ("1", "2", "3", "3b", "4", "5", "5b", "5c", "6", "7", "8", "9",
+          "10", "11", "12")
+NEEDS = {"5c": ("4", "5"), "6": ("4", "5", "5b"), "8": ("4",),
+         "10": ("4", "5", "5b"), "11": ("9",)}
+# Kernels each phase's main paths launch (its counted runs; the closing
+# "never launched" check of a selection covers the selected phases'), and
+# those whose time per DP position it records (the closing "no time per
+# position" check).  A full run checks every phase against its row and
+# that the rows cover every kernel.
+PHASE_KERNELS = {
+    "3b": ("grid",),
+    "4": ("pchain", "chain", "packed", "score", "path", "walk"),
+    "5": ("chain", "gang", "carry", "path", "walk"),
+    "5b": ("large", "path", "walk"),
+    "5c": ("pchain", "chain", "gang_large", "path", "walk"),
+    "7": ("walk",),
+    "8": ("amino_forward", "amino_posterior", "path", "walk"),
+    "9": ("pchain", "chain", "path", "walk", "amino_posterior"),
+    "10": ("pchain", "chain", "carry", "large", "path", "walk"),
+    "11": ("pchain", "chain", "path", "walk", "amino_posterior"),
+    "12": ("pchain", "path", "walk"),
+}
+PHASE_TIMED = {
+    "3b": ("grid",),
+    "5c": ("gang_large",),
+    "6": ("score", "chain", "gang", "carry", "large", "packed", "pchain",
+          "path", "walk"),
+    "8": ("amino_forward", "amino_posterior"),
+}
 
-    check(torch.cuda.is_available(), "no CUDA device")
-    check(os.path.isdir(os.path.join(HERE, "deciphon_tpu_torch")),
-          "run from the root of a deciphon-tpu checkout")
-    sys.path.insert(0, HERE)
 
-    # ---- 1. environment -----------------------------------------------
+def select_phases(spec: str | None) -> list[str]:
+    """The phases to run, in order: all without `spec`; else those that
+    `spec` names ("1-6,12": single phases and ranges in PHASES' order),
+    with the phases they need, and 1 and 2."""
+    if spec is None:
+        return list(PHASES)
+    chosen = {"1", "2"}
+    for part in spec.split(","):
+        lo, _, hi = part.strip().partition("-")
+        hi = hi or lo
+        check(lo in PHASES and hi in PHASES
+              and PHASES.index(lo) <= PHASES.index(hi),
+              f"--phases: {part!r} names no phase or range of {PHASES}")
+        chosen.update(PHASES[PHASES.index(lo):PHASES.index(hi) + 1])
+    todo = list(chosen)
+    while todo:
+        for p in NEEDS.get(todo.pop(), ()):
+            if p not in chosen:
+                chosen.add(p)
+                todo.append(p)
+    return [p for p in PHASES if p in chosen]
+
+
+def host_data(name: str):
+    """A scan's host data ("db": `workload.pfam_scan()`, "largek":
+    `workload.pfam_largek()`), built in the side pool: (data, seconds)."""
+    from deciphon_tpu_torch import workload as wl
+
+    t0 = time.perf_counter()
+    data = {"db": wl.pfam_scan, "largek": wl.pfam_largek}[name]()
+    return data, time.perf_counter() - t0
+
+
+# the phases that read the Pfam database (Run.db) and the large-K data
+# (Run.largek): the side pool builds them when one of these runs
+DB_PHASES = ("4", "5", "7", "8", "10")
+LARGEK_PHASES = ("5b", "7", "10")
+
+
+class Run:
+    """What the phases hand on: the kernels line (`report`), the main
+    paths' launch counts (`launches`), the side pool, the databases
+    (built once, in the side pool where it was asked to, else on first
+    use) and each phase's results."""
+
+    def __init__(self, torch, side: Side):
+        self.torch = torch
+        self.side = side
+        self.report: dict = {}
+        self.launches: dict[str, int] = {}
+        self._db = self._big = None
+
+    def _host(self, name: str):
+        if (name,) in self.side.jobs:
+            data, secs = side_result(self.side, (name,))
+            return data, f"{secs:.1f} s (side pool)"
+        t0 = time.perf_counter()
+        data = host_data(name)[0]
+        return data, f"{time.perf_counter() - t0:.1f} s"
+
+    def db(self):
+        """The Pfam-shaped database and its 8 reads of 10 knt."""
+        if self._db is None:
+            from deciphon_tpu_torch.workload import PFAM_PLANTED
+
+            self._db, took = self._host("db")
+            ks = [p.core_size for p in self._db[0]]
+            say("scan", f"200 profiles (K {min(ks)}..{max(ks)}), 8 reads of "
+                f"10 knt, planted K {[ks[i] for i in PFAM_PLANTED]}; host "
+                f"set-up {took}")
+        return self._db
+
+    def largek(self):
+        """The large-K profiles and reads (`workload.pfam_largek`)."""
+        if self._big is None:
+            from deciphon_tpu_torch.workload import LARGEK_KS, LARGEK_PLANTED
+
+            self._big, took = self._host("largek")
+            big_prof, big_seqs = self._big
+            say("largek", f"{len(big_prof)} profiles K {list(LARGEK_KS)}, "
+                f"{len(big_seqs)} reads of {big_seqs[0].size} nt, reads 0-2 "
+                f"carrying (profile, nodes) {list(LARGEK_PLANTED)}; host "
+                f"set-up {took}")
+        return self._big
+
+    def drop_scans(self) -> None:
+        """Free the Scanners of phases 4-5b (their tables on the card)."""
+        for k in ("pfam", "lr", "big"):
+            self.__dict__.pop(k, None)
+
+
+def phase_env(run: Run) -> None:
+    torch = run.torch
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True)
@@ -2922,7 +3693,8 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    # ---- 2. build -----------------------------------------------------
+
+def phase_build(run: Run) -> None:
     from deciphon_tpu_torch import _build
 
     t0 = time.perf_counter()
@@ -2933,8 +3705,9 @@ def main() -> None:
         if "registers" in line or "Compiling entry" in line or "spill" in line:
             say("build", line.strip())
 
-    report = {k: {"name": k, "route": "cuda", "source": SOURCE[k],
-                  "replaces": REPLACES[k]} for k in SOURCE}
+    report = run.report
+    report.update({k: {"name": k, "route": "cuda", "source": SOURCE[k],
+                       "replaces": REPLACES[k]} for k in SOURCE})
     for k, inst in ptxas_instances(_build.build_log).items():
         report[k]["ptxas"] = inst
         say("build", f"{k}: " + "; ".join(
@@ -2943,35 +3716,25 @@ def main() -> None:
     check(all("ptxas" in r for r in report.values()),
           "the ptxas report lacks a kernel")
 
-    # ---- 3. kernels against their plain versions ----------------------
-    elapsed("2")
-    check_kernels(torch, report)
-    elapsed("3")
 
-    # ---- 3b. the dense grid at full width --------------------------------
-    launches: dict[str, int] = {}
+def phase_grid(run: Run) -> None:
     t0 = time.perf_counter()
-    grid_full_width(torch, report, launches)
+    grid_full_width(run.torch, run.report, run.launches, run.side)
     say("grid", f"phase {time.perf_counter() - t0:.1f} s")
-    elapsed("3b")
 
-    # ---- 4. the Pfam scan: packed route, classic tiers, unpacked route ---
+
+def phase_pfam(run: Run) -> None:
+    """Phase 4: the Pfam scan on the packed route, the classic tiers and
+    the unpacked route, with their ledger scans."""
+    torch, launches = run.torch, run.launches
     from deciphon_tpu_torch.ops.tables import common_kp
     from deciphon_tpu_torch.scan.pipeline import ScanConfig, Scanner
     from deciphon_tpu_torch.scan.scheduler import (BucketedPairScorer,
                                                    PackedPairScorer,
                                                    PairScorer)
-    from deciphon_tpu_torch.workload import (LONGREAD_PLANTED, PFAM_PLANTED,
-                                             pfam_longread, pfam_scan,
-                                             pfam_subset)
 
-    t0 = time.perf_counter()
-    profiles, seqs = pfam_scan()
-    ks_db = [p.core_size for p in profiles]
-    say("scan", f"200 profiles (K {min(ks_db)}..{max(ks_db)}), 8 reads of "
-        f"10 knt, planted K {[ks_db[i] for i in PFAM_PLANTED]}; host "
-        f"set-up {time.perf_counter() - t0:.1f} s")
-    pfam = Scans(torch, profiles, seqs, "scan")
+    profiles, seqs = run.db()
+    pfam = run.pfam = Scans(torch, profiles, seqs, "scan")
     scorers = pfam.scanner.scorer.scorers
     tbytes = sum(s.table_bytes() for s in scorers)
     classes = [(s.seg, s.nseg, s.Kp, len(s.inner.tables)) for s in scorers
@@ -2987,8 +3750,8 @@ def main() -> None:
     first, lines = pfam.counted(launches, ("pchain", "chain", "path", "walk"))
     say("scan", f"first scan of the process (cold): {first:.6f} s")
     m = pfam.scanner.metrics
-    counters = {"windows": m.windows_scored, "cells": m.cells,
-                "survivors": m.survivors, "products": m.products}
+    run.counters = {"windows": m.windows_scored, "cells": m.cells,
+                    "survivors": m.survivors, "products": m.products}
     packed_med = pfam.warm_and_profile(lines)
     no_chain = {"DECIPHON_NO_CHAIN": "1"}
     classic, classic_lines = pfam.counted(
@@ -3002,6 +3765,9 @@ def main() -> None:
             check(again == lines, "a classic-tier scan wrote other products")
             classic_walls.append(w)
     classic_med = statistics.median(classic_walls)
+    # the bucket ledgers of both routes, on the warm Scanner
+    run.pfam_ledger = pfam.ledger(lines)
+    pfam.ledger(lines, no_chain)
 
     def unpacked(costs):
         """Plain buckets only, as the reference's custom-factory form."""
@@ -3032,65 +3798,103 @@ def main() -> None:
         f"reads_per_length=8) {warm_s:.6f} s, then first scan {after:.6f} s "
         f"(the process's cold first scan {first:.6f} s)")
     del fresh
-    elapsed("4")
+    run.lines, run.first, run.packed_med = lines, first, packed_med
 
-    # ---- 5. the long-read scan: gang and carry over-cap tiers ----------
+
+def phase_long(run: Run) -> None:
+    """Phase 5: the long-read scan, gang and carry over-cap tiers, with
+    the ledger scans of both."""
+    from deciphon_tpu_torch.workload import LONGREAD_PLANTED, pfam_longread
+
+    profiles, _ = run.db()
+    ks_db = [p.core_size for p in profiles]
     t0 = time.perf_counter()
     _, long_seqs = pfam_longread(profiles)
     say("long", f"3 reads of {long_seqs[0].size} nt, planted K "
         f"{[ks_db[i] for i in LONGREAD_PLANTED]} on reads 0-2; host set-up "
         f"{time.perf_counter() - t0:.1f} s")
-    lr = Scans(torch, profiles, long_seqs, "long")
-    _, long_lines = lr.counted(launches, ("chain", "gang", "path", "walk"))
+    lr = run.lr = Scans(run.torch, profiles, long_seqs, "long")
+    _, long_lines = lr.counted(run.launches, ("chain", "gang", "path",
+                                              "walk"))
     hit_reads = {int(ln.split("\t")[0]) for ln in long_lines[1:]}
     say("long", f"products on reads {sorted(hit_reads)}")
     check({0, 1} <= hit_reads, "no survivors on the long-window reads 0/1")
-    long_med = lr.warm_and_profile(long_lines, n_warm=1)
-    _, seg_lines = lr.counted(launches, ("carry", "path", "walk"),
-                              {"DECIPHON_CHAIN_SEG": "1"})
+    run.long_med = lr.warm_and_profile(long_lines, n_warm=1)
+    seg = {"DECIPHON_CHAIN_SEG": "1"}
+    _, seg_lines = lr.counted(run.launches, ("carry", "path", "walk"), seg)
     check(seg_lines == long_lines,
           "DECIPHON_CHAIN_SEG=1 wrote other products than the gang tier")
     say("long", "carry segments: products byte-identical to the gang tier's")
+    lr.ledger(long_lines)
+    lr.ledger(long_lines, seg)
+    run.long_seqs, run.long_lines = long_seqs, long_lines
 
-    # ---- 5b. the large-K scan: B4 and B2 past 5120 lanes ---------------
-    big, big_lines = largek_scan(torch, launches)
-    elapsed("5b")
 
-    # ---- 5c. streamed tables: Pfam at half its table bytes, long read ---
-    stream_scans(torch, report, launches, pfam, lr, lines, long_lines,
-                 packed_med, long_med)
-    elapsed("5c")
+def phase_largek(run: Run) -> None:
+    """Phase 5b: the large-K scan, B4 and B2 past 5120 lanes, and its
+    ledger scan (the `_hbm` buckets)."""
+    run.big, run.big_lines = largek_scan(run.torch, run.launches,
+                                         run.largek())
+    run.big.ledger(run.big_lines)
 
-    # ---- 6. kernels against plain at the scans' own shapes --------------
+
+def phase_stream(run: Run) -> None:
+    stream_scans(run.torch, run.report, run.launches, run.pfam, run.lr,
+                 run.lines, run.long_lines, run.packed_med, run.long_med)
+
+
+def phase_main_shapes(run: Run) -> None:
+    """Phase 6: kernels against plain at the scans' own shapes."""
     t0 = time.perf_counter()
-    pfam_calls = pfam.captured(lines)
-    nochain_calls = pfam.captured(lines, no_chain)
-    long_calls = lr.captured(long_lines)
-    seg_calls = lr.captured(long_lines, {"DECIPHON_CHAIN_SEG": "1"})
-    big_calls = big.captured(big_lines)
-    big_prof, big_seqs = big.scanner.profiles, big.seqs
-    del lr, pfam, big
-    check_main_shapes(torch, report, pfam_calls, nochain_calls, long_calls,
-                      seg_calls, big_calls)
+    no_chain = {"DECIPHON_NO_CHAIN": "1"}
+    pfam_calls = run.pfam.captured(run.lines)
+    nochain_calls = run.pfam.captured(run.lines, no_chain)
+    long_calls = run.lr.captured(run.long_lines)
+    seg_calls = run.lr.captured(run.long_lines, {"DECIPHON_CHAIN_SEG": "1"})
+    big_calls = run.big.captured(run.big_lines)
+    run.drop_scans()
+    check_main_shapes(run.torch, run.report, pfam_calls, nochain_calls,
+                      long_calls, seg_calls, big_calls, run.card)
     del pfam_calls, nochain_calls, long_calls, seg_calls, big_calls
     say("main", f"phase {time.perf_counter() - t0:.1f} s")
-    elapsed("6")
 
-    # ---- 7. card against CPU on the same code ---------------------------
+
+# Phase 7's card-against-CPU scans of the subset: (label, environment,
+# table budget, kernel that must launch on the card, kernel that must not)
+SUBSET_RUNS = (("reference caps", {}, None, None, None),
+               ("caps 4, gang", {}, None, "gang", "gang_large"),
+               ("caps 4, carry", {"DECIPHON_CHAIN_SEG": "1"}, None, "carry",
+                "gang"),
+               ("caps 4, gang, streamed", {}, 1, "gang_large", "gang"))
+
+
+def subset_run(i: int, dev: str) -> dict:
+    """One of phase 7's subset scans (SUBSET_RUNS[i]) on `dev`: the Pfam
+    subset (`workload.pfam_subset()`), at the reference's caps or on
+    plain buckets with the chain caps shrunk to 4 and a 150-nt read
+    added (so that its 1.2-knt windows are over the cap and ride the gang
+    or the carry segments).  Returns the products, the launch counts and
+    what the card's run must show; the CPU's run goes to the side pool."""
     import numpy as np
 
     from deciphon_tpu_torch.ops import viterbi as vk
+    from deciphon_tpu_torch.ops.tables import common_kp
+    from deciphon_tpu_torch.scan.pipeline import ScanConfig, Scanner
+    from deciphon_tpu_torch.scan.scheduler import (BucketedPairScorer,
+                                                   PairScorer)
     from deciphon_tpu_torch.scan.sequence import Sequence
-    from deciphon_tpu_torch.workload import random_bases
+    from deciphon_tpu_torch.workload import pfam_subset, random_bases
 
-    sub_prof, sub_seqs = pfam_subset(profiles)
+    label, env, budget, must, _ = SUBSET_RUNS[i]
+    sub_prof, sub_seqs = pfam_subset()
+    shrink = must is not None
     caps = (PairScorer.CHAIN_MAX_BLK, PairScorer.NLB_FLOOR)
 
-    def plain_buckets(dev, budget):
+    def plain_buckets(costs):
         """Plain buckets only: the subset's profiles would all pack, and
         whole-read windows of a packed class never reach the gang or the
         carry segments."""
-        return lambda costs: BucketedPairScorer(
+        return BucketedPairScorer(
             costs, dev, hbm_budget=budget, scorer_factory=lambda c:
             PairScorer(c, dev, w=BucketedPairScorer.plain_w(common_kp(c))))
 
@@ -3098,92 +3902,279 @@ def main() -> None:
     # that the 1.2-knt windows are over it and ride the gang (or carry)
     short = Sequence.make(len(sub_seqs), "s2", random_bases(
         np.random.default_rng(9), 150))
-    # (label, environment, table budget, kernel that must launch, kernel
-    # that must not)
-    for label, env, budget, must, never in (
-            ("reference caps", {}, None, None, None),
-            ("caps 4, gang", {}, None, "gang", "gang_large"),
-            ("caps 4, carry", {"DECIPHON_CHAIN_SEG": "1"}, None, "carry",
-             "gang"),
-            ("caps 4, gang, streamed", {}, 1, "gang_large", "gang")):
-        shrink = must is not None
-        if shrink:
-            PairScorer.CHAIN_MAX_BLK = PairScorer.NLB_FLOOR = 4
-        os.environ.update(env)
-        outs = {}
-        try:
-            for dev in ("cuda", "cpu"):
-                t0 = time.perf_counter()
-                vk.reset_launches()
-                reads = sub_seqs + [short] if shrink else sub_seqs
-                with tempfile.TemporaryDirectory() as tmp:
-                    sc = Scanner(sub_prof, ScanConfig(device=dev),
-                                 scorer=plain_buckets(dev, budget)
-                                 if shrink else None)
-                    with open(sc.run(reads, os.path.join(tmp, "p"))) as fp:
-                        outs[dev] = fp.read()
-                say("subset", f"{label}, {dev}: {len(sub_prof)} profiles x "
-                    f"{len(reads)} reads of {[q.size for q in reads]} nt, "
-                    f"{sc.metrics.products} products, "
-                    f"{time.perf_counter() - t0:.3f} s; launches "
-                    f"{dict(vk.LAUNCHES)}")
-                if shrink and dev == "cuda":
-                    check(vk.LAUNCHES[must] > 0 and vk.LAUNCHES[never] == 0,
-                          f"{label}: {must} did not launch, or {never} did")
-                    check(budget is None or not sc.scorer.ledger.resident,
-                          f"{label}: a scorer stayed resident")
-        finally:
-            PairScorer.CHAIN_MAX_BLK, PairScorer.NLB_FLOOR = caps
-            for k in env:
-                os.environ.pop(k, None)
-        check(outs["cuda"] == outs["cpu"], f"{label}: card and CPU differ")
-        check(outs["cuda"].count("\n") > 1, f"{label}: no products")
-        if not shrink:
-            kernels_bytes = outs["cuda"]
-    torch_engine_subset(torch, sub_prof, sub_seqs, kernels_bytes, launches)
-    largek_subset_check(big_prof)
-    say("subset", "products.tsv byte-identical on card and CPU")
-    elapsed("7")
-
-    # ---- 8. confirmation: the amino Forward and posterior kernels -------
-    confirm_phase(torch, report, launches, profiles, seqs, lines,
-                  packed_med, sub_prof, sub_seqs)
-    elapsed("8")
-
-    # ---- 9. the command line: press, .dcp, scan, see, core.Scan --------
-    import shutil
-
-    cli_tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    reads = sub_seqs + [short] if shrink else sub_seqs
+    if shrink:
+        PairScorer.CHAIN_MAX_BLK = PairScorer.NLB_FLOOR = 4
+    t0 = time.perf_counter()
     try:
-        cli = cli_phase(torch, launches, cli_tmp)
-        elapsed("9")
-
-        # ---- 10. the device-parallel scan: shards and processes ----------
-        multi_phase(torch, launches, dict(
-            profiles=profiles, seqs=seqs, lines=lines, first=first,
-            med=packed_med, counters=counters, long_seqs=long_seqs,
-            long_lines=long_lines, big_prof=big_prof, big_seqs=big_seqs,
-            big_lines=big_lines))
-        elapsed("10")
-
-        # ---- 11. the services: scheduler, workers, deciphonctl, GUI ------
-        services_phase(torch, launches, cli)
-        elapsed("11")
+        with environ(env), tempfile.TemporaryDirectory() as tmp:
+            vk.reset_launches()
+            sc = Scanner(sub_prof, ScanConfig(device=dev),
+                         scorer=plain_buckets if shrink else None)
+            with open(sc.run(reads, os.path.join(tmp, "p"))) as fp:
+                text = fp.read()
     finally:
-        shutil.rmtree(cli_tmp, ignore_errors=True)
+        PairScorer.CHAIN_MAX_BLK, PairScorer.NLB_FLOOR = caps
+    return dict(text=text, launches=dict(vk.LAUNCHES),
+                products=sc.metrics.products, seconds=time.perf_counter() - t0,
+                profiles=len(sub_prof), sizes=[q.size for q in reads],
+                resident=bool(sc.scorer.ledger.resident) if shrink else None)
+
+
+def torch_engine_job(want: str) -> dict:
+    """Phase 7's torch-engine check (torch_engine_subset) in a process of
+    its own on the card, beside phase 11: returns its launch counts."""
+    import torch
+
+    from deciphon_tpu_torch.workload import pfam_subset
+
+    launches: dict = {}
+    torch_engine_subset(torch, *pfam_subset(), want, launches)
+    return launches
+
+
+def largek_subset_run(dev: str, big_prof=None) -> dict:
+    """Phase 7, large-K: the first two large-K profiles (K 5200, 5300) on
+    two reads of 2 knt on `dev` (the CPU's run goes to the side pool,
+    which draws the large-K profiles anew)."""
+    from deciphon_tpu_torch.scan.pipeline import ScanConfig, Scanner
+    from deciphon_tpu_torch.workload import largek_subset, pfam_largek
+
+    sub, seqs = largek_subset(pfam_largek()[0] if big_prof is None
+                              else big_prof)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        sc = Scanner(sub, ScanConfig(device=dev))
+        tier = all(s.hbm_table for s in sc.scorer.scorers)
+        with open(sc.run(seqs, os.path.join(tmp, "p"))) as fp:
+            text = fp.read()
+    return dict(text=text, tier=tier, products=sc.metrics.products,
+                seconds=time.perf_counter() - t0,
+                ks=[p.core_size for p in sub], reads=len(seqs),
+                size=seqs[0].size)
+
+
+def phase_subset(run: Run) -> None:
+    """Phase 7: card against CPU on the same code (the CPU's scans ran in
+    the side pool, submitted when the script started)."""
+    from deciphon_tpu_torch.workload import pfam_subset
+
+    for i, (label, env, budget, must, never) in enumerate(SUBSET_RUNS):
+        outs = {"cuda": subset_run(i, "cuda"),
+                "cpu": side_result(run.side, ("subset", i))}
+        for dev, r in outs.items():
+            say("subset", f"{label}, {dev}: {r['profiles']} profiles x "
+                f"{len(r['sizes'])} reads of {r['sizes']} nt, "
+                f"{r['products']} products, {r['seconds']:.3f} s"
+                + (" (side pool)" if dev == "cpu" else "")
+                + f"; launches {r['launches']}")
+        got = outs["cuda"]
+        if must is not None:
+            check(got["launches"][must] > 0 and got["launches"][never] == 0,
+                  f"{label}: {must} did not launch, or {never} did")
+            check(budget is None or not got["resident"],
+                  f"{label}: a scorer stayed resident")
+        check(sum(outs["cpu"]["launches"].values()) == 0,
+              f"{label}: the CPU's run launched a kernel")
+        check(got["text"] == outs["cpu"]["text"],
+              f"{label}: card and CPU differ")
+        check(got["text"].count("\n") > 1, f"{label}: no products")
+        if must is None:
+            run.subset_bytes = got["text"]
+    if not run.engine_later:
+        sub_prof, sub_seqs = pfam_subset(run.db()[0])
+        torch_engine_subset(run.torch, sub_prof, sub_seqs, run.subset_bytes,
+                            run.launches)
+    outs = {"cuda": largek_subset_run("cuda", run.largek()[0]),
+            "cpu": side_result(run.side, ("largek subset",))}
+    for dev, r in outs.items():
+        check(r["tier"], "the large-K subset left the large-K tier")
+        say("subset", f"large-K, {dev}: K {r['ks']} x {r['reads']} reads of "
+            f"{r['size']} nt, {r['products']} products, {r['seconds']:.3f} s"
+            + (" (side pool)" if dev == "cpu" else ""))
+    check(outs["cuda"]["text"] == outs["cpu"]["text"],
+          "large-K subset: card and CPU differ")
+    check(outs["cuda"]["text"].count("\n") > 1, "large-K subset: no products")
+    say("subset", "products.tsv byte-identical on card and CPU")
+
+
+def phase_confirm(run: Run) -> None:
+    from deciphon_tpu_torch.workload import pfam_subset
+
+    profiles, seqs = run.db()
+    confirm_phase(run.torch, run.report, run.launches, profiles, seqs,
+                  run.lines, run.packed_med, *pfam_subset(profiles), run.side)
+
+
+def phase_cli(run: Run) -> None:
+    run.cli = cli_phase(run.torch, run.launches, run.cli_tmp, run.side)
+
+
+def phase_multi(run: Run) -> None:
+    multi_phase(run.torch, run.launches, dict(
+        profiles=run.db()[0], seqs=run.db()[1], lines=run.lines,
+        first=run.first, med=run.packed_med, counters=run.counters,
+        long_seqs=run.long_seqs, long_lines=run.long_lines,
+        big_prof=run.largek()[0], big_seqs=run.largek()[1],
+        big_lines=run.big_lines, ledger=run.pfam_ledger,
+        dry=getattr(run, "dry", None)))
+
+
+def phase_services(run: Run) -> None:
+    services_phase(run.torch, run.launches, run.cli)
+
+
+def phase_entry(run: Run) -> None:
+    entry_phase(run.torch, run.launches, run)
+
+
+RUNNERS = {"1": phase_env, "2": phase_build, "3": None, "3b": phase_grid,
+           "4": phase_pfam, "5": phase_long, "5b": phase_largek,
+           "5c": phase_stream, "6": phase_main_shapes, "7": phase_subset,
+           "8": phase_confirm, "9": phase_cli, "10": phase_multi,
+           "11": phase_services, "12": phase_entry}
+
+
+def submit_side_jobs(run: Run, phases: list, late: bool) -> None:
+    """Hand the pools their jobs, in the order the phases read them: once
+    the kernels are built (`late` false), phase 3's plain versions to the
+    card pool and the scans' host data to the side pool; the rest (phase
+    7's and 8's CPU scans and phase 9's press) once the scans that time
+    the host (phases 4-5c) are behind."""
+    side = run.side
+    if late:
+        submit_late_jobs(run, phases)
+        return
+    if "3" in phases:
+        for case in cases3():
+            run.card.submit(("plain", case), card_plain3, case)
+    if "3b" in phases:
+        for K, _ in GRID_SHAPES:
+            side.submit(("grid costs", K), side_job, grid_costs, K)
+    if set(phases) & set(DB_PHASES):
+        side.submit(("db",), side_job, host_data, "db")
+    if set(phases) & set(LARGEK_PHASES):
+        side.submit(("largek",), side_job, host_data, "largek")
+
+
+def submit_late_jobs(run: Run, phases: list) -> None:
+    side = run.side
+    if "7" in phases:
+        for i in range(len(SUBSET_RUNS)):
+            side.submit(("subset", i), side_job, subset_run, i, "cpu")
+        side.submit(("largek subset",), side_job, largek_subset_run, "cpu")
+    if "8" in phases:
+        for label in ("Pfam subset", "confirm_case"):
+            for r in ("cpu", "cpu f64"):
+                side.submit(("confirm", label, r), side_job,
+                            confirm_subset_run, label, r)
+    if "9" in phases:
+        side.submit(("press",), side_job, cli_press, run.cli_tmp)
+
+
+def main() -> None:
+    import argparse
+
+    import torch
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--phases", help="run these phases (and the ones they "
+                    "need), e.g. 1-6,12; default: every phase")
+    args = ap.parse_args()
+    check(torch.cuda.is_available(), "no CUDA device")
+    check(os.path.isdir(os.path.join(HERE, "deciphon_tpu_torch")),
+          "run from the root of a deciphon-tpu checkout")
+    sys.path.insert(0, HERE)
+    phases = select_phases(args.phases)
+    whole = phases == list(PHASES)
+    say("phases", "running every phase" if whole else
+        f"--phases {args.phases}: running {phases} (the named phases, the "
+        "ones they need, and 1-2)")
+    run = Run(torch, Side())
+    run.phases = phases
+    # the card pool: phases 3's and 6's plain versions, beside this process
+    run.card = Side(CARD_WORKERS, card=True) if {"3", "6"} & set(phases) \
+        else None
+    run.cli_tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    # the last phase that uses the Scanners of phases 4-5b
+    scanning = [p for p in phases if p in ("4", "5", "5b", "5c", "6")]
+    # phase 7's torch engine, launch-bound for a minute, runs in a process
+    # of its own on the card beside phase 11 where both run (its walk
+    # launches count there), else within phase 7
+    run.engine_later = "7" in phases and "11" in phases
+    try:
+        for p in phases:
+            before = dict(run.launches)
+            if p == "11" and run.engine_later:
+                run.engine = Side(1, card=True)
+                run.engine.submit(("torch engine",), side_job,
+                                  torch_engine_job, run.subset_bytes)
+            if p in ("6", "7", "8", "9") and not getattr(run, "late", False):
+                submit_side_jobs(run, phases, late=True)
+                run.late = True
+            if p == "9" and "10" in phases:
+                run.dry = DryRun("with phase 9, beside it")
+            if p == "3":
+                check_kernels(torch, run.report, run.card)
+            else:
+                RUNNERS[p](run)
+            if p == "2":  # the pools start once nvcc is done
+                submit_side_jobs(run, phases, late=False)
+            if p == "11" and run.engine_later:
+                for k, v in side_result(run.engine,
+                                        ("torch engine",)).items():
+                    run.launches[k] = run.launches.get(k, 0) + v
+                run.engine.close()
+            for k in PHASE_KERNELS.get(p, ()):
+                if p == "7" and run.engine_later and k == "walk":
+                    continue  # its torch engine runs beside phase 11
+                check(run.launches.get(k, 0) > before.get(k, 0),
+                      f"kernel {k} never launched on phase {p}'s paths")
+            if scanning and p == scanning[-1]:
+                run.drop_scans()
+            if p != "1":
+                elapsed(p)
+    finally:
+        import shutil
+
+        if getattr(run, "dry", None) is not None:
+            run.dry.cleanup()
+        if getattr(run, "engine", None) is not None:
+            run.engine.close()
+        if run.card is not None:
+            run.card.close()
+        run.side.close()
+        shutil.rmtree(run.cli_tmp, ignore_errors=True)
+    say("side", f"the card's process waited {run.side.waited:.1f} s in all "
+        "for the side pool")
     check(not [m for m in sys.modules
                if m.split(".")[0] in ("jax", "deciphon_tpu")],
           "jax or deciphon_tpu was imported")
 
+    from deciphon_tpu_torch.ops import viterbi as vk
+
+    report = run.report
+    launched = {k for p in phases for k in PHASE_KERNELS.get(p, ())}
+    timed = {k for p in phases for k in PHASE_TIMED.get(p, ())}
+    if whole:
+        check(launched == timed == set(SOURCE),
+              "PHASE_KERNELS or PHASE_TIMED leaves a kernel out")
+    else:
+        say("phases", f"a selection ran ({phases}): the closing checks cover "
+            f"only the kernels its phases launch {sorted(launched)} and "
+            f"time {sorted(timed)}, and the kernels line lists those")
     # the wrappers that keep their launch shapes
     for k in ("large", "gang_large", "path", "grid", "packed", "pchain"):
         report[k]["shapes"] = {str(Kp): sh for (key, Kp), sh
                                in sorted(vk.SHAPES.items()) if key == k}
     for k, r in report.items():
-        r["launches"] = launches.get(k, 0)
-        check(r["launches"] > 0, f"kernel {k} never launched on a scan path")
-        check("us_per_position" in r, f"kernel {k} has no time per position")
-    print(json.dumps({"kernels": list(report.values())}), flush=True)
+        r["launches"] = run.launches.get(k, 0)
+        check(k not in launched or r["launches"] > 0,
+              f"kernel {k} never launched on a scan path")
+        check(k not in timed or "us_per_position" in r,
+              f"kernel {k} has no time per position")
+    print(json.dumps({"kernels": [r for k, r in report.items()
+                                  if k in launched | timed]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

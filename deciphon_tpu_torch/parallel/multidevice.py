@@ -24,7 +24,12 @@ contract:
     destination shards from whichever shards hold them, on the devices
     (a peer copy between distinct cards), never through the host;
   * the large-K tier (B4) and phase 2 (B2 and the walk) run on the first
-    device: LRT survivors are a sliver of the windows.
+    device: LRT survivors are a sliver of the windows;
+  * under DECIPHON_SYNC_DEBUG the scheduler's dispatch records one bucket
+    ledger entry a sharded launch, under the one-device name (its group
+    count is the wave's, before the padding to the shards) with the
+    one-device cells, its wall taken once every shard's event has
+    passed (`fetch_planes`).
 
 Products are therefore byte-identical to a one-device scan for any shard
 count (the reference's thread-count-invariance contract).  No collective

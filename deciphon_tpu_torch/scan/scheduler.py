@@ -35,8 +35,11 @@ Environment switches, read where the reference reads them:
 DECIPHON_NO_CHAIN=1 sends every window to the classic buckets (packed
 windows to B6); DECIPHON_CHAIN_SEG=1 sends over-cap windows to carry
 segments instead of the gang; DECIPHON_HBM_BUDGET (bytes) sets the
-ledger's table budget; DECIPHON_SYNC_DEBUG=1 waits for each gang launch
-and records its wall under the reference's bucket name.
+ledger's table budget; DECIPHON_SYNC_DEBUG=1 waits for each phase-1
+launch of the chain, carry, gang, classic, packed and packed-chain tiers
+and records its wall and its true and padded cells under the reference's
+bucket name (`_bucket_ledger`), and DECIPHON_FILL_DEBUG then prints a
+FILL line for each chain and carry launch.
 
 Every scorer holds an explicit torch device; nothing falls back to the
 CPU.  Profiles beyond the reference's K = 16384 raise.
@@ -68,8 +71,21 @@ W = 8  # default windows per group (scorers may choose wider groups)
 
 
 def _sync_debug() -> bool:
+    """Re-read per dispatch, so that a caller can switch the bucket
+    ledgers on and off between scans of one process."""
     return os.environ.get("DECIPHON_SYNC_DEBUG", "").lower() not in (
         "", "0", "false")
+
+
+def _bucket_ledger(metrics, alt, name: str, true_cells: int,
+                   padded_cells: int) -> None:
+    """DECIPHON_SYNC_DEBUG: wait for one enqueued phase-1 launch (by
+    reading its `alt` plane; a shard's part after its stream's event) and
+    record its wall and its true and padded cells under `name`."""
+    t0 = time.perf_counter()
+    fetch_planes([alt])
+    metrics.add_wall(name, time.perf_counter() - t0)
+    metrics.add_bucket_cells(name, true_cells, padded_cells)
 
 
 # Table placements of streamed scorers (PairScorer.stream_tables), counted
@@ -715,6 +731,14 @@ class PairScorer(_HostTables):
             alt, nul = self._invoke_scores_from_starts(pidx, xts, lens,
                                                        starts)
             self._walls(t0, t1)
+            if self.metrics is not None and _sync_debug():
+                name = (f"bkt_kp{self.Kp}_nlb{bucket.nlb}_n{len(pidx)}"
+                        f"_w{bucket.w}" + ("_hbm" if self.hbm_table else ""))
+                true = int((lens.reshape(len(pidx), -1).sum(axis=1)
+                            .astype(np.int64) * 5 * self._Ks[pidx]).sum())
+                _bucket_ledger(self.metrics, alt, name, true,
+                               len(pidx) * bucket.w * bucket.nlb * vk.KAPPA
+                               * 5 * self.Kp)
             inflight.append((bucket, alt, nul))
         return inflight
 
@@ -936,8 +960,31 @@ class PairScorer(_HostTables):
             else:
                 alt, nul = self._invoke_scores_chained(*meta)
             self._walls(t0, t1)
+            if self.metrics is not None and _sync_debug():
+                self._chain_ledger(alt, is_seg, cap, len(chunk), pidx, wlen)
             inflight.append((_ChainChunk(groups), alt, nul))
         return inflight
+
+    def _chain_ledger(self, alt, is_seg: bool, cap: int, ngroups: int,
+                      pidx, wlen) -> None:
+        """The bucket ledger of one chain (B3) or carry (B8) launch, and
+        under DECIPHON_FILL_DEBUG its FILL line (groups used of N, slots
+        holding a window, l-blocks of windows against the launch's, and the
+        fullest slot's blocks)."""
+        N, w, _ = wlen.shape
+        name = (f"bkt_chain{'seg' if is_seg else ''}_kp{self.Kp}"
+                f"_cap{cap}_n{N}_w{w}")
+        true = int((wlen.sum(axis=(1, 2)).astype(np.int64) * 5
+                    * self._Ks[pidx]).sum())
+        _bucket_ledger(self.metrics, alt, name, true,
+                       N * w * cap * vk.KAPPA * 5 * self.Kp)
+        if os.environ.get("DECIPHON_FILL_DEBUG"):
+            blocks = -(-wlen // vk.KAPPA)
+            slot_blocks = blocks.sum(axis=2)
+            print(f"FILL {name}: groups={ngroups}/{N} "
+                  f"slots_used={int((slot_blocks > 0).sum())}/{N * w} "
+                  f"blocks={int(blocks.sum())}/{N * w * cap} "
+                  f"maxslot={int(slot_blocks.max())}", flush=True)
 
     def _invoke_scores_chained(self, pidx, sblk, wlen, gst, xti):
         """The chained phase-1 kernel call (B3)."""
@@ -1004,7 +1051,12 @@ class PairScorer(_HostTables):
                 alt, nul = self._invoke_scores_gang(pidx, xts, lens, starts)
                 self._walls(t0, t1)
                 if self.metrics is not None and _sync_debug():
-                    self._gang_bucket_wall(alt, pidx, lens, nlb, wg)
+                    name = (f"bkt_gang{'v' if self._gang_resident() else ''}"
+                            f"_kp{self.Kp}_nlb{nlb}_n{N}_w{wg}")
+                    true = int((lens[:, :, 0].astype(np.int64) * 5
+                                * self._Ks[pidx]).sum())
+                    _bucket_ledger(self.metrics, alt, name, true,
+                                   N * wg * nlb * vk.KAPPA * 5 * self.Kp)
                 entries.append((_Bucket(nlb=nlb, groups=chunk, w=wg),
                                 alt, nul))
         return entries
@@ -1027,21 +1079,6 @@ class PairScorer(_HostTables):
               else vk.scores_pairs_mixed_large)
         return fn(pidx, self.tables, self.tvecs, xts, lens, starts,
                   self.codes_all)
-
-    def _gang_bucket_wall(self, alt, pidx, lens, nlb: int, wg: int) -> None:
-        """DECIPHON_SYNC_DEBUG: wait for one gang launch and record its
-        wall and cells under the reference's bucket name
-        (bkt_gang[v]_kp.._nlb.._n.._w.., v for the resident kernel)."""
-        t0 = time.perf_counter()
-        fetch_planes([alt])
-        N = pidx.shape[0]
-        name = (f"bkt_gang{'v' if self._gang_resident() else ''}"
-                f"_kp{self.Kp}_nlb{nlb}_n{N}_w{wg}")
-        self.metrics.add_wall(name, time.perf_counter() - t0)
-        true = int((lens[:, :, 0].astype(np.int64) * 5
-                    * self._Ks[pidx]).sum())
-        self.metrics.add_bucket_cells(name, true,
-                                      N * wg * nlb * vk.KAPPA * 5 * self.Kp)
 
     @staticmethod
     def _collect_one(entry, results) -> None:
@@ -1193,6 +1230,11 @@ class PackedPairScorer(_HostTables):
             raise ValueError(f"seg {self.seg} x nseg {nseg} is not a "
                              "multiple of 128 lanes")
         npack = -(-len(costs_list) // nseg)
+        # true K summed over each pack's profiles (the bucket ledgers'
+        # true cells)
+        self._pack_ksum = np.array(
+            [sum(c.K for c in costs_list[i * nseg:(i + 1) * nseg])
+             for i in range(npack)], np.int64)
         # uniform-K packs share WINDOW boundaries (windowing is a function
         # of K alone), so their windowed reads pack too; otherwise only
         # whole-read windows are shared by a pack
@@ -1393,6 +1435,13 @@ class PackedPairScorer(_HostTables):
             alt, nul = self._invoke_scores_packed_chained(pidx, sblk, wlen,
                                                           gst, xti)
             self._walls(t0, t1)
+            if self._metrics is not None and _sync_debug():
+                name = (f"bkt_pchain_kp{self.Kp}_s{self.nseg}"
+                        f"_cap{cap}_n{N}_w{w_ck}")
+                true = int((wlen.sum(axis=(1, 2)).astype(np.int64) * 5
+                            * self._pack_ksum[pidx]).sum())
+                _bucket_ledger(self._metrics, alt, name, true,
+                               N * w_ck * cap * kappa * 5 * self.Kp)
             entries.append((_PackedChainChunk(groups), alt, nul))
         return leftover, entries
 
@@ -1458,6 +1507,13 @@ class PackedPairScorer(_HostTables):
                 alt, nul = self._invoke_scores_packed(pidx, xts, lens,
                                                       starts)
                 self._walls(t0, t1)
+                if self._metrics is not None and _sync_debug():
+                    name = (f"bkt_packed_kp{self.Kp}_s{self.nseg}"
+                            f"_nlb{nlb}_n{N}_w{w}")
+                    true = int((lens[:, :, 0].astype(np.int64) * 5
+                                * self._pack_ksum[pidx][:, None]).sum())
+                    _bucket_ledger(self._metrics, alt, name, true,
+                                   N * w * nlb * vk.KAPPA * 5 * self.Kp)
                 inflight.append((chunk, alt, nul))
         return inflight
 

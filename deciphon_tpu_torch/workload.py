@@ -758,15 +758,22 @@ def pfam_longread(profiles=None, n_reads: int = 3, read_len: int = 24_000,
                       for i, r in enumerate(reads)]
 
 
-def pfam_subset(profiles, seed: int = 7, read_len: int = 1200):
+def pfam_subset(profiles=None, seed: int = 7, read_len: int = 1200):
     """The card-against-CPU subset of a `pfam_scan` database: every tenth
     profile with K <= 400, at most 12 (planted profile 100 among them),
     and two reads of `read_len` nt, the first carrying profile 100's
-    domain (1% noise).  Returns (profiles, sequences)."""
+    domain (1% noise).  Without `profiles`, the subset of `pfam_scan()`'s
+    database, drawing only the subset's profiles.  Returns (profiles,
+    sequences)."""
+    from .profile import sample_profile
     from .scan.sequence import Sequence
 
-    sub = [i for i, p in enumerate(profiles) if p.core_size <= 400][::10][:12]
+    ks = ([p.core_size for p in profiles] if profiles is not None
+          else pfam_ks(200))
+    sub = [i for i, k in enumerate(ks) if k <= 400][::10][:12]
     assert 100 in sub, "the subset lost its planted profile"
+    if profiles is None:  # pfam_scan()'s draws, for the subset alone
+        profiles = {i: sample_profile(200 + i, ks[i]) for i in sub}
     rng = np.random.default_rng(seed)
     reads = [planted_read(rng, profiles[100], read_len, noise=0.01),
              random_bases(rng, read_len)]

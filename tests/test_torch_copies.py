@@ -670,3 +670,17 @@ def test_multihost_copy(name, tmp_path):
         a = Path(got(str(tmp_path / "a"), shards, ["PA", "PB"])).read_text()
         b = Path(want(str(tmp_path / "b"), shards, ["PA", "PB"])).read_text()
         assert a == b and a.splitlines()[1].split("\t")[7] == "PA"
+
+
+@pytest.mark.parametrize("num_profiles,K,B,L", [(2, 24, 2, 48), (3, 9, 4, 7)])
+def test_graft_tiny_workload_copy(num_profiles, K, B, L):
+    """graft_entry's example workload is the reference's __graft_entry__
+    `_tiny_workload`, array for array."""
+    import __graft_entry__ as r_graft
+
+    import deciphon_tpu_torch.graft_entry as p_graft
+
+    want = r_graft._tiny_workload(num_profiles, K, B, L)
+    got = p_graft._tiny_workload(num_profiles, K, B, L)
+    assert same_fields(got[0], want[0])
+    assert all(same(a, b) for a, b in zip(got[1:], want[1:]))

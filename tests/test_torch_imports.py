@@ -75,7 +75,8 @@ def test_port_imports_no_jax(cli):
             "deciphon_tpu_torch.worker.progressor",
             "deciphon_tpu_torch.worker.daemons", "deciphon_tpu_torch.gui",
             "deciphon_tpu_torch.ops.bruteforce",
-            "deciphon_tpu_torch.worker_daemon", *COMMAND_LINE} <= set(mods)
+            "deciphon_tpu_torch.worker_daemon",
+            "deciphon_tpu_torch.graft_entry", *COMMAND_LINE} <= set(mods)
     if cli:
         mods, check = COMMAND_LINE, FOREIGN
     else:
