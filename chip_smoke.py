@@ -7,8 +7,9 @@
 Phases, each reported on its own lines; any failure exits non-zero.
 Without arguments every phase runs; `--phases` names single phases and
 ranges in the order below, and the phases they need run with them (5c
-needs 4 and 5; 6 and 10 need 4, 5 and 5b; 8 needs 4; 11 needs 9; 1 and 2
-always run).  The ledger scans of phases 4, 5, 5b, 5c and 10 run one
+needs 4 and 5; 6 needs 4, 5, 5b and 5d; 10 needs 4, 5 and 5b; 8 needs 4;
+11 needs 9; 1 and 2 always run).  The ledger scans of phases 4, 5, 5b,
+5c, 5d and 10 run one
 more scan of a cell on its warm Scanner with DECIPHON_SYNC_DEBUG=1
 DECIPHON_FILL_DEBUG=1 (the bucket ledgers of scan/scheduler.py), outside
 every counted run and warm median: its products must be the phase's own,
@@ -63,7 +64,11 @@ were taken there.
      shape), against its plain version and against B1 (B4 at Kp 5632) on
      the same (profile, window) pairs at Kp 128, 512, 1024, 2048, 2176 and
      5632 (9 windows of <= 600 nt, a pad and a length-1 window among
-     them), with both times per position and B9's launch shape;
+     them), with both times per position and B9's launch shape; the mid-K
+     band at MIDK_KPS (2176, 3072, 5120): B1, B3, B5 and B8 on clusters
+     against their plain versions (card pool), B8's segments against B1
+     on the whole window, each with its time per position and launch
+     shape;
   3b. the dense grid at full width, through GridScanEngine.scores on
      `bench.py`'s kernel shapes: 8 profiles x 128 windows of 4096 nt at K
      400 and K 1000, 8 x 8 at K 16382; B9's time (median of 3), its GCUPS
@@ -101,6 +106,15 @@ were taken there.
      on the widest of them, bit for bit; the ledger scan of the streamed
      long read (bkt_gang: B4m); the peak allocation of the resident and
      streamed scans side by side;
+ 5d. the mid-K scan ("midk", `workload.pfam_midk`): 12 profiles, two in
+     each plain bucket from 2560 to 5120 (K 2100..5100), where B1, B3, B5
+     and B8 run on thread-block clusters, and six reads (four of 10 knt,
+     chained; two of 24 knt, over the chain cap: the gang), three planted:
+     first scan counted, three warm scans and one profiled, its ledger
+     scan; DECIPHON_NO_CHAIN=1 (B1) and DECIPHON_CHAIN_SEG=1 (B8) counted,
+     byte-identical to the default route; every launch at those widths
+     on a cluster; K 2100 and 4608 on two reads of 1.2 knt on the card
+     against the CPU (side pool), byte-identical;
   6. every kernel against its plain version again, on arguments the scans
      themselves gave it (more scans record each wrapper's calls): B7 and
      B2 with its walk from the Pfam scan and from the long-read scan, B6
@@ -110,8 +124,13 @@ were taken there.
      largest cluster, over its first WIDEST_PATH_POSITIONS positions) and
      with its walk on its narrowest bucket; B6, B1, B5, B4 and B2 with
      its walks over their windows' first PREFIX_POSITIONS positions (the
-     chain forms whole); per wrapper and scan the
-     widest, longest launch, bit
+     chain forms whole); B1, B3, B5 and B8 on the mid-K scans' widest
+     launches, each timed alone on the card and held against its plain
+     version (card pool): B1 and B5 over their windows' first
+     PREFIX_POSITIONS positions, B3 whole, B8 on every carry call at the
+     widest lanes on its own carry-in (times, plain times and errors under
+     "midk" in the kernels line); per wrapper and
+     scan the widest, longest launch, bit
      for bit; the times and bounds of a kernel's last check go into the
      kernels line, and the walk's time, ns a step and bound on each of the
      three scans' launches under its "scans";
@@ -276,7 +295,8 @@ REPLACES = {"score": f"{PALLAS}:376", "chain": f"{PALLAS}:1038",
 PEAK_F32_OPS = 67e12
 PEAK_BYTES = 3.35e12
 # f32 adds and mins per (position, profile node) cell, counted from the
-# kernel bodies.  Score family (`score_window`, `score_window_packed_fast`):
+# kernel bodies.  Score family (`score_window_fast`,
+# `score_window_packed_fast`):
 # inner 3 adds + 2 mins, contrib 1 + 1, icand 2 + 1, the five pushes of M
 # and of I 5 adds + 4 mins each, and at consume A, A - DDCUM, the prefix
 # min, D, min(M, D) and the E reduction, one each: 34.  Path kernel: per
@@ -312,6 +332,10 @@ PACKED_PLANES = ((64, 4), (128, 8), (256, 8), (448, 2), (192, 6), (64, 32))
 # their plain versions: 2176, the first clustered width, and the large-K
 # buckets' and band widths of the card tests
 CLUSTER_KPS = (2176, 2816, 3072, 5376, 5632, 8704, 16896)
+# lane widths at which phase 3 holds B1, B3, B5 and B8 on clusters (the
+# mid-K band of the plain buckets) against their plain versions: the first
+# clustered width, a mid-band one and the widest plain bucket
+MIDK_KPS = (2176, 3072, 5120)
 # phase 6 holds B2 on the large-K scan's widest launch over the first this
 # many positions of its windows (a prefix: the trellis rows of positions
 # up to Lk do not depend on Lk), to bound its plain version's time
@@ -612,7 +636,10 @@ def to_torch(o, device: str):
 PLAIN3 = {"B1": "scores_pairs_plain", "B3": "scores_pairs_chained_plain",
           "B5": "scores_pairs_mixed_plain", "B6": "scores_pairs_packed_plain",
           "B7": "scores_pairs_packed_chained_plain",
-          "B2": "paths_pairs_plain"}
+          "B2": "paths_pairs_plain", "M1": "scores_pairs_plain",
+          "M3": "scores_pairs_chained_plain",
+          "M5": "scores_pairs_mixed_plain",
+          "M8": "scores_pairs_chained_carry_plain"}
 
 
 def cases3() -> list:
@@ -625,6 +652,7 @@ def cases3() -> list:
                 ("B7", seg, nseg, False)]
     out += [("B2", 256, 200, 2000, 8)]
     out += [("B2", Kp, 40, 300, 3) for Kp in CLUSTER_KPS]
+    out += [(k, Kp) for Kp in MIDK_KPS for k in ("M1", "M3", "M5", "M8")]
     return out
 
 
@@ -635,6 +663,19 @@ def case3_inputs(case: tuple, device: str) -> tuple[dict, dict]:
     from deciphon_tpu_torch.ops import viterbi as vk
 
     kind, *p = case
+    if kind == "M1":  # mid-K: 8 windows of <= 600 nt, the last a pad
+        inp, maxlen = wl.score_inputs(p[0], 8, 2, 100, 600, seed=160 + p[0],
+                                      device=device)
+        inp["lengths"][:, -1] = 0
+        return inp, {"maxlen": int(inp["lengths"].max())}
+    if kind == "M3":
+        return wl.chain_case(p[0], seed=170 + p[0], device=device, cmax=4,
+                             lo=40, hi=400), {}
+    if kind == "M5":
+        return wl.mixed_case(p[0], seed=180 + p[0], device=device, w=16,
+                             hi=600), {}
+    if kind == "M8":
+        return wl.carry_case(p[0], seed=190 + p[0], device=device), {}
     if kind == "B1":
         inp, maxlen = wl.score_inputs(p[0], 32, 2, 400, 4000, seed=10 + p[0],
                                       device=device)
@@ -668,12 +709,17 @@ def card_plain3(case: tuple) -> dict:
     import torch
 
     from deciphon_tpu_torch.ops import viterbi as vk
+    from deciphon_tpu_torch.workload import run_carry_calls
 
     inp, extra = case3_inputs(case, "cuda")
     kw = {"nlb": extra["nlb"]} if "nlb" in extra else {}
+    plain = getattr(vk, PLAIN3[case[0]])
     res: dict = {}
-    ms = cuda_ms(torch, lambda: res.update(
-        r=getattr(vk, PLAIN3[case[0]])(**inp, **kw)))
+    if case[0] == "M8":  # the carry calls in turn
+        ms = cuda_ms(torch, lambda: res.update(r=run_carry_calls(plain,
+                                                                 inp)))
+    else:
+        ms = cuda_ms(torch, lambda: res.update(r=plain(**inp, **kw)))
     return {"digest": digest(inp), "out": to_np(res["r"]), "ms": ms}
 
 
@@ -1016,6 +1062,7 @@ def check_kernels(torch, report, card: Side) -> None:
         carry_bound(torch, report, case, case["calls"], got)
     check_walk_cases(torch)
     check_large(torch, report)
+    check_midk(torch, card)
 
 
 def check_walk_cases(torch) -> None:
@@ -1136,8 +1183,8 @@ def check_mixed_large(torch, report) -> None:
 
 def check_large(torch, report) -> None:
     """Phase 3, the large-K tier: B4 on 8 windows of <= 600 nt (the last a
-    pad) against B1 at Kp 1024 (one CTA a window) and 5120 (a cluster; B1
-    there is the lane loop), and against its plain version on clusters at
+    pad) against B1 at Kp 1024 (one CTA a window) and 5120 (a cluster, B1
+    on the same one), and against its plain version on clusters at
     CLUSTER_KPS (B2 at those widths is checked with the other B2 cases)."""
     from deciphon_tpu_torch.ops import viterbi as vk
     from deciphon_tpu_torch.workload import score_inputs
@@ -1175,6 +1222,96 @@ def check_large(torch, report) -> None:
                                plain_ms=p_ms)
         score_bound(torch, report, "large", inp, (ka, kn))
     check_grid(torch)
+
+
+def check_midk(torch, card: Side) -> None:
+    """Phase 3, the mid-K band: B1 (8 windows of <= 600 nt, a pad each
+    pair), B3 (chains of up to 4 windows of <= 400 nt and an all-pad
+    pair), B5 (2 x 16 slots over three profiles) and B8 (a 13-block window
+    over 4 carry calls, a normal window riding in a spare slot) at
+    MIDK_KPS, each on a cluster, against its plain version (card pool) bit
+    for bit, B8's segments against B1 on the whole window; the kernels' times per
+    position and launch shapes.  These launches count toward no path."""
+    from deciphon_tpu_torch.ops import viterbi as vk
+    from deciphon_tpu_torch.workload import run_carry_calls, window_scores
+
+    for Kp in MIDK_KPS:
+        inp, ex = case3_inputs(("M1", Kp), "cuda")
+        L = ex["maxlen"]
+        (ka, kn), (pa, pn), k_ms, p_ms = kernel_vs_card(
+            torch, card, ("M1", Kp), vk.scores_pairs, inp)
+        exact = torch.equal(ka, pa) and torch.equal(kn, pn)
+        pads = bool(torch.isinf(ka[:, -1]).all()
+                    and torch.isfinite(ka[:, :-1]).all())
+        say("B1", f"mid-K Kp={Kp} 2x8 windows <= {L} nt (a pad a pair): "
+            f"bit-equal {exact}, pads +inf {pads}; kernel {k_ms:.3f} ms "
+            f"({k_ms * 1e3 / L:.3f} us/position), plain {p_ms:.1f} ms "
+            f"(card pool); {shape_note(vk, 'score', Kp)}")
+        check(exact and pads, f"B1 Kp={Kp} differs")
+
+        inp, _ = case3_inputs(("M3", Kp), "cuda")
+        (ka, kn), (pa, pn), k_ms, p_ms = kernel_vs_card(
+            torch, card, ("M3", Kp), vk.scores_pairs_chained, inp)
+        real = inp["win_len"] > 0
+        exact = torch.equal(ka, pa) and torch.equal(kn, pn)
+        pads = bool(torch.isinf(ka[~real]).all()
+                    and torch.isfinite(ka[real]).all())
+        L = int(inp["win_len"].max())
+        say("B3", f"mid-K Kp={Kp} {int(real.sum())} windows <= {L} nt in "
+            f"chains of <= 4 (+1 all-pad pair): bit-equal {exact}, pads "
+            f"+inf {pads}; kernel {k_ms:.3f} ms ({k_ms * 1e3 / L:.3f} "
+            f"us/position of the longest entry), plain {p_ms:.1f} ms (card "
+            f"pool); {shape_note(vk, 'chain', Kp)}")
+        check(exact and pads, f"B3 Kp={Kp} differs")
+
+        inp, _ = case3_inputs(("M5", Kp), "cuda")
+        (ka, kn), (pa, pn), k_ms, p_ms = kernel_vs_card(
+            torch, card, ("M5", Kp), vk.scores_pairs_mixed, inp)
+        exact = torch.equal(ka, pa) and torch.equal(kn, pn)
+        L = int(inp["lengths"].max())
+        say("B5", f"mid-K Kp={Kp} 2x16 slots over 3 profiles, windows <= "
+            f"{L} nt: bit-equal {exact}; kernel {k_ms:.3f} ms "
+            f"({k_ms * 1e3 / L:.3f} us/position), plain {p_ms:.1f} ms "
+            f"(card pool); {shape_note(vk, 'gang', Kp)}")
+        check(exact, f"B5 Kp={Kp} differs")
+
+        case, _ = case3_inputs(("M8", Kp), "cuda")
+        got = run_carry_calls(vk.scores_pairs_chained_carry, case)
+        torch.cuda.synchronize()
+        k_ms = cuda_ms(torch, lambda: run_carry_calls(
+            vk.scores_pairs_chained_carry, case), 5)
+        res = card.get(("plain", ("M8", Kp)))
+        check(res["digest"] == digest(case),
+              f"M8 Kp={Kp}: the card pool built other inputs")
+        want = to_torch(res["out"], "cuda")
+        wa, wn = window_scores(case["tables"], case["tvecs"],
+                               case["codes_all"], 0,
+                               [case["whole"]] + case["rides"])
+        last = len(got) - 1
+        exact = True
+        for t, (g, w) in enumerate(zip(got, want)):
+            for s in ([0, 1] if t == last else [1]):
+                exact &= (torch.equal(g[0][0, s, 0], w[0][0, s, 0])
+                          and torch.equal(g[1][0, s, 0], w[1][0, s, 0]))
+            if t < last:
+                exact &= (torch.equal(g[2][:, :, 0], w[2][:, :, 0])
+                          and torch.equal(g[3][:, :, 0], w[3][:, :, 0]))
+            exact &= bool(g[0][0, 1, 0] == wa[1 + t]
+                          and g[1][0, 1, 0] == wn[1 + t])
+        whole = bool(got[last][0][0, 0, 0] == wa[0]
+                     and got[last][1][0, 0, 0] == wn[0])
+        L = case["whole"][1] - case["whole"][0]
+        say("B8", f"mid-K Kp={Kp} {L}-nt window over {len(got)} carry calls "
+            f"+ a riding window per call: bit-equal to plain (scores and "
+            f"continuing carry planes) {exact}, segments equal to B1 on the "
+            f"whole window {whole}; kernel {k_ms:.3f} ms "
+            f"({k_ms * 1e3 / L:.3f} us/position of the segmented window), "
+            f"plain {res['ms']:.1f} ms (card pool) for the {len(got)} "
+            f"calls; {shape_note(vk, 'carry', Kp)}")
+        check(exact and whole, f"B8 Kp={Kp} differs")
+        for key in ("score", "chain", "gang", "carry"):
+            check(vk.SHAPES[(key, Kp)]["c"] > 1,
+                  f"{key} at Kp {Kp} did not run on a cluster")
 
 
 def grid_pairs(torch, g: dict) -> dict:
@@ -1394,7 +1531,7 @@ def card_plain_call(name: str, args: dict) -> dict:
 
 
 def check_main_shapes(torch, report, pfam_calls, nochain_calls, long_calls,
-                      seg_calls, big_calls, card: Side) -> None:
+                      seg_calls, big_calls, card: Side, midk: list) -> None:
     """Each kernel against its plain version on arguments the scans
     themselves gave it (recorded by captured scans): B7 and B2 from the
     Pfam scan and again from the long-read scan (whole-read
@@ -1409,7 +1546,8 @@ def check_main_shapes(torch, report, pfam_calls, nochain_calls, long_calls,
     the kernels line.  Every kernel is run and timed first, alone on the
     card; then the plain versions of the score kernels and of each carry
     call run in the card pool's processes while this one runs B2's and
-    the walk's, one after another."""
+    the walk's, one after another; the plain versions of `midk` (time_midk's
+    runs, made before this) go to the card pool with the others."""
     from deciphon_tpu_torch.ops import viterbi as vk
 
     # 1. every kernel, alone on the card
@@ -1462,6 +1600,11 @@ def check_main_shapes(torch, report, pfam_calls, nochain_calls, long_calls,
     for n, (args, _, _) in enumerate(carry_runs):
         card.submit(("carry", n), card_plain_call,
                     "scores_pairs_chained_carry_plain", to_np(args))
+    for n, r in enumerate(midk):
+        for m, (args, _, _) in enumerate(r["calls"]):
+            card.submit(("midk", n, m), card_plain_call,
+                        PLAIN.get(r["name"], r["name"] + "_plain"),
+                        to_np(args))
     for st in paths:
         path_plain(torch, report, st)
 
@@ -1493,14 +1636,8 @@ def check_main_shapes(torch, report, pfam_calls, nochain_calls, long_calls,
     for n, (args, out, k_ms) in enumerate(carry_runs):
         res = card.get(("carry", n))
         want, p_ms = to_torch(res["out"], "cuda"), res["ms"]
-        exact &= torch.equal(out[0], want[0]) and torch.equal(out[1],
-                                                              want[1])
-        for w in range(min(args["win_len"].shape[1], vk.CW)):
-            d = args["win_len"][:, w, 0] > 0  # slots with defined planes
-            for a, b in ((out[2], want[2]), (out[3], want[3])):
-                exact &= torch.equal(a[:, :, w][d], b[:, :, w][d])
-                err = max(err, max_err(torch, a[:, :, w][d], b[:, :, w][d]))
-        err = max(err, max_err(torch, out[0], want[0]))
+        ok, e = carry_equal(torch, vk, args, out, want)
+        exact, err = exact and ok, max(err, e)
         k_tot, p_tot = k_tot + k_ms, p_tot + p_ms
         conts += int(args["conts"].sum())
         outs.append(out)
@@ -1516,6 +1653,104 @@ def check_main_shapes(torch, report, pfam_calls, nochain_calls, long_calls,
     say("main", f"carry: {report['carry']['us_per_position']:.3f} "
         f"us/position over the calls' longest slots, bound "
         f"{report['carry']['bound_ms']:.6f} ms ({report['carry']['bound_by']})")
+
+
+def carry_equal(torch, vk, args: dict, out, want) -> tuple[bool, float]:
+    """One carry call against its plain version: scores bit for bit, and
+    the exported planes of every slot whose planes are defined; (equal,
+    largest error)."""
+    exact = torch.equal(out[0], want[0]) and torch.equal(out[1], want[1])
+    err = max_err(torch, out[0], want[0])
+    for w in range(min(args["win_len"].shape[1], vk.CW)):
+        d = args["win_len"][:, w, 0] > 0  # slots with defined planes
+        for a, b in ((out[2], want[2]), (out[3], want[3])):
+            exact &= torch.equal(a[:, :, w][d], b[:, :, w][d])
+            err = max(err, max_err(torch, a[:, :, w][d], b[:, :, w][d]))
+    return exact, err
+
+
+def time_midk(torch, calls: dict) -> list:
+    """Phase 6, the mid-K scans' own shapes, first part: B1 (its
+    DECIPHON_NO_CHAIN=1 scan) and B5 (the default route) on the launch
+    with the widest lanes and then the longest slot, over its windows'
+    first PREFIX_POSITIONS positions, B3 on its widest launch whole, and
+    B8 on every carry call of its DECIPHON_CHAIN_SEG=1 scan at the widest
+    lanes, each on its own carry-in; each run and timed alone on the card,
+    each on a cluster.  Returns the runs, whose plain versions
+    check_main_shapes sends to the card pool and midk_plain holds them
+    against."""
+    from deciphon_tpu_torch.ops import viterbi as vk
+
+    runs = []
+    for key, name, prefix in (("score", "scores_pairs", PREFIX_POSITIONS),
+                              ("chain", "scores_pairs_chained", None),
+                              ("gang", "scores_pairs_mixed",
+                               PREFIX_POSITIONS)):
+        i, args = widest(calls[name], key)
+        full = span(args)
+        if prefix is not None:  # each window's first `prefix` positions
+            args = dict(args, lengths=args["lengths"].clamp(max=prefix))
+        kernel = getattr(vk, name)
+        out = kernel(**args)
+        torch.cuda.synchronize()
+        k_ms = cuda_ms(torch, lambda: kernel(**args), 2)
+        Kp = args["tables"].shape[2]
+        check(vk.SHAPES[(key, Kp)]["c"] > 1, f"{key} at Kp {Kp}: no cluster")
+        runs.append(dict(key=key, name=name, i=i, ncalls=len(calls[name]),
+                         full=full, calls=[(args, out, k_ms)]))
+    carry = calls["scores_pairs_chained_carry"]
+    check(carry, "the mid-K DECIPHON_CHAIN_SEG=1 scan made no carry launch")
+    Kp = max(a["tables"].shape[2] for a in carry)
+    wide = []
+    for a in carry:
+        if a["tables"].shape[2] == Kp:
+            out = vk.scores_pairs_chained_carry(**a)
+            torch.cuda.synchronize()
+            wide.append((a, out, cuda_ms(
+                torch, lambda: vk.scores_pairs_chained_carry(**a))))
+    check(vk.SHAPES[("carry", Kp)]["c"] > 1, f"carry at Kp {Kp}: no cluster")
+    runs.append(dict(key="carry", name="scores_pairs_chained_carry",
+                     ncalls=len(carry), calls=wide))
+    return runs
+
+
+def midk_plain(torch, report, card: Side, runs: list) -> None:
+    """Phase 6, the mid-K scans' own shapes, second part: each run of
+    time_midk against its plain version (card pool), bit for bit (B8: the
+    scores and the continuing carry planes); the kernel's and the plain
+    version's times go into the kernels line under its "midk"."""
+    from deciphon_tpu_torch.ops import viterbi as vk
+
+    for n, r in enumerate(runs):
+        key, exact, err, k_ms, p_ms = r["key"], True, 0.0, 0.0, 0.0
+        for m, (args, out, ms) in enumerate(r["calls"]):
+            res = card.get(("midk", n, m))
+            want = to_torch(res["out"], "cuda")
+            if key == "carry":
+                ok, e = carry_equal(torch, vk, args, out, want)
+            else:
+                ok = all(torch.equal(a, b) for a, b in zip(out, want))
+                e = max(max_err(torch, a, b) for a, b in zip(out, want))
+            exact, err = exact and ok, max(err, e)
+            k_ms, p_ms = k_ms + ms, p_ms + res["ms"]
+        Kp = r["calls"][0][0]["tables"].shape[2]
+        L = sum(span(a) for a, _, _ in r["calls"])
+        report[key]["midk"] = dict(Kp=Kp, positions=L, ms=k_ms,
+                                   plain_ms=p_ms, max_abs_err=err,
+                                   us_per_position=k_ms * 1e3 / L,
+                                   shape=vk.SHAPES[(key, Kp)])
+        if key == "carry":
+            what = (f"its {len(r['calls'])} carry calls at Kp={Kp} (of "
+                    f"{r['ncalls']}), each on its own carry-in, longest "
+                    f"slots {L} positions in all")
+        else:
+            what = (f"launch {r['i'] + 1} of {r['ncalls']}, Kp={Kp}, "
+                    f"longest slot {r['full']} positions"
+                    + (f", its first {L} run" if L < r["full"] else ""))
+        say("main", f"{key}: mid-K scan, {what}: bit-equal {exact}, kernel "
+            f"{k_ms:.3f} ms ({k_ms * 1e3 / L:.3f} us/position), plain "
+            f"{p_ms:.1f} ms (card pool); {shape_note(vk, key, Kp)}")
+        check(exact, f"{key} differs from plain at the mid-K scan's shapes")
 
 
 def path_kernel(torch, scan: str, calls, narrowest: bool,
@@ -3559,9 +3794,9 @@ def elapsed(phase: str) -> None:
 
 # The phases in the order they run.  `--phases` names some of them; the
 # ones they need run too (NEEDS, transitively), and 1 and 2 always do.
-PHASES = ("1", "2", "3", "3b", "4", "5", "5b", "5c", "6", "7", "8", "9",
-          "10", "11", "12")
-NEEDS = {"5c": ("4", "5"), "6": ("4", "5", "5b"), "8": ("4",),
+PHASES = ("1", "2", "3", "3b", "4", "5", "5b", "5c", "5d", "6", "7", "8",
+          "9", "10", "11", "12")
+NEEDS = {"5c": ("4", "5"), "6": ("4", "5", "5b", "5d"), "8": ("4",),
          "10": ("4", "5", "5b"), "11": ("9",)}
 # Kernels each phase's main paths launch (its counted runs; the closing
 # "never launched" check of a selection covers the selected phases'), and
@@ -3574,6 +3809,7 @@ PHASE_KERNELS = {
     "5": ("chain", "gang", "carry", "path", "walk"),
     "5b": ("large", "path", "walk"),
     "5c": ("pchain", "chain", "gang_large", "path", "walk"),
+    "5d": ("chain", "gang", "score", "carry", "path", "walk"),
     "7": ("walk",),
     "8": ("amino_forward", "amino_posterior", "path", "walk"),
     "9": ("pchain", "chain", "path", "walk", "amino_posterior"),
@@ -3615,11 +3851,13 @@ def select_phases(spec: str | None) -> list[str]:
 
 def host_data(name: str):
     """A scan's host data ("db": `workload.pfam_scan()`, "largek":
-    `workload.pfam_largek()`), built in the side pool: (data, seconds)."""
+    `workload.pfam_largek()`, "midk": `workload.pfam_midk()`), built in
+    the side pool: (data, seconds)."""
     from deciphon_tpu_torch import workload as wl
 
     t0 = time.perf_counter()
-    data = {"db": wl.pfam_scan, "largek": wl.pfam_largek}[name]()
+    data = {"db": wl.pfam_scan, "largek": wl.pfam_largek,
+            "midk": wl.pfam_midk}[name]()
     return data, time.perf_counter() - t0
 
 
@@ -3627,6 +3865,7 @@ def host_data(name: str):
 # (Run.largek): the side pool builds them when one of these runs
 DB_PHASES = ("4", "5", "7", "8", "10")
 LARGEK_PHASES = ("5b", "7", "10")
+MIDK_PHASES = ("5d",)
 
 
 class Run:
@@ -3640,7 +3879,7 @@ class Run:
         self.side = side
         self.report: dict = {}
         self.launches: dict[str, int] = {}
-        self._db = self._big = None
+        self._db = self._big = self._mid = None
 
     def _host(self, name: str):
         if (name,) in self.side.jobs:
@@ -3675,9 +3914,22 @@ class Run:
                 f"set-up {took}")
         return self._big
 
+    def midk(self):
+        """The mid-K profiles and reads (`workload.pfam_midk`)."""
+        if self._mid is None:
+            from deciphon_tpu_torch.workload import MIDK_PLANTED
+
+            self._mid, took = self._host("midk")
+            prof, seqs = self._mid
+            say("midk", f"{len(prof)} profiles K "
+                f"{[p.core_size for p in prof]}, {len(seqs)} reads of "
+                f"{[q.size for q in seqs]} nt, reads 0-2 carrying (profile, "
+                f"nodes) {list(MIDK_PLANTED)}; host set-up {took}")
+        return self._mid
+
     def drop_scans(self) -> None:
-        """Free the Scanners of phases 4-5b (their tables on the card)."""
-        for k in ("pfam", "lr", "big"):
+        """Free the Scanners of phases 4-5d (their tables on the card)."""
+        for k in ("pfam", "lr", "big", "mid"):
             self.__dict__.pop(k, None)
 
 
@@ -3843,6 +4095,98 @@ def phase_stream(run: Run) -> None:
                  run.lines, run.long_lines, run.packed_med, run.long_med)
 
 
+def midk_subset_run(dev: str, profiles=None) -> dict:
+    """Phase 5d's card-against-CPU subset (`workload.midk_subset`: K 2100
+    and 4608, buckets 2560 and 5120, two reads of 1.2 knt) on `dev`; the
+    CPU's run goes to the side pool, which draws the mid-K profiles anew.
+    Returns the products and the launch counts."""
+    from deciphon_tpu_torch.ops import viterbi as vk
+    from deciphon_tpu_torch.scan.pipeline import ScanConfig, Scanner
+    from deciphon_tpu_torch.workload import midk_subset, pfam_midk
+
+    sub, seqs = midk_subset(pfam_midk()[0] if profiles is None
+                            else profiles)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        vk.reset_launches()
+        sc = Scanner(sub, ScanConfig(device=dev))
+        kps = [s.Kp for s in sc.scorer.scorers]
+        with open(sc.run(seqs, os.path.join(tmp, "p"))) as fp:
+            text = fp.read()
+    return dict(text=text, launches=dict(vk.LAUNCHES), kps=kps,
+                products=sc.metrics.products,
+                seconds=time.perf_counter() - t0,
+                ks=[p.core_size for p in sub], sizes=[q.size for q in seqs])
+
+
+def midk_shapes(vk, kps: list, keys: tuple) -> None:
+    """Every launch of `keys` at the mid-K scorers' lane widths ran on a
+    cluster: print its shape."""
+    for key in keys:
+        for Kp in kps:
+            if (key, Kp) in vk.SHAPES:
+                check(vk.SHAPES[(key, Kp)]["c"] > 1,
+                      f"{key} at Kp {Kp} did not run on a cluster")
+                say("midk", f"{key} at Kp {Kp}: {shape_note(vk, key, Kp)}")
+
+
+def phase_midk(run: Run) -> None:
+    """Phase 5d, the mid-K scan (`workload.pfam_midk`: two profiles in each
+    plain bucket 2560..5120, B1, B3, B5 and B8 on clusters, six reads of 10
+    and 24 knt): first scan counted, three warm scans and one profiled, its
+    ledger scan; the same cell under DECIPHON_NO_CHAIN=1 (classic buckets:
+    B1) and DECIPHON_CHAIN_SEG=1 (carry segments: B8), each counted,
+    byte-identical to the default route's products; every score launch at
+    its lane widths on a cluster; and the subset of K 2100 and 4608 on two
+    reads of 1.2 knt on the card against the CPU (side pool)."""
+    from deciphon_tpu_torch.ops import viterbi as vk
+
+    t0 = time.perf_counter()
+    torch, launches = run.torch, run.launches
+    profiles, seqs = run.midk()
+    mid = run.mid = Scans(torch, profiles, seqs, "midk")
+    scorers = mid.scanner.scorer.scorers
+    kps = [s.Kp for s in scorers]
+    say("midk", f"{len(scorers)} plain buckets (Kp, w, profiles) "
+        f"{[(s.Kp, s.w, len(s.tables)) for s in scorers]}; "
+        f"{sum(s.table_bytes() for s in scorers) / 1e9:.3f} GB of tables")
+    check(all(2048 < Kp <= vk.MAX_KP and not s.hbm_table
+              for Kp, s in zip(kps, scorers)),
+          "a mid-K profile left the plain buckets past Kp 2048")
+    first, lines = mid.counted(launches, ("chain", "gang", "path", "walk"))
+    say("midk", f"first scan of these tables (cold): {first:.6f} s")
+    midk_shapes(vk, kps, ("chain", "gang", "score", "path"))
+    hit_reads = {int(ln.split("\t")[0]) for ln in lines[1:]}
+    say("midk", f"products on reads {sorted(hit_reads)}")
+    check({0, 1, 2} <= hit_reads, "no products on a planted mid-K read")
+    run.midk_med = mid.warm_and_profile(lines)
+    run.mid_lines = lines
+    mid.ledger(lines)
+    for env, need in (({"DECIPHON_NO_CHAIN": "1"}, ("score", "path", "walk")),
+                      ({"DECIPHON_CHAIN_SEG": "1"}, ("carry", "path",
+                                                     "walk"))):
+        _, again = mid.counted(launches, need, env)
+        check(again == lines, f"{env}: other products than the default "
+              "route's")
+        midk_shapes(vk, kps, ("score", "chain", "carry"))
+    say("midk", "DECIPHON_NO_CHAIN=1 and DECIPHON_CHAIN_SEG=1: products "
+        "byte-identical to the default route's")
+    outs = {"cuda": midk_subset_run("cuda", profiles),
+            "cpu": side_result(run.side, ("midk subset",))}
+    for dev, r in outs.items():
+        say("midk", f"subset, {dev}: K {r['ks']} (Kp {r['kps']}) x reads of "
+            f"{r['sizes']} nt, {r['products']} products, "
+            f"{r['seconds']:.3f} s" + (" (side pool)" if dev == "cpu" else "")
+            + f"; launches {r['launches']}")
+    check(sum(outs["cpu"]["launches"].values()) == 0,
+          "mid-K subset: the CPU's run launched a kernel")
+    check(outs["cuda"]["text"] == outs["cpu"]["text"],
+          "mid-K subset: card and CPU differ")
+    check(outs["cuda"]["text"].count("\n") > 1, "mid-K subset: no products")
+    say("midk", f"subset products.tsv byte-identical on card and CPU; phase "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
 def phase_main_shapes(run: Run) -> None:
     """Phase 6: kernels against plain at the scans' own shapes."""
     t0 = time.perf_counter()
@@ -3852,10 +4196,17 @@ def phase_main_shapes(run: Run) -> None:
     long_calls = run.lr.captured(run.long_lines)
     seg_calls = run.lr.captured(run.long_lines, {"DECIPHON_CHAIN_SEG": "1"})
     big_calls = run.big.captured(run.big_lines)
+    mid_calls = {}
+    for env in ({}, no_chain, {"DECIPHON_CHAIN_SEG": "1"}):
+        for k, v in run.mid.captured(run.mid_lines, env).items():
+            mid_calls.setdefault(k, []).extend(v)
     run.drop_scans()
+    midk = time_midk(run.torch, mid_calls)
     check_main_shapes(run.torch, run.report, pfam_calls, nochain_calls,
-                      long_calls, seg_calls, big_calls, run.card)
+                      long_calls, seg_calls, big_calls, run.card, midk)
+    midk_plain(run.torch, run.report, run.card, midk)
     del pfam_calls, nochain_calls, long_calls, seg_calls, big_calls
+    del mid_calls, midk
     say("main", f"phase {time.perf_counter() - t0:.1f} s")
 
 
@@ -4030,7 +4381,8 @@ def phase_entry(run: Run) -> None:
 
 RUNNERS = {"1": phase_env, "2": phase_build, "3": None, "3b": phase_grid,
            "4": phase_pfam, "5": phase_long, "5b": phase_largek,
-           "5c": phase_stream, "6": phase_main_shapes, "7": phase_subset,
+           "5c": phase_stream, "5d": phase_midk, "6": phase_main_shapes,
+           "7": phase_subset,
            "8": phase_confirm, "9": phase_cli, "10": phase_multi,
            "11": phase_services, "12": phase_entry}
 
@@ -4055,6 +4407,9 @@ def submit_side_jobs(run: Run, phases: list, late: bool) -> None:
         side.submit(("db",), side_job, host_data, "db")
     if set(phases) & set(LARGEK_PHASES):
         side.submit(("largek",), side_job, host_data, "largek")
+    if set(phases) & set(MIDK_PHASES):
+        side.submit(("midk",), side_job, host_data, "midk")
+        side.submit(("midk subset",), side_job, midk_subset_run, "cpu")
 
 
 def submit_late_jobs(run: Run, phases: list) -> None:
@@ -4097,7 +4452,7 @@ def main() -> None:
         else None
     run.cli_tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_")
     # the last phase that uses the Scanners of phases 4-5b
-    scanning = [p for p in phases if p in ("4", "5", "5b", "5c", "6")]
+    scanning = [p for p in phases if p in ("4", "5", "5b", "5c", "5d", "6")]
     # phase 7's torch engine, launch-bound for a minute, runs in a process
     # of its own on the card beside phase 11 where both run (its walk
     # launches count there), else within phase 7
@@ -4164,7 +4519,8 @@ def main() -> None:
             f"only the kernels its phases launch {sorted(launched)} and "
             f"time {sorted(timed)}, and the kernels line lists those")
     # the wrappers that keep their launch shapes
-    for k in ("large", "gang_large", "path", "grid", "packed", "pchain"):
+    for k in ("score", "chain", "gang", "carry", "large", "gang_large",
+              "path", "grid", "packed", "pchain"):
         report[k]["shapes"] = {str(Kp): sh for (key, Kp), sh
                                in sorted(vk.SHAPES.items()) if key == k}
     for k, r in report.items():

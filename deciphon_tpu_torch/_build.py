@@ -50,16 +50,13 @@ _IP = ctypes.POINTER(ctypes.c_int)
 # exported C functions and their argument types (pointers and the stream
 # as void*, counts as int)
 SIGNATURES = {
-    "dtt_score_pairs": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
-                        _I, _I, _I, _I, _P],
-    "dtt_score_mixed": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
-                        _I, _I, _I, _I, _P],
-    # B4, B4m, B9 and B2 end with the launch shape (c, w, lpt, threads, smem),
-    # an int* for the resident clusters and the stream
-    "dtt_score_pairs_large": [_P] * 9 + [_I] * 9 + [_IP, _P],
-    "dtt_score_mixed_large": [_P] * 9 + [_I] * 9 + [_IP, _P],
-    "dtt_score_chained": [_P] * 10 + [_I] * 5 + [_P],
-    "dtt_score_chained_carry": [_P] * 15 + [_I] * 5 + [_P],
+    # the score family (B1 and B4, B5 and B4m, B3, B8, B9) and B2 end with
+    # the launch shape (c, w, lpt, threads, smem), an int* for the resident
+    # clusters and the stream
+    "dtt_score_pairs": [_P] * 9 + [_I] * 9 + [_IP, _P],
+    "dtt_score_mixed": [_P] * 9 + [_I] * 9 + [_IP, _P],
+    "dtt_score_chained": [_P] * 10 + [_I] * 10 + [_IP, _P],
+    "dtt_score_chained_carry": [_P] * 15 + [_I] * 10 + [_IP, _P],
     # B6 and B7 end with the launch shape (lpt, threads, smem), an int*
     # for the CTAs an SM holds at once and the stream
     "dtt_score_packed": [_P] * 9 + [_I] * 8 + [_IP, _P],

@@ -1,26 +1,28 @@
 // Score kernels (B1, B3, B5, B8, B4, B4m, B9): null and alt min-plus
 // costs of every scheduled window, the push/pending formulation of the
-// frame Viterbi.  One DP body (`score_window`), seven entry points:
+// frame Viterbi.  One DP body (`score_window_fast`), five entry points
+// for seven TPU kernels:
 //
 //   dtt_score_pairs          B1  `_kernel_pending` plain pairs form
 //                                (`_scores_pairs_core`,
-//                                `viterbi_scores_pairs_from_starts`);
+//                                `viterbi_scores_pairs_from_starts`), and
+//                            B4  `_kernel_block_large`, the large-K tier
+//                                (`_scores_pairs_hbm_core`,
+//                                `_gather_scores_pairs_hbm_jit`);
 //   dtt_score_mixed          B5  `_kernel_pending` mixed=True, one profile
-//                                per slot (`_scores_pairs_mixed_vmem_core`);
+//                                per slot (`_scores_pairs_mixed_vmem_core`),
+//                                and
+//                            B4m `_kernel_block_large` mixed=True, one
+//                                profile per slot: the gang of a scorer
+//                                whose tables stream per wave
+//                                (`_scores_pairs_hbm_core`,
+//                                `_gather_scores_pairs_hbm_mixed_jit`);
 //   dtt_score_chained        B3  `_kernel_pending` chain=True, C windows
 //                                per slot (`_scores_pairs_chain_core`,
 //                                `_chained_scores_jit`);
 //   dtt_score_chained_carry  B8  `_kernel_pending` chain=True, carry=True,
 //                                DP state across consecutive calls
 //                                (`_scores_pairs_chain_carry_core`);
-//   dtt_score_pairs_large    B4  `_kernel_block_large`, the large-K tier
-//                                (`_scores_pairs_hbm_core`,
-//                                `_gather_scores_pairs_hbm_jit`);
-//   dtt_score_mixed_large    B4m `_kernel_block_large` mixed=True, one
-//                                profile per slot: the gang of a scorer
-//                                whose tables stream per wave
-//                                (`_scores_pairs_hbm_core`,
-//                                `_gather_scores_pairs_hbm_mixed_jit`);
 //   dtt_score_grid           B9  `_kernel`, the pull-form score kernel of
 //                                the dense grid (`_scores_grid_jit`,
 //                                `viterbi_scores_grid`, `PallasScanEngine`)
@@ -35,34 +37,48 @@
 // every real window.
 //
 // Mapping.  The TPU ran positions as a sequential grid axis with W windows
-// on sublanes.  Here one CTA scans one real window, the position loop runs
-// inside the block, and the Kp lanes are split into consecutive chunks, one
-// per thread.  Up to Kp 2048, B1, B3, B5 and B8 run the redesigned body
-// (score_window_fast): Kp / LPT threads of LPT lanes each (LPT 2 up to Kp
-// 512, 4 beyond), the 5-slot pending rings PM/PI, the 8 transition rows
+// on sublanes.  Here one CTA, or one cluster of CTAs, scans one real
+// window, the position loop runs inside the block, and the Kp lanes are
+// split into consecutive chunks of LPT lanes, one per thread.  Up to Kp
+// 2048 a window is one CTA of Kp / LPT threads (LPT 2 up to Kp 512, 4
+// beyond) holding the 5-slot pending rings PM/PI, the 8 transition rows
 // and the staged emission rows of the next position in shared memory (23 *
 // Kp f32: 188 KB at Kp 2048), the special states in warp 0, ring slots made
 // static by unrolling the position loop into 5 phases (as the Pallas
-// kernel does).  Past Kp 2048 (up to 5120) they run score_window, the
-// first port's lane loop: the rings and the previous delete row in shared
-// memory (11 * Kp f32), 512 threads, the specials in every thread.
+// kernel does).
 //
-// Large K (B4).  Past Kp 2048 a window's state (23 planes, 1.55 MB at Kp
-// 16896) no longer fits one CTA's 227 KB, so B4 gives a window a thread-
-// block cluster of c CTAs (up to 16, along x: grid (W * c, N)), each
-// holding w lanes of every plane in its own shared memory and running the
-// redesigned body on them; the hand-overs, the delete chain's carry and E
-// cross CTAs through distributed shared memory on the body's two barrier
-// rounds, now cluster barriers (see score_window_fast).  Up to Kp 2048 it
-// is c = 1 and B4 launches B1's kernel.  The shape (c, w, LPT, threads,
-// shared bytes) is ops/viterbi.py cluster_shape's, checked here, and a
-// launch first asks cudaOccupancyMaxActiveClusters whether one such
-// cluster can be resident (it must fit one GPC): if not it is refused.
-// The TPU kernel launched once per 40-position block, gathered the
-// block's emission planes with XLA and carried its state through HBM
-// between launches, all because VMEM could not hold the table; here the
-// body reads emission rows from the table in place and one launch runs
-// every window to its length, with no state in global memory.
+// Clusters.  Past Kp 2048 a window's state (23 planes, 460 KB at Kp 5120,
+// 1.55 MB at Kp 16896) no longer fits one CTA's 227 KB, so every entry
+// point gives a window a thread-block cluster of c CTAs (up to 16, along
+// x: grid (W * c, N), (W * C * c, N) for the chains), each holding w lanes
+// of every plane in its own shared memory and running the same body on
+// them; the hand-overs, the delete chain's carry and E cross CTAs through
+// distributed shared memory on the body's two barrier rounds, now cluster
+// barriers (see score_window_fast).  The shape (c, w, LPT, threads, shared
+// bytes) is ops/viterbi.py cluster_shape's for every entry point, c = 1 up
+// to Kp 2048, checked here (shape_ok), and a clustered launch first asks
+// cudaOccupancyMaxActiveClusters whether one such cluster can be resident
+// (it must fit one GPC): if not it is refused, never replaced.  At Kp
+// 5120 that is 10 CTAs of 512 lanes, 128 threads and 47.1 KB each: the
+// clustered instances hold 128 registers a thread, so the register file
+// lets four such CTAs share an SM (two of 192 threads).  A window's 23
+// planes leave fewer windows resident than an 11-plane body would, so up
+// to Kp 2560 a full grid (264 windows) runs at 0.71-0.79x the first
+// port's lane loop, and past it, or with few windows, 1.1-8.5x faster
+// (PERF.md §6).  B4's TPU kernel launched once per 40-position block,
+// gathered the block's emission planes with XLA and carried its state
+// through HBM between launches, all because VMEM could not hold the table;
+// here the body reads emission rows from the table in place and one launch
+// runs every window to its length, with no state in global memory.
+//
+// B1 and B4 compute one function and share one entry point: B4 is the
+// large-K tier's name for it past Kp 5120 (the scheduler's MAX_KP), B1
+// the plain buckets' up to it.  B4m is B4 with B5's profile per slot: the
+// TPU ran it when a gang's table stack did not fit VMEM or streamed in per
+// wave.  On the card no table is on-chip, so a resident gang stays on B5
+// at any stack size; a streamed gang takes B4m as the reference's does.
+// Both compute B5's function and share B5's entry point, so B4m equals B5
+// bit for bit.
 //
 // B9 computes B1's function over a dense (profile x window) grid: the
 // pull form's T and R equal the push form's bit for bit (rounding is
@@ -73,57 +89,49 @@
 // it, in B4's launch shape, with no DP body and no state scratch of its
 // own.
 //
-// B4m is B4 with B5's profile per slot: the TPU ran it when a gang's table
-// stack did not fit VMEM or streamed in per wave.  On the card no table is
-// on-chip, so a resident gang stays on B5 at any stack size; a streamed
-// gang takes B4m as the reference's does.  Both compute B5's function, so
-// B4m equals B5 bit for bit; up to Kp 2048 (c = 1) it launches B5's
-// kernel.
-//
 // Chains (B3, B8).  The TPU chained windows back to back in one sublane
 // slot only to fill its sublane floor; each window restarts from its own
 // reseed at a block-aligned start (40 % 5 == 0), so its ring phases and f32
 // operation order are those of the window scored alone.  A GPU has no such
-// floor, so here every chain entry is its own CTA (grid (W * C, N)) and is
-// scored from its own reseed: the same function as the chain, with C times
-// the parallelism of running a slot's entries one after another in one CTA
-// and no dependency between blocks.  Entries of length 0 (pads) write +inf
-// and exit at once.  Carry (B8): a continuing entry (c == 0, w < CW,
+// floor, so here every chain entry is its own CTA or cluster and is scored
+// from its own reseed: the same function as the chain, with C times the
+// parallelism of running a slot's entries one after another and no
+// dependency between blocks.  Entries of length 0 (pads) write +inf and
+// exit at once.  Carry (B8): a continuing entry (e == 0, w < CW,
 // conts[n, w] > 0) loads the previous segment's exported state instead of
-// the reseed, and entry c == 0 of every slot w < CW exports its final state
+// the reseed, and entry e == 0 of every slot w < CW exports its final state
 // in the reference's planes: big (13, CW, Kp) = PM[0:5] | PI[5:10] |
 // ST[10:13] (ST = M, I, D of the last position: ring slots len % 5 and the
 // delete row), small (32, CW) = PSM.reshape(20) | SS[20:27] | zeros[27:32].
+// On a cluster each rank loads and exports the big planes' lanes it owns,
+// every rank reads the small planes (warp 0 of every rank computes the
+// specials) and rank 0 writes them.
 //
 // What bounds it.  Each position reads 5 emission rows of Kp f32 (from
 // the (1364, Kp) table through L2) per window, far below L2 bandwidth, and
 // does 34 adds and mins a lane; the kernel is bound by latency per
-// position.  score_window spends it on six __syncthreads rounds (the
-// shift, the prefix min and E, each block-wide reduction two rounds with a
-// serial cross-warp loop), on codes and then emission rows loaded from
-// global memory at the head of every position, and on transition rows
-// re-read each position.  score_window_fast takes two rounds a position:
-// the shift and the delete chain's cross-warp carry share the first (each
-// warp's last lane hands its M on, and every warp rebuilds the first-lane
-// terms and combines the warp scans with one warp-wide load and a shuffle
-// scan), E's warp minima and the next position's inner hand-over share the
-// second; the next position's emission rows are copied (cp.async) while
-// the delete chain and E run, their codes fetched a position earlier; the
+// position.  The body takes two barrier rounds a position: the shift and
+// the delete chain's cross-warp carry share the first (each warp's last
+// lane hands its M on, and every warp rebuilds the first-lane terms and
+// combines the warp scans with one warp-wide load and a shuffle scan), E's
+// warp minima and the next position's inner hand-over share the second;
+// the next position's emission rows are copied (cp.async) while the
+// delete chain and E run, their codes fetched a position earlier; the
 // special states are warp 0's, so the other warps skip them.  On one H100
-// 80GB HBM3 (700.00 W), per position: B1 1.42 us at Kp 1024 (score_window
-// 3.21) and 2.30 us at Kp 2048 (7.39); B3 1.43 us at Kp 1024 (3.16); B4
-// on clusters 7.79 us at Kp 16512 (12 windows in two waves of 7 resident
-// clusters; the global-state form 268), two cluster barriers taking 0.4-
-// 0.7 us each of it; B9 on 8 x 8 pairs at K 16382 160.9 ms (B4 on the same
-// pairs 160.5; the pull form it replaced, 2775).  Scores stay
+// 80GB HBM3 (700.00 W), per position: B1 1.42 us at Kp 1024 (the first
+// port's lane loop 3.21) and 2.30 us at Kp 2048 (7.39); B3 1.43 us at Kp
+// 1024 (3.16); B4 on clusters 7.79 us at Kp 16512 (12 windows in two waves
+// of 7 resident clusters; the global-state form 268), two cluster barriers
+// taking 0.4-0.7 us each of it; B9 on 8 x 8 pairs at K 16382 160.9 ms (B4
+// on the same pairs 160.5; the pull form it replaced, 2775).  Scores stay
 // latency-bound: hundreds of times their operation bound (PERF.md).
 //
 // Exactness.  Min-plus uses only adds and mins, so the body keeps the
 // Pallas f32 operation order: contrib = min(shift1(min(min(sm+MMs,
 // si+IMs), sd+DMs)), B+BM); D = cummin(A - DDCUM) + DDCUM;
 // R_l = PSM[3] + XT_RR with R_0 = -XT_RR.  Build without fast-math/ftz.
-// The lane split does not enter the result, so B4 equals B1 bit for bit
-// wherever both run.
+// The lane split does not enter the result, so every instance equals the
+// plain version, and B4 equals B1, bit for bit at every width.
 #include "common.cuh"
 
 namespace {
@@ -132,10 +140,9 @@ using namespace dtt;
 
 constexpr int kScoreThreads = 512;
 constexpr int kCW = 8;  // carry slots per pair (viterbi_pallas.CW)
-constexpr int kStatePlanes = 11;  // PM (5) | PI (5) | Dv (1), Kp f32 each
-// The redesigned body (score_window_fast) takes Kp up to kFastMaxKp, with
-// LPT 2 lanes a thread up to kLpt2MaxKp and LPT 4 beyond (Kp / LPT
-// threads); wider planes keep score_window's lane loop.
+// One CTA a window takes Kp up to kFastMaxKp, with LPT 2 lanes a thread up
+// to kLpt2MaxKp and LPT 4 beyond (Kp / LPT threads); wider planes take a
+// cluster of CTAs at LPT 4.
 constexpr int kFastMaxKp = 2048;
 constexpr int kLpt2MaxKp = 512;
 // its shared planes: PM (5) | PI (5) | transition rows (8) | staged
@@ -151,210 +158,7 @@ struct Carry {
   float* sml_out = nullptr;
 };
 
-// The first port's lane loop, kept for B1/B3/B5/B8 at 2048 < Kp <= 5120:
-// the DP of one window, `len` positions of profile table/tv from code row
-// `start`, (alt, null) written to *alt / *nul.  `state` holds the CTA's
-// kStatePlanes * Kp f32 of shared memory.  Every thread of the CTA calls
-// it; a length-0 window never gets here.
-__device__ __forceinline__ void score_window(
-    const float* __restrict__ table, const float* __restrict__ tv,
-    const float* __restrict__ xtp, int start, int len,
-    const int* __restrict__ codes, int Kp, int T, int lpt, float* state,
-    Carry cy, float* alt, float* nul) {
-  __shared__ float red[kMaxWarps];  // reduction scratch
-  float* PM = state;          // [5][Kp] pending M
-  float* PI = PM + 5 * Kp;    // [5][Kp] pending I
-  float* Dv = PI + 5 * Kp;    // [Kp] previous D, then the pushed inner
-  const float INF = inf_f();
-
-  const float* tMMS = tv + TV_MMS * Kp;
-  const float* tIMS = tv + TV_IMS * Kp;
-  const float* tDMS = tv + TV_DMS * Kp;
-  const float* tBM = tv + TV_BM * Kp;
-  const float* tII = tv + TV_II * Kp;
-  const float* tMI = tv + TV_MI * Kp;
-  const float* tMD = tv + TV_MD * Kp;
-  const float* tDDC = tv + TV_DDCUM * Kp;
-  float xt[13];
-#pragma unroll
-  for (int j = 0; j < 13; ++j) xt[j] = xtp[j];
-  const int k0 = min((int)threadIdx.x * lpt, Kp);
-  const int k1 = min(k0 + lpt, Kp);
-  const size_t cstride = (size_t)kCW * Kp;
-
-  // specials of the previous position [S B N J C E R] and the pending
-  // N/J/C/R rings, identical in every thread
-  float ss[7];
-  float psm[4][5];
-  if (cy.big_in != nullptr) {  // continue a segmented window
-    for (int k = threadIdx.x; k < Kp; k += blockDim.x) {
-#pragma unroll
-      for (int s = 0; s < 5; ++s) {
-        PM[s * Kp + k] = cy.big_in[s * cstride + k];
-        PI[s * Kp + k] = cy.big_in[(5 + s) * cstride + k];
-      }
-      Dv[k] = cy.big_in[12 * cstride + k];
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 5; ++j) psm[i][j] = cy.sml_in[(i * 5 + j) * kCW];
-#pragma unroll
-    for (int j = 0; j < 7; ++j) ss[j] = cy.sml_in[(20 + j) * kCW];
-  } else {
-    for (int k = threadIdx.x; k < 5 * Kp; k += blockDim.x) {
-      PM[k] = INF;
-      PI[k] = INF;
-    }
-    for (int k = threadIdx.x; k < Kp; k += blockDim.x) Dv[k] = INF;
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 5; ++j) psm[i][j] = INF;
-    ss[0] = 0.f;
-    ss[1] = xt[XT_SB];
-    ss[2] = ss[3] = ss[4] = ss[5] = INF;
-    ss[6] = -xt[XT_RR];
-  }
-  __syncthreads();
-  float Tfin = INF, Rfin = INF;
-
-  for (int l0 = 0; l0 < len; l0 += 5) {
-#pragma unroll
-    for (int r = 0; r < 5; ++r) {
-      const int l = l0 + r + 1;  // l % 5 == (r + 1) % 5
-      if (l > len) break;
-      // rows of the 5 fragments STARTING at position l
-      const int crow = min(start + l - 1, T - 1);
-      const float* er[5];
-#pragma unroll
-      for (int t = 0; t < 5; ++t)
-        er[t] = table + (size_t)codes[(size_t)crow * 5 + t] * Kp;
-
-      // -- inner = min(min(sm+MMs, si+IMs), sd+DMs) into Dv -------------
-      const float* sm = PM + r * Kp;  // M_{l-1} sits in slot (l-1)%5 == r
-      const float* si = PI + r * Kp;
-      for (int k = k0; k < k1; ++k)
-        Dv[k] = fminf(fminf(sm[k] + tMMS[k], si[k] + tIMS[k]),
-                      Dv[k] + tDMS[k]);
-      __syncthreads();
-
-      // -- push the contributions of state l-1 -------------------------
-      const float Bprev = ss[1];
-      for (int k = k0; k < k1; ++k) {
-        const int km = k == 0 ? Kp - 1 : k - 1;
-        const float contrib = fminf(Dv[km], Bprev + tBM[k]);
-        const float icand = fminf(si[k] + tII[k], sm[k] + tMI[k]);
-#pragma unroll
-        for (int t = 1; t <= 5; ++t) {
-          const int st = (r + t) % 5;  // (l-1+t) % 5
-          const float em = er[t - 1][k];
-          const float bg = er[t - 1][Kp - 1];
-          if (t == 5) {  // slot consumed at l-1: fresh assignment
-            PM[st * Kp + k] = contrib + em;
-            PI[st * Kp + k] = icand + bg;
-          } else {
-            PM[st * Kp + k] = fminf(PM[st * Kp + k], contrib + em);
-            PI[st * Kp + k] = fminf(PI[st * Kp + k], icand + bg);
-          }
-        }
-      }
-      {
-        const float cN = fminf(ss[0] + xt[XT_SN], ss[2] + xt[XT_NN]);
-        const float cJ = fminf(ss[5] + xt[XT_EJ], ss[3] + xt[XT_JJ]);
-        const float cC = fminf(ss[5] + xt[XT_EC], ss[4] + xt[XT_CC]);
-        const float cR = ss[6];
-#pragma unroll
-        for (int t = 1; t <= 5; ++t) {
-          const int st = (r + t) % 5;
-          const float nil = er[t - 1][Kp - 2];
-          if (t == 5) {
-            psm[0][st] = cN + nil;
-            psm[1][st] = cJ + nil;
-            psm[2][st] = cC + nil;
-            psm[3][st] = cR + nil;
-          } else {
-            psm[0][st] = fminf(psm[0][st], cN + nil);
-            psm[1][st] = fminf(psm[1][st], cJ + nil);
-            psm[2][st] = fminf(psm[2][st], cC + nil);
-            psm[3][st] = fminf(psm[3][st], cR + nil);
-          }
-        }
-      }
-      __syncthreads();
-
-      // -- consume position l ------------------------------------------
-      const int slot = (r + 1) % 5;
-      const float* Ml = PM + slot * Kp;
-      float loc = INF;
-      for (int k = k0; k < k1; ++k) {
-        const int km = k == 0 ? Kp - 1 : k - 1;
-        const float A = Ml[km] + tMD[k];
-        loc = fminf(loc, A - tDDC[k]);
-      }
-      float run = block_excl_prefix_min(loc, red);
-      float emin = INF;
-      for (int k = k0; k < k1; ++k) {
-        const int km = k == 0 ? Kp - 1 : k - 1;
-        const float A = Ml[km] + tMD[k];
-        run = fminf(run, A - tDDC[k]);
-        const float D = run + tDDC[k];
-        Dv[k] = D;
-        emin = fminf(emin, fminf(Ml[k], D));
-      }
-      const float E = block_min(emin, red);
-      const float N = psm[0][slot];
-      const float J = psm[1][slot];
-      const float C = psm[2][slot];
-      const float R = psm[3][slot] + xt[XT_RR];
-      const float B = fminf(fminf(N + xt[XT_NB], E + xt[XT_EB]),
-                            J + xt[XT_JB]);
-      const float Tl = fminf(E + xt[XT_ET], C + xt[XT_CT]);
-      if (l == len) {
-        Tfin = Tl;
-        Rfin = R;
-      }
-      ss[0] = INF;
-      ss[1] = B;
-      ss[2] = N;
-      ss[3] = J;
-      ss[4] = C;
-      ss[5] = E;
-      ss[6] = R;
-    }
-  }
-  if (threadIdx.x == 0) {
-    *alt = Tfin;
-    *nul = Rfin;
-  }
-  if (cy.big_out != nullptr) {
-    // every thread exports the lanes it wrote; M_len and I_len are ring
-    // slot len % 5, D_len is the delete row
-    const int last = len % 5;
-    for (int k = k0; k < k1; ++k) {
-#pragma unroll
-      for (int s = 0; s < 5; ++s) {
-        cy.big_out[s * cstride + k] = PM[s * Kp + k];
-        cy.big_out[(5 + s) * cstride + k] = PI[s * Kp + k];
-      }
-      cy.big_out[10 * cstride + k] = PM[last * Kp + k];
-      cy.big_out[11 * cstride + k] = PI[last * Kp + k];
-      cy.big_out[12 * cstride + k] = Dv[k];
-    }
-    if (threadIdx.x == 0) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 5; ++j) cy.sml_out[(i * 5 + j) * kCW] = psm[i][j];
-#pragma unroll
-      for (int j = 0; j < 7; ++j) cy.sml_out[(20 + j) * kCW] = ss[j];
-      for (int j = 27; j < 32; ++j) cy.sml_out[j * kCW] = 0.f;
-    }
-  }
-}
-
-// The redesigned body of B1, B3, B5 and B8 (shared-memory state, Kp up to
-// kFastMaxKp) and, clustered, of B4 and B4m: score_window's DP with
+// The DP body of every score kernel: the window's state in shared memory,
 // blockDim.x * LPT == Kp (kClu false) or == w, this CTA's share of a
 // cluster (kClu true; common.cuh).  Per position: the pushes (own lanes
 // only); the next position's emission values fetched; the delete chain,
@@ -389,13 +193,22 @@ __device__ __forceinline__ void score_window(
 // after every rank has passed the barrier that follows its reads.  Dead
 // warps load nothing from global memory and push +inf; no live lane reads
 // a dead one (the shift reads the left neighbour, and lane Kp-1 is live).
+//
+// Carry on a cluster (B8): a rank loads and exports the big planes at its
+// lanes' window index kg, its dead lanes +inf and never exported; the
+// inner row of position 1 is then not +inf, so its hand-over into each
+// rank's warp 0 is pushed into cl1[2] like every later position's, behind
+// a cluster barrier of its own (no CTA's shared memory is written before
+// every CTA of the cluster has started); the barrier before the position
+// loop publishes it, and the next push into cl1[2] (position 1's second
+// round) comes after every rank has read it.  Every rank reads the small
+// planes; rank 0 writes them, with alt and null.
 template <int LPT, bool kCarry, bool kClu>
 __device__ __forceinline__ void score_window_fast(
     const float* __restrict__ table, const float* __restrict__ tv,
     const float* __restrict__ xtp, int start, int len,
     const int* __restrict__ codes, int Kp, int T, float* state, Carry cy,
     float* alt, float* nul) {
-  static_assert(!(kCarry && kClu), "no carry on the clustered form");
   __shared__ float xs[kMaxWarps];      // warp scans, first lane left out
   __shared__ float xm[kMaxWarps + 1];  // M handed on by each warp's last lane
   __shared__ float xe[kMaxWarps];      // warp minima of min(M, D)
@@ -478,15 +291,24 @@ __device__ __forceinline__ void score_window_fast(
   float Bprev;
   float Dp[LPT];
   if (kCarry && cy.big_in != nullptr) {  // continue a segmented window
+    // the planes at the own lanes' window index (dead lanes: +inf)
+    auto load = [&](float* v, int plane) {
+      if (live) {
+        ldg_chunk<LPT>(v, cy.big_in + plane * cstride + kg);
+      } else {
+#pragma unroll
+        for (int j = 0; j < LPT; ++j) v[j] = INF;
+      }
+    };
 #pragma unroll
     for (int s = 0; s < 5; ++s) {
       float v[LPT];
-      ldg_chunk<LPT>(v, cy.big_in + s * cstride + k0);
+      load(v, s);
       st_chunk<LPT>(PM + s * P + k0, v);
-      ldg_chunk<LPT>(v, cy.big_in + (5 + s) * cstride + k0);
+      load(v, 5 + s);
       st_chunk<LPT>(PI + s * P + k0, v);
     }
-    ldg_chunk<LPT>(Dp, cy.big_in + 12 * cstride + k0);
+    load(Dp, 12);
     if (warp == 0) {
 #pragma unroll
       for (int i = 0; i < 4; ++i)
@@ -534,7 +356,12 @@ __device__ __forceinline__ void score_window_fast(
   float innb = __shfl_up_sync(kFull, inn[LPT - 1], 1);
   if (lane == 31) xi[warp] = inn[LPT - 1];
   if (last) xi[kMaxWarps] = inn[LPT - 1];
-  if (kClu && tid == 0) cl1[2] = INF;  // no carry: the rows start at +inf
+  if constexpr (kClu && kCarry) {
+    cluster_sync();  // every CTA of the cluster has started
+    if (ends) *at_rank(&cl1[2], nxt) = inn[LPT - 1];
+  } else if (kClu && tid == 0) {
+    cl1[2] = INF;  // no carry: the rows start at +inf
+  }
 
   // emission rows of position 1 (staged), codes of position 2
   // The next position's bg (lane Kp-1) values stay in registers; its nil
@@ -775,22 +602,25 @@ __device__ __forceinline__ void score_window_fast(
   // no CTA leaves while another may still read its shared memory
   if (kClu) cluster_sync();
   if (kCarry && cy.big_out != nullptr) {
-    // every thread exports its lanes; M_len and I_len are ring slot
-    // len % 5, D_len the last delete row
+    // every live thread exports its lanes at their window index; M_len and
+    // I_len are ring slot len % 5, D_len the last delete row
     const int lst = len % 5;
     float v[LPT];
+    float* out = cy.big_out + kg;
+    if (live) {
 #pragma unroll
-    for (int s = 0; s < 5; ++s) {
-      ld_chunk<LPT>(v, PM + s * P + k0);
-      st_chunk<LPT>(cy.big_out + s * cstride + k0, v);
-      if (s == lst) st_chunk<LPT>(cy.big_out + 10 * cstride + k0, v);
-      ld_chunk<LPT>(v, PI + s * P + k0);
-      st_chunk<LPT>(cy.big_out + (5 + s) * cstride + k0, v);
-      if (s == lst) st_chunk<LPT>(cy.big_out + 11 * cstride + k0, v);
+      for (int s = 0; s < 5; ++s) {
+        ld_chunk<LPT>(v, PM + s * P + k0);
+        st_chunk<LPT>(out + s * cstride, v);
+        if (s == lst) st_chunk<LPT>(out + 10 * cstride, v);
+        ld_chunk<LPT>(v, PI + s * P + k0);
+        st_chunk<LPT>(out + (5 + s) * cstride, v);
+        if (s == lst) st_chunk<LPT>(out + 11 * cstride, v);
+      }
+      ld_chunk<LPT>(v, TVs + TV_BM * P + k0);  // D_len
+      st_chunk<LPT>(out + 12 * cstride, v);
     }
-    ld_chunk<LPT>(v, TVs + TV_BM * P + k0);  // D_len
-    st_chunk<LPT>(cy.big_out + 12 * cstride + k0, v);
-    if (threadIdx.x == 0) {
+    if (tid == 0 && rank == 0) {
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -812,38 +642,33 @@ __device__ __forceinline__ void write_pad(float* alt, float* nul) {
 // B1 (kMixed false): blockIdx = (slot, pair), one profile per pair, pidx
 // (N,).  B5: one profile per (pair, slot), pidx (N, W); the slot's
 // transition rows are read in place (the reference gathers them per slot
-// beforehand).  LPT > 0: the redesigned body at LPT lanes a thread; 0:
-// score_window's lane loop at `lpt` lanes.
+// beforehand).  One CTA a window (Kp up to kFastMaxKp), LPT lanes a
+// thread.
 template <bool kMixed, int LPT>
 __global__ void __launch_bounds__(kScoreThreads) score_pairs_kernel(
     const int* __restrict__ pidx, const float* __restrict__ tables,
     const float* __restrict__ tvecs, const float* __restrict__ xts,
     const int* __restrict__ lens, const int* __restrict__ starts,
     const int* __restrict__ codes, float* __restrict__ alt,
-    float* __restrict__ nul, int W, int Kp, int T, int lpt) {
+    float* __restrict__ nul, int W, int Kp, int T) {
   const int n = blockIdx.y, w = blockIdx.x;
   const int sw = n * W + w;
   const int len = lens[sw];
   if (len <= 0) return write_pad(alt + sw, nul + sw);
   extern __shared__ float smem[];
   const int p = kMixed ? pidx[sw] : pidx[n];
-  const float* table = tables + (size_t)p * kTableRows * Kp;
-  const float* tv = tvecs + (size_t)p * 8 * Kp;
-  if constexpr (LPT > 0)
-    score_window_fast<LPT, false, false>(
-        table, tv, xts + (size_t)sw * 16, starts[sw], len, codes, Kp, T, smem,
-        Carry{}, alt + sw, nul + sw);
-  else
-    score_window(table, tv, xts + (size_t)sw * 16, starts[sw], len, codes,
-                 Kp, T, lpt, smem, Carry{}, alt + sw, nul + sw);
+  score_window_fast<LPT, false, false>(
+      tables + (size_t)p * kTableRows * Kp, tvecs + (size_t)p * 8 * Kp,
+      xts + (size_t)sw * 16, starts[sw], len, codes, Kp, T, smem, Carry{},
+      alt + sw, nul + sw);
 }
 
-// B4 (kMixed false) and B4m, clustered: blockIdx = (slot * c + rank, pair),
-// one window a cluster of c CTAs, each holding its w lanes of the state
-// in shared memory (kFastPlanes * w f32).  B4m reads pidx (N, W) and each
-// slot's table and transition rows in place, as B5 does.  A window of
-// length 0 leaves on every rank before the first cluster barrier (len is
-// the same on every rank); rank 0 writes its +inf.
+// B1 and B4 (kMixed false), B5 and B4m past kFastMaxKp, clustered:
+// blockIdx = (slot * c + rank, pair), one window a cluster of c CTAs, each
+// holding its w lanes of the state in shared memory (kFastPlanes * w f32).
+// B5 and B4m read pidx (N, W) and each slot's table and transition rows in
+// place.  A window of length 0 leaves on every rank before the first
+// cluster barrier (len is the same on every rank); rank 0 writes its +inf.
 template <bool kMixed, int LPT>
 __global__ void __launch_bounds__(kScoreThreads) score_large_kernel(
     const int* __restrict__ pidx, const float* __restrict__ tables,
@@ -899,9 +724,12 @@ __global__ void __launch_bounds__(kScoreThreads) score_grid_kernel(
       alt + o, nul + o);
 }
 
-// B3 (kCarry false) and B8: blockIdx = (slot * C + entry, pair); xtrans
-// rows from the per-scan LUT.  B8 reads and writes the carry planes.
-template <bool kCarry, int LPT>
+// B3 (kCarry false) and B8: blockIdx = ((slot * C + entry) * c + rank,
+// pair), one CTA an entry (kClu false, c = 1) up to Kp 2048, a cluster of
+// c CTAs past it; xtrans rows from the per-scan LUT.  B8 reads and writes
+// the carry planes (entry 0 of slots w < kCW).  A pad entry leaves on
+// every rank before the first cluster barrier; rank 0 writes its +inf.
+template <bool kCarry, int LPT, bool kClu>
 __global__ void __launch_bounds__(kScoreThreads) score_chained_kernel(
     const int* __restrict__ pidx, const float* __restrict__ tables,
     const float* __restrict__ tvecs, const int* __restrict__ wlen,
@@ -910,12 +738,16 @@ __global__ void __launch_bounds__(kScoreThreads) score_chained_kernel(
     const int* __restrict__ conts, const float* __restrict__ cbig_in,
     const float* __restrict__ csml_in, float* __restrict__ cbig_out,
     float* __restrict__ csml_out, float* __restrict__ alt,
-    float* __restrict__ nul, int W, int C, int Kp, int T, int lpt) {
+    float* __restrict__ nul, int W, int C, int Kp, int T) {
   const int n = blockIdx.y;
-  const int w = blockIdx.x / C, c = blockIdx.x % C;
+  const int we = kClu ? (int)blockIdx.x / cluster_size() : (int)blockIdx.x;
+  const int w = we / C, c = we % C;
   const int e = (n * W + w) * C + c;
   const int len = wlen[e];
-  if (len <= 0) return write_pad(alt + e, nul + e);
+  if (len <= 0) {
+    if (!kClu || cluster_rank() == 0) write_pad(alt + e, nul + e);
+    return;
+  }
   Carry cy;
   if (kCarry && c == 0 && w < kCW) {
     const size_t bo = ((size_t)n * 13 * kCW + w) * Kp;
@@ -929,125 +761,95 @@ __global__ void __launch_bounds__(kScoreThreads) score_chained_kernel(
   }
   extern __shared__ float smem[];
   const int p = pidx[n];
-  const float* table = tables + (size_t)p * kTableRows * Kp;
-  const float* tv = tvecs + (size_t)p * 8 * Kp;
-  if constexpr (LPT > 0)
-    score_window_fast<LPT, kCarry, false>(
-        table, tv, lut + (size_t)xti[e] * 16, gst[e], len, codes, Kp, T, smem,
-        cy, alt + e, nul + e);
-  else
-    score_window(table, tv, lut + (size_t)xti[e] * 16, gst[e], len, codes,
-                 Kp, T, lpt, smem, cy, alt + e, nul + e);
+  score_window_fast<LPT, kCarry, kClu>(
+      tables + (size_t)p * kTableRows * Kp, tvecs + (size_t)p * 8 * Kp,
+      lut + (size_t)xti[e] * 16, gst[e], len, codes, Kp, T, smem, cy,
+      alt + e, nul + e);
 }
 
-// Lanes a thread of the redesigned body for lane width Kp; 0 past
-// kFastMaxKp (score_window's lane loop).
-int fast_lpt(int Kp) {
-  return Kp > kFastMaxKp ? 0 : Kp <= kLpt2MaxKp ? 2 : 4;
+// Whether (c, w, lpt, threads, smem), ops/viterbi.py cluster_shape(Kp)'s,
+// is a shape the score body takes at lane width Kp: c ranks of w lanes
+// (up to kMaxCluster), every rank holding live lanes, threads * lpt == w
+// in whole warps within the kernels' thread bound, the body's shared
+// planes, and LPT 2 up to kLpt2MaxKp, 4 beyond (and on every cluster).
+// One CTA holds at most 512 * 4 = kFastMaxKp lanes, so c = 1 only there.
+bool shape_ok(int Kp, int c, int w, int lpt, int threads, int smem) {
+  return c >= 1 && c <= kMaxCluster && threads * lpt == w &&
+         threads % 32 == 0 && threads <= kScoreThreads &&
+         (size_t)smem == (size_t)kFastPlanes * w * 4 &&
+         (size_t)c * w >= (size_t)Kp && (size_t)(c - 1) * w < (size_t)Kp &&
+         lpt == (c == 1 && Kp <= kLpt2MaxKp ? 2 : 4);
 }
 
-// Launch shape of one instance: threads per CTA, lanes a thread and the
-// dynamic shared memory (the DP state).
-template <int LPT>
-void shape(int Kp, int* threads, int* lpt, size_t* smem) {
-  if constexpr (LPT > 0) {
-    *threads = Kp / LPT;
-    *lpt = LPT;
-    *smem = (size_t)kFastPlanes * Kp * sizeof(float);
-  } else {
-    *threads = Kp < kScoreThreads ? Kp : kScoreThreads;
-    *lpt = (Kp + *threads - 1) / *threads;
-    *smem = (size_t)kStatePlanes * Kp * sizeof(float);
-  }
+// Launch `kernel` on `grid`, one CTA a window (c = 1), with `smem` bytes
+// of dynamic shared memory.
+template <typename... KArgs, typename... Args>
+int launch_ctas(void (*kernel)(KArgs...), dim3 grid, int threads, int smem,
+                void* stream, Args... args) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  if (grid.x > 0 && grid.y > 0)
+    kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(args...);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-template <bool kMixed, int LPT>
-static int go_pairs(const void* pidx, const void* tables, const void* tvecs,
-                    const void* xts, const void* lens, const void* starts,
-                    const void* codes, void* alt, void* nul, int N, int W,
-                    int Kp, int T, void* stream) {
-  int threads, lpt;
-  size_t smem;
-  shape<LPT>(Kp, &threads, &lpt, &smem);
-  cudaError_t err = cudaFuncSetAttribute(
-      score_pairs_kernel<kMixed, LPT>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  if (N > 0 && W > 0) {
-    score_pairs_kernel<kMixed, LPT><<<dim3(W, N), threads, smem,
-                                      (cudaStream_t)stream>>>(
-        (const int*)pidx, (const float*)tables, (const float*)tvecs,
-        (const float*)xts, (const int*)lens, (const int*)starts,
-        (const int*)codes, (float*)alt, (float*)nul, W, Kp, T, lpt);
-  }
-  return (int)cudaGetLastError();
-}
-
+// B1/B4 and B5/B4m: the shape (c, w, lpt, threads, smem) comes from
+// ops/viterbi.py cluster_shape; c = 1 runs one CTA a window, c > 1 a
+// cluster a window.  *active gets the clusters that can be resident at
+// once (left as it is when c = 1); a shape that cannot run is refused,
+// never replaced.
 template <bool kMixed>
 static int launch_pairs(const void* pidx, const void* tables,
                         const void* tvecs, const void* xts, const void* lens,
                         const void* starts, const void* codes, void* alt,
-                        void* nul, int N, int W, int Kp, int T,
+                        void* nul, int N, int W, int Kp, int T, int c, int w,
+                        int lpt, int threads, int smem, int* active,
                         void* stream) {
-  switch (fast_lpt(Kp)) {
-    case 2:
-      return go_pairs<kMixed, 2>(pidx, tables, tvecs, xts, lens, starts,
-                                 codes, alt, nul, N, W, Kp, T, stream);
-    case 4:
-      return go_pairs<kMixed, 4>(pidx, tables, tvecs, xts, lens, starts,
-                                 codes, alt, nul, N, W, Kp, T, stream);
-    default:
-      return go_pairs<kMixed, 0>(pidx, tables, tvecs, xts, lens, starts,
-                                 codes, alt, nul, N, W, Kp, T, stream);
-  }
+  if (!shape_ok(Kp, c, w, lpt, threads, smem))
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid(W * c, N);
+  if (c > 1)
+    return dtt_launch_clusters(
+        score_large_kernel<kMixed, 4>, grid, c, threads, smem, stream, active,
+        (const int*)pidx, (const float*)tables, (const float*)tvecs,
+        (const float*)xts, (const int*)lens, (const int*)starts,
+        (const int*)codes, (float*)alt, (float*)nul, W, Kp, T);
+  return launch_ctas(
+      lpt == 2 ? score_pairs_kernel<kMixed, 2> : score_pairs_kernel<kMixed, 4>,
+      grid, threads, smem, stream, (const int*)pidx, (const float*)tables,
+      (const float*)tvecs, (const float*)xts, (const int*)lens,
+      (const int*)starts, (const int*)codes, (float*)alt, (float*)nul, W, Kp,
+      T);
 }
 
-// B1 and B5 share one signature; pidx is (N,) for B1 and (N, W) for B5.
+// B1 and B4 (up to Kp 5120 and 16896) compute one function and launch
+// through one entry point, B5 and B4m through the other; pidx is (N,) for
+// B1 and B4, (N, W) for B5 and B4m.
 extern "C" int dtt_score_pairs(
     const void* pidx, const void* tables, const void* tvecs, const void* xts,
     const void* lens, const void* starts, const void* codes, void* alt,
-    void* nul, int N, int W, int Kp, int T, void* stream) {
+    void* nul, int N, int W, int Kp, int T, int c, int w, int lpt,
+    int threads, int smem, int* active, void* stream) {
   return launch_pairs<false>(pidx, tables, tvecs, xts, lens, starts, codes,
-                             alt, nul, N, W, Kp, T, stream);
+                             alt, nul, N, W, Kp, T, c, w, lpt, threads, smem,
+                             active, stream);
 }
 
 extern "C" int dtt_score_mixed(
     const void* pidx, const void* tables, const void* tvecs, const void* xts,
     const void* lens, const void* starts, const void* codes, void* alt,
-    void* nul, int N, int W, int Kp, int T, void* stream) {
+    void* nul, int N, int W, int Kp, int T, int c, int w, int lpt,
+    int threads, int smem, int* active, void* stream) {
   return launch_pairs<true>(pidx, tables, tvecs, xts, lens, starts, codes,
-                            alt, nul, N, W, Kp, T, stream);
+                            alt, nul, N, W, Kp, T, c, w, lpt, threads, smem,
+                            active, stream);
 }
 
-template <bool kCarry, int LPT>
-static int go_chained(const void* pidx, const void* tables,
-                      const void* tvecs, const void* wlen, const void* gst,
-                      const void* xti, const void* lut, const void* codes,
-                      const void* conts, const void* cbig_in,
-                      const void* csml_in, void* cbig_out, void* csml_out,
-                      void* alt, void* nul, int N, int W, int C, int Kp,
-                      int T, void* stream) {
-  int threads, lpt;
-  size_t smem;
-  shape<LPT>(Kp, &threads, &lpt, &smem);
-  cudaError_t err = cudaFuncSetAttribute(
-      score_chained_kernel<kCarry, LPT>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  if (N > 0 && W > 0 && C > 0) {
-    score_chained_kernel<kCarry, LPT><<<dim3(W * C, N), threads, smem,
-                                        (cudaStream_t)stream>>>(
-        (const int*)pidx, (const float*)tables, (const float*)tvecs,
-        (const int*)wlen, (const int*)gst, (const int*)xti,
-        (const float*)lut, (const int*)codes, (const int*)conts,
-        (const float*)cbig_in, (const float*)csml_in, (float*)cbig_out,
-        (float*)csml_out, (float*)alt, (float*)nul, W, C, Kp, T, lpt);
-  }
-  return (int)cudaGetLastError();
-}
-
+// B3 and B8: the shape as for B1, c = 1 one CTA an entry, c > 1 a cluster
+// an entry.
 template <bool kCarry>
 static int launch_chained(const void* pidx, const void* tables,
                           const void* tvecs, const void* wlen,
@@ -1056,34 +858,40 @@ static int launch_chained(const void* pidx, const void* tables,
                           const void* cbig_in, const void* csml_in,
                           void* cbig_out, void* csml_out, void* alt,
                           void* nul, int N, int W, int C, int Kp, int T,
-                          void* stream) {
-  switch (fast_lpt(Kp)) {
-    case 2:
-      return go_chained<kCarry, 2>(pidx, tables, tvecs, wlen, gst, xti, lut,
-                                   codes, conts, cbig_in, csml_in, cbig_out,
-                                   csml_out, alt, nul, N, W, C, Kp, T,
-                                   stream);
-    case 4:
-      return go_chained<kCarry, 4>(pidx, tables, tvecs, wlen, gst, xti, lut,
-                                   codes, conts, cbig_in, csml_in, cbig_out,
-                                   csml_out, alt, nul, N, W, C, Kp, T,
-                                   stream);
-    default:
-      return go_chained<kCarry, 0>(pidx, tables, tvecs, wlen, gst, xti, lut,
-                                   codes, conts, cbig_in, csml_in, cbig_out,
-                                   csml_out, alt, nul, N, W, C, Kp, T,
-                                   stream);
-  }
+                          int c, int w, int lpt, int threads, int smem,
+                          int* active, void* stream) {
+  if (!shape_ok(Kp, c, w, lpt, threads, smem))
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid(W * C * c, N);
+  if (c > 1)
+    return dtt_launch_clusters(
+        score_chained_kernel<kCarry, 4, true>, grid, c, threads, smem, stream,
+        active, (const int*)pidx, (const float*)tables, (const float*)tvecs,
+        (const int*)wlen, (const int*)gst, (const int*)xti,
+        (const float*)lut, (const int*)codes, (const int*)conts,
+        (const float*)cbig_in, (const float*)csml_in, (float*)cbig_out,
+        (float*)csml_out, (float*)alt, (float*)nul, W, C, Kp, T);
+  return launch_ctas(
+      lpt == 2 ? score_chained_kernel<kCarry, 2, false>
+               : score_chained_kernel<kCarry, 4, false>,
+      grid, threads, smem, stream, (const int*)pidx, (const float*)tables,
+      (const float*)tvecs, (const int*)wlen, (const int*)gst,
+      (const int*)xti, (const float*)lut, (const int*)codes,
+      (const int*)conts, (const float*)cbig_in, (const float*)csml_in,
+      (float*)cbig_out, (float*)csml_out, (float*)alt, (float*)nul, W, C, Kp,
+      T);
 }
 
 extern "C" int dtt_score_chained(
     const void* pidx, const void* tables, const void* tvecs,
     const void* wlen, const void* gst, const void* xti, const void* lut,
     const void* codes, void* alt, void* nul, int N, int W, int C, int Kp,
-    int T, void* stream) {
+    int T, int c, int w, int lpt, int threads, int smem, int* active,
+    void* stream) {
   return launch_chained<false>(pidx, tables, tvecs, wlen, gst, xti, lut,
-                        codes, nullptr, nullptr, nullptr, nullptr, nullptr, alt,
-                        nul, N, W, C, Kp, T, stream);
+                               codes, nullptr, nullptr, nullptr, nullptr,
+                               nullptr, alt, nul, N, W, C, Kp, T, c, w, lpt,
+                               threads, smem, active, stream);
 }
 
 extern "C" int dtt_score_chained_carry(
@@ -1091,94 +899,36 @@ extern "C" int dtt_score_chained_carry(
     const void* wlen, const void* gst, const void* xti, const void* lut,
     const void* codes, const void* conts, const void* cbig_in,
     const void* csml_in, void* cbig_out, void* csml_out, void* alt,
-    void* nul, int N, int W, int C, int Kp, int T, void* stream) {
+    void* nul, int N, int W, int C, int Kp, int T, int c, int w, int lpt,
+    int threads, int smem, int* active, void* stream) {
   return launch_chained<true>(pidx, tables, tvecs, wlen, gst, xti, lut,
-                        codes, conts, cbig_in, csml_in, cbig_out, csml_out, alt,
-                        nul, N, W, C, Kp, T, stream);
-}
-
-// B4 and B4m: the shape (c, w, lpt, threads, smem) comes from
-// ops/viterbi.py cluster_shape; c = 1 runs B1's (B5's) kernel, c > 1 the
-// clustered one.  *active gets the clusters that can be resident at once
-// (left as it is when c = 1); a shape that cannot run is refused, never
-// replaced.
-template <bool kMixed>
-static int launch_large(const void* pidx, const void* tables,
-                        const void* tvecs, const void* xts, const void* lens,
-                        const void* starts, const void* codes, void* alt,
-                        void* nul, int N, int W, int Kp, int T, int c, int w,
-                        int lpt, int threads, int smem, int* active,
-                        void* stream) {
-  if (c < 1 || c > kMaxCluster || threads * lpt != w || threads % 32 ||
-      threads > kScoreThreads || (size_t)smem != (size_t)kFastPlanes * w * 4 ||
-      (size_t)c * w < (size_t)Kp || (size_t)(c - 1) * w >= (size_t)Kp ||
-      (c == 1 && lpt != fast_lpt(Kp)) || (c > 1 && lpt != 4))
-    return (int)cudaErrorInvalidValue;
-  if (c == 1)
-    return lpt == 2 ? go_pairs<kMixed, 2>(pidx, tables, tvecs, xts, lens,
-                                          starts, codes, alt, nul, N, W, Kp,
-                                          T, stream)
-                    : go_pairs<kMixed, 4>(pidx, tables, tvecs, xts, lens,
-                                          starts, codes, alt, nul, N, W, Kp,
-                                          T, stream);
-  return dtt_launch_clusters(
-      score_large_kernel<kMixed, 4>, dim3(W * c, N), c, threads, smem, stream,
-      active, (const int*)pidx, (const float*)tables, (const float*)tvecs,
-      (const float*)xts, (const int*)lens, (const int*)starts,
-      (const int*)codes, (float*)alt, (float*)nul, W, Kp, T);
-}
-
-// pidx is (N,) for B4 and (N, W) for B4m.
-extern "C" int dtt_score_pairs_large(
-    const void* pidx, const void* tables, const void* tvecs, const void* xts,
-    const void* lens, const void* starts, const void* codes, void* alt,
-    void* nul, int N, int W, int Kp, int T, int c, int w, int lpt,
-    int threads, int smem, int* active, void* stream) {
-  return launch_large<false>(pidx, tables, tvecs, xts, lens, starts, codes,
-                             alt, nul, N, W, Kp, T, c, w, lpt, threads, smem,
-                             active, stream);
-}
-
-extern "C" int dtt_score_mixed_large(
-    const void* pidx, const void* tables, const void* tvecs, const void* xts,
-    const void* lens, const void* starts, const void* codes, void* alt,
-    void* nul, int N, int W, int Kp, int T, int c, int w, int lpt,
-    int threads, int smem, int* active, void* stream) {
-  return launch_large<true>(pidx, tables, tvecs, xts, lens, starts, codes,
-                            alt, nul, N, W, Kp, T, c, w, lpt, threads, smem,
-                            active, stream);
+                              codes, conts, cbig_in, csml_in, cbig_out,
+                              csml_out, alt, nul, N, W, C, Kp, T, c, w, lpt,
+                              threads, smem, active, stream);
 }
 
 // B9: P profiles against every one of B windows, the shape (c, w, lpt,
 // threads, smem) ops/viterbi.py cluster_shape(Kp, "score")'s, checked as
-// B4's is; c = 1 up to kFastMaxKp, clusters past it.
+// B1's is; c = 1 up to kFastMaxKp, clusters past it.
 extern "C" int dtt_score_grid(
     const void* tables, const void* tvecs, const void* xts, const void* lens,
     const void* starts, const void* codes, void* alt, void* nul, int P,
     int B, int Kp, int T, int c, int w, int lpt, int threads, int smem,
     int* active, void* stream) {
-  if (c < 1 || c > kMaxCluster || threads * lpt != w || threads % 32 ||
-      threads > kScoreThreads || (size_t)smem != (size_t)kFastPlanes * w * 4 ||
-      (size_t)c * w < (size_t)Kp || (size_t)(c - 1) * w >= (size_t)Kp ||
-      (c == 1 && lpt != fast_lpt(Kp)) || (c > 1 && lpt != 4))
+  if (!shape_ok(Kp, c, w, lpt, threads, smem))
     return (int)cudaErrorInvalidValue;
+  const dim3 grid(B * c, P);
   if (c > 1)
     return dtt_launch_clusters(
-        score_grid_kernel<4, true>, dim3(B * c, P), c, threads, smem, stream,
-        active, (const float*)tables, (const float*)tvecs, (const float*)xts,
-        (const int*)lens, (const int*)starts, (const int*)codes, (float*)alt,
-        (float*)nul, B, Kp, T);
-  auto kernel = lpt == 2 ? score_grid_kernel<2, false>
-                         : score_grid_kernel<4, false>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  if (P > 0 && B > 0)
-    kernel<<<dim3(B, P), threads, smem, (cudaStream_t)stream>>>(
+        score_grid_kernel<4, true>, grid, c, threads, smem, stream, active,
         (const float*)tables, (const float*)tvecs, (const float*)xts,
         (const int*)lens, (const int*)starts, (const int*)codes, (float*)alt,
         (float*)nul, B, Kp, T);
-  return (int)cudaGetLastError();
+  return launch_ctas(
+      lpt == 2 ? score_grid_kernel<2, false> : score_grid_kernel<4, false>,
+      grid, threads, smem, stream, (const float*)tables, (const float*)tvecs,
+      (const float*)xts, (const int*)lens, (const int*)starts,
+      (const int*)codes, (float*)alt, (float*)nul, B, Kp, T);
 }
 
 extern "C" const char* dtt_error_string(int err) {

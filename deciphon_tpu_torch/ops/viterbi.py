@@ -45,10 +45,10 @@ Each wrapper picks by the device of its tensors: CPU tensors run the plain
 version, CUDA tensors launch the kernel (built from csrc/ on first use) or
 raise.  `LAUNCHES` counts kernel launches per wrapper, and only those (the
 amino Forward and posterior of hmmer/forward.py count here too).
-B4, B4m, B9 and B2 take their launch shape from `cluster_shape` (one CTA
-per window up to Kp 2048, a cluster of CTAs past it), B6 and B7 from
-`packed_shape`; `SHAPES` keeps each launched shape with its resident
-cluster count (B6, B7: CTAs an SM holds at once).
+The score family (B1, B3, B5, B8, B4, B4m, B9) and B2 take their launch
+shape from `cluster_shape` (one CTA per window up to Kp 2048, a cluster of
+CTAs past it), B6 and B7 from `packed_shape`; `SHAPES` keeps each launched
+shape with its resident cluster count (B6, B7: CTAs an SM holds at once).
 """
 
 from __future__ import annotations
@@ -73,7 +73,10 @@ INF = float("inf")
 # nlb * 32 rows (scheduler.PairScorer.PATH_KAPPA).
 KAPPA = 40
 PATH_KAPPA = 32
-MAX_KP = 5120  # widest lane plane the kernels take (B1: 44 * Kp B of smem)
+# Widest lane plane of B1, B3, B5, B8 and the packed tiers' inner scorers:
+# the scheduler's plain buckets end here (its MAX_KP), wider ones take the
+# large-K tier.  Past Kp 2048 these kernels run on clusters, as B4 does.
+MAX_KP = 5120
 # The large-K tier (B4) and B2 take planes up to the bucket of the
 # reference's largest profile, K = 16384 (c-core/model.h:12):
 # round_up(round_up(16386, 128), 512).
@@ -104,12 +107,16 @@ def reset_launches() -> None:
 # SCORE_LPT2_MAX_KP, B2 2 up to PATH_LPT2_MAX_KP, 4 beyond); past it on a
 # thread-block cluster of c CTAs of w lanes each, LPT 4, w a multiple of
 # 128 (so that only the last rank has dead warps).  c aims at
-# CLUSTER_TARGET_W lanes a CTA, the band's fastest share on one H100 80GB
-# HBM3 at 700.00 W (PERF.md §6, PR 8; fewer lanes a CTA shorten each
-# position's own work, more CTAs lengthen its exchanges), within
-# MAX_CLUSTER; a share stays under 1408 lanes, 352 threads, inside both
-# clustered kernels' thread bounds (B2's is 384, which leaves it enough
-# registers not to spill).
+# CLUSTER_TARGET_W[body] lanes a CTA, the band's fastest share on one H100
+# 80GB HBM3 at 700.00 W (PERF.md §6, PRs 8 and 17; fewer lanes a CTA
+# shorten each position's own work, more CTAs lengthen its exchanges),
+# within MAX_CLUSTER; a share stays under 1408 lanes, 352 threads, inside
+# both clustered kernels' thread bounds (B2's is 384, which leaves it
+# enough registers not to spill).  The score body's plain buckets (to
+# MAX_KP) take 512 lanes, for every kernel of the body (B1/B3/B5/B8, B4,
+# B4m, B9): its CTAs hold 128 registers a thread, so four 128-thread CTAs
+# share an SM where two of 192 do, and more windows are resident
+# (`scripts/score_band_compare.py`, its "wide" times at 768, PR 17).
 SMEM_BYTES = 232_448  # shared memory one CTA can use on an H100
 SCORE_PLANES = 23  # csrc/viterbi_score.cu kFastPlanes
 PACKED_PLANES = 23  # csrc/viterbi_packed.cu kPackedPlanes
@@ -122,7 +129,10 @@ SCORE_LPT2_MAX_KP = 512
 PATH_LPT2_MAX_KP = 1024
 MAX_THREADS = 512
 MAX_CLUSTER = 16
-CLUSTER_TARGET_W = ((6144, 768), (MAX_LARGE_KP, 1280))  # (up to Kp, lanes)
+# body -> ((up to Kp, lanes a CTA), ...)
+CLUSTER_TARGET_W = {
+    "score": ((MAX_KP, 512), (6144, 768), (MAX_LARGE_KP, 1280)),
+    "path": ((6144, 768), (MAX_LARGE_KP, 1280))}
 SHAPES: dict = {}  # (LAUNCHES key, Kp) -> the launched shape's _asdict()
 GRID_MAX_P = 65535  # B9's profiles a launch: the card's gridDim.y limit
 
@@ -136,17 +146,17 @@ class ClusterShape(NamedTuple):
 
 
 def cluster_shape(Kp: int, body: str = "score") -> ClusterShape:
-    """The launch shape of B4/B4m/B9 (`body="score"`) or B2 (`"path"`)
-    at lane width Kp: rank r of a window's cluster owns lanes [r * w,
-    min((r + 1) * w, Kp))."""
-    if body not in ("score", "path"):
+    """The launch shape of the score family, B1/B3/B5/B8/B4/B4m/B9
+    (`body="score"`), or of B2 (`"path"`) at lane width Kp: rank r of a
+    window's cluster owns lanes [r * w, min((r + 1) * w, Kp))."""
+    if body not in CLUSTER_TARGET_W:
         raise ValueError(f"no clustered body {body!r}")
     if Kp <= FAST_MAX_KP:
         lpt2 = SCORE_LPT2_MAX_KP if body == "score" else PATH_LPT2_MAX_KP
         c, w, lpt = 1, Kp, 2 if Kp <= lpt2 else 4
     else:
         lpt = 4
-        target = next(w for top, w in CLUSTER_TARGET_W if Kp <= top)
+        target = next(w for top, w in CLUSTER_TARGET_W[body] if Kp <= top)
         c = min(-(-Kp // target), MAX_CLUSTER)
         while True:
             w = -(-Kp // (128 * c)) * 128  # ceil(Kp / c) up to 128 lanes
@@ -416,26 +426,6 @@ def scores_pairs_plain(pidx, tables, tvecs, xts, lengths, starts, codes_all):
     return alt.reshape(N, W), nul.reshape(N, W)
 
 
-def _launch_pairs(fn: str, key: str, pidx, tables, tvecs, xts, lengths,
-                  starts, codes_all):
-    """One B1 or B5 launch: (alt, null) (N, W) f32."""
-    from .. import _build
-
-    N, W = starts.shape
-    alt = torch.empty((N, W), dtype=torch.float32, device=tables.device)
-    nul = torch.empty_like(alt)
-    with torch.cuda.device(tables.device):
-        err = getattr(_build.lib(), fn)(
-            pidx.data_ptr(), tables.data_ptr(), tvecs.data_ptr(),
-            xts.data_ptr(), lengths.data_ptr(), starts.data_ptr(),
-            codes_all.data_ptr(), alt.data_ptr(), nul.data_ptr(), N, W,
-            tables.shape[2], codes_all.shape[0],
-            torch.cuda.current_stream(tables.device).cuda_stream)
-    _build.check(err, fn)
-    LAUNCHES[key] += 1
-    return alt, nul
-
-
 def scores_pairs(pidx, tables, tvecs, xts, lengths, starts, codes_all):
     """B1 wrapper: (alt, null) (N, W) f32 min-plus costs per window.  The
     fused gather reads each window's codes itself, so no block count is
@@ -449,11 +439,11 @@ def scores_pairs(pidx, tables, tvecs, xts, lengths, starts, codes_all):
 
 
 def _launch_shaped(fn: str, key: str, Kp: int, shape, *args) -> None:
-    """Call an entry point that takes its launch shape (B4, B4m, B9 and B2
-    `cluster_shape`, B6 and B7 `packed_shape`) with `args` before it; the
-    shape and what is resident at once (clusters, 0 when c = 1; B6, B7:
-    CTAs an SM) go into SHAPES.  A shape the entry point does not take, or
-    that cannot be resident, is refused there, and raises here."""
+    """Call an entry point that takes its launch shape (the score family
+    and B2 `cluster_shape`, B6 and B7 `packed_shape`) with `args` before
+    it; the shape and what is resident at once (clusters, 0 when c = 1;
+    B6, B7: CTAs an SM) go into SHAPES.  A shape the entry point does not
+    take, or that cannot be resident, is refused there, and raises here."""
     from .. import _build
 
     active = ctypes.c_int(0)
@@ -469,10 +459,10 @@ def _launch_shaped(fn: str, key: str, Kp: int, shape, *args) -> None:
     SHAPES[(key, Kp)] = dict(shape._asdict(), active=active.value)
 
 
-def _launch_large(fn: str, key: str, pidx, tables, tvecs, xts, lengths,
+def _launch_pairs(fn: str, key: str, pidx, tables, tvecs, xts, lengths,
                   starts, codes_all):
-    """One B4 or B4m launch: (alt, null) (N, W) f32, each window's DP
-    state in the shared memory of its CTA or cluster."""
+    """One B1, B5, B4 or B4m launch: (alt, null) (N, W) f32, each window's
+    DP state in the shared memory of its CTA or cluster."""
     N, W = starts.shape
     Kp = tables.shape[2]
     alt = torch.empty((N, W), dtype=torch.float32, device=tables.device)
@@ -488,13 +478,14 @@ def scores_pairs_large(pidx, tables, tvecs, xts, lengths, starts,
     """B4 wrapper, the large-K tier: `scores_pairs`' contract for lane
     planes up to MAX_LARGE_KP.  (alt, null) (N, W) f32, pad slots +inf.
     The function is B1's, so the plain version is `scores_pairs_plain`,
-    kept once; on the card a window past Kp 2048 runs on a cluster."""
+    kept once; on the card it launches through B1's entry point, a window
+    past Kp 2048 on a cluster."""
     _check_inputs(pidx, tables, tvecs, xts, lengths, starts, codes_all,
                   max_kp=MAX_LARGE_KP)
     if not on_cuda(pidx, tables, tvecs, xts, lengths, starts, codes_all):
         return scores_pairs_plain(pidx, tables, tvecs, xts, lengths, starts,
                                   codes_all)
-    return _launch_large("dtt_score_pairs_large", "large", pidx, tables,
+    return _launch_pairs("dtt_score_pairs", "large", pidx, tables,
                          tvecs, xts, lengths, starts, codes_all)
 
 
@@ -530,15 +521,15 @@ def scores_pairs_mixed_large(pidx, tables, tvecs, xts, lengths, starts,
     """B4m wrapper (the gang of a scorer whose tables stream):
     `scores_pairs_mixed`' contract, pidx (N, W), for lane planes up to
     MAX_LARGE_KP.  The function is B5's, so the plain version is
-    `scores_pairs_mixed_plain`, kept once; on the card it runs B5's body
-    up to Kp 2048 and B4's clusters past it.  Returns (alt, null) (N, W)
-    f32."""
+    `scores_pairs_mixed_plain`, kept once; on the card it launches through
+    B5's entry point: one CTA a window up to Kp 2048, a cluster past it.
+    Returns (alt, null) (N, W) f32."""
     _check_inputs(pidx, tables, tvecs, xts, lengths, starts, codes_all,
                   mixed=True, max_kp=MAX_LARGE_KP)
     if not on_cuda(pidx, tables, tvecs, xts, lengths, starts, codes_all):
         return scores_pairs_mixed_plain(pidx, tables, tvecs, xts, lengths,
                                         starts, codes_all)
-    return _launch_large("dtt_score_mixed_large", "gang_large", pidx,
+    return _launch_pairs("dtt_score_mixed", "gang_large", pidx,
                          tables, tvecs, xts, lengths, starts, codes_all)
 
 
@@ -653,19 +644,11 @@ def scores_pairs_chained(pidx, tables, tvecs, win_sblk, win_len,
             xt_lut, codes_all)
     if not on_cuda(*args):
         return scores_pairs_chained_plain(*args)
-    from .. import _build
-
     alt = torch.empty((N, W, C), dtype=torch.float32, device=tables.device)
     nul = torch.empty_like(alt)
-    with torch.cuda.device(tables.device):
-        err = _build.lib().dtt_score_chained(
-            pidx.data_ptr(), tables.data_ptr(), tvecs.data_ptr(),
-            win_len.data_ptr(), win_gstart.data_ptr(), win_xti.data_ptr(),
-            xt_lut.data_ptr(), codes_all.data_ptr(), alt.data_ptr(),
-            nul.data_ptr(), N, W, C, Kp, codes_all.shape[0],
-            torch.cuda.current_stream(tables.device).cuda_stream)
-    _build.check(err, "dtt_score_chained")
-    LAUNCHES["chain"] += 1
+    _launch_shaped("dtt_score_chained", "chain", Kp, cluster_shape(Kp), pidx,
+                   tables, tvecs, win_len, win_gstart, win_xti, xt_lut,
+                   codes_all, alt, nul, N, W, C, Kp, codes_all.shape[0])
     return alt, nul
 
 
@@ -726,23 +709,14 @@ def scores_pairs_chained_carry(pidx, tables, tvecs, win_sblk, win_len,
             conts, cbig_in, csml_in, xt_lut, codes_all)
     if not on_cuda(*args):
         return scores_pairs_chained_carry_plain(*args)
-    from .. import _build
-
-    dev = tables.device
-    alt = torch.empty((N, W, C), dtype=torch.float32, device=dev)
+    alt = torch.empty((N, W, C), dtype=torch.float32, device=tables.device)
     nul = torch.empty_like(alt)
     cbig = torch.empty_like(cbig_in)
     csml = torch.empty_like(csml_in)
-    with torch.cuda.device(dev):
-        err = _build.lib().dtt_score_chained_carry(
-            pidx.data_ptr(), tables.data_ptr(), tvecs.data_ptr(),
-            win_len.data_ptr(), win_gstart.data_ptr(), win_xti.data_ptr(),
-            xt_lut.data_ptr(), codes_all.data_ptr(), conts.data_ptr(),
-            cbig_in.data_ptr(), csml_in.data_ptr(), cbig.data_ptr(),
-            csml.data_ptr(), alt.data_ptr(), nul.data_ptr(), N, W, C, Kp,
-            codes_all.shape[0], torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(err, "dtt_score_chained_carry")
-    LAUNCHES["carry"] += 1
+    _launch_shaped("dtt_score_chained_carry", "carry", Kp, cluster_shape(Kp),
+                   pidx, tables, tvecs, win_len, win_gstart, win_xti, xt_lut,
+                   codes_all, conts, cbig_in, csml_in, cbig, csml, alt, nul,
+                   N, W, C, Kp, codes_all.shape[0])
     return alt, nul, cbig, csml
 
 

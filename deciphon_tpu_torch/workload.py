@@ -13,12 +13,13 @@
   `packed_case`, `packed_chain_inputs` and `packed_chain_case` those of
   the lane-packed modes, and `window_scores` the same windows scored
   alone by B1.
-* `pfam_scan` / `pfam_subset` / `pfam_longread` / `pfam_largek` /
-  `largek_subset` — chip_smoke.py's scans and its card-against-CPU
-  subsets; `sample_hmm` / `pfam_scan_hmms` — the amino profiles (HMMER3
-  form, with a FORWARD calibration) that those frame profiles were pressed
-  from, for the confirmer; `peaked_hmm` / `confirm_case` — profiles and
-  reads whose hits the confirmer both keeps and drops; `exact_confirmer`
+* `pfam_scan` / `pfam_subset` / `pfam_longread` / `pfam_midk` /
+  `midk_subset` / `pfam_largek` / `largek_subset` — chip_smoke.py's scans
+  and its card-against-CPU subsets; `sample_hmm` / `pfam_scan_hmms` — the
+  amino profiles (HMMER3 form, with a FORWARD calibration) that those
+  frame profiles were pressed from, for the confirmer; `peaked_hmm` /
+  `confirm_case` — profiles and reads whose hits the confirmer both keeps
+  and drops; `exact_confirmer`
   — the confirmer on the plain versions in f64; `amino_hits` — a batch
   of hits for the amino Forward and posterior kernels; `hmm_text` — the
   HMMER3/f text of amino profiles, for `press` and the CLI.
@@ -830,6 +831,63 @@ def largek_subset(profiles):
              random_bases(rng, 2000)]
     return profiles, [Sequence.make(i, n, r) for i, (n, r) in
                       enumerate(zip(("k0", "k1"), reads))]
+
+
+# The mid-K scan's profiles: two in each plain bucket past Kp 2048
+# (scan/scheduler.py's rule: round_up(K + 2, 128), then past 2048 up to a
+# multiple of 512): K 2100, 2400 -> 2560; 2600, 3000 -> 3072; 3300, 3500
+# -> 3584; 3700, 4000 -> 4096; 4200, 4500 -> 4608; 4608, 5100 -> 5120.
+MIDK_KS = (2100, 2400, 2600, 3000, 3300, 3500, 3700, 4000, 4200, 4500, 4608,
+           5100)
+# Profile i is sample_profile(MIDK_SEEDS[i], MIDK_KS[i]).  Seeds 706 and 710
+# would draw K 3700 and 4608 profiles whose planted domains score below the
+# null (LRT < 0 on every 24-knt read tried), so those take 717 and 715.
+MIDK_SEEDS = (700, 701, 702, 703, 704, 705, 717, 707, 708, 709, 715, 711)
+# read i carries the argmax-codon stretch of (profile, nodes [a, b)):
+# K 2100 whole (6.3 knt) in a 10-knt read, K 3700 nodes 0-3700 and K 4608
+# nodes 0-4608 (11.1 and 13.8 knt) in the two 24-knt reads
+MIDK_PLANTED = ((0, (0, 2100)), (6, (0, 3700)), (10, (0, 4608)))
+MIDK_READS = (10_000, 24_000, 24_000, 10_000, 10_000, 10_000)
+
+
+def pfam_midk():
+    """The mid-K scan of chip_smoke.py: twelve profiles
+    sample_profile(MIDK_SEEDS[i], K) at MIDK_KS, two in each plain bucket
+    past Kp 2048 (2560 to 5120, the band where B1, B3, B5 and B8 run on
+    thread-block clusters), at full width; six reads (MIDK_READS): four of
+    10 knt, whose whole-read windows chain, and two of 24 knt, whose
+    windows pass the chain cap's 512 blocks and ride the gang (carry
+    segments under DECIPHON_CHAIN_SEG=1); reads 0-2 carry MIDK_PLANTED's
+    stretches with 1% indel/substitution noise, so that survivors run B2 on
+    clusters and the walk.  Every window of such a profile is a whole read
+    (min(50 K, 100 knt)).  Users of databases with profiles of 2047-5118
+    nodes (long Pfam and NCBIfam families, bench.py's BIG_K 4608) scan
+    like this.  Returns (profiles, sequences)."""
+    from .profile import sample_profile
+    from .scan.sequence import Sequence
+
+    profiles = [sample_profile(s, k) for s, k in zip(MIDK_SEEDS, MIDK_KS)]
+    rng = np.random.default_rng(2027)
+    reads = [planted_read(rng, profiles[p], n, noise=0.01, nodes=nodes)
+             for (p, nodes), n in zip(MIDK_PLANTED, MIDK_READS)]
+    reads += [random_bases(rng, n) for n in MIDK_READS[len(reads):]]
+    return profiles, [Sequence.make(i, f"mid{i}", r)
+                      for i, r in enumerate(reads)]
+
+
+def midk_subset(profiles):
+    """The card-against-CPU subset of the mid-K scan: its profiles of K 2100
+    and 4608 (`pfam_midk`'s 0 and 10, buckets 2560 and 5120) and two reads
+    of 1.2 knt carrying nodes 800-1200 of K 2100 and 2000-2400 of K 4608
+    (1% noise).  Returns (profiles, sequences)."""
+    from .scan.sequence import Sequence
+
+    sub = [profiles[0], profiles[10]]
+    rng = np.random.default_rng(9)
+    reads = [planted_read(rng, sub[0], 1200, noise=0.01, nodes=(800, 1200)),
+             planted_read(rng, sub[1], 1200, noise=0.01, nodes=(2000, 2400))]
+    return sub, [Sequence.make(i, n, r) for i, (n, r) in
+                 enumerate(zip(("m0", "m1"), reads))]
 
 
 # xnode and node fields of the trellis words: (offset, width)

@@ -1,6 +1,7 @@
-"""The launch shapes of the clustered kernels (B4, B4m and B2), held on the
-CPU: `ops/viterbi.py` `cluster_shape` for every lane width the large-K
-tier takes (every multiple of 128 up to MAX_LARGE_KP).  The CUDA launchers
+"""The launch shapes of the clustered kernels (the score family B1, B3,
+B5, B8, B4, B4m, B9, and B2), held on the CPU: `ops/viterbi.py`
+`cluster_shape` for every lane width the large-K tier takes (every
+multiple of 128 up to MAX_LARGE_KP).  The CUDA launchers
 check the same rules and refuse a shape that breaks one; these tests keep
 the function that picks the shapes inside them."""
 
@@ -58,8 +59,8 @@ def test_cluster_sizes(body):
 @pytest.mark.parametrize("body", BODIES)
 def test_single_cta_bands_unchanged(body):
     """Up to Kp 2048 a window is one CTA with the redesigned bodies' lane
-    bands: the score body 2 lanes a thread up to Kp 512 (`fast_lpt`), B2
-    up to Kp 1024, 4 beyond."""
+    bands: the score body 2 lanes a thread up to Kp 512 (the launchers'
+    `shape_ok`), B2 up to Kp 1024, 4 beyond."""
     edge = 512 if body == "score" else 1024
     for Kp in KPS:
         if Kp > 2048:

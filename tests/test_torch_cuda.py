@@ -97,14 +97,17 @@ def test_large_kernel_bit_equal_to_plain(cuda, Kp):
 
 @pytest.mark.parametrize("Kp", [1024, 2048, 5120])
 def test_large_kernel_bit_equal_to_b1(cuda, Kp):
-    """B4 against B1 on the same windows: one CTA a window up to Kp 2048
-    (B1's kernel), a cluster at 5120 (B1 there: the lane loop)."""
+    """B4 against B1 on the same windows, and both against the plain
+    version: one CTA a window up to Kp 2048, a cluster at 5120 (both
+    wrappers on one launcher since the lane loop went)."""
     lens = [[300, 1, 0, 45], [81, 0, 200, 0]]
     inp = inputs(cuda, [Kp - 2, 17], Kp, lens, seed=Kp + 5)
     a1, n1 = vk.scores_pairs(**inp)
     a4, n4 = vk.scores_pairs_large(**inp)
+    pa, pn = vk.scores_pairs_plain(**inp)
     torch.cuda.synchronize()
     assert torch.equal(a1, a4) and torch.equal(n1, n4)
+    assert torch.equal(a4, pa) and torch.equal(n4, pn)
     assert (vk.SHAPES[("large", Kp)]["c"] > 1) == (Kp > 2048)
 
 
@@ -170,7 +173,7 @@ def test_mixed_large_kernel_bit_equal_to_plain_and_b5(cuda, Kp):
     assert torch.equal(alt, ba) and torch.equal(nul, bn)
 
 
-@pytest.mark.parametrize("Kp", [128, 1024])
+@pytest.mark.parametrize("Kp", [128, 1024, 2176, 5120])
 def test_carry_kernel_segments_equal_whole_window(cuda, Kp):
     case = carry_case(Kp, seed=Kp + 3, device=cuda)
     before = vk.LAUNCHES["carry"]
@@ -495,8 +498,7 @@ def test_confirmed_scan_batched_on_card(cuda, tmp_path):
 
 # The redesigned B1/B3/B5/B8 body and B2 choose lanes a thread by Kp band:
 # the score body 2 up to 512 and 4 up to 2048, B2 2 up to 1024 and 4 up to
-# 2048, the earlier lane loops past it (B2: past 2048 its 256-thread form,
-# past 2816 its global-scratch form).  Window lengths 1-12 cover every
+# 2048, a thread-block cluster at 4 past it (2176).  Window lengths 1-12 cover every
 # phase of the 5-position unroll with the codes fetched two positions
 # ahead running past the window's end; 41 and 300 run many rounds.
 BAND_KPS = [128, 512, 640, 1024, 1152, 2048, 2176]
@@ -554,6 +556,63 @@ def test_chained_mixed_carry_bands_bit_equal_to_plain(cuda, Kp):
         if t < last:  # the continuing slot's exported planes
             assert torch.equal(g[2][:, :, 0], w[2][:, :, 0])
             assert torch.equal(g[3][:, :, 0], w[3][:, :, 0])
+
+
+# The mid-K band: B1, B3, B5 and B8 past Kp 2048 on thread-block clusters
+# (the score body's `cluster_shape`), at the first clustered width, a
+# mid-band one and the widest plain bucket (10 CTAs of 512 lanes).
+MIDK_KPS = [2176, 3072, 5120]
+
+
+@pytest.mark.parametrize("Kp", MIDK_KPS)
+def test_midk_kernels_bit_equal_to_plain(cuda, Kp):
+    """B1 (windows of 1-12, 41 and 300 positions and pads), B3 (chains of
+    up to 4 windows and an all-pad pair), B5 and B8 (a window over 4 carry
+    calls, a normal window riding in a spare slot) against their plain
+    versions, each launched on a cluster of c > 1 CTAs."""
+    got, want = [], []
+    inp = inputs(cuda, [Kp - 2, 17], Kp, SHORT_LENS, seed=Kp + 31)
+    got += vk.scores_pairs(**inp)
+    want += vk.scores_pairs_plain(**inp)
+    inp = chain_case(Kp, seed=Kp + 33, device=cuda, lo=1, hi=200)
+    got += vk.scores_pairs_chained(**inp)
+    want += vk.scores_pairs_chained_plain(**inp)
+    assert torch.isinf(got[-2][-1]).all()  # the all-pad pair
+    inp = mixed_case(Kp, seed=Kp + 35, device=cuda, hi=300)
+    got += vk.scores_pairs_mixed(**inp)
+    want += vk.scores_pairs_mixed_plain(**inp)
+    case = carry_case(Kp, seed=Kp + 37, device=cuda)
+    for g, w in zip(run_carry_calls(vk.scores_pairs_chained_carry, case),
+                    run_carry_calls(vk.scores_pairs_chained_carry_plain,
+                                    case)):
+        got += [g[0], g[1], g[2][:, :, 0], g[3][:, :, 0]]
+        want += [w[0], w[1], w[2][:, :, 0], w[3][:, :, 0]]
+    torch.cuda.synchronize()
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert torch.equal(a, b), i
+    for key in ("score", "chain", "gang", "carry"):
+        shape = vk.SHAPES[(key, Kp)]
+        assert shape["c"] == vk.cluster_shape(Kp).c > 1, key
+        assert shape["active"] > 0, key
+
+
+@pytest.mark.parametrize("Kp", MIDK_KPS)
+def test_midk_large_wrappers_bit_equal_to_plain(cuda, Kp):
+    """B4 and B4m, the wrappers that share B1's and B5's launchers,
+    against their plain versions on the windows that
+    test_midk_kernels_bit_equal_to_plain gives B1 and B5, each on a
+    cluster."""
+    inp = inputs(cuda, [Kp - 2, 17], Kp, SHORT_LENS, seed=Kp + 31)
+    got = list(vk.scores_pairs_large(**inp))
+    want = list(vk.scores_pairs_plain(**inp))
+    inp = mixed_case(Kp, seed=Kp + 35, device=cuda, hi=300)
+    got += vk.scores_pairs_mixed_large(**inp)
+    want += vk.scores_pairs_mixed_plain(**inp)
+    torch.cuda.synchronize()
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert torch.equal(a, b), i
+    for key in ("large", "gang_large"):
+        assert vk.SHAPES[(key, Kp)]["c"] == vk.cluster_shape(Kp).c > 1, key
 
 
 def test_kernels_raise_on_bad_launch(cuda, monkeypatch):

@@ -188,8 +188,7 @@ def test_build_flags_and_source_hash(monkeypatch, tmp_path):
                      "amino_forward.cu"}
     assert set(_build.SIGNATURES) == {
         "dtt_score_pairs", "dtt_score_mixed", "dtt_score_chained",
-        "dtt_score_chained_carry", "dtt_score_pairs_large",
-        "dtt_score_mixed_large", "dtt_score_packed",
+        "dtt_score_chained_carry", "dtt_score_packed",
         "dtt_score_packed_chained", "dtt_path_pairs", "dtt_score_grid",
         "dtt_walk", "dtt_amino_forward", "dtt_amino_posterior"}
     # every export the wrappers call is bound with argtypes
