@@ -140,7 +140,10 @@ def warmup(dbfile, read_lengths, reads_per_length, engine, device):
 @click.option("--progress/--no-progress", default=True)
 @click.option("--profile-dir", type=click.Path(file_okay=False), default=None,
               help="Write a torch.profiler Chrome trace of the scan into "
-                   "this directory (view with Perfetto or chrome://tracing).")
+                   "this directory (view with Perfetto or chrome://tracing): "
+                   "the scan's deciphon.* spans (run, setup, per wave "
+                   "phase1_dispatch ... phase2_decode, write, wait, copy) "
+                   "beside the kernels and copies they issued.")
 def scan(dbfile, seqfile, snap, multi_hits, hmmer3_compat, engine, device,
          hmmer_port, confirm_mode, progress, profile_dir):
     """Scan sequences against a pressed database; write a .dcs snap."""

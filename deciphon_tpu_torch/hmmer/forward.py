@@ -48,6 +48,7 @@ import torch
 from ..alphabet import AMINO_INDEX
 from ..hmmfile import (HMMProfile, NUM_AMINO, T_DD, T_DM, T_II, T_IM, T_MD,
                        T_MI, T_MM)
+from ..logging import to_host
 from ..ops import viterbi as vk
 from ..profile import NULL_AMINO_LPROBS
 from ..xtrans import xtrans_setup
@@ -456,7 +457,7 @@ class AminoForwardScorer:
             launched.append((run, fn(**args), host))
         rows = [None] * len(hits)
         for ids, out, _ in launched:
-            for i, row in zip(ids, out.cpu().numpy()):
+            for i, row in zip(ids, to_host(out)):
                 rows[i] = row
         return rows
 

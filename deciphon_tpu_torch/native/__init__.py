@@ -18,6 +18,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 
 from .. import _build
+from ..logging import timed
 from ..scan.scheduler import TorchPairScorer
 
 
@@ -214,15 +215,14 @@ class NativePairScorer(TorchPairScorer):
 
     def score(self, items) -> dict:
         """Returns {id(item) -> (null_cost, alt_cost)}."""
-        t0 = time.perf_counter()
         k0 = self._kernel_s
-        if len(items) == 1:
-            out = dict([self._score_one(items[0])])
-        else:
-            with ThreadPoolExecutor(max_workers=self.nthreads) as pool:
-                out = dict(pool.map(self._score_one, items))
+        with timed(self.metrics, "native_score"):
+            if len(items) == 1:
+                out = dict([self._score_one(items[0])])
+            else:
+                with ThreadPoolExecutor(max_workers=self.nthreads) as pool:
+                    out = dict(pool.map(self._score_one, items))
         if self.metrics is not None:
-            self.metrics.add_wall("native_score", time.perf_counter() - t0)
             self.metrics.add_wall("native_kernel_threads",
                                   self._kernel_s - k0)
         return out

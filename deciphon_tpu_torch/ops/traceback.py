@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from .. import states as st
+from ..logging import to_device, to_host
 
 from .viterbi import LAUNCHES, on_cuda
 
@@ -267,12 +268,12 @@ def rewalk(xn, nd, rows: list[int], lengths: list[int], max_steps: int):
     steps (deletes, B, E) come between two emitting ones."""
     Lk, Kp = nd.shape[1], nd.shape[2]
     limit = Lk * (Kp + 4) + 64
-    rows_t = torch.tensor(rows, dtype=torch.int32).to(xn.device)
-    lens_t = torch.tensor(lengths, dtype=torch.int32).to(xn.device)
+    rows_t, lens_t = to_device(xn.device, np.asarray(rows, np.int32),
+                               np.asarray(lengths, np.int32))
     REWALKS["survivors"] += len(rows)
     while True:
         max_steps = min(2 * max_steps, limit)
-        sts, szs, ns, oks = (a.cpu().numpy() for a in
+        sts, szs, ns, oks = (to_host(a) for a in
                              walk(xn, nd, rows_t, lens_t, max_steps))
         if oks.all():
             return sts.view(np.uint16), szs, ns
@@ -285,8 +286,8 @@ def fetch_steps(entries) -> list[np.ndarray]:
     entry, in order, through ONE device-to-host transfer."""
     flat = [a for e in entries for a in e[1:5]]
     sizes = [a.numel() * a.element_size() for a in flat]
-    buf = torch.cat([a.reshape(-1).view(torch.uint8)
-                     for a in flat]).cpu().numpy()
+    buf = to_host(torch.cat([a.reshape(-1).view(torch.uint8)
+                             for a in flat]))
     fetched, pos = [], 0
     for a, nb in zip(flat, sizes):
         dt = {torch.int16: np.int16, torch.int8: np.int8,

@@ -38,6 +38,7 @@ port's own copies of deciphon_tpu's.
 from __future__ import annotations
 
 import functools
+import logging
 import math
 import tempfile
 import time
@@ -55,9 +56,10 @@ from ..scan.product import ProductLine, ProductWriter
 from ..scan.sequence import Sequence
 from ..scan.window import WindowCursor
 
-from ..ops.traceback import assemble_path_entries, fetch_steps
-from .scheduler import (BucketedPairScorer, DeviceSeqCodes, PairItem,
-                        TorchPairScorer)
+from ..ops import viterbi as vk
+from ..ops.traceback import REWALKS, assemble_path_entries, fetch_steps
+from .scheduler import (UPLOADS, BucketedPairScorer, DeviceSeqCodes,
+                        PairItem, TorchPairScorer)
 
 HMMER_MAX_AMINO = 100000  # c-core/thread.c:184
 
@@ -221,46 +223,67 @@ class Scanner:
         and their products are journaled as they complete and a rerun in
         the same directory resumes from the journal.  `should_stop()` is
         asked before every wave; when it returns true the scan raises
-        Scanner.Interrupted."""
-        self.metrics = ScanMetrics()
+        Scanner.Interrupted.
+
+        Every host second of the call lies in a span of `self.metrics`
+        (ScanMetrics.timed: `run`, holding `setup`, `windowing`, and per
+        wave `assemble`, `phase1_dispatch`, `phase1_collect`, `lrt`,
+        `phase2_dispatch`, `phase2_fetch`, `phase2_decode` and the
+        `refill` windowing, then `write` and `release`); its `counts` hold
+        the run's launches, blocking transfers, uploads, re-walks and, on
+        the card, allocator events."""
+        self.metrics = m = ScanMetrics()
+        with m.running(counters=lambda: _process_counts(self.device)):
+            out = self._scan(sequences, product_dir, checkpoint, should_stop)
         log = get_logger("deciphon_tpu_torch.scan")
-        if self.scorer is None:  # released after an earlier run
-            self.scorer = self._make_scorer()
-        writer = ProductWriter(product_dir)
-        self._checkpoint = checkpoint
-        done_pairs: set[tuple[int, int]] = set()
-        if checkpoint:
-            done_pairs = writer.load_checkpoint()
-            if done_pairs:
-                log.info("resuming scan: %d pairs already complete",
-                         len(done_pairs))
-        # scan-resident device codes: one upload per run
-        with self.metrics.timed("seq_upload"):
-            self._dev_codes = DeviceSeqCodes(sequences, self.device)
-            self.scorer.set_device_codes(self._dev_codes)
-        self.scorer.set_metrics(self.metrics)
-        P, S = len(self.profiles), len(sequences)
-        self.progress_total = max(P * S, 1)
-        self.progress_done = 0
+        if log.isEnabledFor(logging.INFO):
+            log.info("scan done: %s counts %s longest %s", m.summary(),
+                     m.counts, {k: round(v, 6) for k, v in
+                                sorted(m.longest.items())})
+        return out
 
-        # -- speculative window chains (see deciphon_tpu's pipeline) ------
-        cursors: dict[tuple[int, int], WindowCursor] = {}
-        chains: dict[tuple[int, int], list[PairItem]] = {}
-        depth: dict[tuple[int, int], int] = {}
-        exhausted: set[tuple[int, int]] = set()
-        finished: set[tuple[int, int]] = set()
-        max_depth = max(1, self.config.spec_depth)
+    def _scan(self, sequences: list[Sequence], product_dir: str,
+              checkpoint: bool, should_stop) -> str:
+        m = self.metrics
+        log = get_logger("deciphon_tpu_torch.scan")
+        with m.timed("setup"):
+            if self.scorer is None:  # released after an earlier run
+                self.scorer = self._make_scorer()
+            writer = ProductWriter(product_dir)
+            self._checkpoint = checkpoint
+            done_pairs: set[tuple[int, int]] = set()
+            if checkpoint:
+                done_pairs = writer.load_checkpoint()
+                if done_pairs:
+                    log.info("resuming scan: %d pairs already complete",
+                             len(done_pairs))
+            # scan-resident device codes: one upload per run
+            with m.timed("seq_upload"):
+                self._dev_codes = DeviceSeqCodes(sequences, self.device)
+                self.scorer.set_device_codes(self._dev_codes)
+            self.scorer.set_metrics(m)
+            P, S = len(self.profiles), len(sequences)
+            self.progress_total = max(P * S, 1)
+            self.progress_done = 0
 
-        for p in range(P):
-            K = self.profiles[p].core_size
-            for s in range(S):
-                if (p, s) in done_pairs:
-                    self.progress_done += 1
-                    continue
-                cur = WindowCursor(K, sequences[s].size)
-                cursors[(p, s)] = cur
-                chains[(p, s)] = []
-                depth[(p, s)] = min(max_depth, cur.estimate_windows())
+            # -- speculative window chains (see deciphon_tpu's pipeline) --
+            cursors: dict[tuple[int, int], WindowCursor] = {}
+            chains: dict[tuple[int, int], list[PairItem]] = {}
+            depth: dict[tuple[int, int], int] = {}
+            exhausted: set[tuple[int, int]] = set()
+            finished: set[tuple[int, int]] = set()
+            max_depth = max(1, self.config.spec_depth)
+
+            for p in range(P):
+                K = self.profiles[p].core_size
+                for s in range(S):
+                    if (p, s) in done_pairs:
+                        self.progress_done += 1
+                        continue
+                    cur = WindowCursor(K, sequences[s].size)
+                    cursors[(p, s)] = cur
+                    chains[(p, s)] = []
+                    depth[(p, s)] = min(max_depth, cur.estimate_windows())
 
         def refill(key) -> None:
             if key in exhausted or key in finished:
@@ -284,7 +307,7 @@ class Scanner:
                     if self._checkpoint:
                         writer.journal_pair_done(*key)
 
-        with self.metrics.timed("windowing"):
+        with m.timed("windowing"):
             for key in chains:
                 refill(key)
             finish_ready()
@@ -311,32 +334,31 @@ class Scanner:
 
         def lrt_pass(items, scores) -> list[tuple[PairItem, float]]:
             """LRT filter of one collected wave; returns the survivors."""
-            self.metrics.pairs_batches += 1
+            m.pairs_batches += 1
             survivors: list[tuple[PairItem, float]] = []
             for it in items:
                 if not it.valid:
-                    self.metrics.wasted_windows += 1
+                    m.wasted_windows += 1
                     continue
                 chains[(it.p_idx, it.s_idx)].remove(it)
-                self.metrics.add_window(
-                    it.win.length, self.profiles[it.p_idx].core_size)
+                m.add_window(it.win.length, self.profiles[it.p_idx].core_size)
                 null_c, alt_c = scores[id(it)]
                 line_lrt = lrt(null_c, alt_c)
                 if math.isfinite(line_lrt) and line_lrt >= 0:
                     survivors.append((it, line_lrt))
             return survivors
 
-        def process(survivors, paths) -> None:
+        def process(survivors, paths, k: int) -> None:
             rewound: dict = {}  # key -> rewind cutoff window idx
             queue: list = []  # the wave's lines awaiting confirmation
-            with self.metrics.timed("phase2_decode"):
+            with m.timed("phase2_decode", wave=k):
                 for it, line_lrt in survivors:
                     key = (it.p_idx, it.s_idx)
                     if (not it.valid or (key in rewound
                                          and it.win.idx > rewound[key])):
-                        self.metrics.wasted_windows += 1
+                        m.wasted_windows += 1
                         continue
-                    self.metrics.survivors += 1
+                    m.survivors += 1
 
                     def on_hit_pos(pos, it=it, key=key):
                         cur = cursors[key]
@@ -357,8 +379,9 @@ class Scanner:
                                  on_hit_pos, writer, paths[id(it)], queue)
                 # before finish_ready journals a pair done: its confirmed
                 # lines are journaled first
-                self._confirm_wave(queue, writer)
-            with self.metrics.timed("windowing"):
+                with m.timed("confirm"):
+                    self._confirm_wave(queue, writer)
+            with m.timed("windowing", wave=k), m.timed("refill"):
                 for key in chains:
                     if key not in rewound and depth[key] < max_depth:
                         depth[key] = min(depth[key] * 2, max_depth)
@@ -368,7 +391,8 @@ class Scanner:
         # Wave k's phase-1 collect, then its path launches, then wave
         # k+1's phase-1 dispatch, then wave k's path fetch and decode: the
         # host decode overlaps the next wave's device work.
-        inflight = None  # (handle, items) of the dispatched-ahead wave
+        inflight = None  # (handle, items, k) of the dispatched-ahead wave
+        waves = 0  # index of the next wave assembled
         while True:
             if should_stop is not None and should_stop():
                 # stop between waves; with checkpointing the journal
@@ -377,24 +401,34 @@ class Scanner:
                 raise Scanner.Interrupted("scan interrupted")
             survivors, pend = [], []
             if inflight is not None:
-                prev_handle, prev_items = inflight
-                scores = self.scorer.collect_all(prev_handle)
-                survivors = lrt_pass(prev_items, scores)
-                pend = self._batched_paths_dispatch(survivors)
-            wave = assemble()
-            handle = self.scorer.dispatch_all(wave) if wave else None
+                prev_handle, prev_items, k = inflight
+                with m.timed("phase1_collect", wave=k):
+                    scores = self.scorer.collect_all(prev_handle)
+                with m.timed("lrt", wave=k):
+                    survivors = lrt_pass(prev_items, scores)
+                with m.timed("phase2_dispatch", wave=k):
+                    pend = self._batched_paths_dispatch(survivors)
+            with m.timed("assemble", wave=waves):
+                wave = assemble()
+            handle = None
+            if wave:
+                with m.timed("phase1_dispatch", wave=waves):
+                    handle = self.scorer.dispatch_all(wave)
             if inflight is not None:
-                process(survivors, self._batched_paths_collect(pend))
-            inflight = (handle, wave) if wave else None
+                with m.timed("phase2_fetch", wave=k):
+                    paths = self._batched_paths_collect(pend)
+                process(survivors, paths, k)
+            inflight = (handle, wave, waves) if wave else None
+            waves += bool(wave)
             if inflight is None and not any(chains.values()):
                 break
 
-        with self.metrics.timed("write"):
+        with m.timed("write"):
             writer.sort_lines()
-            self.metrics.products = len(writer.lines)
-            log.info("scan done: %s", self.metrics.summary())
+            m.products = len(writer.lines)
             out = writer.close()
-        self._drop_codes()
+        with m.timed("release"):
+            self._drop_codes()
         return out
 
     def _next_item(self, p: int, s: int, cur: WindowCursor,
@@ -531,6 +565,22 @@ class Scanner:
             if blob is not None:
                 writer.add_h3r(line, blob)
             self._add_line(writer, line, order, pair)
+
+
+def _process_counts(device: torch.device) -> dict:
+    """The process-wide counts a run's `counts` take the differences of:
+    kernel launches by wrapper (ops/viterbi.py LAUNCHES, the one counting
+    site), streamed table bytes (UPLOADS), re-walked survivors (REWALKS)
+    and, on the card, the caching allocator's retries, device mallocs and
+    frees."""
+    out = {"launches": dict(vk.LAUNCHES), "h2d_bytes": UPLOADS["bytes"],
+           "rewalks": REWALKS["survivors"]}
+    if device.type == "cuda":
+        mem = torch.cuda.memory_stats(device)
+        out.update(alloc_retries=mem.get("num_alloc_retries", 0),
+                   device_mallocs=mem.get("num_device_alloc", 0),
+                   device_frees=mem.get("num_device_free", 0))
+    return out
 
 
 def confirm_many_of(confirmer):

@@ -35,11 +35,12 @@ Environment switches, read where the reference reads them:
 DECIPHON_NO_CHAIN=1 sends every window to the classic buckets (packed
 windows to B6); DECIPHON_CHAIN_SEG=1 sends over-cap windows to carry
 segments instead of the gang; DECIPHON_HBM_BUDGET (bytes) sets the
-ledger's table budget; DECIPHON_SYNC_DEBUG=1 waits for each phase-1
-launch of the chain, carry, gang, classic, packed and packed-chain tiers
-and records its wall and its true and padded cells under the reference's
-bucket name (`_bucket_ledger`), and DECIPHON_FILL_DEBUG then prints a
-FILL line for each chain and carry launch.
+ledger's table budget.  Every phase-1 launch of the chain, carry, gang,
+classic, packed and packed-chain tiers records its true and padded cells
+under the reference's bucket name (`_bucket_ledger`), and every B2 launch
+under a `path_` name; DECIPHON_SYNC_DEBUG=1 also waits for each phase-1
+launch and records its wall under that name, and DECIPHON_FILL_DEBUG
+then prints a FILL line for each chain and carry launch.
 
 Every scorer holds an explicit torch device; nothing falls back to the
 CPU.  Profiles beyond the reference's K = 16384 raise.
@@ -49,14 +50,13 @@ from __future__ import annotations
 
 import math
 import os
-import time
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
 from ..frame import FRAG_OFFSETS
-from ..logging import get_logger
+from ..logging import get_logger, timed, to_device, to_host
 from ..ops import viterbi as vk
 from ..ops.costs import ViterbiCosts
 from ..ops.engine import scan_scores
@@ -79,13 +79,14 @@ def _sync_debug() -> bool:
 
 def _bucket_ledger(metrics, alt, name: str, true_cells: int,
                    padded_cells: int) -> None:
-    """DECIPHON_SYNC_DEBUG: wait for one enqueued phase-1 launch (by
-    reading its `alt` plane; a shard's part after its stream's event) and
-    record its wall and its true and padded cells under `name`."""
-    t0 = time.perf_counter()
-    fetch_planes([alt])
-    metrics.add_wall(name, time.perf_counter() - t0)
+    """The bucket ledger of one enqueued phase-1 launch: its true and
+    padded cells under `name`, always; under DECIPHON_SYNC_DEBUG also the
+    wait for it (by reading its `alt` plane; a shard's part after its
+    stream's event), its wall a span named `name`."""
     metrics.add_bucket_cells(name, true_cells, padded_cells)
+    if _sync_debug():
+        with metrics.timed(name):
+            fetch_planes([alt])
 
 
 # Table placements of streamed scorers (PairScorer.stream_tables), counted
@@ -270,7 +271,7 @@ class DeviceSeqCodes:
         if parts:
             host[:total] = np.concatenate(parts)
         self.total = total
-        self.dev = start_codes_compute(torch.from_numpy(host).to(device))
+        self.dev = start_codes_compute(to_device(device, host)[0])
         # pad slots point past every real row (their length is 0)
         self.pad_start = tpad - 1
         self._copies: dict[torch.device, torch.Tensor] = {}
@@ -460,8 +461,9 @@ def bucket_arrays_meta(bucket: _Bucket, dev_codes: DeviceSeqCodes):
 
 
 def _tensors(device, *arrays):
-    """Host metadata of one launch -> device tensors (a few KB)."""
-    return [torch.from_numpy(a).to(device) for a in arrays]
+    """Host metadata of one launch -> device tensors (a few KB), each a
+    blocking copy (counted: logging.to_device)."""
+    return to_device(device, *arrays)
 
 
 class ShardedPlane:
@@ -502,7 +504,7 @@ def fetch_planes(planes: list) -> list[np.ndarray]:
         for i in idx:
             if parts[i][1] is not None:
                 torch.cuda.current_stream(dev).wait_event(parts[i][1])
-        flat = torch.cat([parts[i][0].reshape(-1) for i in idx]).cpu().numpy()
+        flat = to_host(torch.cat([parts[i][0].reshape(-1) for i in idx]))
         pos = 0
         for i in idx:
             t = parts[i][0]
@@ -613,11 +615,9 @@ def dispatch_paths_bounded(launches, bound: int, metrics=None) -> list:
     for nbytes, launch in launches:
         while inflight and held + nbytes > bound:
             old, old_bytes = inflight.pop(0)
-            t0 = time.perf_counter()
-            assemble_path_entries([old], fetch_steps([old]), early)
-            del old  # its trellis is free before the launch
-            if metrics is not None:
-                metrics.add_wall("phase2_collect", time.perf_counter() - t0)
+            with timed(metrics, "phase2_collect"):
+                assemble_path_entries([old], fetch_steps([old]), early)
+                del old  # its trellis is free before the launch
             held -= old_bytes
         inflight.append((launch(), nbytes))
         held += nbytes
@@ -691,11 +691,6 @@ class PairScorer(_HostTables):
         self._xt_lut_idx.clear()
         self._xt_lut_dev = None
 
-    def _walls(self, t0: float, t1: float) -> None:
-        if self.metrics is not None:
-            self.metrics.add_wall("pack", t1 - t0)
-            self.metrics.add_wall("dispatch", time.perf_counter() - t1)
-
     def _invoke_scores_from_starts(self, pidx, xts, lens, starts):
         """The classic phase-1 kernel call (device-resident codes): B1, or
         B4 for an `hbm_table` scorer."""
@@ -724,14 +719,13 @@ class PairScorer(_HostTables):
         inflight = []
         for bucket in build_batches(items, vk.KAPPA, w=self.w,
                                     nlb_floor=self.NLB_FLOOR):
-            t0 = time.perf_counter()
-            pidx, xts, lens, starts = bucket_arrays_meta(bucket,
-                                                         self.dev_codes)
-            t1 = time.perf_counter()
-            alt, nul = self._invoke_scores_from_starts(pidx, xts, lens,
-                                                       starts)
-            self._walls(t0, t1)
-            if self.metrics is not None and _sync_debug():
+            with timed(self.metrics, "pack"):
+                pidx, xts, lens, starts = bucket_arrays_meta(bucket,
+                                                             self.dev_codes)
+            with timed(self.metrics, "dispatch"):
+                alt, nul = self._invoke_scores_from_starts(pidx, xts, lens,
+                                                           starts)
+            if self.metrics is not None:
                 name = (f"bkt_kp{self.Kp}_nlb{bucket.nlb}_n{len(pidx)}"
                         f"_w{bucket.w}" + ("_hbm" if self.hbm_table else ""))
                 true = int((lens.reshape(len(pidx), -1).sum(axis=1)
@@ -838,7 +832,7 @@ class PairScorer(_HostTables):
         if not per and not seg_plan:
             return inflight
         if self._xt_lut_dev is None:
-            self._xt_lut_dev = torch.from_numpy(self._xt_lut).to(self.device)
+            self._xt_lut_dev = _tensors(self.device, self._xt_lut)[0]
 
         def nseg(it):
             return -(-blk(it) // cap)
@@ -910,57 +904,56 @@ class PairScorer(_HostTables):
         carry_prev = None  # (cbig, csml) of the previous segment chunk
         for ci_chunk, (chunk, conts, w_ck) in enumerate(chunks):
             is_seg = ci_chunk < T
-            t0 = time.perf_counter()
-            N = pad_groups(len(chunk))
-            pidx = np.zeros((N,), np.int32)
-            sblk = np.zeros((N, w_ck, cmax), np.int32)
-            wlen = np.zeros((N, w_ck, cmax), np.int32)
-            gst = np.full((N, w_ck, cmax), self.dev_codes.pad_start,
-                          np.int32)
-            xti = np.zeros((N, w_ck, cmax), np.int32)
-            groups = []
-            for gi, (p_idx, slots) in enumerate(chunk):
-                pidx[gi] = p_idx
-                gslots = []
-                for wi, (kind, payload, t) in enumerate(slots):
-                    if kind == "seg":
-                        it = payload
-                        ns = nseg(it)
-                        if t < ns - 1:  # intermediate: cap whole blocks
-                            wlen[gi, wi, 0] = cap * kappa
-                            gslots.append([])
-                        else:  # final segment: latches the window
-                            wlen[gi, wi, 0] = (it.win.length
-                                               - (ns - 1) * cap * kappa)
-                            gslots.append([it])
-                        gst[gi, wi, 0] = it.gstart + t * cap * kappa
-                        xti[gi, wi, 0] = self._xt_index(it)
-                    else:
-                        b = 0
-                        for ci, it in enumerate(payload):
-                            sblk[gi, wi, ci] = b
-                            wlen[gi, wi, ci] = it.win.length
-                            gst[gi, wi, ci] = it.gstart
-                            xti[gi, wi, ci] = self._xt_index(it)
-                            b += blk(it)
-                        gslots.append(payload)
-                groups.append(gslots)
-            meta = (pidx, sblk, wlen, gst, xti)
-            if is_seg:
-                conts_arr = np.zeros((N, w_ck), np.int32)
-                route = np.zeros((N * cw,), np.int32)
-                for gi, wi, src in conts:
-                    conts_arr[gi, wi] = 1
-                    route[gi * cw + wi] = src
-            t1 = time.perf_counter()
-            if is_seg:
-                alt, nul, cbig, csml = self._invoke_scores_chained_carry(
-                    *meta, conts_arr, route, carry_prev)
-                carry_prev = (cbig, csml)
-            else:
-                alt, nul = self._invoke_scores_chained(*meta)
-            self._walls(t0, t1)
-            if self.metrics is not None and _sync_debug():
+            with timed(self.metrics, "pack"):
+                N = pad_groups(len(chunk))
+                pidx = np.zeros((N,), np.int32)
+                sblk = np.zeros((N, w_ck, cmax), np.int32)
+                wlen = np.zeros((N, w_ck, cmax), np.int32)
+                gst = np.full((N, w_ck, cmax), self.dev_codes.pad_start,
+                              np.int32)
+                xti = np.zeros((N, w_ck, cmax), np.int32)
+                groups = []
+                for gi, (p_idx, slots) in enumerate(chunk):
+                    pidx[gi] = p_idx
+                    gslots = []
+                    for wi, (kind, payload, t) in enumerate(slots):
+                        if kind == "seg":
+                            it = payload
+                            ns = nseg(it)
+                            if t < ns - 1:  # intermediate: cap whole blocks
+                                wlen[gi, wi, 0] = cap * kappa
+                                gslots.append([])
+                            else:  # final segment: latches the window
+                                wlen[gi, wi, 0] = (it.win.length
+                                                   - (ns - 1) * cap * kappa)
+                                gslots.append([it])
+                            gst[gi, wi, 0] = it.gstart + t * cap * kappa
+                            xti[gi, wi, 0] = self._xt_index(it)
+                        else:
+                            b = 0
+                            for ci, it in enumerate(payload):
+                                sblk[gi, wi, ci] = b
+                                wlen[gi, wi, ci] = it.win.length
+                                gst[gi, wi, ci] = it.gstart
+                                xti[gi, wi, ci] = self._xt_index(it)
+                                b += blk(it)
+                            gslots.append(payload)
+                    groups.append(gslots)
+                meta = (pidx, sblk, wlen, gst, xti)
+                if is_seg:
+                    conts_arr = np.zeros((N, w_ck), np.int32)
+                    route = np.zeros((N * cw,), np.int32)
+                    for gi, wi, src in conts:
+                        conts_arr[gi, wi] = 1
+                        route[gi * cw + wi] = src
+            with timed(self.metrics, "dispatch"):
+                if is_seg:
+                    alt, nul, cbig, csml = self._invoke_scores_chained_carry(
+                        *meta, conts_arr, route, carry_prev)
+                    carry_prev = (cbig, csml)
+                else:
+                    alt, nul = self._invoke_scores_chained(*meta)
+            if self.metrics is not None:
                 self._chain_ledger(alt, is_seg, cap, len(chunk), pidx, wlen)
             inflight.append((_ChainChunk(groups), alt, nul))
         return inflight
@@ -968,9 +961,9 @@ class PairScorer(_HostTables):
     def _chain_ledger(self, alt, is_seg: bool, cap: int, ngroups: int,
                       pidx, wlen) -> None:
         """The bucket ledger of one chain (B3) or carry (B8) launch, and
-        under DECIPHON_FILL_DEBUG its FILL line (groups used of N, slots
-        holding a window, l-blocks of windows against the launch's, and the
-        fullest slot's blocks)."""
+        under DECIPHON_SYNC_DEBUG with DECIPHON_FILL_DEBUG its FILL line
+        (groups used of N, slots holding a window, l-blocks of windows
+        against the launch's, and the fullest slot's blocks)."""
         N, w, _ = wlen.shape
         name = (f"bkt_chain{'seg' if is_seg else ''}_kp{self.Kp}"
                 f"_cap{cap}_n{N}_w{w}")
@@ -978,7 +971,7 @@ class PairScorer(_HostTables):
                     * self._Ks[pidx]).sum())
         _bucket_ledger(self.metrics, alt, name, true,
                        N * w * cap * vk.KAPPA * 5 * self.Kp)
-        if os.environ.get("DECIPHON_FILL_DEBUG"):
+        if _sync_debug() and os.environ.get("DECIPHON_FILL_DEBUG"):
             blocks = -(-wlen // vk.KAPPA)
             slot_blocks = blocks.sum(axis=2)
             print(f"FILL {name}: groups={ngroups}/{N} "
@@ -1034,23 +1027,23 @@ class PairScorer(_HostTables):
             for size in chunk_sizes(len(rgroups)):
                 chunk = rgroups[i0:i0 + size]
                 i0 += size
-                t0 = time.perf_counter()
-                N = pad_groups(size)
-                pidx = np.zeros((N, wg), np.int32)
-                xts = np.zeros((N, wg, 16), np.float32)
-                lens = np.zeros((N, wg, 1), np.int32)
-                starts = np.full((N, wg), self.dev_codes.pad_start,
-                                 np.int32)
-                for gi, g in enumerate(chunk):
-                    for wi, it in enumerate(g):
-                        pidx[gi, wi] = it.p_idx
-                        xts[gi, wi, :13] = it.xt
-                        lens[gi, wi, 0] = it.win.length
-                        starts[gi, wi] = it.gstart
-                t1 = time.perf_counter()
-                alt, nul = self._invoke_scores_gang(pidx, xts, lens, starts)
-                self._walls(t0, t1)
-                if self.metrics is not None and _sync_debug():
+                with timed(self.metrics, "pack"):
+                    N = pad_groups(size)
+                    pidx = np.zeros((N, wg), np.int32)
+                    xts = np.zeros((N, wg, 16), np.float32)
+                    lens = np.zeros((N, wg, 1), np.int32)
+                    starts = np.full((N, wg), self.dev_codes.pad_start,
+                                     np.int32)
+                    for gi, g in enumerate(chunk):
+                        for wi, it in enumerate(g):
+                            pidx[gi, wi] = it.p_idx
+                            xts[gi, wi, :13] = it.xt
+                            lens[gi, wi, 0] = it.win.length
+                            starts[gi, wi] = it.gstart
+                with timed(self.metrics, "dispatch"):
+                    alt, nul = self._invoke_scores_gang(pidx, xts, lens,
+                                                        starts)
+                if self.metrics is not None:
                     name = (f"bkt_gang{'v' if self._gang_resident() else ''}"
                             f"_kp{self.Kp}_nlb{nlb}_n{N}_w{wg}")
                     true = int((lens[:, :, 0].astype(np.int64) * 5
@@ -1103,11 +1096,8 @@ class PairScorer(_HostTables):
         results: dict[int, tuple[float, float]] = {}
         for bucket, alt, nul in inflight:
             if not isinstance(alt, np.ndarray):
-                t0 = time.perf_counter()
-                alt, nul = fetch_planes([alt, nul])
-                if self.metrics is not None:
-                    self.metrics.add_wall("collect",
-                                          time.perf_counter() - t0)
+                with timed(self.metrics, "collect"):
+                    alt, nul = fetch_planes([alt, nul])
             self._collect_one((bucket, alt, nul), results)
         return results
 
@@ -1138,32 +1128,37 @@ class PairScorer(_HostTables):
             self.release_tables()
 
     def _path_launch(self, bucket: _Bucket) -> tuple:
-        t0 = time.perf_counter()
-        wb = bucket.w
-        meta = bucket_arrays_meta(bucket, self.dev_codes)
-        if self.hbm_table:  # no pad pairs: each one is Lk x Kp words
-            meta = [a[:len(bucket.groups)] for a in meta]
-        pidx, xts, lens, starts = _tensors(self.device, *meta)
-        xn, nd = vk.paths_pairs(pidx, self.tables, self.tvecs, xts, lens,
-                                starts, self.codes_all, nlb=bucket.nlb)
-        # the walk reads the real (pair, slot) rows in place
-        rows, flat_items, lengths = [], [], []
-        for gi, g in enumerate(bucket.groups):
-            for wi, it in enumerate(g):
-                rows.append(gi * wb + wi)
-                flat_items.append(it)
-                lengths.append(it.win.length)
-        Lk = bucket.nlb * vk.PATH_KAPPA
-        NP = xn.shape[0]
-        xnf = xn.reshape(NP * wb, Lk)
-        ndf = nd.reshape(NP * wb, Lk, self.Kp)
-        rows_t = torch.tensor(rows, dtype=torch.int32).to(self.device)
-        lens_t = torch.tensor(lengths, dtype=torch.int32).to(self.device)
-        max_steps = Lk + 4 * self.Kp + 64
-        sts, szs, ns, oks = walk(xnf, ndf, rows_t, lens_t, max_steps)
-        if self.metrics is not None:
-            self.metrics.add_wall("phase2_path", time.perf_counter() - t0)
-        return (flat_items, sts, szs, ns, oks, xnf, ndf, rows, lengths)
+        with timed(self.metrics, "phase2_path"):
+            wb = bucket.w
+            meta = bucket_arrays_meta(bucket, self.dev_codes)
+            if self.hbm_table:  # no pad pairs: each one is Lk x Kp words
+                meta = [a[:len(bucket.groups)] for a in meta]
+            pidx, xts, lens, starts = _tensors(self.device, *meta)
+            xn, nd = vk.paths_pairs(pidx, self.tables, self.tvecs, xts, lens,
+                                    starts, self.codes_all, nlb=bucket.nlb)
+            # the walk reads the real (pair, slot) rows in place
+            rows, flat_items, lengths = [], [], []
+            for gi, g in enumerate(bucket.groups):
+                for wi, it in enumerate(g):
+                    rows.append(gi * wb + wi)
+                    flat_items.append(it)
+                    lengths.append(it.win.length)
+            Lk = bucket.nlb * vk.PATH_KAPPA
+            NP = xn.shape[0]
+            if self.metrics is not None:
+                name = (f"path_kp{self.Kp}_nlb{bucket.nlb}_n{NP}_w{wb}"
+                        + ("_hbm" if self.hbm_table else ""))
+                true = sum(it.win.length * 5 * int(self._Ks[it.p_idx])
+                           for it in flat_items)
+                self.metrics.add_bucket_cells(name, true,
+                                              NP * wb * Lk * 5 * self.Kp)
+            xnf = xn.reshape(NP * wb, Lk)
+            ndf = nd.reshape(NP * wb, Lk, self.Kp)
+            rows_t, lens_t = _tensors(self.device, np.asarray(rows, np.int32),
+                                      np.asarray(lengths, np.int32))
+            max_steps = Lk + 4 * self.Kp + 64
+            sts, szs, ns, oks = walk(xnf, ndf, rows_t, lens_t, max_steps)
+            return (flat_items, sts, szs, ns, oks, xnf, ndf, rows, lengths)
 
     def _path_buckets(self, items: list[PairItem]) -> list[_Bucket]:
         """Path launches of these survivors: `build_batches`' rung buckets
@@ -1287,7 +1282,6 @@ class PackedPairScorer(_HostTables):
         self.inner.metrics = m
 
     _xt_index = PairScorer._xt_index
-    _walls = PairScorer._walls
     codes_all = PairScorer.codes_all
 
     def set_device_codes(self, dev_codes: DeviceSeqCodes | None) -> None:
@@ -1386,7 +1380,7 @@ class PackedPairScorer(_HostTables):
         if not pairs:
             return leftover, []
         if self._xt_lut_dev is None:
-            self._xt_lut_dev = torch.from_numpy(self._xt_lut).to(self.device)
+            self._xt_lut_dev = _tensors(self.device, self._xt_lut)[0]
 
         # narrow width for tail chunks: sparse pack groups ride a w/4
         # launch.  Each distinct width is dispatched once (the reference
@@ -1406,36 +1400,35 @@ class PackedPairScorer(_HostTables):
                 i0 += size
         entries: list = []
         for chunk, w_ck in chunks:
-            t0 = time.perf_counter()
-            N = pad_groups(len(chunk))
-            pidx = np.zeros((N,), np.int32)
-            sblk = np.zeros((N, w_ck, cmax), np.int32)
-            wlen = np.zeros((N, w_ck, cmax), np.int32)
-            gst = np.full((N, w_ck, cmax), self.dev_codes.pad_start,
-                          np.int32)
-            xti = np.zeros((N, w_ck, cmax), np.int32)
-            groups = []
-            for gi, (pack, slots) in enumerate(chunk):
-                pidx[gi] = pack
-                gslots = []
-                for wi, slot in enumerate(slots):
-                    b = 0
-                    grow = []
-                    for ci, (_key, segs, xtin) in enumerate(slot):
-                        it0 = segs[0][1]
-                        sblk[gi, wi, ci] = b
-                        wlen[gi, wi, ci] = it0.win.length
-                        gst[gi, wi, ci] = it0.gstart
-                        xti[gi, wi, ci] = xtin
-                        b += blk(it0.win.length)
-                        grow.append(segs)
-                    gslots.append(grow)
-                groups.append(gslots)
-            t1 = time.perf_counter()
-            alt, nul = self._invoke_scores_packed_chained(pidx, sblk, wlen,
-                                                          gst, xti)
-            self._walls(t0, t1)
-            if self._metrics is not None and _sync_debug():
+            with timed(self._metrics, "pack"):
+                N = pad_groups(len(chunk))
+                pidx = np.zeros((N,), np.int32)
+                sblk = np.zeros((N, w_ck, cmax), np.int32)
+                wlen = np.zeros((N, w_ck, cmax), np.int32)
+                gst = np.full((N, w_ck, cmax), self.dev_codes.pad_start,
+                              np.int32)
+                xti = np.zeros((N, w_ck, cmax), np.int32)
+                groups = []
+                for gi, (pack, slots) in enumerate(chunk):
+                    pidx[gi] = pack
+                    gslots = []
+                    for wi, slot in enumerate(slots):
+                        b = 0
+                        grow = []
+                        for ci, (_key, segs, xtin) in enumerate(slot):
+                            it0 = segs[0][1]
+                            sblk[gi, wi, ci] = b
+                            wlen[gi, wi, ci] = it0.win.length
+                            gst[gi, wi, ci] = it0.gstart
+                            xti[gi, wi, ci] = xtin
+                            b += blk(it0.win.length)
+                            grow.append(segs)
+                        gslots.append(grow)
+                    groups.append(gslots)
+            with timed(self._metrics, "dispatch"):
+                alt, nul = self._invoke_scores_packed_chained(pidx, sblk, wlen,
+                                                              gst, xti)
+            if self._metrics is not None:
                 name = (f"bkt_pchain_kp{self.Kp}_s{self.nseg}"
                         f"_cap{cap}_n{N}_w{w_ck}")
                 true = int((wlen.sum(axis=(1, 2)).astype(np.int64) * 5
@@ -1491,23 +1484,23 @@ class PackedPairScorer(_HostTables):
             for size in chunk_sizes(len(groups)):
                 chunk = groups[i0:i0 + size]
                 i0 += size
-                t0 = time.perf_counter()
-                N = pad_groups(len(chunk))
-                pidx = np.full((N,), pack, np.int32)
-                xts = np.zeros((N, w, 16), np.float32)
-                lens = np.zeros((N, w, 1), np.int32)
-                starts = np.full((N, w), self.dev_codes.pad_start, np.int32)
-                for gi, g in enumerate(chunk):
-                    for wi, slot in enumerate(g):
-                        it0 = slot[0][1]  # window shared across segments
-                        xts[gi, wi, :13] = it0.xt
-                        lens[gi, wi, 0] = it0.win.length
-                        starts[gi, wi] = it0.gstart
-                t1 = time.perf_counter()
-                alt, nul = self._invoke_scores_packed(pidx, xts, lens,
-                                                      starts)
-                self._walls(t0, t1)
-                if self._metrics is not None and _sync_debug():
+                with timed(self._metrics, "pack"):
+                    N = pad_groups(len(chunk))
+                    pidx = np.full((N,), pack, np.int32)
+                    xts = np.zeros((N, w, 16), np.float32)
+                    lens = np.zeros((N, w, 1), np.int32)
+                    starts = np.full((N, w), self.dev_codes.pad_start,
+                                     np.int32)
+                    for gi, g in enumerate(chunk):
+                        for wi, slot in enumerate(g):
+                            it0 = slot[0][1]  # window shared across segments
+                            xts[gi, wi, :13] = it0.xt
+                            lens[gi, wi, 0] = it0.win.length
+                            starts[gi, wi] = it0.gstart
+                with timed(self._metrics, "dispatch"):
+                    alt, nul = self._invoke_scores_packed(pidx, xts, lens,
+                                                          starts)
+                if self._metrics is not None:
                     name = (f"bkt_packed_kp{self.Kp}_s{self.nseg}"
                             f"_nlb{nlb}_n{N}_w{w}")
                     true = int((lens[:, :, 0].astype(np.int64) * 5
@@ -1553,11 +1546,8 @@ class PackedPairScorer(_HostTables):
         results: dict[int, tuple[float, float]] = {}
         for head, alt, nul in inflight:
             if not isinstance(alt, np.ndarray):
-                t0 = time.perf_counter()
-                alt, nul = fetch_planes([alt, nul])
-                if self._metrics is not None:
-                    self._metrics.add_wall("collect",
-                                           time.perf_counter() - t0)
+                with timed(self._metrics, "collect"):
+                    alt, nul = fetch_planes([alt, nul])
             self._collect_entry((head, alt, nul), results)
         return results
 
@@ -1903,10 +1893,8 @@ class BucketedPairScorer:
         device, `fetch_planes`; carry planes never leave it)."""
         flat = [a for _, inflight in pending for e in inflight
                 for a in (e[1], e[2])]
-        t0 = time.perf_counter()
-        host = iter(fetch_planes(flat))
-        if self.metrics is not None:
-            self.metrics.add_wall("collect", time.perf_counter() - t0)
+        with timed(self.metrics, "collect"):
+            host = iter(fetch_planes(flat))
         results: dict[int, tuple[float, float]] = {}
         for scorer, inflight in pending:
             results.update(scorer.collect(
@@ -1982,17 +1970,11 @@ class TorchPairScorer:
     def set_metrics(self, metrics) -> None:
         self.metrics = metrics
 
-    def _wall(self, name: str, t0: float) -> None:
-        if self.metrics is not None:
-            self.metrics.add_wall(name, time.perf_counter() - t0)
-
     def dispatch_all(self, items: list[PairItem]):
         """Score one wave now (nothing is left in flight); the handle is
         {id(item) -> (null_cost, alt_cost)}."""
-        t0 = time.perf_counter()
-        scores = self.score(items)
-        self._wall("dispatch", t0)
-        return scores
+        with timed(self.metrics, "dispatch"):
+            return self.score(items)
 
     @staticmethod
     def collect_all(scores) -> dict[int, tuple[float, float]]:
@@ -2011,8 +1993,7 @@ class TorchPairScorer:
                     codes[gi], np.ascontiguousarray(lens[gi, :, 0]))
                 nul, alt = scan_scores(core[None], match[None], null[None],
                                        bg[None], xt_g, codes_g, lens_g)
-                nul = nul[0].cpu().numpy()
-                alt = alt[0].cpu().numpy()
+                nul, alt = to_host(nul[0]), to_host(alt[0])
                 for wi, it in enumerate(g):
                     results[id(it)] = (float(nul[wi]), float(alt[wi]))
         return results
@@ -2044,25 +2025,24 @@ class TorchPairScorer:
 
     def _path_launch(self, p_idx: int, Lpad: int,
                      sub: list[PairItem]) -> tuple:
-        t0 = time.perf_counter()
-        K = self.K[p_idx]
-        Bp = next_pow2(len(sub))
-        codes = np.zeros((Bp, Lpad, 5), np.int32)
-        xts = np.zeros((Bp, 13), np.float32)
-        lengths = np.zeros((Bp,), np.int32)
-        for b, it in enumerate(sub):
-            codes[b, :it.win.length] = it.codes
-            xts[b] = it.xt
-            lengths[b] = it.win.length
-        xt_t, codes_t, lens_t = _tensors(self.device, xts, codes, lengths)
-        _, xn, nd = viterbi_path_batch(*self._dev[p_idx], xt_t, codes_t,
-                                       lens_t)
-        xn = xn[:, 1:].contiguous()  # row l-1 holds position l
-        nd = nd[:, 1:].contiguous()
-        n = len(sub)
-        sts, szs, ns, oks = walk(
-            xn, nd, torch.arange(n, dtype=torch.int32, device=self.device),
-            lens_t[:n].contiguous(), Lpad + 4 * K + 64)
-        self._wall("phase2_path", t0)
-        return (sub, sts, szs, ns, oks, xn, nd, list(range(n)),
-                lengths[:n].tolist())
+        with timed(self.metrics, "phase2_path"):
+            K = self.K[p_idx]
+            Bp = next_pow2(len(sub))
+            codes = np.zeros((Bp, Lpad, 5), np.int32)
+            xts = np.zeros((Bp, 13), np.float32)
+            lengths = np.zeros((Bp,), np.int32)
+            for b, it in enumerate(sub):
+                codes[b, :it.win.length] = it.codes
+                xts[b] = it.xt
+                lengths[b] = it.win.length
+            xt_t, codes_t, lens_t = _tensors(self.device, xts, codes, lengths)
+            _, xn, nd = viterbi_path_batch(*self._dev[p_idx], xt_t, codes_t,
+                                           lens_t)
+            xn = xn[:, 1:].contiguous()  # row l-1 holds position l
+            nd = nd[:, 1:].contiguous()
+            n = len(sub)
+            sts, szs, ns, oks = walk(
+                xn, nd, torch.arange(n, dtype=torch.int32, device=self.device),
+                lens_t[:n].contiguous(), Lpad + 4 * K + 64)
+            return (sub, sts, szs, ns, oks, xn, nd, list(range(n)),
+                    lengths[:n].tolist())

@@ -402,7 +402,8 @@ def test_cli_refusals(db, tmp_path, monkeypatch, what):
 
 def test_cli_warmup_and_profile_dir(db, tmp_path):
     """`warmup` on the CPU, and `scan --profile-dir` writes a
-    torch.profiler Chrome trace beside the snap."""
+    torch.profiler Chrome trace beside the snap, holding the scan's own
+    deciphon.* spans."""
     out = invoke(p_cli.cli, ["warmup", db["dcp"], "--read-length", 300,
                              "--engine", "native", "--device", "cpu"])
     assert out.startswith("warmup done in") and "5 profiles" in out
@@ -415,4 +416,7 @@ def test_cli_warmup_and_profile_dir(db, tmp_path):
     assert f"profiler trace in {trace}" in out
     events = json.loads((trace / "scan_trace.json").read_text())
     assert events["traceEvents"]
+    names = {e.get("name") for e in events["traceEvents"]}
+    assert {"deciphon.run", "deciphon.phase1_dispatch",
+            "deciphon.phase2_decode"} <= names
     assert members(tmp_path / "one.dcs")

@@ -16,8 +16,11 @@ DECIPHON_SYNC_DEBUG=1 DECIPHON_FILL_DEBUG=1, on three routes:
 
 Each tier's ledger names, true and padded cells and counts must be the
 reference's, every name must have a wall, the true cells must be those
-of the windows phase 1 dispatched, and with the switch off there is no
-ledger, the same products, launches and table uploads.
+of the windows phase 1 dispatched, and with the switch off the ledger is
+the same (the cells are counted at every launch; the switch adds the
+wait and its wall), as are the products, launches and table uploads.
+The port's ledger also holds its B2 launches under `path_` names, which
+the reference's has not.
 
 Two departures of the reference are stated, not copied:
   * with a chain width w_c of 8 the narrow width w_n is 8 too, and the
@@ -197,7 +200,12 @@ def port_scan(planted, name, out, env: dict, budget=None) -> dict:
         products = fp.read()
     m = sc.metrics
     return dict(
-        products=products, cells=dict(m.bucket_cells), walls=dict(m.walls),
+        products=products, ledger=dict(m.bucket_cells),
+        cells={n: c for n, c in m.bucket_cells.items()
+               if not n.startswith("path_")},
+        path_cells={n: c for n, c in m.bucket_cells.items()
+                    if n.startswith("path_")},
+        walls=dict(m.walls),
         fill=fill_lines(buf.getvalue()), launches=launches, uploads=uploads,
         metrics_cells=m.cells,
         dispatched=sum(it.win.length * 5 * ks[it.p_idx] for it in dispatched),
@@ -252,11 +260,15 @@ def test_route_ledger_whole(scans, name):
     profile of its pack, as the reference counts them (here the K = 9
     profile's windows of reads 1 and 3 are not whole, so the K = 40
     profile's whole-read rows of those reads hold one profile of two);
-    FILL lines are the reference's; with the switches off: no ledger, the
-    same products, launches and uploads."""
+    FILL lines are the reference's; with the switches off: the same
+    ledger, B2's entries included, no bkt_ wall, the same products,
+    launches and uploads."""
     ref, on, off = scans(name)
     assert expected_ref(on["cells"]) == ref["cells"]
     assert all(n.startswith("bkt_") for n in on["cells"])
+    assert set(on["ledger"]) == set(on["cells"]) | set(on["path_cells"])
+    assert on["path_cells"]
+    assert all(0 < t <= p for t, p, _ in on["path_cells"].values())
     assert set(on["cells"]) <= set(on["walls"])
     assert on["packed_rows"] > on["packed_items"] > 0
     assert sum(t for t, _, _ in on["cells"].values()) == \
@@ -270,7 +282,8 @@ def test_route_ledger_whole(scans, name):
                   if n.startswith(("bkt_chain_", "bkt_chainseg_")))
     assert len(on["fill"]) == n_chain
     assert not any(k.startswith("bkt_") for k in off["walls"])
-    assert not off["cells"]
+    assert off["cells"] == on["cells"]
+    assert off["path_cells"] == on["path_cells"]
     assert off["products"] == on["products"] == ref["products"]
     assert off["launches"] == on["launches"]
     assert off["uploads"] == on["uploads"]
@@ -279,15 +292,15 @@ def test_route_ledger_whole(scans, name):
 @pytest.mark.parametrize("name", ["gang", "seg"])
 def test_streamed_ledger_moves_no_upload(planted, tmp_path, name):
     """With every table streamed (a budget of 1 byte), waiting for each
-    launch moves no placement: the same table uploads, launches and
-    products with the switches on and off; the streamed gang's entries
+    launch moves no placement: the same table uploads, launches, products
+    and ledger with the switches on and off; the streamed gang's entries
     are named bkt_gang (B4m), as the reference names its streamed gang."""
     on = port_scan(planted, name, tmp_path / "on", SWITCHES, budget=1)
     off = port_scan(planted, name, tmp_path / "off", {}, budget=1)
     assert on["uploads"]["uploads"] > 0
     assert (on["uploads"], on["launches"], on["products"]) == \
         (off["uploads"], off["launches"], off["products"])
-    assert on["cells"] and not off["cells"]
+    assert on["cells"] and off["cells"] == on["cells"]
     gang = [n for n in on["cells"] if n.startswith("bkt_gang")]
     assert all(n.startswith("bkt_gang_") for n in gang)
     assert bool(gang) == (name == "gang")
