@@ -9,8 +9,10 @@ The port's own copy of deciphon_tpu/logging.py, kept equal in behaviour
 (tests/test_torch_copies.py compares the two).  Beyond the copy: every
 `ScanMetrics.timed` span also lands on torch.profiler's clock while a
 profiler records (`deciphon.<name>`, and the run's in-memory span list),
-the always-on per-run `counts` and `longest`, the blocking transfers of a
-scan (`to_host`, `to_device`), and `HISTORY`, the finished runs.
+the always-on per-run `counts` and `longest`, the transfers of a scan
+(blocking: `to_host`, `to_device`; with no drain of the stream: `stage`,
+`stage_host`, `read_staged`, `wait_event`), and `HISTORY`, the finished
+runs.
 """
 
 from __future__ import annotations
@@ -24,10 +26,12 @@ from contextlib import contextmanager, nullcontext
 from dataclasses import dataclass, field
 from itertools import count
 
+import numpy as np
 import torch
 
 __all__ = ["get_logger", "ScanMetrics", "HISTORY", "timed", "to_host",
-           "to_device", "profiling"]
+           "to_device", "stage", "stage_host", "read_staged", "wait_event",
+           "profiling"]
 
 _LEVELS = {"debug": logging.DEBUG, "info": logging.INFO,
            "warning": logging.WARNING, "error": logging.ERROR,
@@ -39,7 +43,7 @@ _LEVELS = {"debug": logging.DEBUG, "info": logging.INFO,
 HISTORY: deque = deque(maxlen=1024)
 
 # The ScanMetrics of the run in progress in this thread (Scanner.run sets
-# it): where `to_host` and `to_device` count.
+# it): where the transfers count.
 _ACTIVE: contextvars.ContextVar = contextvars.ContextVar(
     "deciphon_scan_metrics", default=None)
 _RUN_IDS = count(1)
@@ -136,8 +140,9 @@ class ScanMetrics:
     # launch (bkt_ names) and B2 launch (path_ names) — the fill diagnostic
     # that localizes padding waste per kernel tier
     bucket_cells: dict = field(default_factory=dict)
-    # per run: syncs, d2h_bytes, h2d_bytes, rewalks, launches (by LAUNCHES
-    # key), on the card alloc_retries, device_mallocs, device_frees
+    # per run: syncs, d2h_bytes, h2d_bytes, staged, staged_bytes, rewalks,
+    # launches (by LAUNCHES key), on the card alloc_retries,
+    # device_mallocs, device_frees
     counts: dict = field(default_factory=dict)
     longest: dict = field(default_factory=dict)  # span -> its longest wall
     # (name, start_ns, end_ns, parent, run_id, wave) of each span while a
@@ -169,7 +174,7 @@ class ScanMetrics:
     @contextmanager
     def running(self, counters=None):
         """The scope of one run: the `run` span, this object as the
-        thread's running ScanMetrics (`to_host`, `to_device`), and an entry
+        thread's running ScanMetrics (where the transfers count), and an entry
         in HISTORY at the end.  `counters()`, if given, reads process-wide
         counts (numbers, or dicts of numbers) at the start and the end;
         their differences go into `counts` (a number added to what the run
@@ -273,3 +278,76 @@ def to_device(device, *arrays) -> list:
             torch.cuda.current_stream(device).synchronize()
     with m.timed("copy"):
         return [torch.from_numpy(a).to(device) for a in arrays]
+
+
+# Each array of a staged upload starts on this byte boundary of the
+# device buffer (the caching allocator's own blocks start on 512).
+_STAGE_ALIGN = 256
+
+
+def stage(device, *arrays) -> list:
+    """Host numpy arrays -> tensors on the card `device`, with no wait for
+    its stream: the arrays are copied into one pinned host buffer from
+    PyTorch's caching host allocator (which reuses a block only after the
+    copy that reads it has run), sent in one `non_blocking` copy on the
+    device's current stream, and returned as typed views of the one
+    device buffer.  The caller may overwrite its arrays once this returns.
+    In a scan the upload counts in `staged` and its bytes in
+    `staged_bytes` and `h2d_bytes`; it is not one of `syncs`."""
+    arrays = [np.ascontiguousarray(a) for a in arrays]
+    offsets, total = [], 0
+    for a in arrays:
+        offsets.append(total)
+        total += -(-a.nbytes // _STAGE_ALIGN) * _STAGE_ALIGN
+    host = torch.empty(total, dtype=torch.uint8, pin_memory=True)
+    flat = host.numpy()
+    for a, o in zip(arrays, offsets):
+        flat[o:o + a.nbytes] = a.reshape(-1).view(np.uint8)
+    dev = host.to(device, non_blocking=True)
+    out = [dev[o:o + a.nbytes].view(torch.from_numpy(a[:0]).dtype)
+           .view(a.shape) for a, o in zip(arrays, offsets)]
+    m = _ACTIVE.get()
+    if m is not None:
+        nbytes = sum(a.nbytes for a in arrays)
+        m.add_count("staged")
+        m.add_count("staged_bytes", nbytes)
+        m.add_count("h2d_bytes", nbytes)
+    return out
+
+
+def wait_event(event) -> None:
+    """The host's wait for one recorded CUDA event, before it reads what
+    the transfers ahead of the event wrote: in a scan one of `syncs`,
+    timed as `wait`."""
+    m = _ACTIVE.get()
+    if m is None:
+        event.synchronize()
+        return
+    m.add_count("syncs")
+    with m.timed("wait"):
+        event.synchronize()
+
+
+def stage_host(*tensors) -> tuple:
+    """Card tensors on their way to the host, with no wait for the stream:
+    each copied into pinned host memory with `non_blocking` on the current
+    stream, and an event recorded after the copies; returns (host tensors,
+    event), which `read_staged` reads.  In a scan their bytes count in
+    `d2h_bytes`."""
+    host = tuple(torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                 .copy_(t, non_blocking=True) for t in tensors)
+    done = torch.cuda.Event()
+    done.record(torch.cuda.current_stream(tensors[0].device))
+    m = _ACTIVE.get()
+    if m is not None:
+        m.add_count("d2h_bytes",
+                    sum(t.numel() * t.element_size() for t in host))
+    return host, done
+
+
+def read_staged(tensors, event) -> list:
+    """Numpy views of the pinned host tensors of `stage_host`, once its
+    event has passed (`wait_event`: the host waits for those copies alone,
+    not for the stream)."""
+    wait_event(event)
+    return [t.numpy() for t in tensors]

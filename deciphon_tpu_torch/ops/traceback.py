@@ -7,9 +7,11 @@ Counterpart of deciphon_tpu/ops/traceback.py (which loads jax at import):
     csrc/traceback_walk.cu (one warp per survivor, reading the trellis
     from shared-memory tiles) on CUDA tensors, `walk_plain` (a vectorised
     torch loop over the batch) on CPU tensors;
-  * `fetch_steps` / `assemble_path_entries` / `path_arrays` — the step
-    arrays, fetched in one transfer, to the (sids, sizes) arrays the scan
-    pipeline decodes.
+  * `stage_steps` / `fetch_steps` / `assemble_path_entries` /
+    `PathSteps` / `path_arrays` — the step arrays, on the card copied to
+    pinned host memory right after each walk and read once that walk's
+    event has passed (else fetched in one transfer), to the (sids, sizes)
+    arrays the scan pipeline decodes.
 
 The walk reads the path kernel's trellis in place: xnode (R, Lk) and node
 (R, Lk, Kp) int32 with rows selected by `rows`; stage s reads row s-1 and
@@ -25,7 +27,7 @@ import numpy as np
 import torch
 
 from .. import states as st
-from ..logging import to_device, to_host
+from ..logging import read_staged, stage_host, timed, to_device, to_host
 
 from .viterbi import LAUNCHES, on_cuda
 
@@ -281,10 +283,33 @@ def rewalk(xn, nd, rows: list[int], lengths: list[int], max_steps: int):
             raise RuntimeError("traceback underflow: corrupt trellis")
 
 
+def stage_steps(sts, szs, ns, oks):
+    """A walk's step arrays on their way to the host: on the card, right
+    after the walk's launch, copied into pinned host memory on the same
+    stream with an event after them (logging.stage_host: (host tensors,
+    event)); the host reads them once that event has passed
+    (`fetch_steps`).  None on the CPU."""
+    if sts.device.type != "cuda":
+        return None
+    return stage_host(sts, szs, ns, oks)
+
+
 def fetch_steps(entries) -> list[np.ndarray]:
     """Host copies of the step arrays (sts, szs, ns, oks) of every path
-    entry, in order, through ONE device-to-host transfer."""
-    flat = [a for e in entries for a in e[1:5]]
+    entry, in order.  An entry whose steps were staged (`stage_steps`, its
+    last field) is read once its own event has passed; the others come
+    through ONE device-to-host transfer."""
+    flat = [a for e in entries if e[9] is None for a in e[1:5]]
+    host = iter(_fetch_flat(flat) if flat else ())
+    fetched = []
+    for e in entries:
+        fetched.extend(read_staged(*e[9]) if e[9] is not None
+                       else (next(host) for _ in range(4)))
+    return fetched
+
+
+def _fetch_flat(flat) -> list[np.ndarray]:
+    """Host copies of device arrays through one transfer."""
     sizes = [a.numel() * a.element_size() for a in flat]
     buf = to_host(torch.cat([a.reshape(-1).view(torch.uint8)
                              for a in flat]))
@@ -300,12 +325,13 @@ def fetch_steps(entries) -> list[np.ndarray]:
 def assemble_path_entries(entries, fetched, out: dict) -> None:
     """Fetched path entries -> {id(item): (sids, sizes)}.
 
-    `entries` are (items, sts, szs, ns, oks, xn, nd, rows, lengths) from
-    a scorer's path launches; `fetched` holds the host numpy copies
-    of (sts, szs, ns, oks) per entry, in order.  Walks that overflowed go
+    `entries` are (items, sts, szs, ns, oks, xn, nd, rows, lengths,
+    staged) from a scorer's path launches (`staged` from `stage_steps`;
+    it may be left out here); `fetched` holds the host numpy copies of
+    (sts, szs, ns, oks) per entry, in order.  Walks that overflowed go
     through `rewalk`."""
     for i, e in enumerate(entries):
-        items, _, _, _, _, xn, nd, rows, lengths = e
+        items, (xn, nd, rows, lengths) = e[0], e[5:9]
         sts, szs, ns, oks = fetched[4 * i:4 * i + 4]
         steps = {b: (sts[b].view(np.uint16), szs[b], ns[b])
                  for b in range(len(items))}
@@ -325,6 +351,39 @@ def assemble_path_entries(entries, fetched, out: dict) -> None:
             sid[1:] = s[n - 1::-1]
             sz[1:] = z[n - 1::-1]
             out[id(it)] = (sid, sz)
+
+
+class PathSteps(dict):
+    """{id(item): (sids, sizes)} of one wave's path entries (and the
+    dicts of those collected early), for the decode that takes the
+    survivors in order.  A staged entry is assembled the first time one of
+    its items is looked up, after waiting on its own event alone, so the
+    decode of early survivors overlaps the path launches of later ones;
+    the others (the CPU) are fetched in one transfer (`phase2_collect`)
+    and assembled at once."""
+
+    def __init__(self, entries, metrics=None):
+        super().__init__()
+        self._staged: dict[int, tuple] = {}  # id(item) -> its entry
+        plain = []
+        for e in entries:
+            if isinstance(e, dict):
+                self.update(e)
+            elif e[9] is None:
+                plain.append(e)
+            else:
+                self._staged.update((id(it), e) for it in e[0])
+        if plain:
+            with timed(metrics, "phase2_collect"):
+                fetched = fetch_steps(plain)
+            assemble_path_entries(plain, fetched, self)
+
+    def __missing__(self, key):
+        e = self._staged[key]
+        assemble_path_entries([e], fetch_steps([e]), self)
+        for it in e[0]:
+            del self._staged[id(it)]
+        return self[key]
 
 
 def path_arrays(steps):

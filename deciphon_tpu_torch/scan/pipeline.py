@@ -57,7 +57,7 @@ from ..scan.sequence import Sequence
 from ..scan.window import WindowCursor
 
 from ..ops import viterbi as vk
-from ..ops.traceback import REWALKS, assemble_path_entries, fetch_steps
+from ..ops.traceback import REWALKS, PathSteps
 from .scheduler import (UPLOADS, BucketedPairScorer, DeviceSeqCodes,
                         PairItem, TorchPairScorer)
 
@@ -230,8 +230,8 @@ class Scanner:
         wave `assemble`, `phase1_dispatch`, `phase1_collect`, `lrt`,
         `phase2_dispatch`, `phase2_fetch`, `phase2_decode` and the
         `refill` windowing, then `write` and `release`); its `counts` hold
-        the run's launches, blocking transfers, uploads, re-walks and, on
-        the card, allocator events."""
+        the run's launches, host waits and blocking transfers (`syncs`),
+        staged uploads, re-walks and, on the card, allocator events."""
         self.metrics = m = ScanMetrics()
         with m.running(counters=lambda: _process_counts(self.device)):
             out = self._scan(sequences, product_dir, checkpoint, should_stop)
@@ -390,7 +390,8 @@ class Scanner:
 
         # Wave k's phase-1 collect, then its path launches, then wave
         # k+1's phase-1 dispatch, then wave k's path fetch and decode: the
-        # host decode overlaps the next wave's device work.
+        # host decode overlaps the next wave's device work (on the card it
+        # waits for a survivor's own path launch alone, PathSteps).
         inflight = None  # (handle, items, k) of the dispatched-ahead wave
         waves = 0  # index of the next wave assembled
         while True:
@@ -418,6 +419,7 @@ class Scanner:
                 with m.timed("phase2_fetch", wave=k):
                     paths = self._batched_paths_collect(pend)
                 process(survivors, paths, k)
+                del paths  # entries it never read hold wave k's trellis
             inflight = (handle, wave, waves) if wave else None
             waves += bool(wave)
             if inflight is None and not any(chains.values()):
@@ -454,21 +456,13 @@ class Scanner:
         at most one dict of results the scorer collected early)."""
         return self.scorer.paths_dispatch([it for it, _ in survivors])
 
-    def _batched_paths_collect(self, entries) -> dict[int, tuple]:
-        """Fetch the step arrays of every entry in ONE host transfer and
-        assemble {id(item) -> (sids, sizes)}; a dict among the entries
-        holds results collected early."""
-        out: dict[int, tuple] = {}
-        for e in entries:
-            if isinstance(e, dict):
-                out.update(e)
-        entries = [e for e in entries if not isinstance(e, dict)]
-        if not entries:
-            return out
-        with self.metrics.timed("phase2_collect"):
-            fetched = fetch_steps(entries)
-        assemble_path_entries(entries, fetched, out)
-        return out
+    def _batched_paths_collect(self, entries) -> PathSteps:
+        """{id(item) -> (sids, sizes)} of every entry (a dict among the
+        entries holds results collected early): on the CPU fetched in ONE
+        host transfer and assembled now; on the card each entry's staged
+        steps are read when the decode first asks for one of its
+        survivors, after that entry's own event."""
+        return PathSteps(entries, self.metrics)
 
     def _phase2(self, it: PairItem, seq: Sequence, line_lrt: float,
                 on_hit_pos, writer: ProductWriter, path: tuple,

@@ -42,12 +42,19 @@ under a `path_` name; DECIPHON_SYNC_DEBUG=1 also waits for each phase-1
 launch and records its wall under that name, and DECIPHON_FILL_DEBUG
 then prints a FILL line for each chain and carry launch.
 
+On the card the host never drains a stream to hand work over: each
+launch's metadata goes up staged (`_tensors`: one pinned buffer, a
+`non_blocking` copy on the launching stream), and each path entry's steps
+come down into pinned memory right after its walk, read once that
+entry's event has passed (ops/traceback.py `stage_steps`, `PathSteps`).
+
 Every scorer holds an explicit torch device; nothing falls back to the
 CPU.  Profiles beyond the reference's K = 16384 raise.
 """
 
 from __future__ import annotations
 
+import heapq
 import math
 import os
 from dataclasses import dataclass
@@ -56,13 +63,14 @@ import numpy as np
 import torch
 
 from ..frame import FRAG_OFFSETS
-from ..logging import get_logger, timed, to_device, to_host
+from ..logging import get_logger, stage, timed, to_device, to_host
 from ..ops import viterbi as vk
 from ..ops.costs import ViterbiCosts
 from ..ops.engine import scan_scores
 from ..ops.tables import (common_kp, round_up, stack_tables,
                           stack_tables_packed)
-from ..ops.traceback import assemble_path_entries, fetch_steps, walk
+from ..ops.traceback import (assemble_path_entries, fetch_steps,
+                             stage_steps, walk)
 from ..ops.viterbi_torch import viterbi_path_batch
 from ..xtrans import xtrans_cost_vector
 from .window import Window
@@ -461,8 +469,12 @@ def bucket_arrays_meta(bucket: _Bucket, dev_codes: DeviceSeqCodes):
 
 
 def _tensors(device, *arrays):
-    """Host metadata of one launch -> device tensors (a few KB), each a
-    blocking copy (counted: logging.to_device)."""
+    """Host metadata of one launch -> device tensors (a few KB): on the
+    card staged, one `non_blocking` copy on the current stream (the
+    launching one; a shard's own) with no wait for it (logging.stage);
+    on the CPU each a plain copy (logging.to_device)."""
+    if torch.device(device).type == "cuda":
+        return stage(device, *arrays)
     return to_device(device, *arrays)
 
 
@@ -606,7 +618,8 @@ def dispatch_paths_bounded(launches, bound: int, metrics=None) -> list:
     """Run phase-2 path launches, given as (trellis bytes, launch) pairs,
     with at most `bound` trellis bytes in flight: before a launch that
     would pass it, the oldest launches are collected early (the reference
-    pipeline's group loop), and their results ride along as one dict
+    pipeline's group loop; on the card after the oldest entry's own
+    event, `fetch_steps`), and their results ride along as one dict
     {id(item) -> (sids, sizes)} among the returned un-fetched entries.  A
     launch alone may pass the bound."""
     inflight: list[tuple] = []  # (entry, trellis bytes)
@@ -1108,20 +1121,29 @@ class PairScorer(_HostTables):
     # -- phase 2: path kernel + device traceback -----------------------
 
     def path_launches(self, items: list[PairItem]):
-        """The path launches of these survivors, one at a time: yields
-        (trellis bytes, launch), and launch() runs B2 and the walk and
+        """The path launches of these survivors, one at a time, in the
+        order of their first survivor in `items`: yields (first survivor,
+        trellis bytes, launch), and launch() runs B2 and the walk and
         returns the entry, so a caller can make room before each launch.
         A streamed scorer places its tables once more for these launches
-        (counted in UPLOADS["phase2"]) and drops them after the last."""
+        (counted in UPLOADS["phase2"]) and drops them after the last; its
+        launches all give the first of `items`, so that a caller ordering
+        launches of several scorers by their first survivor keeps them
+        together."""
         if not items:
             return
         if self.stream_tables and self._tables_cache is None:
             UPLOADS["phase2"] += 1
+        rank = {id(it): i for i, it in enumerate(items)}
         try:
-            for bucket in self._path_buckets(items):
+            for r, bucket in sorted(
+                    ((min(rank[id(it)] for g in b.groups for it in g), b)
+                     for b in self._path_buckets(items)),
+                    key=lambda rb: rb[0]):
                 n = (len(bucket.groups) if self.hbm_table
                      else pad_groups(len(bucket.groups)))
-                yield (n * bucket.w * bucket.nlb * vk.PATH_KAPPA
+                yield (items[0 if self.stream_tables else r],
+                       n * bucket.w * bucket.nlb * vk.PATH_KAPPA
                        * (self.Kp + 1) * 4,
                        lambda bucket=bucket: self._path_launch(bucket))
         finally:
@@ -1158,7 +1180,8 @@ class PairScorer(_HostTables):
                                       np.asarray(lengths, np.int32))
             max_steps = Lk + 4 * self.Kp + 64
             sts, szs, ns, oks = walk(xnf, ndf, rows_t, lens_t, max_steps)
-            return (flat_items, sts, szs, ns, oks, xnf, ndf, rows, lengths)
+            return (flat_items, sts, szs, ns, oks, xnf, ndf, rows, lengths,
+                    stage_steps(sts, szs, ns, oks))
 
     def _path_buckets(self, items: list[PairItem]) -> list[_Bucket]:
         """Path launches of these survivors: `build_batches`' rung buckets
@@ -1914,15 +1937,21 @@ class BucketedPairScorer:
         the pipeline's lax.scan fallback (scheduler.py:2054-2058).  B2's
         trellis equals that fallback's bit for bit.
 
-        The trellis bytes in flight stay within `path_inflight_bytes`
-        (`dispatch_paths_bounded`: the oldest launches are collected
-        early, and their results ride along as one dict among the
-        entries)."""
+        The launches of every sub-scorer go in the order of their first
+        survivor in `items` (a streamed scorer's together), so that the
+        decode, which takes the survivors in that order, waits for the
+        fewest launches.  The trellis bytes in flight stay within
+        `path_inflight_bytes` (`dispatch_paths_bounded`: the oldest
+        launches are collected early, and their results ride along as one
+        dict among the entries)."""
         by_scorer, remap = self._split(items)
+        rank = {id(it): i for i, it in enumerate(items)}
         try:
             return dispatch_paths_bounded(
-                (launch for si, group in by_scorer.items()
-                 for launch in self.scorers[si].path_launches(group)),
+                ((nbytes, launch) for _, nbytes, launch in heapq.merge(
+                    *(self.scorers[si].path_launches(group)
+                      for si, group in by_scorer.items()),
+                    key=lambda p: rank[id(p[0])])),
                 self.path_inflight_bytes, self.metrics)
         finally:
             self._restore(items, remap)
@@ -2010,18 +2039,24 @@ class TorchPairScorer:
                                       self.PATH_BATCH_BYTES, self.metrics)
 
     def _path_launches(self, items: list[PairItem]):
-        """Yields (trellis bytes, launch) for each chunk of survivors."""
+        """(trellis bytes, launch) for each chunk of survivors, in the
+        order of each chunk's first survivor in `items`."""
         groups: dict[tuple[int, int], list[PairItem]] = {}
         for it in items:
             groups.setdefault((it.p_idx, _pad_len(it.win.length)),
                               []).append(it)
+        rank = {id(it): i for i, it in enumerate(items)}
+        out = []
         for (p_idx, Lpad), group in groups.items():
             per = Lpad * (2 * self.K[p_idx] + 8)
             chunk = max(1, self.PATH_BATCH_BYTES // max(per, 1))
             for i0 in range(0, len(group), chunk):
                 sub = group[i0:i0 + chunk]
-                yield (len(sub) * per, lambda p_idx=p_idx, Lpad=Lpad,
-                       sub=sub: self._path_launch(p_idx, Lpad, sub))
+                out.append((rank[id(sub[0])], len(sub) * per,
+                            lambda p_idx=p_idx, Lpad=Lpad, sub=sub:
+                            self._path_launch(p_idx, Lpad, sub)))
+        out.sort(key=lambda c: c[0])
+        return [(nbytes, launch) for _, nbytes, launch in out]
 
     def _path_launch(self, p_idx: int, Lpad: int,
                      sub: list[PairItem]) -> tuple:
@@ -2045,4 +2080,4 @@ class TorchPairScorer:
                 xn, nd, torch.arange(n, dtype=torch.int32, device=self.device),
                 lens_t[:n].contiguous(), Lpad + 4 * K + 64)
             return (sub, sts, szs, ns, oks, xn, nd, list(range(n)),
-                    lengths[:n].tolist())
+                    lengths[:n].tolist(), stage_steps(sts, szs, ns, oks))

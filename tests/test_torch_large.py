@@ -257,13 +257,13 @@ def test_large_path_launches_within_byte_cap(monkeypatch):
              for p in range(2) for i, s in enumerate(seqs)]
     buckets = scorer._path_buckets(items)
     assert [(len(b.groups), b.w) for b in buckets] == [(6, 1)]
-    together = [launch() for _, launch in scorer.path_launches(items)]
+    together = [launch() for *_, launch in scorer.path_launches(items)]
     assert len(together) == 1 and together[0][5].shape[0] == 6  # no pads
     one = 4 * vk.PATH_KAPPA * buckets[0].nlb * (scorer.Kp + 1)
     monkeypatch.setattr(ts.PairScorer, "PATH_BATCH_BYTES", 2 * one + 1)
     assert [len(b.groups) for b in scorer._path_buckets(items)] == [2, 2, 2]
     monkeypatch.setattr(ts.PairScorer, "PATH_BATCH_BYTES", 1)
-    alone = [launch() for _, launch in scorer.path_launches(items)]
+    alone = [launch() for *_, launch in scorer.path_launches(items)]
     assert [len(e[0]) for e in alone] == [1] * 6
     steps = {id(e[0][0]): e[1:5] for e in alone}
     for r, it in enumerate(together[0][0]):
